@@ -1,8 +1,8 @@
 """The typed objects a placement solve consumes.
 
 Counterpart of ``koordinator_tpu/apis/types.py``, cut to the fields the
-placement path reads: pods, nodes, node metrics, gangs, quotas and the
-cluster snapshot. All quantities are canonical integer units (CPU in
+placement path reads: pods, nodes, node metrics, gangs, quotas,
+reservations and the cluster snapshot. All quantities are canonical integer units (CPU in
 millicores, memory in MiB).
 """
 
@@ -33,6 +33,11 @@ def resources_to_vector(res: Optional[Mapping[ResourceName, int]]) -> np.ndarray
         for name, qty in res.items():
             vec[int(name)] = int(qty)
     return vec
+
+
+def vector_to_resources(vec: np.ndarray) -> Resources:
+    """Sparsify an ``[R]`` vector back into a mapping (drops zeros)."""
+    return {ResourceName(i): int(v) for i, v in enumerate(vec) if v != 0}
 
 
 def selector_matches(
@@ -70,6 +75,8 @@ class PodSpec:
     node_selector: Optional[Dict[str, str]] = None
     #: requested host ports: ints (TCP implied) or "<proto>:<port>"
     host_ports: Optional[List] = None
+    #: pod labels (reservation owner matching reads them)
+    labels: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
         if self.priority_class is None:
@@ -139,14 +146,49 @@ class QuotaSpec:
     total_resource: Optional[Resources] = None
 
 
+class ReservationState(enum.Enum):
+    PENDING = "Pending"
+    AVAILABLE = "Available"
+    SUCCEEDED = "Succeeded"
+    EXPIRED = "Expired"
+    FAILED = "Failed"
+
+
+@dataclasses.dataclass
+class ReservationSpec:
+    """A resource reservation (the Reservation CRD): capacity held on a
+    node that owner pods may allocate from instead of from the node's
+    free capacity. Owners are named by label (every ``owner_labels``
+    pair on the pod) or, for migration reservations, by pod uid."""
+
+    name: str
+    requests: Resources = dataclasses.field(default_factory=dict)
+    owner_labels: Dict[str, str] = dataclasses.field(default_factory=dict)
+    node_name: Optional[str] = None        # set once the reservation is bound
+    state: ReservationState = ReservationState.PENDING
+    allocatable: Resources = dataclasses.field(default_factory=dict)
+    allocated: Resources = dataclasses.field(default_factory=dict)
+    #: absolute expiry (spec.expires); checked before ttl
+    expiration_time: Optional[float] = None
+    #: relative expiry from create_time (spec.TTL); 0 disables expiration
+    ttl: Optional[float] = None
+    create_time: float = 0.0
+    allocate_once: bool = True
+    #: explicit pod owners (migration reservations); when set, only
+    #: these pods match
+    owner_pod_uids: List[str] = dataclasses.field(default_factory=list)
+    #: pods currently allocated from this reservation (bookkeeping, not
+    #: matching)
+    allocated_pod_uids: List[str] = dataclasses.field(default_factory=list)
+
+
 @dataclasses.dataclass
 class ClusterSnapshot:
     """Everything the placement solver needs for one solve.
 
-    ``reservations`` and ``delta_tracker`` exist so a snapshot built for
-    the reference reads the same here: reservations are not ported yet
-    (the model raises on them) and a delta tracker is ignored (the
-    snapshot is lowered in full, which gives identical results)."""
+    ``delta_tracker`` exists so a snapshot built for the reference reads
+    the same here; it is ignored (the snapshot is lowered in full, which
+    gives identical results)."""
 
     nodes: List[NodeSpec] = dataclasses.field(default_factory=list)
     pods: List[PodSpec] = dataclasses.field(default_factory=list)  # assigned
@@ -154,7 +196,7 @@ class ClusterSnapshot:
     node_metrics: Dict[str, NodeMetric] = dataclasses.field(default_factory=dict)
     gangs: Dict[str, GangSpec] = dataclasses.field(default_factory=dict)
     quotas: Dict[str, QuotaSpec] = dataclasses.field(default_factory=dict)
-    reservations: List[object] = dataclasses.field(default_factory=list)
+    reservations: List[ReservationSpec] = dataclasses.field(default_factory=list)
     now: float = 0.0
     delta_tracker: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False

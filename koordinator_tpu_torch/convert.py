@@ -2,13 +2,13 @@
 
 A scheduler has no weights: what carries across is solver state. Each
 function takes one of the reference's NamedTuples (``NodeState``,
-``PodBatch``, ``ScoreParams``, ``QuotaState``, ``GangState``) as a dict
-of numpy arrays, ``{k: np.asarray(v) for k, v in s._asdict().items()}``,
-and builds the port's counterpart on ``device`` (``cuda`` unless the
-caller passes one, as every entry point of the port). Values are taken as
-they are (the reference's ``build`` already saturated and normalized
-them). Fields this slice of the port does not carry (the NUMA columns)
-must be None.
+``PodBatch``, ``ScoreParams``, ``QuotaState``, ``GangState``,
+``ResvArrays``, ``NumaAux``) as a dict of numpy arrays, ``{k:
+np.asarray(v) for k, v in s._asdict().items()}``, and builds the port's
+counterpart on ``device`` (``cuda`` unless the caller passes one, as
+every entry point of the port). Values are taken as they are (the
+reference's ``build`` already saturated and normalized them). A field
+the port does not know raises.
 """
 
 from __future__ import annotations
@@ -19,7 +19,13 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import DeviceLike, resolve_device
-from koordinator_tpu_torch.ops.binpack import NodeState, PodBatch, ScoreParams
+from koordinator_tpu_torch.ops.binpack import (
+    NodeState,
+    NumaAux,
+    PodBatch,
+    ResvArrays,
+    ScoreParams,
+)
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
 
@@ -34,9 +40,7 @@ def _build(cls: Type[NamedTuple], d: Mapping, device: DeviceLike) -> NamedTuple:
     device = resolve_device(device)
     extra = [k for k in d if k not in cls._fields and not _is_none(d[k])]
     if extra:
-        raise NotImplementedError(
-            f"{cls.__name__} fields {extra} are a later slice of the port"
-        )
+        raise ValueError(f"{cls.__name__} has no fields {extra}")
     return cls(**{
         f: None if _is_none(d[f]) else torch.as_tensor(np.array(d[f]),
                                                        device=device)
@@ -62,3 +66,11 @@ def quota_state(d: Mapping, device: DeviceLike = None) -> QuotaState:
 
 def gang_state(d: Mapping, device: DeviceLike = None) -> GangState:
     return _build(GangState, d, device)
+
+
+def resv_arrays(d: Mapping, device: DeviceLike = None) -> ResvArrays:
+    return _build(ResvArrays, d, device)
+
+
+def numa_aux(d: Mapping, device: DeviceLike = None) -> NumaAux:
+    return _build(NumaAux, d, device)

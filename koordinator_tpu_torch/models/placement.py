@@ -2,23 +2,26 @@
 of ``koordinator_tpu/models/placement.py``).
 
 One solve: lower the snapshot to int32 arrays on the host, stage them on
-the device, build the gang and quota state, dispatch the solve (the
-hand-written kernel for eligible solves, the per-pod loop otherwise),
-and read the result back once in :meth:`InFlightSchedule.finalize`.
+the device, build the gang, quota and reservation state, dispatch the
+solve (the hand-written kernel for eligible solves, the per-pod loop
+otherwise), and read the result back once in
+:meth:`InFlightSchedule.finalize`, which also books each consumed
+reservation on its ``ReservationSpec``.
 
 Not in this slice of the port, each queued in ROADMAP.md: the staging
 cache and delta lowering (a snapshot with a delta tracker is lowered in
 full, which gives identical results), the host path for tiny solves,
-pod-shape bucketing (it shares XLA compiles, which eager PyTorch does
-not have; results are identical without it), reservations, the
-fine-grained NUMA/device manager, preemption, the remote backend and
-the observability hooks.
+pod-shape and reservation-axis bucketing (they share XLA compiles, which
+eager PyTorch does not have; results are identical without them), the
+kernel's cached reservation one-hot (the CUDA kernel has none), the
+fine-grained NUMA/device manager, preemption, the remote backend and the
+observability hooks.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, FrozenSet, Optional
+from typing import Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,18 +31,22 @@ from koordinator_tpu_torch.apis.extension import NUM_RESOURCES
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     GangMode,
+    ReservationState,
     resources_to_vector,
     selector_matches,
+    vector_to_resources,
 )
 from koordinator_tpu_torch.ops.binpack import (
     Extras,
     NodeState,
     PodBatch,
+    ResvArrays,
     ScoreParams,
     SolverConfig,
     solve_batch,
 )
 from koordinator_tpu_torch.ops.binpack_kernel import (
+    kernel_resv_score_safe,
     kernel_routing_ok,
     kernel_solve_batch,
     kernel_supported,
@@ -48,6 +55,10 @@ from koordinator_tpu_torch.ops.binpack_kernel import (
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
 from koordinator_tpu_torch.quota.core import GroupQuotaManager
+from koordinator_tpu_torch.scheduler.plugins.reservation import (
+    is_reserve_pod,
+    reservation_free,
+)
 from koordinator_tpu_torch.state.cluster import (
     DEFAULT_ESTIMATED_SCALING_FACTORS,
     DEFAULT_RESOURCE_WEIGHTS,
@@ -82,23 +93,56 @@ def pod_host_ports(pod) -> FrozenSet[str]:
 class ScheduleResult(Dict[str, Optional[str]]):
     """The ``{pod uid: node name | None}`` mapping of committed (bindable)
     placements. ``waiting`` holds placed NonStrict gang members that keep
-    their node at the Permit barrier and must not be bound yet."""
+    their node at the Permit barrier and must not be bound yet.
+    ``resv_allocs`` (waiting pods) and ``resv_committed`` (committed pods)
+    map a pod uid to ``(reservation name, delta vector)``: the
+    reservation it consumed, so a caller can roll the consumption back."""
 
-    def __init__(self, assignments, waiting=None):
+    def __init__(self, assignments, waiting=None, resv_allocs=None,
+                 resv_committed=None):
         super().__init__(assignments)
         self.waiting: Dict[str, str] = dict(waiting or {})
+        self.resv_allocs: Dict[str, tuple] = dict(resv_allocs or {})
+        self.resv_committed: Dict[str, tuple] = dict(resv_committed or {})
+
+
+def _apply_reservations(resv_specs, vstar, delta, pods_in_order, commit,
+                        waiting) -> Tuple[dict, dict]:
+    """Book each kept pod's reservation consumption on its
+    ``ReservationSpec`` (allocated += delta, the pod's uid appended, an
+    ``allocate_once`` reservation Succeeded), as the incremental Reserve
+    does. Returns ``(resv_allocs, resv_committed)``."""
+    keep = commit | waiting
+    allocs: Dict[str, tuple] = {}
+    committed: Dict[str, tuple] = {}
+    for i, pod in enumerate(pods_in_order):
+        v = int(vstar[i])
+        if v < 0 or not keep[i]:
+            continue
+        spec = resv_specs[v]
+        cur = resources_to_vector(spec.allocated)
+        spec.allocated = vector_to_resources(cur + delta[i])
+        spec.allocated_pod_uids.append(pod.uid)
+        if spec.allocate_once:
+            spec.state = ReservationState.SUCCEEDED
+        book = allocs if waiting[i] else committed
+        book[pod.uid] = (spec.name, delta[i].copy())
+    return allocs, committed
 
 
 class InFlightSchedule:
     """A dispatched solve that has not been read back. On CUDA the kernel
     runs asynchronously; :meth:`finalize` is the one read-back point."""
 
-    def __init__(self, result, node_names, pod_uids, t_staged, timings):
+    def __init__(self, result, node_names, pod_uids, t_staged, timings,
+                 resv_specs=None, pods_in_order=None):
         self.result = result
         self.node_names = node_names
         self.pod_uids = pod_uids
         self.t_staged = t_staged
         self.timings = timings
+        self.resv_specs = resv_specs
+        self.pods_in_order = pods_in_order
         self._final: Optional[ScheduleResult] = None
 
     def finalize(self) -> ScheduleResult:
@@ -110,6 +154,12 @@ class InFlightSchedule:
         assignments = result.assign.cpu().numpy()
         commit = result.commit.cpu().numpy()
         waiting = result.waiting.cpu().numpy()
+        resv_allocs = resv_committed = None
+        if self.resv_specs is not None:
+            resv_allocs, resv_committed = _apply_reservations(
+                self.resv_specs, result.resv_vstar.cpu().numpy(),
+                result.resv_delta.cpu().numpy(), self.pods_in_order, commit,
+                waiting)
         self.timings["solve_s"] = time.perf_counter() - self.t_staged
         names = self.node_names
         self._final = ScheduleResult(
@@ -122,8 +172,40 @@ class InFlightSchedule:
                 for uid, a, w in zip(self.pod_uids, assignments, waiting)
                 if w
             },
+            resv_allocs=resv_allocs,
+            resv_committed=resv_committed,
         )
         return self._final
+
+
+def _match_matrix(specs, pods) -> np.ndarray:
+    """``[P, V]`` bool owner match of Available, bound reservations
+    (``specs``) against pending pods: ``reservation_matches_pod`` for
+    every pair, through a pod-uid index and a label index instead of a
+    P x V walk."""
+    match = np.zeros((len(pods), len(specs)), bool)
+    by_uid: Dict[str, List[int]] = {}
+    by_label: Dict[tuple, set] = {}
+    for i, pod in enumerate(pods):
+        if is_reserve_pod(pod):
+            continue
+        by_uid.setdefault(pod.uid, []).append(i)
+        for pair in pod.labels.items():
+            by_label.setdefault(pair, set()).add(i)
+    for v, resv in enumerate(specs):
+        if resv.state != ReservationState.AVAILABLE or resv.node_name is None:
+            rows = []
+        elif resv.owner_pod_uids:
+            rows = [i for uid in set(resv.owner_pod_uids)
+                    for i in by_uid.get(uid, ())]
+        elif resv.owner_labels:
+            sets = [by_label.get(pair, set())
+                    for pair in resv.owner_labels.items()]
+            rows = list(set.intersection(*sets))
+        else:
+            rows = []
+        match[np.asarray(rows, dtype=np.int64), v] = True
+    return match
 
 
 class PlacementModel:
@@ -213,9 +295,7 @@ class PlacementModel:
         return self.schedule_async(snapshot).finalize()
 
     def schedule_async(self, snapshot: ClusterSnapshot) -> InFlightSchedule:
-        """Lower, stage and dispatch one solve without reading it back.
-        A snapshot with reservations raises NotImplementedError (from
-        ``lower_nodes``: reservations are a later slice of the port)."""
+        """Lower, stage and dispatch one solve without reading it back."""
         t_start = time.perf_counter()
         gang_names = sorted(snapshot.gangs)
         quota_names = sorted(snapshot.quotas)
@@ -248,6 +328,8 @@ class PlacementModel:
                                            node_arrays)
                         if quota_names else None)
         extras_np = self._extras_rows(snapshot, pods_in_order)
+        resv_np, resv_specs, resv_kernel_safe = self._build_resv(
+            snapshot, node_arrays, pods_in_order)
         t_host_done = time.perf_counter()
 
         state = self.stage_nodes(node_arrays)
@@ -262,6 +344,10 @@ class PlacementModel:
                 mask=torch.as_tensor(extras_np[0], device=self.device),
                 score=torch.as_tensor(extras_np[1], device=self.device),
             )
+        resv = None
+        if resv_np is not None:
+            resv = ResvArrays(**{k: torch.as_tensor(v, device=self.device)
+                                 for k, v in resv_np.items()})
         t_staged = time.perf_counter()
         self.last_timings = {
             "lower_s": t_host_done - t_start,
@@ -269,22 +355,62 @@ class PlacementModel:
             "solve_s": 0.0,
         }
         result = self._dispatch_solve(state, batch, quota_state, gang_state,
-                                      extras)
-        return InFlightSchedule(result, node_arrays.names, pod_arrays.uids,
-                                t_staged, self.last_timings)
+                                      extras, resv, resv_kernel_safe)
+        return InFlightSchedule(
+            result, node_arrays.names, pod_arrays.uids, t_staged,
+            self.last_timings,
+            resv_specs=resv_specs if resv is not None else None,
+            pods_in_order=pods_in_order)
 
-    def _dispatch_solve(self, state, batch, quota_state, gang_state, extras):
+    def _dispatch_solve(self, state, batch, quota_state, gang_state, extras,
+                        resv=None, resv_kernel_safe: bool = True):
         """Eligible solves go to the kernel (on CUDA tensors it launches;
         a build or launch failure raises). Configurations the kernel does
-        not cover, and solves with host extras, run the per-pod loop on
-        the same device."""
-        if self._kernel_eligible and kernel_routing_ok(state, batch, extras):
+        not cover, solves with host extras, and reservation tables whose
+        credit could overflow the packed key's score budget
+        (``resv_kernel_safe``, checked on the host in
+        :meth:`_build_resv`) run the per-pod loop on the same device."""
+        if self._kernel_eligible and kernel_routing_ok(
+                state, batch, extras, resv, resv_kernel_safe):
             self.last_solver = "kernel"
-            return kernel_solve_batch(state, batch, self.params, quota_state,
-                                      gang_state, self._wsum)
+            return kernel_solve_batch(
+                state, batch, self.params, quota_state, gang_state,
+                self._wsum, resv=resv,
+                most_allocated=self.config.numa_most_allocated,
+                resv_score_checked=True)
         self.last_solver = "loop"
         return solve_batch(state, batch, self.params, self.config,
-                           quota_state, gang_state, extras)
+                           quota_state, gang_state, extras, resv)
+
+    def _build_resv(self, snapshot, node_arrays, pods_in_order):
+        """The Available reservations with a free remainder on a known
+        node, as ``(ResvArrays fields as numpy, their specs indexed by v,
+        kernel_safe)``, or ``(None, [], True)`` when there are none.
+        ``kernel_safe`` is :func:`kernel_resv_score_safe` on the host
+        arrays, so dispatch can route an unsafe table to the loop."""
+        index = {name: j for j, name in enumerate(node_arrays.names)}
+        specs, nodes, frees, once = [], [], [], []
+        for resv in snapshot.reservations:
+            if getattr(resv.state, "value", resv.state) != "Available":
+                continue
+            if resv.node_name not in index:
+                continue
+            free = reservation_free(resv)
+            if not free.any():
+                continue
+            specs.append(resv)
+            nodes.append(index[resv.node_name])
+            frees.append(free)
+            once.append(resv.allocate_once)
+        if not specs:
+            return None, [], True
+        node_np = np.asarray(nodes, np.int32)
+        free_np = np.stack(frees).astype(np.int32)
+        arrays = dict(node=node_np, free=free_np,
+                      allocate_once=np.asarray(once, bool),
+                      match=_match_matrix(specs, pods_in_order))
+        return arrays, specs, kernel_resv_score_safe(node_np, free_np,
+                                                     node_arrays.alloc)
 
     def _gang_arrays(self, snapshot, gang_names) -> dict:
         """``GangState.build`` arguments: min member, members already

@@ -5,14 +5,22 @@ For each pending pod in schedule order, vectorized over the node axis:
 
     mask  = schedulable & fit_filter & loadaware_filter & admit   # [N]
     score = fit_weight * LeastAllocated + loadaware_weight * LoadAware
+            (+ the NUMA score with ``NumaAux``)
     node  = first argmax of where(mask, score, -1)
     state += pod (request into used_req, estimate into est_extra)
+
+With ``ResvArrays`` the pod's matched reservations' free remainders are
+credited back on their nodes for the fit path (``used_req - credit``;
+LoadAware does not see it), and the pod consumes the most-free matched
+reservation on the node it lands on. With ``NumaAux`` the NUMA
+least/most-allocated score over ``numa_cap``/``numa_free`` is added, and
+a pod placed where it or the node declares a topology policy takes its
+request out of ``numa_free``.
 
 This is the reference's ``lax.scan`` solver written as a loop: the route
 for configurations the hand-written kernel (ops/binpack_kernel.py) does
 not take, and for solves that carry host ``Extras`` rows. Gangs resolve
 at batch end (:func:`resolve_gangs`), shared with the kernel path.
-Reservations and NUMA belong to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -37,10 +45,13 @@ class SolverConfig(NamedTuple):
     fit_weight: int = 1          # NodeResourcesFit LeastAllocated weight
     loadaware_weight: int = 1    # LoadAwareScheduling weight
     score_according_prod: bool = False
+    numa_most_allocated: bool = False  # NUMA scorer: MostAllocated vs Least
 
 
 class NodeState(NamedTuple):
-    """Node-side solver state, ``[N, R]`` int32 and ``[N]`` bool."""
+    """Node-side solver state, ``[N, R]`` int32 and ``[N]`` bool.
+    ``numa_cap``/``numa_free`` are the aggregated NUMA inventories (None
+    unless the solve scores NUMA)."""
 
     alloc: torch.Tensor         # [N,R]
     used_req: torch.Tensor      # [N,R] assigned pod requests (updated)
@@ -50,6 +61,8 @@ class NodeState(NamedTuple):
     prod_base: torch.Tensor     # [N,R] prod-mode score base
     metric_fresh: torch.Tensor  # [N] bool
     schedulable: torch.Tensor   # [N] bool
+    numa_cap: Optional[torch.Tensor] = None   # [N,R] Σ NUMA-node allocatable
+    numa_free: Optional[torch.Tensor] = None  # [N,R] Σ NUMA-node free
 
 
 class PodBatch(NamedTuple):
@@ -63,10 +76,14 @@ class PodBatch(NamedTuple):
     non_preemptible: torch.Tensor  # [P] bool
     gang_id: torch.Tensor          # [P] int32, -1 = not gang-managed
     blocked: torch.Tensor          # [P] bool, host-side hard reject
+    #: [P] bool, the pod declares its own NUMA topology policy; with
+    #: NumaAux it consumes numa_free wherever it lands (None = no pod does)
+    has_numa_policy: Optional[torch.Tensor] = None
 
     @classmethod
     def build(cls, req, est, is_prod, is_daemonset, quota_id=None,
-              non_preemptible=None, gang_id=None, blocked=None) -> "PodBatch":
+              non_preemptible=None, gang_id=None, blocked=None,
+              has_numa_policy=None) -> "PodBatch":
         p, dev = req.shape[0], req.device
 
         def minus_ones():
@@ -82,6 +99,7 @@ class PodBatch(NamedTuple):
                              else falses()),
             gang_id=gang_id if gang_id is not None else minus_ones(),
             blocked=blocked if blocked is not None else falses(),
+            has_numa_policy=has_numa_policy,
         )
 
 
@@ -100,10 +118,31 @@ class Extras(NamedTuple):
     score: torch.Tensor  # [P,N] int32, added to feasible nodes' scores
 
 
+class ResvArrays(NamedTuple):
+    """Reservations of one solve: the Available ones with a free
+    remainder, and which pending pods own each."""
+
+    node: torch.Tensor           # [V] int32 node index of each reservation
+    free: torch.Tensor           # [V,R] int32 free remainder
+    allocate_once: torch.Tensor  # [V] bool
+    match: torch.Tensor          # [P,V] bool pod <-> reservation owner match
+
+
+class NumaAux(NamedTuple):
+    """Turns on NUMA scoring and consumption (needs ``NodeState.numa_cap``
+    and ``numa_free``)."""
+
+    node_policy: torch.Tensor  # [N] bool, the node declares a topology policy
+
+
 class SolveResult(NamedTuple):
     """Everything one batched solve produces. ``assign`` is the node of
     each committed or waiting pod (-1 else); ``raw_assign`` the loop's
-    placement before gang resolution."""
+    placement before gang resolution. With reservations, ``resv_free`` is
+    the final free table and ``resv_vstar``/``resv_delta`` name the
+    reservation each pod consumed (-1) and how much; with NUMA,
+    ``numa_consumed`` says which pods took their request out of
+    ``numa_free``."""
 
     node_state: NodeState
     quota_state: Optional[object]  # QuotaState when quotas are present
@@ -112,6 +151,10 @@ class SolveResult(NamedTuple):
     waiting: torch.Tensor          # [P] bool
     rejected: torch.Tensor         # [P] bool
     raw_assign: torch.Tensor       # [P] int32
+    resv_free: Optional[torch.Tensor] = None      # [V,R] int32
+    resv_vstar: Optional[torch.Tensor] = None     # [P] int32, -1 = none
+    resv_delta: Optional[torch.Tensor] = None     # [P,R] int32
+    numa_consumed: Optional[torch.Tensor] = None  # [P] bool
 
 
 def score_one_pod(state: NodeState, req, est, is_prod, is_daemonset,
@@ -135,23 +178,64 @@ def score_one_pod(state: NodeState, req, est, is_prod, is_daemonset,
     return mask, score
 
 
+def numa_node_score(cap: torch.Tensor, free: torch.Tensor, req: torch.Tensor,
+                    config: SolverConfig) -> torch.Tensor:
+    """``[N]`` NUMA least/most-allocated score: per requested resource,
+    ``requested = cap - free + req``; least ``(cap - requested)*100 //
+    cap``, most ``requested*100 // cap``, 0 where cap is 0 or requested
+    exceeds it; the floor mean over the requested resources."""
+    member = req > 0
+    requested = cap - free + req
+    numer = requested if config.numa_most_allocated else cap - requested
+    per = torch.div(numer * 100, torch.clamp(cap, min=1), rounding_mode="floor")
+    per = torch.where(member & (cap > 0) & (requested <= cap), per, 0)
+    w = member.sum(dtype=I32)
+    mean = torch.div(per.sum(dim=-1, dtype=I32), torch.clamp(w, min=1),
+                     rounding_mode="floor")
+    return torch.where(w > 0, mean, 0)
+
+
 def resolve_gangs(node_state: NodeState, quota_state, assign, pods: PodBatch,
-                  gang_state) -> SolveResult:
+                  gang_state, resv_out=None, numa_consumed=None) -> SolveResult:
     """The batch-end tail shared by the loop and the kernel: gang
-    outcomes, then release of rejected pods' node holds and quota usage.
-    Without gangs every placed pod commits."""
+    outcomes, then release of rejected pods' node holds, reservation
+    consumption, NUMA holds and quota usage. Without gangs every placed
+    pod commits. ``resv_out`` is ``(vstar[P], delta[P,R], rem[P,R],
+    free[V,R])``: ``rem`` is the remainder an ``allocate_once``
+    reservation released when it was consumed."""
+    vstar = delta = rem = rfree = None
+    if resv_out is not None:
+        vstar, delta, rem, rfree = resv_out
     if gang_state is None:
         falses = torch.zeros_like(assign, dtype=torch.bool)
         return SolveResult(node_state, quota_state, assign, assign >= 0,
-                           falses, falses, assign)
+                           falses, falses, assign, rfree, vstar, delta,
+                           numa_consumed)
     commit, waiting, rejected = gang_outcomes(assign, pods.gang_id, gang_state)
+    # a rejected pod held only its net request (the reservation's delta
+    # and released remainder were taken off its hold): release that
+    rel_req = pods.req if resv_out is None else pods.req - delta - rem
     used_req, est_extra, prod_base = release_rejected(
         node_state.used_req, node_state.est_extra, node_state.prod_base,
-        assign, rejected, pods.req, pods.est, pods.is_prod,
+        assign, rejected, rel_req, pods.est, pods.is_prod,
     )
     node_state = node_state._replace(
         used_req=used_req, est_extra=est_extra, prod_base=prod_base
     )
+    if numa_consumed is not None:
+        n = node_state.used_req.shape[0]
+        take = rejected & numa_consumed
+        nidx = torch.where(take, assign, n).long()
+        back = torch.where(take[:, None], pods.req, 0)
+        node_state = node_state._replace(
+            numa_free=node_state.numa_free + segment_sum(back, nidx, n))
+    if resv_out is not None:
+        # give rejected pods' consumption (and a released remainder) back
+        v = rfree.shape[0]
+        take = rejected & (vstar >= 0)
+        vidx = torch.where(take, vstar, v).long()
+        back = torch.where(take[:, None], delta + rem, 0)
+        rfree = rfree + segment_sum(back, vidx, v)
     out_assign = torch.where(commit | waiting, assign, -1)
     if quota_state is not None:
         q = quota_state.used.shape[0]
@@ -165,27 +249,32 @@ def resolve_gangs(node_state: NodeState, quota_state, assign, pods: PodBatch,
             np_used=quota_state.np_used - segment_sum(np_rel, qidx, q),
         )
     return SolveResult(node_state, quota_state, out_assign, commit, waiting,
-                       rejected, assign)
+                       rejected, assign, rfree, vstar, delta, numa_consumed)
 
 
 def solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
                 config: SolverConfig = SolverConfig(), quota_state=None,
-                gang_state=None, extras: Optional[Extras] = None, resv=None,
-                numa=None) -> SolveResult:
+                gang_state=None, extras: Optional[Extras] = None,
+                resv: Optional[ResvArrays] = None,
+                numa: Optional[NumaAux] = None) -> SolveResult:
     """Place a whole pending queue, pod by pod, with quota admission,
-    host extras and batch-end gang resolution. Bit-identical to the
+    host extras, reservation credit and consumption, NUMA scoring and
+    consumption, and batch-end gang resolution. Bit-identical to the
     reference's ``solve_batch`` on the same inputs."""
-    if resv is not None or numa is not None:
-        raise NotImplementedError(
-            "reservations and NUMA are a later slice of the port "
-            "(ops/binpack.py ResvArrays/NumaAux)"
-        )
     n_pods = pods.req.shape[0]
+    dev = pods.req.device
+    if numa is not None and (state.numa_cap is None or state.numa_free is None):
+        raise ValueError("numa needs NodeState.numa_cap and numa_free")
     if state.alloc.shape[0] == 0:
-        empty = torch.full((n_pods,), -1, dtype=I32, device=pods.req.device)
-        falses = torch.zeros(n_pods, dtype=torch.bool, device=pods.req.device)
-        return SolveResult(state, quota_state, empty, falses, falses, falses,
-                           empty)
+        empty = torch.full((n_pods,), -1, dtype=I32, device=dev)
+        falses = torch.zeros(n_pods, dtype=torch.bool, device=dev)
+        return SolveResult(
+            state, quota_state, empty, falses, falses, falses, empty,
+            resv.free if resv is not None else None,
+            empty if resv is not None else None,
+            torch.zeros_like(pods.req) if resv is not None else None,
+            falses if numa is not None else None,
+        )
     runtime = None
     if quota_state is not None:
         from koordinator_tpu_torch.ops.quota import (
@@ -195,12 +284,26 @@ def solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
         )
 
         runtime = quota_runtime(quota_state)
+    pod_numa = pods.has_numa_policy
+    if numa is not None and pod_numa is None:
+        pod_numa = torch.zeros(n_pods, dtype=torch.bool, device=dev)
+    rfree = resv.free if resv is not None else None
+    rnode = resv.node.long() if resv is not None else None
     ns, qs = state, quota_state
-    nodes = []
+    nodes, vstars, deltas, rems, consumed = [], [], [], [], []
     for i in range(n_pods):
         req, est, is_prod = pods.req[i], pods.est[i], pods.is_prod[i]
-        mask, score = score_one_pod(ns, req, est, is_prod,
+        eff = ns
+        if resv is not None:
+            match = resv.match[i]
+            credit = torch.zeros_like(ns.used_req).index_add(
+                0, rnode, torch.where(match[:, None], rfree, 0))
+            eff = ns._replace(used_req=ns.used_req - credit)
+        mask, score = score_one_pod(eff, req, est, is_prod,
                                     pods.is_daemonset[i], params, config)
+        if numa is not None:
+            score = score + numa_node_score(ns.numa_cap, ns.numa_free, req,
+                                            config)
         if extras is not None:
             mask = mask & extras.mask[i]
             score = score + extras.score[i]
@@ -212,18 +315,53 @@ def solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
         best = torch.argmax(masked).reshape(1)  # first max: smallest node
         ok = masked.max() >= 0
         node = torch.where(ok, best[0], -1).to(I32)
-        add_req = torch.where(ok, req, 0)[None, :]
+        add_req = torch.where(ok, req, 0)
         add_est = torch.where(ok, est, 0)[None, :]
+        net_req = add_req
+        if resv is not None:
+            # consume the most-free matched reservation on the chosen
+            # node (first max: smallest reservation index); an
+            # allocate_once reservation releases its remainder with it
+            on_node = match & (rnode == best) & ok
+            fsum = torch.where(on_node, rfree.sum(dim=-1, dtype=I32), -1)
+            v = torch.argmax(fsum).reshape(1)
+            row = rfree.index_select(0, v)[0]
+            has = fsum.index_select(0, v)[0] > 0
+            delta = torch.where(has, torch.minimum(row, req), 0)
+            once = has & resv.allocate_once.index_select(0, v)[0]
+            rem = torch.where(once, row - delta, 0)
+            new_row = torch.where(has, torch.where(once, 0, row - delta), row)
+            rfree = rfree.index_copy(0, v, new_row[None, :])
+            vstars.append(torch.where(has, v[0], -1).to(I32))
+            deltas.append(delta)
+            rems.append(rem)
+            net_req = net_req - delta - rem
         add_prod = torch.where(is_prod, add_est, 0)
         ns = ns._replace(
-            used_req=ns.used_req.index_add(0, best, add_req),
+            used_req=ns.used_req.index_add(0, best, net_req[None, :]),
             est_extra=ns.est_extra.index_add(0, best, add_est),
             prod_base=ns.prod_base.index_add(0, best, add_prod),
         )
+        if numa is not None:
+            consume = ok & (pod_numa[i] | numa.node_policy.index_select(0, best)[0])
+            ns = ns._replace(numa_free=ns.numa_free.index_add(
+                0, best, -torch.where(consume, req, 0)[None, :]))
+            consumed.append(consume)
         if qs is not None:
             qs = quota_assume(qs, pods.quota_id[i], req,
                               pods.non_preemptible[i], node >= 0)
         nodes.append(node)
-    assign = torch.stack(nodes) if nodes else torch.full(
-        (0,), -1, dtype=I32, device=pods.req.device)
-    return resolve_gangs(ns, qs, assign, pods, gang_state)
+
+    def stack(rows, empty_shape, dtype):
+        return (torch.stack(rows) if rows
+                else torch.zeros(empty_shape, dtype=dtype, device=dev))
+
+    assign = stack(nodes, (0,), I32)
+    resv_out = None
+    if resv is not None:
+        resv_out = (stack(vstars, (0,), I32), stack(deltas, pods.req.shape, I32),
+                    stack(rems, pods.req.shape, I32), rfree)
+    numa_consumed = (stack(consumed, (0,), torch.bool) if numa is not None
+                     else None)
+    return resolve_gangs(ns, qs, assign, pods, gang_state, resv_out,
+                         numa_consumed)

@@ -2,13 +2,21 @@
 epilogue.
 
 Replaces ``koordinator_tpu/ops/pallas_binpack.py``: the Pallas kernel
-``_make_kernel`` (plain and ``use_quota`` variants) becomes the CUDA C++
-kernel in ``csrc/binpack.cu``; ``_pallas_solve``'s input layout becomes
-:func:`kernel_inputs`; ``_solve_full``/``pallas_solve_batch`` become
-:func:`kernel_solve_batch`; the gates ``pallas_supported`` and
-``pallas_routing_ok`` become :func:`kernel_supported` and
-:func:`kernel_routing_ok`; ``_kernel_epilogue`` is
-``ops/binpack.resolve_gangs``, shared with the loop solver.
+``_make_kernel`` (plain, ``use_quota``, ``use_resv`` and ``use_numa``
+least/most variants) becomes the CUDA C++ kernel in ``csrc/binpack.cu``;
+``_pallas_solve``'s input layout becomes :func:`kernel_inputs`;
+``_solve_full``/``pallas_solve_batch`` become :func:`kernel_solve_batch`;
+the gates ``pallas_supported``, ``pallas_routing_ok``,
+``pallas_resv_supported`` and ``pallas_resv_score_safe`` become
+:func:`kernel_supported`, :func:`kernel_routing_ok`,
+:func:`kernel_resv_supported` and :func:`kernel_resv_score_safe`;
+``_kernel_epilogue`` is ``ops/binpack.resolve_gangs``, shared with the
+loop solver.
+
+Reservations reach the kernel as a node -> reservation CSR (reservation
+ids sorted by ``(node, id)`` and ``[N+1]`` offsets) beside the dense
+``[P,V]`` owner-match bytes, so the thread that owns a node row also
+owns its reservations' free rows.
 
 :func:`binpack` launches the kernel for CUDA tensors and runs
 :func:`binpack_plain` for CPU tensors; nothing else selects between
@@ -29,11 +37,14 @@ import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from koordinator_tpu_torch.ops.binpack import (
     NodeState,
+    NumaAux,
     PodBatch,
+    ResvArrays,
     ScoreParams,
     SolveResult,
     resolve_gangs,
@@ -57,7 +68,11 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCE = _PACKAGE / "csrc" / "binpack.cu"
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the packed argmax key keeps 15 bits for the score (``score << 16``
+#: must stay a positive int32)
+SCORE_BUDGET = 32767
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -81,6 +96,16 @@ class KernelInputs(NamedTuple):
     prod0: torch.Tensor
     #: None, or (min, runtime, used, np_used), each [Q,8] int32
     quota: Optional[tuple] = None
+    #: None, or (cap [N,8], free [N,8], node_policy [N], pod_policy [P]),
+    #: int32; policies 0/1
+    numa: Optional[tuple] = None
+    #: the NUMA scorer: MostAllocated, else LeastAllocated
+    most_allocated: bool = False
+    #: None, or (free [V,8], allocate_once [V], offsets [N+1], ids [V]),
+    #: int32, and match [P,V] uint8: reservation ids sorted by (node,
+    #: id), node j's at ids[offsets[j]:offsets[j+1]]; blocked pods'
+    #: match rows are zero
+    resv: Optional[tuple] = None
 
 
 class KernelOutputs(NamedTuple):
@@ -90,6 +115,12 @@ class KernelOutputs(NamedTuple):
     prod: torch.Tensor
     qused: Optional[torch.Tensor]  # [Q,8] int32, None without quotas
     qnp: Optional[torch.Tensor]
+    nfree: Optional[torch.Tensor] = None     # [N,8] numa_free after the solve
+    consumed: Optional[torch.Tensor] = None  # [P] int32 0/1 took from numa_free
+    vstar: Optional[torch.Tensor] = None     # [P] int32 consumed reservation, -1
+    delta: Optional[torch.Tensor] = None     # [P,8] int32 taken from it
+    rem: Optional[torch.Tensor] = None       # [P,8] int32 remainder it released
+    rfree: Optional[torch.Tensor] = None     # [V,8] int32 free table after
 
 
 def kernel_supported(params: ScoreParams, config) -> bool:
@@ -104,11 +135,57 @@ def kernel_supported(params: ScoreParams, config) -> bool:
     )
 
 
-def kernel_routing_ok(state: NodeState, pods: PodBatch, extras) -> bool:
+def kernel_resv_supported(n_resv: int) -> bool:
+    """Whether a reservation table maps onto the kernel: at least one
+    reservation (an empty table is passed as ``resv=None``). The
+    reference kernel also caps the table at 256 reservations and its
+    ``[Vp,N]`` one-hot at 8 MB of VMEM, limits of its exact f32 credit
+    matmul on the TPU; the node -> reservation CSR here has neither, so
+    the port takes larger tables than the reference kernel. Placements
+    are the same either way: the kernel equals the loop solver, which
+    equals the reference's scan."""
+    return n_resv >= 1
+
+
+def kernel_resv_score_safe(node, free, alloc) -> bool:
+    """The packed key budgets 15 bits for the score. Without reservations
+    every component is at most 100 (fit + LoadAware + NUMA <= 300); the
+    matched credit can push the fit term to ~100 * (1 + credit/alloc),
+    since ``used - credit`` may go far negative. A table whose worst
+    per-node credit ratio could overflow the budget must take the loop
+    solver. The free table only shrinks within a solve, so the initial
+    per-node sums bound the credit for the whole solve. Reads the
+    tensors back to the host."""
+    node = torch.as_tensor(node).cpu().long().numpy()
+    free = torch.as_tensor(free).cpu().numpy().astype(np.int64)
+    alloc = torch.as_tensor(alloc).cpu().numpy().astype(np.int64)
+    credit = np.zeros_like(alloc)
+    np.add.at(credit, node, free)
+    ratio = -(-credit // np.maximum(alloc, 1))  # ceil; alloc == 0 scores 0
+    worst = 300 + 100 * int(np.where(alloc > 0, ratio, 0).max(initial=0))
+    return worst <= SCORE_BUDGET
+
+
+def kernel_routing_ok(state: NodeState, pods: PodBatch, extras,
+                      resv: Optional[ResvArrays] = None,
+                      resv_score_safe: bool = True,
+                      numa_aux: Optional[NumaAux] = None) -> bool:
     """Per-solve eligibility: no host extras, 1..65536 nodes (the packed
-    key's 16 node bits), at least one pod."""
+    key's 16 node bits), at least one pod, NUMA inventories when NUMA is
+    asked for, and a reservation table the kernel takes
+    (:func:`kernel_resv_supported`) whose score budget the caller has
+    checked (``resv_score_safe``, :func:`kernel_resv_score_safe`)."""
     n = int(state.alloc.shape[0])
-    return extras is None and 0 < n <= MAX_NODES and pods.req.shape[0] > 0
+    return (
+        extras is None
+        and 0 < n <= MAX_NODES
+        and pods.req.shape[0] > 0
+        and (numa_aux is None
+             or (state.numa_cap is not None and state.numa_free is not None))
+        and (resv is None
+             or (kernel_resv_supported(int(resv.node.shape[0]))
+                 and resv_score_safe))
+    )
 
 
 def weight_sum(params: ScoreParams) -> int:
@@ -117,13 +194,30 @@ def weight_sum(params: ScoreParams) -> int:
     return int(params.weights.sum(dtype=I32)) or 1
 
 
+def resv_csr(node: torch.Tensor, n_nodes: int) -> tuple:
+    """``(offsets [N+1], ids [V])`` int32: reservation ids sorted by
+    ``(node, id)``; node j's reservations are ``ids[offsets[j]:
+    offsets[j+1]]``, in ascending id."""
+    order = torch.sort(node.long(), stable=True).indices
+    counts = torch.bincount(node.long(), minlength=n_nodes)
+    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.long,
+                          device=node.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return offsets.to(I32), order.to(I32)
+
+
 def kernel_inputs(state: NodeState, pods: PodBatch, params: ScoreParams,
-                  quota=None, wsum: Optional[int] = None) -> KernelInputs:
+                  quota=None, wsum: Optional[int] = None,
+                  numa_aux: Optional[NumaAux] = None,
+                  resv: Optional[ResvArrays] = None,
+                  most_allocated: bool = False) -> KernelInputs:
     """Lay the solve out for the kernel: precompute the LoadAware filter
     verdict per node, pack the per-pod flags, and encode host-blocked
     pods as unplaceable. ``quota`` is None or (min, runtime, used,
     np_used); ``wsum`` is :func:`weight_sum` of ``params``, read from them
-    when not given."""
+    when not given. With ``numa_aux`` the NUMA inventories ride along;
+    with ``resv`` the reservation table becomes the node CSR, and
+    blocked pods' match rows are zeroed so no credit lets them fit."""
     upct = percent_rounded(state.usage, state.alloc)
     over = (state.alloc > 0) & (params.thresholds > 0) & (
         upct >= params.thresholds)
@@ -152,26 +246,67 @@ def kernel_inputs(state: NodeState, pods: PodBatch, params: ScoreParams,
         prod0=state.prod_base.to(I32).contiguous(),
         quota=(None if quota is None
                else tuple(q.to(I32).contiguous() for q in quota)),
+        numa=None if numa_aux is None else _numa_inputs(state, pods, numa_aux),
+        most_allocated=bool(most_allocated),
+        resv=None if resv is None else _resv_inputs(resv, pods,
+                                                    state.alloc.shape[0]),
     )
+
+
+def _numa_inputs(state: NodeState, pods: PodBatch, numa_aux: NumaAux) -> tuple:
+    pod_policy = pods.has_numa_policy
+    if pod_policy is None:
+        pod_policy = torch.zeros_like(pods.blocked)
+    return (state.numa_cap.to(I32).contiguous(),
+            state.numa_free.to(I32).contiguous(),
+            numa_aux.node_policy.to(I32).contiguous(),
+            pod_policy.to(I32).contiguous())
+
+
+def _resv_inputs(resv: ResvArrays, pods: PodBatch, n_nodes: int) -> tuple:
+    offsets, ids = resv_csr(resv.node, n_nodes)
+    match = (resv.match & ~pods.blocked[:, None]).to(torch.uint8)
+    return (resv.free.to(I32).contiguous(),
+            resv.allocate_once.to(I32).contiguous(),
+            offsets, ids, match.contiguous())
 
 
 def binpack_plain(inp: KernelInputs) -> KernelOutputs:
     """The kernel's plain twin: the same per-pod computation as
     ``csrc/binpack.cu`` as a torch loop, on any device. Used by the CPU
-    path and held against the kernel on the card."""
+    path and held against the kernel on the card. It reads the
+    reservations through the same CSR as the kernel, keeping the free
+    table in CSR order, so a wrong CSR shows here as well."""
     alloc, usage = inp.alloc, inp.usage
+    dev = alloc.device
     alloc_safe = torch.clamp(alloc, min=1)
     alloc_zero = alloc == 0
     sched, fresh = inp.sched > 0, inp.fresh > 0
     la_ok = inp.la_ok > 0
-    lane_key = 65535 - torch.arange(alloc.shape[0], dtype=I32,
-                                    device=alloc.device)
+    lane_key = 65535 - torch.arange(alloc.shape[0], dtype=I32, device=dev)
     weight, wsum = inp.weight, inp.wsum
     used, estx, prod = inp.used0.clone(), inp.est0.clone(), inp.prod0.clone()
     quota = inp.quota is not None
     if quota:
         qmin, qrt, qused, qnp = inp.quota
         qused, qnp = qused.clone(), qnp.clone()
+    numa = inp.numa is not None
+    if numa:
+        ncap, nfree, npol, pod_policy = inp.numa
+        ncap_safe = torch.clamp(ncap, min=1)
+        nfree = nfree.clone()
+    resv = inp.resv is not None
+    if resv:
+        rfree0, aonce, offsets, ids, match = inp.resv
+        ids = ids.long()
+        # node of each CSR position: the last j with offsets[j] <= k
+        seg = torch.searchsorted(
+            offsets.long(), torch.arange(ids.shape[0], device=dev),
+            right=True) - 1
+        rfc = rfree0.index_select(0, ids)       # free rows in CSR order
+        once_c = aonce.index_select(0, ids) > 0
+        vstars, deltas, rems = [], [], []
+    consumed = []
 
     def score(value):
         # Σ_r w_r * (alloc - value)*100 // alloc, 0 where alloc == 0 or
@@ -186,10 +321,28 @@ def binpack_plain(inp: KernelInputs) -> KernelOutputs:
     for p in range(inp.req.shape[0]):
         req_v, est_v = inp.req[p], inp.est[p]
         is_ds, is_prod = inp.flags[p, 0] > 0, inp.flags[p, 1] > 0
-        requested = used + req_v
+        used_fit = used
+        if resv:
+            mrow = match[p].index_select(0, ids) > 0       # CSR order
+            credit = torch.zeros_like(used).index_add(
+                0, seg, torch.where(mrow[:, None], rfc, 0))
+            used_fit = used - credit
+        requested = used_fit + req_v
         fit = sched & ((req_v == 0) | (requested <= alloc)).all(dim=-1)
         s2 = torch.where(fresh, score(usage + estx + est_v), 0)
         mask = fit & (is_ds | ~fresh | la_ok)
+        total = score(requested) + s2
+        if numa:
+            member = req_v > 0
+            nreq = ncap - nfree + req_v
+            numer = nreq if inp.most_allocated else ncap - nreq
+            per = torch.div(numer * 100, ncap_safe, rounding_mode="floor")
+            per = torch.where(member & (ncap > 0) & (nreq <= ncap), per, 0)
+            cnt = member.sum(dtype=I32)
+            total = total + torch.where(
+                cnt > 0, torch.div(per.sum(dim=-1, dtype=I32),
+                                   torch.clamp(cnt, min=1),
+                                   rounding_mode="floor"), 0)
         if quota:
             qid = inp.flags[p, 2]
             non_pre = inp.flags[p, 3] > 0
@@ -200,25 +353,61 @@ def binpack_plain(inp: KernelInputs) -> KernelOutputs:
             viol_np = (sel & non_pre & (qnp.index_select(0, q)[0] + req_v
                                         > qmin.index_select(0, q)[0])).any()
             mask = mask & ((qid < 0) | ~(viol | viol_np))
-        packed = torch.where(mask, ((score(requested) + s2) << 16) | lane_key,
-                             -1)
+        packed = torch.where(mask, (total << 16) | lane_key, -1)
         m = packed.max()
         ok = m >= 0
         best = (65535 - (m & 65535)).reshape(1).long()
         nodes.append(torch.where(ok, best[0], -1).to(I32))
-        add_req = torch.where(ok, req_v, 0)[None, :]
+        add_req = torch.where(ok, req_v, 0)
         add_est = torch.where(ok, est_v, 0)[None, :]
-        used = used.index_add(0, best, add_req)
+        if resv:
+            # the most-free matched reservation on the winning node,
+            # first in CSR order (ascending id) among equals
+            on_node = mrow & (seg == best) & ok
+            fsum = torch.where(on_node, rfc.sum(dim=-1, dtype=I32), -1)
+            k = torch.argmax(fsum).reshape(1)
+            has = fsum.index_select(0, k)[0] > 0
+            row = rfc.index_select(0, k)[0]
+            delta = torch.where(has, torch.minimum(row, req_v), 0)
+            once = has & once_c.index_select(0, k)[0]
+            rem = torch.where(once, row - delta, 0)
+            new_row = torch.where(has, torch.where(once, 0, row - delta), row)
+            rfc = rfc.index_copy(0, k, new_row[None, :])
+            vstars.append(torch.where(has, ids.index_select(0, k)[0], -1)
+                          .to(I32))
+            deltas.append(delta)
+            rems.append(rem)
+            add_req = add_req - delta - rem
+        used = used.index_add(0, best, add_req[None, :])
         estx = estx.index_add(0, best, add_est)
         prod = prod.index_add(0, best, torch.where(is_prod, add_est, 0))
+        if numa:
+            take = ok & ((pod_policy[p] > 0)
+                         | (npol.index_select(0, best)[0] > 0))
+            nfree = nfree.index_add(
+                0, best, -torch.where(take, req_v, 0)[None, :])
+            consumed.append(take.to(I32))
         if quota:
             addq = torch.where(sel & ok & (qid >= 0), req_v, 0)[None, :]
             qused = qused.index_add(0, q, addq)
             qnp = qnp.index_add(0, q, torch.where(non_pre, addq, 0))
-    assign = (torch.stack(nodes) if nodes
-              else torch.empty(0, dtype=I32, device=alloc.device))
-    return KernelOutputs(assign, used, estx, prod,
-                         qused if quota else None, qnp if quota else None)
+
+    def stack(rows, shape):
+        return (torch.stack(rows) if rows
+                else torch.zeros(shape, dtype=I32, device=dev))
+
+    p_count = inp.req.shape[0]
+    out = KernelOutputs(
+        stack(nodes, (0,)), used, estx, prod,
+        qused if quota else None, qnp if quota else None)
+    if numa:
+        out = out._replace(nfree=nfree, consumed=stack(consumed, (p_count,)))
+    if resv:
+        rfree = torch.empty_like(rfc).index_copy(0, ids, rfc)
+        out = out._replace(vstar=stack(vstars, (p_count,)),
+                           delta=stack(deltas, (p_count, R)),
+                           rem=stack(rems, (p_count, R)), rfree=rfree)
+    return out
 
 
 def _nvcc() -> str:
@@ -234,7 +423,8 @@ def _nvcc() -> str:
 def build_library() -> Path:
     """Compile ``csrc/binpack.cu`` into a shared library named by the
     source's hash (an unchanged source is not rebuilt). Returns its
-    path."""
+    path; ``ptxas``'s register and spill report for each kernel variant
+    is kept beside it (:func:`build_log`)."""
     digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"libbinpack-{digest}.so"
     if out.exists():
@@ -246,8 +436,17 @@ def build_library() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_log() -> str:
+    """``nvcc``'s output for the current source (``-Xptxas -v``:
+    registers, shared memory and spills of every kernel variant), or ""
+    when the library was not built here."""
+    log = build_library().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def _library():
@@ -262,7 +461,11 @@ def _library():
                  ptr, i32,                        # weight, wsum
                  ptr, ptr, ptr,                   # used0, est0, prod0
                  ptr, ptr, ptr, ptr, i32,         # quota in, Q
+                 ptr, ptr, ptr, ptr, i32, i32,    # numa in, on, most
+                 ptr, ptr, ptr, ptr, ptr, i32,    # resv in, V
                  ptr, ptr, ptr, ptr, ptr, ptr,    # outputs
+                 ptr, ptr,                        # numa outputs
+                 ptr, ptr, ptr, ptr,              # resv outputs
                  ptr])                            # stream
             lib.binpack_launch.restype = i32
             lib.binpack_error_string.argtypes = [i32]
@@ -271,17 +474,21 @@ def _library():
         return _LIB
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype=I32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != I32:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected int32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
-    if t.data_ptr() % 16:
+    if t.data_ptr() % 16 and t.numel():
         raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(inp: KernelInputs) -> KernelOutputs:
@@ -302,14 +509,44 @@ def _launch(inp: KernelInputs) -> KernelOutputs:
         q = quota[0].shape[0]
         for name, t in zip(("qmin", "qrt", "qused", "qnp"), quota):
             _check(name, t, (q, R), dev)
+    numa = inp.numa
+    if numa is not None:
+        for name, t, shape in zip(("numa_cap", "numa_free", "node_policy",
+                                   "pod_policy"), numa,
+                                  ((n, R), (n, R), (n,), (p,))):
+            _check(name, t, shape, dev)
+    resv = inp.resv
+    v = 0
+    if resv is not None:
+        v = resv[0].shape[0]
+        if v < 1:
+            raise ValueError("an empty reservation table is passed as None")
+        for name, t, shape, dtype in zip(
+                ("resv_free", "allocate_once", "offsets", "ids", "match"),
+                resv, ((v, R), (v,), (n + 1,), (v,), (p, v)),
+                (I32, I32, I32, I32, torch.uint8)):
+            _check(name, t, shape, dev, dtype)
     lib = _library()
     assign = torch.empty(p, dtype=I32, device=dev)
     used, est, prod = (torch.empty_like(inp.alloc) for _ in range(3))
-    qused = qnp = None
+    out = KernelOutputs(assign, used, est, prod, None, None)
     qptrs = [None] * 4
     if quota is not None:
-        qused, qnp = torch.empty_like(quota[0]), torch.empty_like(quota[0])
+        out = out._replace(qused=torch.empty_like(quota[0]),
+                           qnp=torch.empty_like(quota[0]))
         qptrs = [t.data_ptr() for t in quota]
+    nptrs = [None] * 4
+    if numa is not None:
+        out = out._replace(nfree=torch.empty_like(inp.alloc),
+                           consumed=torch.empty(p, dtype=I32, device=dev))
+        nptrs = [t.data_ptr() for t in numa]
+    rptrs = [None] * 5
+    if resv is not None:
+        out = out._replace(vstar=torch.empty(p, dtype=I32, device=dev),
+                           delta=torch.empty_like(inp.req),
+                           rem=torch.empty_like(inp.req),
+                           rfree=torch.empty_like(resv[0]))
+        rptrs = [t.data_ptr() for t in resv]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.binpack_launch(
@@ -319,17 +556,19 @@ def _launch(inp: KernelInputs) -> KernelOutputs:
             inp.weight.data_ptr(), inp.wsum,
             inp.used0.data_ptr(), inp.est0.data_ptr(), inp.prod0.data_ptr(),
             *qptrs, q,
+            *nptrs, int(numa is not None), int(inp.most_allocated),
+            *rptrs, v,
             assign.data_ptr(), used.data_ptr(), est.data_ptr(),
-            prod.data_ptr(),
-            qused.data_ptr() if qused is not None else None,
-            qnp.data_ptr() if qnp is not None else None,
+            prod.data_ptr(), _ptr(out.qused), _ptr(out.qnp),
+            _ptr(out.nfree), _ptr(out.consumed),
+            _ptr(out.vstar), _ptr(out.delta), _ptr(out.rem), _ptr(out.rfree),
             stream,
         )
     if rc != 0:
         msg = lib.binpack_error_string(rc).decode()
         raise RuntimeError(f"binpack kernel launch failed: {msg} ({rc})")
     LAUNCHES += 1
-    return KernelOutputs(assign, used, est, prod, qused, qnp)
+    return out
 
 
 def binpack(inp: KernelInputs) -> KernelOutputs:
@@ -344,21 +583,39 @@ def binpack(inp: KernelInputs) -> KernelOutputs:
 
 def kernel_solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
                        quota_state=None, gang_state=None,
-                       wsum: Optional[int] = None) -> SolveResult:
+                       wsum: Optional[int] = None,
+                       numa_aux: Optional[NumaAux] = None,
+                       resv: Optional[ResvArrays] = None,
+                       most_allocated: bool = False,
+                       resv_score_checked: bool = False) -> SolveResult:
     """The kernel path of a solve: quota runtime (water-filled once per
     solve), the kernel, then the batch-end gang epilogue. Equal to
     ``ops/binpack.solve_batch`` on every configuration
-    :func:`kernel_supported` accepts; the caller routes with that gate
+    :func:`kernel_supported` accepts (``most_allocated`` is the
+    config's ``numa_most_allocated``); the caller routes with that gate
     and :func:`kernel_routing_ok` (``PlacementModel`` checks the first
     once per model, the second per solve), and the kernel wrapper checks
-    the shapes it is given."""
+    the shapes it is given. A reservation table whose credit could
+    overflow the packed key's score budget raises, unless the caller
+    checked it already (``resv_score_checked``)."""
+    if resv is not None and not resv_score_checked and not (
+            kernel_resv_score_safe(resv.node, resv.free, state.alloc)):
+        raise ValueError("reservation credit could overflow the packed "
+                         "key's 15-bit score budget: use the loop solver")
     quota = None
     if quota_state is not None:
         quota = (quota_state.min, quota_runtime(quota_state),
                  quota_state.used, quota_state.np_used)
-    out = binpack(kernel_inputs(state, pods, params, quota, wsum))
+    out = binpack(kernel_inputs(state, pods, params, quota, wsum, numa_aux,
+                                resv, most_allocated))
     node_state = state._replace(used_req=out.used, est_extra=out.est,
                                 prod_base=out.prod)
+    if numa_aux is not None:
+        node_state = node_state._replace(numa_free=out.nfree)
     if quota_state is not None:
         quota_state = quota_state._replace(used=out.qused, np_used=out.qnp)
-    return resolve_gangs(node_state, quota_state, out.assign, pods, gang_state)
+    resv_out = (None if resv is None
+                else (out.vstar, out.delta, out.rem, out.rfree))
+    consumed = None if numa_aux is None else out.consumed > 0
+    return resolve_gangs(node_state, quota_state, out.assign, pods, gang_state,
+                         resv_out, consumed)

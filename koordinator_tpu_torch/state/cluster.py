@@ -1,6 +1,7 @@
 """Lower a typed cluster snapshot onto dense int32 arrays (counterpart of
-``koordinator_tpu/state/cluster.py``: the full lowering; the delta
-lowering and resident-pod world are a later slice).
+``koordinator_tpu/state/cluster.py``: the full lowering, reservation
+holds included; the delta lowering and resident-pod world are a later
+slice).
 
 Lowering runs on the host in exact integer arithmetic (Python ints and
 numpy int64) and clips to int32 at the end. Reference semantics:
@@ -195,8 +196,10 @@ def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
 
 
 def _node_hold_rows(snapshot: ClusterSnapshot, index: Dict[str, int]):
-    """``used_req`` int64 rows (Σ assigned pod requests) and the assigned
-    pods of each node, in snapshot order."""
+    """``used_req`` int64 rows and the assigned pods of each node, in
+    snapshot order. ``used_req`` is Σ assigned pod requests plus every
+    Available reservation's unallocated remainder on its node (the net
+    view of the reference's reserve pod and restore chain)."""
     used_req = np.zeros((len(index), NUM_RESOURCES), dtype=np.int64)
     assigned_by_node: Dict[str, List[PodSpec]] = {}
     for pod in snapshot.pods:
@@ -204,6 +207,16 @@ def _node_hold_rows(snapshot: ClusterSnapshot, index: Dict[str, int]):
             continue
         used_req[index[pod.node_name]] += resources_to_vector(pod.requests)
         assigned_by_node.setdefault(pod.node_name, []).append(pod)
+    for resv in snapshot.reservations:
+        if (
+            getattr(resv.state, "value", resv.state) == "Available"
+            and resv.node_name in index
+        ):
+            alloc_vec = resources_to_vector(resv.allocatable or resv.requests)
+            used_vec = resources_to_vector(resv.allocated)
+            used_req[index[resv.node_name]] += np.maximum(
+                alloc_vec - used_vec, 0
+            )
     return used_req, assigned_by_node
 
 
@@ -214,12 +227,8 @@ def lower_nodes(
     scaling_factors: Optional[Mapping[ResourceName, int]] = None,
     resource_weights: Optional[Mapping[ResourceName, int]] = None,
 ) -> NodeArrays:
-    """Lower nodes, assigned pods and metrics to :class:`NodeArrays`."""
-    if snapshot.reservations:
-        raise NotImplementedError(
-            "reservations are a later slice of the port (the reference "
-            "lowers their holds in state/cluster.py _node_hold_rows)"
-        )
+    """Lower nodes, assigned pods, reservation holds and metrics to
+    :class:`NodeArrays`."""
     n = len(snapshot.nodes)
     names = [node.name for node in snapshot.nodes]
     index = {name: i for i, name in enumerate(names)}

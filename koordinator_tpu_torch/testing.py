@@ -21,7 +21,10 @@ from koordinator_tpu_torch.apis.types import (
     NodeSpec,
     PodSpec,
     QuotaSpec,
+    ReservationSpec,
+    ReservationState,
 )
+from koordinator_tpu_torch.ops.binpack import NumaAux
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
 
@@ -129,6 +132,111 @@ def quota_gang_problem(n_nodes, n_quota_pods, n_quota, n_gangs, gang_size,
             GangState.build(**gang, device=device))
 
 
+def resv_table_arrays(n_nodes, n_pods, n_resv, seed=8, once_frac=0.4,
+                      match_frac=0.25):
+    """A reservation table over an example problem, as a
+    ``ResvArrays`` dict: reservations on random nodes, free remainders
+    of 500-100,000 m CPU (big enough that the credit flips fit
+    decisions) and 0-8,191 MiB, random owner matches, ``allocate_once``
+    mixed in. Draws as the reference's kernel tests do."""
+    rng = np.random.default_rng(seed)
+    node = rng.integers(0, n_nodes, n_resv).astype(np.int32)
+    free = np.zeros((n_resv, NUM_RESOURCES), np.int32)
+    free[:, CPU] = rng.integers(500, 100001, n_resv)
+    free[:, MEM] = rng.integers(0, 8192, n_resv)
+    match = rng.uniform(size=(n_pods, n_resv)) < match_frac
+    return dict(node=node, free=free,
+                allocate_once=rng.uniform(size=n_resv) < once_frac,
+                match=match)
+
+
+def numa_arrays(alloc, n_pods, seed=7):
+    """NUMA inventories over a node table: capacity = allocatable, free a
+    random 30-100% of it (never above it), 40% of pods and half the
+    nodes declaring a topology policy. Returns ``(numa_cap, numa_free,
+    has_numa_policy, node_policy)``; draws as the reference's kernel
+    tests do."""
+    rng = np.random.default_rng(seed)
+    cap = np.asarray(alloc)
+    free = (cap * rng.uniform(0.3, 1.0, cap.shape)).astype(np.int32)
+    has_policy = rng.uniform(size=n_pods) < 0.4
+    node_policy = rng.uniform(size=cap.shape[0]) < 0.5
+    return cap, free, has_policy, node_policy
+
+
+def full_features_arrays(n_nodes, n_pods, seed=8):
+    """The reference's bench config #8 (``bench_full_features``) at its own
+    shape: quota admission (50 groups), Strict gangs (up to 100 x 16, at
+    most a quarter of the pods, members sharing their gang's request),
+    NUMA inventories on every node (half declaring a policy, 40% of pods
+    carrying one) and reservations (one per gang, up to 64, owned by the
+    gang's members) fused into one solve. Draws as the bench does.
+
+    Returns ``(nodes, pods, params, quota_kwargs, gang_kwargs, resv,
+    node_policy)``: numpy dicts (``nodes``/``pods`` with their NUMA
+    columns), ``QuotaState.build``/``GangState.build`` arguments, a
+    ``ResvArrays`` dict and the ``NumaAux`` node policy."""
+    members, n_quota = 16, 50
+    n_gangs = min(100, max(1, n_pods // (4 * members)))
+    n_resv = min(64, n_gangs)
+    nodes, pods, params = example_problem_arrays(n_nodes, n_pods, seed)
+    rng = np.random.default_rng(seed)
+    cap = nodes["alloc"]
+    nodes["numa_cap"] = cap
+    nodes["numa_free"] = (cap * rng.uniform(0.3, 1.0, cap.shape)).astype(
+        np.int32)
+    node_policy = rng.uniform(size=n_nodes) < 0.5
+    gang_id = np.full(n_pods, -1, np.int32)
+    gang_id[:n_gangs * members] = np.repeat(
+        np.arange(n_gangs, dtype=np.int32), members)
+    req, est = pods["req"].copy(), pods["est"].copy()
+    for g in range(n_gangs):
+        lo = g * members
+        req[lo:lo + members] = req[lo]
+        est[lo:lo + members] = est[lo]
+    node_of = rng.integers(0, n_nodes, n_resv).astype(np.int32)
+    rfree = np.zeros((n_resv, NUM_RESOURCES), np.int32)
+    rfree[:, CPU] = rng.integers(500, 4000, n_resv)
+    rfree[:, MEM] = rng.integers(500, 4000, n_resv)
+    match = np.zeros((n_pods, n_resv), bool)
+    for v in range(n_resv):
+        match[v * members:(v + 1) * members, v] = True
+    resv = dict(node=node_of, free=rfree,
+                allocate_once=rng.uniform(size=n_resv) < 0.5, match=match)
+    qid = rng.integers(0, n_quota, n_pods).astype(np.int32)
+    total = cap.astype(np.int64).sum(axis=0)
+    mn = np.zeros((n_quota, NUM_RESOURCES), np.int64)
+    mx = np.zeros((n_quota, NUM_RESOURCES), np.int64)
+    for r in (CPU, MEM):
+        mn[:, r] = total[r] // (2 * n_quota)
+        mx[:, r] = total[r] // 8
+    child_request = np.zeros((n_quota, NUM_RESOURCES), np.int64)
+    np.add.at(child_request, qid, req.astype(np.int64))
+    quota = dict(min=mn, max=mx, weight=mx, allow_lent=np.ones(n_quota, bool),
+                 total=total, child_request=child_request)
+    gang = dict(min_member=[members] * n_gangs)
+    pods.update(req=req, est=est, quota_id=qid,
+                non_preemptible=rng.uniform(size=n_pods) < 0.3,
+                gang_id=gang_id,
+                has_numa_policy=rng.uniform(size=n_pods) < 0.4)
+    return nodes, pods, params, quota, gang, resv, node_policy
+
+
+def full_features_problem(n_nodes, n_pods, seed=8, device: DeviceLike = None):
+    """:func:`full_features_arrays` as the port's ``(NodeState, PodBatch,
+    ScoreParams, QuotaState, GangState, ResvArrays, NumaAux)`` on
+    ``device``."""
+    device = resolve_device(device)
+    nodes, pods, params, quota, gang, resv, node_policy = full_features_arrays(
+        n_nodes, n_pods, seed)
+    return (convert.node_state(nodes, device), convert.pod_batch(pods, device),
+            convert.score_params(params, device),
+            QuotaState.build(**quota, device=device),
+            GangState.build(**gang, device=device),
+            convert.resv_arrays(resv, device),
+            convert.numa_aux(dict(node_policy=node_policy), device))
+
+
 def churn_world(n_nodes, *, assigned_per_node=2, seed=42) -> ClusterSnapshot:
     """The typed churn world: ``n_nodes`` uniform nodes, ``assigned_per_node
     * n_nodes`` randomly bound pods, a metric on every node at t=10, the
@@ -204,8 +312,49 @@ def add_pending_wave(snap: ClusterSnapshot, n_pods, *, n_quota, n_gangs,
     return snap
 
 
+def add_reservations(snap: ClusterSnapshot, n_label, n_migration, *,
+                     seed=11) -> ClusterSnapshot:
+    """Put ``n_label + n_migration`` Available reservations into a snapshot
+    with a pending wave (:func:`add_pending_wave`), each on its own node:
+    reservation k < ``n_label`` is owned by label ``gang=g<k>`` (and gang
+    g<k>'s pending members get that label); each migration reservation
+    names one pending pod outside any gang by uid. Half are
+    ``allocate_once``; free remainders are 2,000-16,000 m CPU and
+    2,048-16,384 MiB (a quarter of them with part already allocated)."""
+    rng = np.random.default_rng(seed)
+    n = n_label + n_migration
+    nodes = rng.choice(len(snap.nodes), n, replace=False)
+    solo = [p for p in snap.pending_pods if p.gang is None]
+    owners = rng.choice(len(solo), n_migration, replace=False)
+    for pod in snap.pending_pods:
+        if pod.gang is not None and int(pod.gang[1:]) < n_label:
+            pod.labels["gang"] = pod.gang
+    resvs = []
+    for k in range(n):
+        free = {CPU: int(rng.integers(2000, 16001)),
+                MEM: int(rng.integers(2048, 16385))}
+        taken = {}
+        if rng.uniform() < 0.25:
+            taken = {CPU: int(rng.integers(100, 2000)),
+                     MEM: int(rng.integers(100, 2000))}
+        resvs.append(ReservationSpec(
+            name=f"r{k}",
+            requests=dict(free),
+            allocatable={r: free[r] + taken.get(r, 0) for r in free},
+            allocated=taken,
+            node_name=snap.nodes[int(nodes[k])].name,
+            state=ReservationState.AVAILABLE,
+            allocate_once=bool(rng.uniform() < 0.5),
+            owner_labels={"gang": f"g{k}"} if k < n_label else {},
+            owner_pod_uids=([] if k < n_label
+                            else [solo[int(owners[k - n_label])].uid]),
+        ))
+    snap.reservations = resvs
+    return snap
+
+
 def mixed_snapshot_spec(seed=0, n_nodes=40, n_assigned=60, n_pending=120,
-                        selectors=False):
+                        selectors=False, reservations=False):
     """A seeded snapshot as plain data, for building the same snapshot
     with either package's types (:func:`build_snapshot`). It carries what
     lowering and placement branch on: fresh, stale and missing metrics,
@@ -214,7 +363,9 @@ def mixed_snapshot_spec(seed=0, n_nodes=40, n_assigned=60, n_pending=120,
     an unschedulable node, DaemonSet and non-preemptible pods, a
     two-level quota tree plus a root-level group, Strict and NonStrict
     gangs in a gang group, members already bound, and a pod of an
-    unknown gang. ``selectors`` adds node-selector and host-port pods."""
+    unknown gang. ``selectors`` adds node-selector and host-port pods.
+    ``reservations`` adds owner labels to pending pods and a reservation
+    table (:func:`_mixed_reservations`)."""
     rng = np.random.default_rng(seed)
     now = 1000.0
     nodes = [
@@ -303,8 +454,79 @@ def mixed_snapshot_spec(seed=0, n_nodes=40, n_assigned=60, n_pending=120,
             preemptible=bool(rng.uniform() >= 0.2),
             **extra,
         ))
-    return dict(now=now, nodes=nodes, assigned=assigned, pending=pending,
+    spec = dict(now=now, nodes=nodes, assigned=assigned, pending=pending,
                 metrics=metrics, quotas=quotas, gangs=gangs)
+    if reservations:
+        _mixed_reservations(spec, np.random.default_rng(seed + 100))
+    return spec
+
+
+def _mixed_reservations(spec, rng):
+    """Owner labels on pending pods and reservations of every kind
+    lowering and matching branch on: label and pod-uid owners, gang
+    members as owners (Strict gangs that get rejected give their
+    consumption back), two equal reservations on one node matching the
+    same pods (the first-max pick), ``allocate_once`` and not, part
+    allocated, allocated above allocatable on one resource, fully
+    allocated, not Available, unbound, on an unknown node, without
+    owners, and a reservation probe pod that must match nothing."""
+    pending = spec["pending"]
+    for j, p in enumerate(pending):
+        labels = {"app": f"a{j % 5}"}
+        if p["gang"] in ("g0", "g2"):
+            labels["gang"] = p["gang"]
+        p["labels"] = labels
+    probe = dict(pending[0])
+    probe.update(name="probe", uid="__resv__probe", gang=None, quota=None,
+                 labels={"app": "a0"})
+    pending.append(probe)
+    n_nodes = len(spec["nodes"])
+
+    def req():
+        return {int(CPU): int(rng.integers(1000, 6000)),
+                int(MEM): int(rng.integers(1000, 6000))}
+
+    def resv(name, node, **kw):
+        r = req()
+        out = dict(name=name, requests=r, allocatable={}, allocated={},
+                   node_name=node, state="Available", allocate_once=False,
+                   owner_labels={}, owner_pod_uids=[])
+        out.update(kw)
+        return out
+
+    def node():
+        return f"n{int(rng.integers(0, n_nodes))}"
+
+    table = [resv(f"app{k}", node(), owner_labels={"app": f"a{k}"},
+                  allocate_once=bool(k % 2)) for k in range(5)]
+    twin = req()
+    table += [resv("dup0", "n5", requests=dict(twin),
+                   owner_labels={"app": "a1"}),
+              resv("dup1", "n5", requests=dict(twin),
+                   owner_labels={"app": "a1"}, allocate_once=True)]
+    table += [
+        resv("uid", node(), owner_pod_uids=[f"default/{pending[3]['name']}",
+                                            f"default/{pending[7]['name']}"]),
+        resv("gang0", node(), owner_labels={"gang": "g0"}),
+        resv("gang2", node(), owner_labels={"gang": "g2"},
+             allocate_once=True),
+        resv("partial", node(), owner_labels={"app": "a2"},
+             allocatable={int(CPU): 8000, int(MEM): 8000},
+             allocated={int(CPU): 3000}),
+        resv("over", node(), owner_labels={"app": "a3"},
+             allocatable={int(CPU): 8000, int(MEM): 8000},
+             allocated={int(CPU): 9000}),
+        resv("full", node(), owner_labels={"app": "a4"},
+             allocatable={int(CPU): 2000, int(MEM): 2000},
+             allocated={int(CPU): 2000, int(MEM): 2000}),
+        resv("pending", node(), owner_labels={"app": "a0"}, state="Pending"),
+        resv("succeeded", node(), owner_labels={"app": "a0"},
+             state="Succeeded"),
+        resv("unbound", None, owner_labels={"app": "a0"}),
+        resv("ghost", "n-missing", owner_labels={"app": "a0"}),
+        resv("no-owner", node()),
+    ]
+    spec["reservations"] = table
 
 
 def build_snapshot(spec, types, resource_name):
@@ -317,6 +539,7 @@ def build_snapshot(spec, types, resource_name):
     def pod(d):
         d = dict(d)
         d["requests"], d["limits"] = res(d["requests"]), res(d["limits"])
+        d["labels"] = dict(d.get("labels", {}))
         return types.PodSpec(**d)
 
     return types.ClusterSnapshot(
@@ -346,5 +569,15 @@ def build_snapshot(spec, types, resource_name):
                 **{**q, "min": res(q["min"]), "max": res(q["max"])})
             for q in spec["quotas"]
         },
+        reservations=[
+            types.ReservationSpec(
+                **{**r, "requests": res(r["requests"]),
+                   "allocatable": res(r["allocatable"]),
+                   "allocated": res(r["allocated"]),
+                   "state": types.ReservationState(r["state"]),
+                   "owner_labels": dict(r["owner_labels"]),
+                   "owner_pod_uids": list(r["owner_pod_uids"])})
+            for r in spec.get("reservations", ())
+        ],
         now=spec["now"],
     )

@@ -130,6 +130,9 @@ def assert_same_result(got, want):
         np.testing.assert_array_equal(
             getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
     for f in got.node_state._fields:
+        if getattr(want.node_state, f) is None:
+            assert getattr(got.node_state, f) is None, f
+            continue
         np.testing.assert_array_equal(
             getattr(got.node_state, f).numpy(),
             np.asarray(getattr(want.node_state, f)), err_msg=f)
@@ -256,5 +259,6 @@ def test_kernel_gates():
     assert binpack_kernel.weight_sum(pr) == 2
     assert binpack_kernel.weight_sum(
         pr._replace(weights=torch.zeros(8, dtype=torch.int32))) == 1
-    with pytest.raises(NotImplementedError):
+    # NUMA without the node inventories is refused
+    with pytest.raises(ValueError, match="numa_cap"):
         solve_batch(s, p, pr, numa=object())

@@ -93,6 +93,14 @@ def _entry_points():
          lambda **kw: testing.example_problem(6, 5, **kw)[0].alloc),
         ("testing.quota_gang_problem",
          lambda **kw: testing.quota_gang_problem(6, 5, 2, 2, 3, **kw)[3].min),
+        ("testing.full_features_problem",
+         lambda **kw: testing.full_features_problem(6, 64, **kw)[5].free),
+        ("convert.resv_arrays",
+         lambda **kw: convert.resv_arrays(
+             testing.resv_table_arrays(6, 5, 2), **kw).free),
+        ("convert.numa_aux",
+         lambda **kw: convert.numa_aux(
+             dict(node_policy=np.ones(6, bool)), **kw).node_policy),
     ]
 
 
@@ -147,7 +155,10 @@ def test_cuda_kernel_matches_plain_twin():
     assert binpack_kernel.LAUNCHES == before + 1
     want = binpack_kernel.binpack_plain(inp)
     for g, w, name in zip(got, want, got._fields):
-        assert torch.equal(g, w), name
+        if w is None:   # outputs of variants this solve does not use
+            assert g is None, name
+        else:
+            assert torch.equal(g, w), name
     solved = binpack_kernel.kernel_solve_batch(state, pods, params, quota,
                                                gang)
     assert int((solved.assign >= 0).sum()) > 0
@@ -222,11 +233,83 @@ def test_cuda_kernel_edge_shapes_match_plain_twin(n_nodes, n_pods, n_quota):
             assert torch.equal(g, w), name
 
 
+def _resv_numa_inputs(n_nodes, n_pods, n_quota, layout, numa, seed,
+                      dev="cuda"):
+    """:func:`_edge_inputs` plus NUMA inventories (``numa``: None, "least"
+    or "most") and a reservation table laid out as ``layout``: "one"
+    reservation, "same-node" (40 on one node), "ends" (on the first and
+    the last node) or "many" (600 on random nodes)."""
+    inp = _edge_inputs(n_nodes, n_pods, n_quota, seed, dev)
+    rng = np.random.default_rng(seed + 1)
+    if layout == "one":
+        node = rng.integers(0, n_nodes, 1)
+    elif layout == "same-node":
+        node = np.full(40, n_nodes // 2)
+    elif layout == "ends":
+        node = np.array([n_nodes - 1, 0, n_nodes - 1, 0, n_nodes - 1])
+    else:
+        node = rng.integers(0, n_nodes, 600)
+    v = node.shape[0]
+    free = np.zeros((v, 8), np.int32)
+    free[:, 0] = rng.integers(0, 4000, v)
+    free[:, 1] = rng.integers(0, 8192, v)
+    free[:, 6] = rng.choice([0, 100], v)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    node_t = t(node.astype(np.int32))
+    assert binpack_kernel.kernel_resv_score_safe(node_t, free, inp.alloc)
+    offsets, ids = binpack_kernel.resv_csr(node_t, n_nodes)
+    blocked = inp.req[:, 0] == binpack_kernel.BLOCKED_REQ
+    match = t(rng.uniform(size=(n_pods, v)) < 0.3) & ~blocked[:, None]
+    resv = (t(free), t((rng.uniform(size=v) < 0.5).astype(np.int32)),
+            offsets, ids, match.to(torch.uint8).contiguous())
+    numa_in = None
+    if numa is not None:
+        cap = inp.alloc.cpu().numpy()
+        numa_in = (inp.alloc,
+                   t((cap * rng.uniform(0, 1, cap.shape)).astype(np.int32)),
+                   t((rng.uniform(size=n_nodes) < 0.5).astype(np.int32)),
+                   t((rng.uniform(size=n_pods) < 0.4).astype(np.int32)))
+    return inp._replace(numa=numa_in, resv=resv,
+                        most_allocated=numa == "most")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,selectors", [(0, False), (2, True)])
-def test_cuda_model_matches_cpu_model(seed, selectors):
+@pytest.mark.parametrize("n_nodes,n_pods,n_quota,layout,numa", [
+    (1, 5, 0, "one", None),
+    (31, 200, 0, "same-node", "least"),
+    (1025, 300, 3, "ends", "most"),
+    (3000, 700, 12, "many", "least"),
+    (65536, 20, 4, "ends", "most"),
+    (65536, 20, 0, "one", None),
+])
+def test_cuda_resv_numa_edge_shapes_match_plain_twin(n_nodes, n_pods, n_quota,
+                                                     layout, numa):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _resv_numa_inputs(n_nodes, n_pods, n_quota, layout, numa,
+                            seed=n_nodes + n_pods)
+    before = binpack_kernel.LAUNCHES
+    got = binpack_kernel.binpack(inp)
+    torch.cuda.synchronize()
+    assert binpack_kernel.LAUNCHES == before + 1
+    want = binpack_kernel.binpack_plain(inp)
+    for g, w, name in zip(got, want, got._fields):
+        if w is None:
+            assert g is None, name
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,selectors,reservations", [
+    (0, False, False), (2, True, False), (1, False, True)])
+def test_cuda_model_matches_cpu_model(seed, selectors, reservations):
     """Both routes on the card (the kernel, and the per-pod loop for
-    node-selector and host-port pods) equal the CPU run."""
+    node-selector and host-port pods) equal the CPU run, reservation
+    bookkeeping included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from koordinator_tpu_torch import testing
@@ -234,10 +317,17 @@ def test_cuda_model_matches_cpu_model(seed, selectors):
     from koordinator_tpu_torch.apis.extension import ResourceName
     from koordinator_tpu_torch.models.placement import PlacementModel
 
-    spec = testing.mixed_snapshot_spec(seed, selectors=selectors)
+    spec = testing.mixed_snapshot_spec(seed, selectors=selectors,
+                                       reservations=reservations)
     gpu, cpu = PlacementModel(), PlacementModel(device="cpu")
-    got = gpu.schedule(testing.build_snapshot(spec, types, ResourceName))
-    want = cpu.schedule(testing.build_snapshot(spec, types, ResourceName))
+    gsnap = testing.build_snapshot(spec, types, ResourceName)
+    csnap = testing.build_snapshot(spec, types, ResourceName)
+    got, want = gpu.schedule(gsnap), cpu.schedule(csnap)
     assert gpu.last_solver == cpu.last_solver == (
         "loop" if selectors else "kernel")
     assert dict(got) == dict(want) and got.waiting == want.waiting
+    assert got.resv_committed.keys() == want.resv_committed.keys()
+    assert ([(r.allocated, r.allocated_pod_uids, r.state)
+             for r in gsnap.reservations]
+            == [(r.allocated, r.allocated_pod_uids, r.state)
+                for r in csnap.reservations])

@@ -69,3 +69,20 @@ def test_estimate_pod_used_matches():
         got = tcluster.estimate_pod_used(tpod)
         assert {int(k): v for k, v in got.items()} == {
             int(k): v for k, v in want.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lower_nodes_with_reservation_holds_matches(seed):
+    """Available reservations hold their unallocated remainder in
+    ``used_req``; other states, unbound and unknown-node ones hold
+    nothing."""
+    spec = testing.mixed_snapshot_spec(seed, reservations=True)
+    jsnap = testing.build_snapshot(spec, jtypes, JResourceName)
+    tsnap = testing.build_snapshot(spec, ttypes, TResourceName)
+    want = jcluster.lower_nodes(jsnap)
+    got = tcluster.lower_nodes(tsnap)
+    np.testing.assert_array_equal(got.used_req, want.used_req)
+    plain = tcluster.lower_nodes(testing.build_snapshot(
+        {**spec, "reservations": []}, ttypes, TResourceName))
+    assert (got.used_req >= plain.used_req).all()
+    assert (got.used_req != plain.used_req).any()
