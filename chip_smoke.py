@@ -32,8 +32,20 @@
    by ``kernel_routing_ok``, the kernel held against its twin on every
    output, and the whole kernel solve held against the loop
    ``solve_batch`` on the card at 1,000 x 2,000 (the loop runs a few
-   dozen torch ops per pod). Then one JSON line of kernels, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+   dozen torch ops per pod).
+7. The node-sharded kernel (``csrc/binpack_cluster.cu``: k CTAs of one
+   thread-block cluster, one node shard each) through
+   ``parallel/mesh.shard_kernel_solver(k)``, for k in 2, 4, 8, 16, at
+   the main path's solve (phase 3) and at config #8 with NUMA least and
+   reservations (phase 6): each solve driven with the cluster launch
+   count zeroed just before and read just after, held bit for bit
+   against the one-block kernel's solve (every output) and its kernel
+   (every kernel output), and timed against it in the same process.
+   At the fastest k the cluster kernel is held against its plain twin
+   ``binpack_sharded_plain`` at full size; the twin also checks it at
+   k = 8 on phase 2's quota+gang problem (1,000 nodes) and at k = 4 on
+   config #8 cut to 1,000 x 2,000 with NUMA most. Then one JSON line of
+   kernels, and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every comparison prints the kernel's time (CUDA events, after a
 warm-up), the twin's, and the bound (see :func:`bound`).
@@ -54,10 +66,12 @@ import torch
 
 from koordinator_tpu_torch import testing
 from koordinator_tpu_torch.apis.types import ReservationState, resources_to_vector
+from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
 from koordinator_tpu_torch.ops.binpack import SolverConfig, solve_batch
 from koordinator_tpu_torch.ops.quota import quota_runtime
+from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
@@ -88,8 +102,12 @@ LABEL_RESV, MIGRATION_RESV = 200, 56
 # phase 6: bench config #8 at its own shape; the loop comparison's cut
 FUSED_NODES, FUSED_PODS = 5000, 10000
 LOOP_NODES, LOOP_PODS = 1000, 2000
+# phase 7: CTAs of the cluster kernel; the reduced checks' shard counts
+SHARDS = (2, 4, 8, 16)
+QUOTA_SHARDS, LOOP_SHARDS = 8, 4
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
+CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
 
 
@@ -197,28 +215,28 @@ def capacity_ok(snap, result) -> None:
         assert not over.any(), f"{node} overcommitted"
 
 
-def drive(run):
-    """Run one path with every kernel input it launches captured, the
-    launch count zeroed just before and read just after (a device
-    synchronise ends the timed span). Returns ``(result, launches,
-    wall_s, captured inputs)``."""
+def drive(run, wrapper="binpack", counter="LAUNCHES"):
+    """Run one path with every kernel input it hands ``bk.<wrapper>``
+    captured, the launch count ``bk.<counter>`` zeroed just before and
+    read just after (a device synchronise ends the timed span). Returns
+    ``(result, launches, wall_s, captured inputs)``."""
     captured = []
-    launch = bk.binpack
+    launch = getattr(bk, wrapper)
 
-    def capture(inp):
+    def capture(inp, *args):
         captured.append(inp)
-        return launch(inp)
+        return launch(inp, *args)
 
-    bk.binpack = capture
+    setattr(bk, wrapper, capture)
     try:
-        bk.LAUNCHES = 0
+        setattr(bk, counter, 0)
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = bk.LAUNCHES
+        launches = getattr(bk, counter)
     finally:
-        bk.binpack = launch
+        setattr(bk, wrapper, launch)
     return result, launches, wall, captured
 
 
@@ -308,6 +326,94 @@ def loop_check(most, card) -> None:
           f"{'most' if most else 'least'} [{card}]: "
           f"{int(got[0].commit.sum())} committed; kernel solve {ms:.3f} ms, "
           f"loop {loop_ms:.3f} ms", flush=True)
+
+
+def main_path_solve_args(snapshot):
+    """The arguments ``PlacementModel().schedule(snapshot())`` hands
+    ``kernel_solve_batch``: ``(args, kwargs)``."""
+    calls = []
+    solve = placement.kernel_solve_batch
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return solve(*args, **kwargs)
+
+    placement.kernel_solve_batch = record
+    try:
+        PlacementModel().schedule(snapshot())
+    finally:
+        placement.kernel_solve_batch = solve
+    assert len(calls) == 1, len(calls)
+    return calls[0]
+
+
+def trimmed(out, n):
+    """Kernel outputs with the node axis cut to the first ``n`` rows."""
+    return out._replace(**{f: getattr(out, f)[:n]
+                           for f in ("used", "est", "prod", "nfree")
+                           if getattr(out, f) is not None})
+
+
+def compare_sharded(inp, shards, label, card, reps=3) -> dict:
+    """Hold the cluster kernel against its plain twin on ``inp`` at
+    ``shards`` CTAs (tolerance: exact, every output) and time both, as
+    :func:`compare` does for the one-block kernel."""
+    got = bk.binpack_sharded(inp, shards)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = cuda_ms(
+        lambda: want.append(bk.binpack_sharded_plain(inp, shards)), 1)
+    err = max_abs_err(got, want[0])
+    ms = cuda_ms(lambda: bk.binpack_sharded(inp, shards), reps)
+    print(f"{label}, {shards} CTAs: cluster kernel == plain twin "
+          f"({int((got.assign >= 0).sum())}/{inp.req.shape[0]} placed, "
+          f"max_abs_err {err}) [{card}]: kernel {ms:.3f} ms, plain twin "
+          f"{plain_ms:.3f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def cluster_path(label, name, solve_one, sharded_solver, card) -> dict:
+    """Phase 7 at one input: ``solve_one()`` is the one-block kernel's
+    solve, ``sharded_solver(k)`` the solve through
+    ``shard_kernel_solver(k)``. For each k in SHARDS, the sharded solve
+    is driven with the cluster launch count zeroed, held against the
+    one-block solve on every output and its kernel against the one-block
+    kernel on every kernel output, and both kernels are timed (5
+    launches after a warm-up, CUDA events, in turns). At the fastest k
+    the cluster kernel is held against its plain twin. Returns the
+    ``kernels`` entry."""
+    want, _, _, single_in = drive(solve_one)
+    single = bk.binpack(single_in[0])
+    n = single_in[0].alloc.shape[0]
+    bound_ms, bound_by = bound(single_in[0])
+    runs = {}
+    for k in SHARDS:
+        got, launches, wall, captured = drive(
+            lambda: sharded_solver(k), "binpack_sharded", "CLUSTER_LAUNCHES")
+        assert launches == 1, f"{label}: {launches} cluster launches, k={k}"
+        same_solve(got, want)
+        inp = captured[0]
+        err = max_abs_err(trimmed(bk.binpack_sharded(inp, k), n), single)
+        one_ms = cuda_ms(lambda: bk.binpack(single_in[0]), 5)
+        ms = cuda_ms(lambda: bk.binpack_sharded(inp, k), 5)
+        one_ms = (one_ms + cuda_ms(lambda: bk.binpack(single_in[0]), 5)) / 2
+        runs[k] = dict(launches=launches, max_abs_err=err, ms=ms, inp=inp)
+        print(f"{label}, {k} CTAs [{card}]: shard_kernel_solver == one-block "
+              f"kernel solve (every output), cluster kernel == one-block "
+              f"kernel (max_abs_err {err}); cluster kernel {ms:.3f} ms "
+              f"({ms / inp.req.shape[0] * 1e3:.3f} us/pod), one-block "
+              f"kernel {one_ms:.3f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}); solve wall {wall:.4f} s; launches {launches}",
+              flush=True)
+    k = min(runs, key=lambda x: runs[x]["ms"])
+    best = runs[k]
+    twin = compare_sharded(best["inp"], k, f"{label}, full size", card,
+                           reps=5)
+    return dict(name=f"{name}_k{k}", replaces=f"{REPLACES}:317",
+                launches=best["launches"],
+                max_abs_err=max(best["max_abs_err"], twin["max_abs_err"]),
+                ms=best["ms"], plain_ms=twin["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, source=CLUSTER_SOURCE)
 
 
 def main() -> int:
@@ -401,8 +507,41 @@ def main() -> int:
                             replaces=f"{REPLACES}:259", launches=launches,
                             **fused))
 
+    # -- 7. the node-sharded kernel: CTAs of one thread-block cluster ---------
+    args, kwargs = main_path_solve_args(snapshot)
+    main_sharded = cluster_path(
+        "main path's solve", "binpack_sharded",
+        lambda: bk.kernel_solve_batch(*args, **kwargs),
+        lambda k: shard_kernel_solver(k)(*args[:5]), card)
+    s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
+        FUSED_NODES, FUSED_PODS, seed=8)
+    fused_sharded = cluster_path(
+        "config #8, NUMA least + reservations", "binpack_sharded_numa_resv",
+        lambda: bk.kernel_solve_batch(s_, p_, pr, q, g, numa_aux=aux,
+                                      resv=rv),
+        lambda k: shard_kernel_solver(k)(s_, p_, pr, q, g, aux, rv), card)
+    state, pods, params, quota, _ = testing.quota_gang_problem(
+        QUOTA_NODES, QUOTA_PODS, QUOTAS, GANGS, GANG_SIZE, seed=1)
+    reduced = compare_sharded(
+        bk.kernel_inputs(state, pods, params, bk.quota_inputs(quota)),
+        QUOTA_SHARDS, f"quota+gang {QUOTA_NODES} nodes x {pods.req.shape[0]} "
+        "pods", card)
+    s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
+        LOOP_NODES, LOOP_PODS, seed=8)
+    reduced_fused = compare_sharded(
+        bk.kernel_inputs(s_, p_, pr, bk.quota_inputs(q), numa_aux=aux,
+                         resv=rv, most_allocated=True),
+        LOOP_SHARDS, f"config #8 cut to {LOOP_NODES} nodes x {LOOP_PODS} "
+        "pods, NUMA most + reservations", card)
+    main_sharded["max_abs_err"] = max(main_sharded["max_abs_err"],
+                                      reduced["max_abs_err"])
+    fused_sharded["max_abs_err"] = max(fused_sharded["max_abs_err"],
+                                       reduced_fused["max_abs_err"])
+    kernels += [main_sharded, fused_sharded]
+
     print(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": SOURCE,
+        {"name": k["name"], "route": "cuda",
+         "source": k.get("source", SOURCE),
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -11,19 +11,24 @@ the gates ``pallas_supported``, ``pallas_routing_ok``,
 :func:`kernel_supported`, :func:`kernel_routing_ok`,
 :func:`kernel_resv_supported` and :func:`kernel_resv_score_safe`;
 ``_kernel_epilogue`` is ``ops/binpack.resolve_gangs``, shared with the
-loop solver.
+loop solver. The distributed variant (``n_shards > 1``) becomes the
+thread-block-cluster kernel in ``csrc/binpack_cluster.cu``, one node
+shard per CTA, launched by :func:`binpack_sharded` beside its twin
+:func:`binpack_sharded_plain` (``parallel/mesh.shard_kernel_solver`` is
+its solve).
 
 Reservations reach the kernel as a node -> reservation CSR (reservation
 ids sorted by ``(node, id)`` and ``[N+1]`` offsets) beside the dense
 ``[P,V]`` owner-match bytes, so the thread that owns a node row also
 owns its reservations' free rows.
 
-:func:`binpack` launches the kernel for CUDA tensors and runs
-:func:`binpack_plain` for CPU tensors; nothing else selects between
-them. The library is built with ``nvcc`` at first use, from
-``csrc/binpack.cu`` only, into ``koordinator_tpu_torch/_build/`` (git
-ignores it), and bound with ``ctypes``. A build or launch failure
-raises; it never falls back to the plain twin.
+:func:`binpack` and :func:`binpack_sharded` launch their kernel for CUDA
+tensors and run their plain twin for CPU tensors; nothing else selects
+between them. The library is built with ``nvcc`` at first use, from
+``csrc/`` only (one ``nvcc`` per source, started together, then one
+link), into ``koordinator_tpu_torch/_build/`` (git ignores it), and
+bound with ``ctypes``. A build or launch failure raises; it never falls
+back to the plain twin.
 """
 
 from __future__ import annotations
@@ -51,13 +56,21 @@ from koordinator_tpu_torch.ops.binpack import (
 )
 from koordinator_tpu_torch.ops.common import I32, percent_rounded
 from koordinator_tpu_torch.ops.quota import quota_runtime
+from koordinator_tpu_torch.parallel.mesh import shard_tile_bucket
 
 #: kernel launches since import: the count that shows a run went
 #: through the kernel (one per ``binpack`` call on CUDA tensors)
 LAUNCHES = 0
+#: the same for the cluster kernel (one per ``binpack_sharded`` call on
+#: CUDA tensors)
+CLUSTER_LAUNCHES = 0
 
 #: the packed argmax key carries the node index in 16 bits
 MAX_NODES = 65536
+
+#: node shards of the cluster kernel: one CTA each, at most the largest
+#: cluster Hopper schedules (16, above the portable 8)
+MAX_SHARDS = 16
 
 #: request written into column 0 of a host-blocked pod so it never fits
 BLOCKED_REQ = 1 << 30
@@ -65,10 +78,14 @@ BLOCKED_REQ = 1 << 30
 R = 8
 
 _PACKAGE = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE / "csrc" / "binpack.cu"
+_CSRC = _PACKAGE / "csrc"
+#: the compiled sources; the library's name hashes these and the header
+SOURCES = (_CSRC / "binpack.cu", _CSRC / "binpack_cluster.cu")
+HEADERS = (_CSRC / "binpack_common.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 #: the packed argmax key keeps 15 bits for the score (``score << 16``
 #: must stay a positive int32)
@@ -277,19 +294,42 @@ def binpack_plain(inp: KernelInputs) -> KernelOutputs:
     path and held against the kernel on the card. It reads the
     reservations through the same CSR as the kernel, keeping the free
     table in CSR order, so a wrong CSR shows here as well."""
+    return _plain(inp, 1)
+
+
+def binpack_sharded_plain(inp: KernelInputs, shards: int) -> KernelOutputs:
+    """The cluster kernel's plain twin (``csrc/binpack_cluster.cu``): the
+    node axis cut into ``shards`` ranges of ``n_loc =
+    shard_tile_bucket(N, shards) // shards`` rows; per pod, each shard's
+    best packed key over its own rows (global node index in the key),
+    the max over the shards, and the change made at the winner (the
+    rows, reservations and NUMA capacity of the shard that owns it).
+    Quota carries are kept in one copy per shard, each gating with its
+    own copy and replaying the same adds; copy 0 is returned. Equal to
+    :func:`binpack_plain` on every output: the CPU proof of the merge."""
+    return _plain(inp, shards)
+
+
+def _plain(inp: KernelInputs, shards: int) -> KernelOutputs:
     alloc, usage = inp.alloc, inp.usage
     dev = alloc.device
+    n = alloc.shape[0]
+    n_loc = shard_tile_bucket(n, shards) // shards
+    shard_of = torch.arange(n, device=dev) // n_loc
     alloc_safe = torch.clamp(alloc, min=1)
     alloc_zero = alloc == 0
     sched, fresh = inp.sched > 0, inp.fresh > 0
     la_ok = inp.la_ok > 0
-    lane_key = 65535 - torch.arange(alloc.shape[0], dtype=I32, device=dev)
+    lane_key = 65535 - torch.arange(n, dtype=I32, device=dev)
+    no_rows = torch.full((shards * n_loc - n,), -1, dtype=I32, device=dev)
     weight, wsum = inp.weight, inp.wsum
     used, estx, prod = inp.used0.clone(), inp.est0.clone(), inp.prod0.clone()
     quota = inp.quota is not None
     if quota:
         qmin, qrt, qused, qnp = inp.quota
-        qused, qnp = qused.clone(), qnp.clone()
+        # one copy of the quota carries per shard: [shards, Q, R]
+        qused = qused.expand(shards, *qused.shape).clone()
+        qnp = qnp.expand(shards, *qnp.shape).clone()
     numa = inp.numa is not None
     if numa:
         ncap, nfree, npol, pod_policy = inp.numa
@@ -344,17 +384,22 @@ def binpack_plain(inp: KernelInputs) -> KernelOutputs:
                                    torch.clamp(cnt, min=1),
                                    rounding_mode="floor"), 0)
         if quota:
+            # each shard gates its rows with its own copy
             qid = inp.flags[p, 2]
             non_pre = inp.flags[p, 3] > 0
             q = torch.clamp(qid, min=0).reshape(1).long()
             sel = req_v > 0
-            viol = (sel & (qused.index_select(0, q)[0] + req_v
-                           > qrt.index_select(0, q)[0])).any()
-            viol_np = (sel & non_pre & (qnp.index_select(0, q)[0] + req_v
-                                        > qmin.index_select(0, q)[0])).any()
-            mask = mask & ((qid < 0) | ~(viol | viol_np))
+            viol = (sel & (qused.index_select(1, q)[:, 0] + req_v
+                           > qrt.index_select(0, q)[0])).any(dim=-1)
+            viol_np = (sel & non_pre & (qnp.index_select(1, q)[:, 0] + req_v
+                                        > qmin.index_select(0, q)[0])).any(
+                                            dim=-1)
+            admit = (qid < 0) | ~(viol | viol_np)             # [shards]
+            mask = mask & admit.index_select(0, shard_of)
         packed = torch.where(mask, (total << 16) | lane_key, -1)
-        m = packed.max()
+        # each shard's best over its own rows, then the max over shards
+        local = torch.cat([packed, no_rows]).view(shards, n_loc).amax(dim=1)
+        m = local.max()
         ok = m >= 0
         best = (65535 - (m & 65535)).reshape(1).long()
         nodes.append(torch.where(ok, best[0], -1).to(I32))
@@ -387,10 +432,11 @@ def binpack_plain(inp: KernelInputs) -> KernelOutputs:
             nfree = nfree.index_add(
                 0, best, -torch.where(take, req_v, 0)[None, :])
             consumed.append(take.to(I32))
-        if quota:
-            addq = torch.where(sel & ok & (qid >= 0), req_v, 0)[None, :]
-            qused = qused.index_add(0, q, addq)
-            qnp = qnp.index_add(0, q, torch.where(non_pre, addq, 0))
+        if quota:   # every shard replays the add
+            addq = torch.where(sel & ok & (qid >= 0), req_v, 0)
+            addq = addq.expand(shards, 1, R)
+            qused = qused.index_add(1, q, addq)
+            qnp = qnp.index_add(1, q, torch.where(non_pre, addq, 0))
 
     def stack(rows, shape):
         return (torch.stack(rows) if rows
@@ -399,7 +445,7 @@ def binpack_plain(inp: KernelInputs) -> KernelOutputs:
     p_count = inp.req.shape[0]
     out = KernelOutputs(
         stack(nodes, (0,)), used, estx, prod,
-        qused if quota else None, qnp if quota else None)
+        qused[0] if quota else None, qnp[0] if quota else None)
     if numa:
         out = out._replace(nfree=nfree, consumed=stack(consumed, (p_count,)))
     if resv:
@@ -417,36 +463,68 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       + ", ".join(src.name for src in SOURCES))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in SOURCES + HEADERS:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def build_library() -> Path:
-    """Compile ``csrc/binpack.cu`` into a shared library named by the
-    source's hash (an unchanged source is not rebuilt). Returns its
-    path; ``ptxas``'s register and spill report for each kernel variant
-    is kept beside it (:func:`build_log`)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libbinpack-{digest}.so"
+    """Compile ``csrc/`` into a shared library named by the hash of its
+    sources and header (an unchanged tree is not rebuilt): one ``nvcc``
+    per source, all started together, then one link. Returns its path;
+    ``ptxas``'s register and spill report for each kernel variant is
+    kept beside it (:func:`build_log`)."""
+    out = BUILD_DIR / f"libbinpack-{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    log, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        stdout, stderr = proc.communicate()
+        log.append(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    tmp = out.with_name(f"{stem}.so.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                           + "\n".join(log))
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)
     return out
 
 
 def build_log() -> str:
-    """``nvcc``'s output for the current source (``-Xptxas -v``:
+    """``nvcc``'s output for the current sources (``-Xptxas -v``:
     registers, shared memory and spills of every kernel variant), or ""
     when the library was not built here."""
     log = build_library().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+#: the cluster kernel's instances as (resv, numa, most)
+CLUSTER_VARIANTS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (0, 1, 1),
+                    (1, 1, 1))
 
 
 def _library():
@@ -455,23 +533,40 @@ def _library():
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.binpack_launch.argtypes = (
-                [ptr, ptr, ptr, i32,              # req, est, flags, P
-                 ptr, ptr, ptr, ptr, ptr, i32,    # alloc..la_ok, N
-                 ptr, i32,                        # weight, wsum
-                 ptr, ptr, ptr,                   # used0, est0, prod0
-                 ptr, ptr, ptr, ptr, i32,         # quota in, Q
-                 ptr, ptr, ptr, ptr, i32, i32,    # numa in, on, most
-                 ptr, ptr, ptr, ptr, ptr, i32,    # resv in, V
-                 ptr, ptr, ptr, ptr, ptr, ptr,    # outputs
-                 ptr, ptr,                        # numa outputs
-                 ptr, ptr, ptr, ptr,              # resv outputs
-                 ptr])                            # stream
+            args = [ptr, ptr, ptr, i32,              # req, est, flags, P
+                    ptr, ptr, ptr, ptr, ptr, i32,    # alloc..la_ok, N
+                    ptr, i32,                        # weight, wsum
+                    ptr, ptr, ptr,                   # used0, est0, prod0
+                    ptr, ptr, ptr, ptr, i32,         # quota in, Q
+                    ptr, ptr, ptr, ptr, i32, i32,    # numa in, on, most
+                    ptr, ptr, ptr, ptr, ptr, i32,    # resv in, V
+                    ptr, ptr, ptr, ptr, ptr, ptr,    # outputs
+                    ptr, ptr,                        # numa outputs
+                    ptr, ptr, ptr, ptr]              # resv outputs
+            lib.binpack_launch.argtypes = args + [ptr]          # stream
             lib.binpack_launch.restype = i32
+            lib.binpack_cluster_launch.argtypes = args + [
+                i32, i32, ptr]                      # shards, n_loc, stream
+            lib.binpack_cluster_launch.restype = i32
+            lib.binpack_cluster_occupancy.argtypes = [
+                i32, i32, i32, i32, ctypes.POINTER(i32)]
+            lib.binpack_cluster_occupancy.restype = i32
             lib.binpack_error_string.argtypes = [i32]
             lib.binpack_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def _on_device(dev, call):
+    """``call(stream)`` with ``dev`` the current device and ``stream`` the
+    handle of its current CUDA stream."""
+    with torch.cuda.device(dev):
+        return call(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _cuda_error(lib, what: str, rc: int) -> RuntimeError:
+    msg = lib.binpack_error_string(rc).decode()
+    return RuntimeError(f"{what} failed: {msg} ({rc})")
 
 
 def _check(name, t, shape, device, dtype=I32):
@@ -491,8 +586,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(inp: KernelInputs) -> KernelOutputs:
-    global LAUNCHES
+def _launch(inp: KernelInputs, shards: Optional[int] = None) -> KernelOutputs:
+    """Launch the one-block kernel, or with ``shards`` the cluster kernel
+    of that many CTAs, on the inputs' device and current stream."""
+    global LAUNCHES, CLUSTER_LAUNCHES
     dev = inp.alloc.device
     p, n = inp.req.shape[0], inp.alloc.shape[0]
     if not (0 < n <= MAX_NODES and p > 0):
@@ -532,8 +629,11 @@ def _launch(inp: KernelInputs) -> KernelOutputs:
     out = KernelOutputs(assign, used, est, prod, None, None)
     qptrs = [None] * 4
     if quota is not None:
-        out = out._replace(qused=torch.empty_like(quota[0]),
-                           qnp=torch.empty_like(quota[0]))
+        # the cluster kernel keeps one copy per CTA; copy 0 is the result
+        copies = 1 if shards is None else shards
+        out = out._replace(
+            qused=torch.empty((copies, q, R), dtype=I32, device=dev)[0],
+            qnp=torch.empty((copies, q, R), dtype=I32, device=dev)[0])
         qptrs = [t.data_ptr() for t in quota]
     nptrs = [None] * 4
     if numa is not None:
@@ -547,27 +647,33 @@ def _launch(inp: KernelInputs) -> KernelOutputs:
                            rem=torch.empty_like(inp.req),
                            rfree=torch.empty_like(resv[0]))
         rptrs = [t.data_ptr() for t in resv]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.binpack_launch(
-            inp.req.data_ptr(), inp.est.data_ptr(), inp.flags.data_ptr(), p,
-            inp.alloc.data_ptr(), inp.usage.data_ptr(), inp.sched.data_ptr(),
-            inp.fresh.data_ptr(), inp.la_ok.data_ptr(), n,
-            inp.weight.data_ptr(), inp.wsum,
-            inp.used0.data_ptr(), inp.est0.data_ptr(), inp.prod0.data_ptr(),
-            *qptrs, q,
-            *nptrs, int(numa is not None), int(inp.most_allocated),
-            *rptrs, v,
-            assign.data_ptr(), used.data_ptr(), est.data_ptr(),
-            prod.data_ptr(), _ptr(out.qused), _ptr(out.qnp),
-            _ptr(out.nfree), _ptr(out.consumed),
-            _ptr(out.vstar), _ptr(out.delta), _ptr(out.rem), _ptr(out.rfree),
-            stream,
-        )
+    args = (
+        inp.req.data_ptr(), inp.est.data_ptr(), inp.flags.data_ptr(), p,
+        inp.alloc.data_ptr(), inp.usage.data_ptr(), inp.sched.data_ptr(),
+        inp.fresh.data_ptr(), inp.la_ok.data_ptr(), n,
+        inp.weight.data_ptr(), inp.wsum,
+        inp.used0.data_ptr(), inp.est0.data_ptr(), inp.prod0.data_ptr(),
+        *qptrs, q,
+        *nptrs, int(numa is not None), int(inp.most_allocated),
+        *rptrs, v,
+        assign.data_ptr(), used.data_ptr(), est.data_ptr(),
+        prod.data_ptr(), _ptr(out.qused), _ptr(out.qnp),
+        _ptr(out.nfree), _ptr(out.consumed),
+        _ptr(out.vstar), _ptr(out.delta), _ptr(out.rem), _ptr(out.rfree),
+    )
+    if shards is None:
+        rc = _on_device(dev, lambda stream: lib.binpack_launch(*args, stream))
+        if rc != 0:
+            raise _cuda_error(lib, "binpack kernel launch", rc)
+        LAUNCHES += 1
+        return out
+    n_loc = shard_tile_bucket(n, shards) // shards
+    rc = _on_device(dev, lambda stream: lib.binpack_cluster_launch(
+        *args, shards, n_loc, stream))
     if rc != 0:
-        msg = lib.binpack_error_string(rc).decode()
-        raise RuntimeError(f"binpack kernel launch failed: {msg} ({rc})")
-    LAUNCHES += 1
+        raise _cuda_error(lib, f"binpack cluster kernel launch ({shards} CTAs)",
+                          rc)
+    CLUSTER_LAUNCHES += 1
     return out
 
 
@@ -579,6 +685,70 @@ def binpack(inp: KernelInputs) -> KernelOutputs:
     if inp.alloc.device.type != "cpu":
         raise ValueError(f"unsupported device {inp.alloc.device}")
     return binpack_plain(inp)
+
+
+def binpack_sharded(inp: KernelInputs, shards: int) -> KernelOutputs:
+    """Run the node-sharded placement kernel: ``shards`` (2..16) CTAs of
+    one thread-block cluster, one node shard each, for CUDA tensors;
+    :func:`binpack_sharded_plain` for CPU tensors. Equal to
+    :func:`binpack` on every output."""
+    if not 2 <= shards <= MAX_SHARDS:
+        raise ValueError(f"shards must be 2..{MAX_SHARDS}, got {shards}")
+    if inp.alloc.device.type == "cuda":
+        return _launch(inp, shards)
+    if inp.alloc.device.type != "cpu":
+        raise ValueError(f"unsupported device {inp.alloc.device}")
+    return binpack_sharded_plain(inp, shards)
+
+
+def cluster_occupancy(shards: int, device) -> int:
+    """How many clusters of ``shards`` CTAs of the cluster kernel can be
+    resident on the CUDA ``device`` at once, the least over its
+    instances (``cudaOccupancyMaxActiveClusters``, with the kernel's
+    threads, registers and shared memory). Raises with CUDA's message
+    when the query fails."""
+    lib = _library()
+
+    def query(_stream):
+        least = None
+        for resv, numa, most in CLUSTER_VARIANTS:
+            count = ctypes.c_int(0)
+            rc = lib.binpack_cluster_occupancy(shards, resv, numa, most,
+                                               ctypes.byref(count))
+            if rc != 0:
+                raise _cuda_error(lib, "cluster occupancy query", rc)
+            least = count.value if least is None else min(least, count.value)
+        return least
+
+    return _on_device(torch.device(device), query)
+
+
+def quota_inputs(quota_state) -> Optional[tuple]:
+    """The kernel's quota operands ``(min, runtime, used, np_used)``,
+    the runtime water-filled once per solve; None without quotas."""
+    if quota_state is None:
+        return None
+    return (quota_state.min, quota_runtime(quota_state), quota_state.used,
+            quota_state.np_used)
+
+
+def kernel_result(state: NodeState, out: KernelOutputs, pods: PodBatch,
+                  quota_state=None, gang_state=None, numa: bool = False,
+                  resv: bool = False) -> SolveResult:
+    """A solve's result from the kernel's outputs: the carries into
+    ``state`` (and ``numa_free`` with ``numa``) and ``quota_state``, then
+    the batch-end gang epilogue (with the reservation consumption when
+    ``resv``)."""
+    node_state = state._replace(used_req=out.used, est_extra=out.est,
+                                prod_base=out.prod)
+    if numa:
+        node_state = node_state._replace(numa_free=out.nfree)
+    if quota_state is not None:
+        quota_state = quota_state._replace(used=out.qused, np_used=out.qnp)
+    resv_out = (out.vstar, out.delta, out.rem, out.rfree) if resv else None
+    consumed = out.consumed > 0 if numa else None
+    return resolve_gangs(node_state, quota_state, out.assign, pods, gang_state,
+                         resv_out, consumed)
 
 
 def kernel_solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
@@ -602,20 +772,7 @@ def kernel_solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
             kernel_resv_score_safe(resv.node, resv.free, state.alloc)):
         raise ValueError("reservation credit could overflow the packed "
                          "key's 15-bit score budget: use the loop solver")
-    quota = None
-    if quota_state is not None:
-        quota = (quota_state.min, quota_runtime(quota_state),
-                 quota_state.used, quota_state.np_used)
-    out = binpack(kernel_inputs(state, pods, params, quota, wsum, numa_aux,
-                                resv, most_allocated))
-    node_state = state._replace(used_req=out.used, est_extra=out.est,
-                                prod_base=out.prod)
-    if numa_aux is not None:
-        node_state = node_state._replace(numa_free=out.nfree)
-    if quota_state is not None:
-        quota_state = quota_state._replace(used=out.qused, np_used=out.qnp)
-    resv_out = (None if resv is None
-                else (out.vstar, out.delta, out.rem, out.rfree))
-    consumed = None if numa_aux is None else out.consumed > 0
-    return resolve_gangs(node_state, quota_state, out.assign, pods, gang_state,
-                         resv_out, consumed)
+    out = binpack(kernel_inputs(state, pods, params, quota_inputs(quota_state),
+                                wsum, numa_aux, resv, most_allocated))
+    return kernel_result(state, out, pods, quota_state, gang_state,
+                         numa_aux is not None, resv is not None)

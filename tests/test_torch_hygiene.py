@@ -32,6 +32,7 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "koordinator_tpu_torch.models.placement" in mods
+    assert "koordinator_tpu_torch.parallel.mesh" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -331,3 +332,134 @@ def test_cuda_model_matches_cpu_model(seed, selectors, reservations):
              for r in gsnap.reservations]
             == [(r.allocated, r.allocated_pod_uids, r.state)
                 for r in csnap.reservations])
+
+
+class _FakeClusterLibrary:
+    """The library's cluster entry points, answering as told: the launch's
+    return code, the occupancy query's return code and cluster count."""
+
+    def __init__(self, launch_rc=0, query_rc=0, clusters=1):
+        self.launch_rc, self.query_rc, self.clusters = (launch_rc, query_rc,
+                                                        clusters)
+        self.launches = 0
+
+    def binpack_cluster_launch(self, *args):
+        self.launches += 1
+        return self.launch_rc
+
+    def binpack_cluster_occupancy(self, shards, resv, numa, most, clusters):
+        clusters._obj.value = self.clusters
+        return self.query_rc
+
+    def binpack_error_string(self, rc):
+        return f"refused by the fake library {rc}".encode()
+
+
+def test_cluster_failures_raise_and_never_run_the_twin(monkeypatch):
+    """On the CPU, with the library's cluster entry points replaced: a
+    refused cluster launch raises with CUDA's message and counts no
+    launch; a failed occupancy query raises; a zero occupancy answer
+    makes ``cluster_kernel_supported`` False and the solver raise before
+    any launch; the plain twins never run on that route."""
+    from koordinator_tpu_torch import testing
+    from koordinator_tpu_torch.parallel import mesh
+
+    def twin(*args, **kwargs):
+        raise AssertionError("the plain twin ran")
+
+    monkeypatch.setattr(binpack_kernel, "binpack_sharded_plain", twin)
+    monkeypatch.setattr(binpack_kernel, "binpack_plain", twin)
+    monkeypatch.setattr(binpack_kernel, "_on_device",
+                        lambda dev, call: call(0))
+    state, pods, params, quota, gang = testing.quota_gang_problem(
+        40, 30, 3, 2, 4, seed=1, device="cpu")
+    inp = binpack_kernel.kernel_inputs(state, pods, params,
+                                       binpack_kernel.quota_inputs(quota))
+
+    lib = _FakeClusterLibrary(launch_rc=719)
+    monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
+    before = binpack_kernel.CLUSTER_LAUNCHES
+    with pytest.raises(RuntimeError, match="refused by the fake library 719"):
+        binpack_kernel._launch(inp, 4)
+    assert lib.launches == 1 and binpack_kernel.CLUSTER_LAUNCHES == before
+
+    lib = _FakeClusterLibrary(query_rc=1)
+    monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
+    with pytest.raises(RuntimeError, match="occupancy query failed"):
+        mesh.cluster_kernel_supported(16, "cuda")
+
+    lib = _FakeClusterLibrary(clusters=0)
+    monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
+    assert not mesh.cluster_kernel_supported(16, "cuda")
+    solve = mesh.shard_kernel_solver(16, device="cuda")
+    with pytest.raises(RuntimeError, match="cannot be resident"):
+        solve(state, pods, params, quota, gang)
+    assert lib.launches == 0
+
+    # a resident cluster, but inputs the solver's device does not hold
+    lib = _FakeClusterLibrary(clusters=3)
+    monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
+    assert mesh.cluster_kernel_supported(16, "cuda")
+    with pytest.raises(ValueError, match="inputs on cpu"):
+        mesh.shard_kernel_solver(8, device="cuda")(state, pods, params)
+    assert lib.launches == 0
+
+
+def _cluster_inputs(n_nodes, n_pods, n_quota, layout, numa, seed):
+    """:func:`_resv_numa_inputs` on the card; ``layout`` None drops the
+    reservation table."""
+    inp = _resv_numa_inputs(n_nodes, n_pods, n_quota, layout or "one", numa,
+                            seed)
+    return inp if layout else inp._replace(resv=None)
+
+
+def _cluster_matches_twin(inp, shards):
+    before = binpack_kernel.CLUSTER_LAUNCHES
+    got = binpack_kernel.binpack_sharded(inp, shards)
+    torch.cuda.synchronize()
+    assert binpack_kernel.CLUSTER_LAUNCHES == before + 1
+    want = binpack_kernel.binpack_sharded_plain(inp, shards)
+    for g, w, name in zip(got, want, got._fields):
+        if w is None:
+            assert g is None, name
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,n_nodes,n_pods,n_quota,layout,numa", [
+    (2, 1, 5, 0, "one", None),
+    (8, 1, 40, 2, None, None),
+    (16, 1, 30, 0, None, "least"),
+    (2, 1025, 300, 3, "ends", "most"),
+    (8, 31, 200, 0, "same-node", "least"),
+    (8, 3000, 700, 12, "many", "least"),
+    (16, 3000, 400, 5, "many", "most"),
+    (16, 65536, 20, 4, "ends", "most"),
+    (16, 65536, 20, 0, None, None),
+])
+def test_cuda_cluster_kernel_edge_shapes_match_sharded_twin(
+        shards, n_nodes, n_pods, n_quota, layout, numa):
+    """1 node, 65,536 nodes over 16 CTAs, 600 reservations ("many"),
+    reservations on the first and last node ("ends"), both NUMA scorers,
+    at 2, 8 and 16 CTAs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    _cluster_matches_twin(_cluster_inputs(n_nodes, n_pods, n_quota, layout,
+                                          numa, seed=n_nodes + n_pods),
+                          shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 8, 16])
+def test_cuda_cluster_kernel_one_node_per_shard(shards):
+    """One schedulable node at the first row of each CTA's range, the rest
+    unschedulable: every placement crosses the cluster merge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _cluster_inputs(128 * shards, 300, 3, "ends", "most", seed=shards)
+    sched = torch.zeros_like(inp.sched)
+    sched[::128] = 1
+    alloc = inp.alloc.clone()
+    alloc[::128, 0], alloc[::128, 1] = 64000, 32768
+    _cluster_matches_twin(inp._replace(sched=sched, alloc=alloc), shards)
