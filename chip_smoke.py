@@ -2,53 +2,64 @@
 
     python3 chip_smoke.py
 
+Every solve goes through ``ops/binpack_kernel.kernel_route``: the
+one-block kernel (``csrc/binpack.cu``) when the node slice fits one CTA,
+else the cluster kernel (``csrc/binpack_cluster.cu``) at the CTA count
+the route names, its slices in shared memory, or past what 16 CTAs hold
+in a device-memory workspace (the L2 form). Each phase prints the route
+and the kernel's time (CUDA events, after a warm-up), the plain twin's,
+the microseconds per pod and the bound (see :func:`bound`).
+
 1. Prints the card's name and power limit; builds the CUDA kernel
    library from ``koordinator_tpu_torch/csrc`` with nvcc and prints
-   ptxas's registers and spills for each kernel variant.
-2. Holds the placement kernel against its plain PyTorch twin on the card,
-   bit for bit (assignments and every carry): the example problem at
-   5,000 nodes x 10,000 pods, and 1,000 nodes with 5,000 pods in 50
-   quota groups plus 200 gangs x 32 members.
+   ptxas's registers, shared memory and spills for each instance.
+2. The routed kernel against the twin of the chosen kernel, bit for bit
+   (assignments and every carry): the example problem at 5,000 nodes x
+   10,000 pods (the cluster kernel), and 1,000 nodes with 5,000 pods in
+   50 quota groups plus 200 gangs x 32 members (the one-block kernel,
+   driven through ``kernel_solve_batch`` with the launch counts zeroed).
 3. The main path: ``PlacementModel().schedule`` on a seeded snapshot of
    5,000 nodes, 10,000 assigned pods with metrics and 10,000 pending pods
-   in 50 quota groups and 200 gangs of 32. The kernel launch count is
-   zeroed just before and read just after; the solve must go through the
-   kernel, respect node capacity, and equal ``PlacementModel(device=
-   "cpu")`` on an identical snapshot. A second run on a fresh model
-   prints the timings of a process whose torch kernels are loaded.
-4. Holds and times the kernel against its twin on the main path's own
-   kernel inputs.
+   in 50 quota groups and 200 gangs of 32. The launch counts are zeroed
+   just before and read just after; the solve must take the route
+   asserted here (the cluster kernel, its CTA count printed), respect
+   node capacity, and equal ``PlacementModel(device="cpu")`` on an
+   identical snapshot. A second run on a fresh model prints the timings
+   of a process whose torch kernels are loaded.
+4. Holds and times the routed kernel against its twin on the main path's
+   own kernel inputs.
 5. The reservation main path: phase 3's snapshot plus 256 Available
    reservations (200 owned by gang label, 56 migration reservations
    naming one solo pending pod each). ``PlacementModel().schedule`` must
-   go through the kernel's ``use_resv`` variant, consume reservations,
-   respect node capacity with the remaining holds counted, and equal the
-   CPU run: placements, waiting pods, consumption records and every
-   mutated ``ReservationSpec``. The kernel is then held against its twin
-   on that solve's inputs and timed.
+   go through the routed kernel's reservation instance, consume
+   reservations, respect node capacity with the remaining holds counted,
+   and equal the CPU run: placements, waiting pods, consumption records
+   and every mutated ``ReservationSpec``. The kernel is then held against
+   its twin on that solve's inputs and timed.
 6. The fused solve of the reference's bench config #8 (quota, Strict
    gangs, NUMA, reservations) at 5,000 nodes x 10,000 pods, with the
    NUMA least- and most-allocated scorers: ``kernel_solve_batch`` routed
    by ``kernel_routing_ok``, the kernel held against its twin on every
    output, and the whole kernel solve held against the loop
    ``solve_batch`` on the card at 1,000 x 2,000 (the loop runs a few
-   dozen torch ops per pod).
-7. The node-sharded kernel (``csrc/binpack_cluster.cu``: k CTAs of one
-   thread-block cluster, one node shard each) through
-   ``parallel/mesh.shard_kernel_solver(k)``, for k in 2, 4, 8, 16, at
-   the main path's solve (phase 3) and at config #8 with NUMA least and
-   reservations (phase 6): each solve driven with the cluster launch
-   count zeroed just before and read just after, held bit for bit
-   against the one-block kernel's solve (every output) and its kernel
-   (every kernel output), and timed against it in the same process.
+   dozen torch ops per pod). Then the one-block kernel's NUMA and
+   reservation instances on config #8 cut to 800 x 2,000 (NUMA least,
+   most, and reservations without NUMA).
+7. The cluster kernel through ``parallel/mesh.shard_kernel_solver(k)``,
+   for k in 2, 4, 8, 16, at the main path's solve (phase 3) and at
+   config #8 with NUMA least and reservations (phase 6): each solve
+   driven with the launch counts zeroed just before and read just after,
+   held bit for bit against the routed solve (every output) and its
+   kernel (every kernel output), and timed against it in the same
+   process; a k whose slices do not fit shared memory runs the L2 form.
    At the fastest k the cluster kernel is held against its plain twin
    ``binpack_sharded_plain`` at full size; the twin also checks it at
    k = 8 on phase 2's quota+gang problem (1,000 nodes) and at k = 4 on
-   config #8 cut to 1,000 x 2,000 with NUMA most. Then one JSON line of
-   kernels, and the result line ``{"ok": true, "device": {...}}`` last.
-
-Every comparison prints the kernel's time (CUDA events, after a
-warm-up), the twin's, and the bound (see :func:`bound`).
+   config #8 cut to 1,000 x 2,000 with NUMA most.
+8. A solve beyond what 16 CTAs' shared memory holds (40,000 nodes x
+   1,000 pods, quota and gangs): the L2 form at 16 CTAs, held against its
+   twin and timed. Then one JSON line of kernels, and the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -70,7 +81,6 @@ from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
 from koordinator_tpu_torch.ops.binpack import SolverConfig, solve_batch
-from koordinator_tpu_torch.ops.quota import quota_runtime
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
 
@@ -99,16 +109,23 @@ NODES, ASSIGNED_PER_NODE, PENDING = 5000, 2, 10000
 QUOTA_NODES, QUOTA_PODS, QUOTAS, GANGS, GANG_SIZE = 1000, 5000, 50, 200, 32
 # phase 5: reservations owned by gang label, and migration reservations
 LABEL_RESV, MIGRATION_RESV = 200, 56
-# phase 6: bench config #8 at its own shape; the loop comparison's cut
+# phase 6: bench config #8 at its own shape; the loop comparison's cut;
+# the cut whose NUMA + reservation slice fits one CTA
 FUSED_NODES, FUSED_PODS = 5000, 10000
 LOOP_NODES, LOOP_PODS = 1000, 2000
-# phase 7: CTAs of the cluster kernel; the reduced checks' shard counts
+BLOCK_NODES, BLOCK_PODS = 800, 2000
+# phase 7: CTAs of the cluster kernel; the reduced checks' CTA counts
 SHARDS = (2, 4, 8, 16)
 QUOTA_SHARDS, LOOP_SHARDS = 8, 4
+# phase 8: past 16 CTAs' shared memory (quota pods, gangs x members)
+L2_NODES, L2_QUOTA_PODS, L2_GANGS, L2_GANG_SIZE = 40000, 600, 20, 20
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
+#: the launch counter of each kernel, by route kind
+COUNTER = {"block": "LAUNCHES", "cluster": "CLUSTER_LAUNCHES",
+           "l2": "L2_LAUNCHES"}
 
 
 def card_line() -> str:
@@ -171,25 +188,69 @@ def bound(inp):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(inp, label, card, reps=3) -> dict:
-    """Hold the kernel against its plain twin on ``inp`` (tolerance:
-    exact, every output) and time both on the card: the kernel over
-    ``reps`` launches after the comparison's launch as warm-up, the twin
-    over its one comparison run."""
-    got = bk.binpack(inp)
+def variant(inp) -> str:
+    """The kernel instance's variant, from its inputs."""
+    parts = []
+    if inp.numa is not None:
+        parts.append("numa_most" if inp.most_allocated else "numa_least")
+    if inp.resv is not None:
+        parts.append("resv")
+    if inp.quota is not None:
+        parts.append("quota")
+    return "_".join(parts) or "plain"
+
+
+def route_name(route) -> str:
+    return ("block" if route.kind == "block"
+            else f"{route.kind}_k{route.shards}")
+
+
+def twin(inp, route):
+    """The plain twin of the kernel ``route`` names."""
+    if route.kind == "block":
+        return bk.binpack_plain(inp)
+    return bk.binpack_sharded_plain(inp, route.shards)
+
+
+def compare(inp, label, card, reps=3, shards=None) -> dict:
+    """Run ``inp`` on the kernel the route names (or the cluster kernel
+    at ``shards`` CTAs), hold it against that kernel's plain twin
+    (tolerance: exact, every output) and time both on the card: the
+    kernel over ``reps`` launches after the comparison's launch as
+    warm-up, the twin over its one comparison run."""
+    def run():
+        return (bk.binpack(inp) if shards is None
+                else bk.binpack_sharded(inp, shards))
+
+    got = run()
+    route = bk.LAST_ROUTE
     torch.cuda.synchronize()
     want = []
-    plain_ms = cuda_ms(lambda: want.append(bk.binpack_plain(inp)), 1)
+    plain_ms = cuda_ms(lambda: want.append(twin(inp, route)), 1)
     err = max_abs_err(got, want[0])
-    ms = cuda_ms(lambda: bk.binpack(inp), reps)
+    ms = cuda_ms(run, reps)
     bound_ms, bound_by = bound(inp)
+    p = inp.req.shape[0]
     placed = int((got.assign >= 0).sum())
-    print(f"{label}: kernel == plain twin ({placed}/{inp.req.shape[0]} "
-          f"placed, max_abs_err {err}) [{card}]: kernel {ms:.3f} ms, plain "
-          f"twin {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})",
-          flush=True)
+    print(f"{label}: {route_name(route)} kernel == plain twin ({placed}/{p} "
+          f"placed, max_abs_err {err}) [{card}]: kernel {ms:.3f} ms "
+          f"({ms / p * 1e3:.3f} us/pod, {route.n_loc} rows per CTA, smem "
+          f"{route.smem} B), plain twin {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, route=route,
+                variant=variant(inp))
+
+
+def entry(name_prefix, launches, stats, replaces_line) -> dict:
+    """A ``kernels`` line entry from :func:`compare`'s stats."""
+    route = stats["route"]
+    return dict(name=f"{name_prefix}_{route_name(route)}_{stats['variant']}",
+                replaces=f"{REPLACES}:{replaces_line}",
+                source=SOURCE if route.kind == "block" else CLUSTER_SOURCE,
+                launches=launches, **{k: stats[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")})
 
 
 def capacity_ok(snap, result) -> None:
@@ -215,29 +276,44 @@ def capacity_ok(snap, result) -> None:
         assert not over.any(), f"{node} overcommitted"
 
 
-def drive(run, wrapper="binpack", counter="LAUNCHES"):
+def drive(run, wrapper="binpack"):
     """Run one path with every kernel input it hands ``bk.<wrapper>``
-    captured, the launch count ``bk.<counter>`` zeroed just before and
-    read just after (a device synchronise ends the timed span). Returns
-    ``(result, launches, wall_s, captured inputs)``."""
+    captured with the route it took, every launch count zeroed just
+    before and read just after (a device synchronise ends the timed
+    span). Returns ``(result, launches by route kind, wall_s, captured
+    [(inputs, route)])``."""
     captured = []
     launch = getattr(bk, wrapper)
 
     def capture(inp, *args):
-        captured.append(inp)
-        return launch(inp, *args)
+        out = launch(inp, *args)
+        captured.append((inp, bk.LAST_ROUTE))
+        return out
 
     setattr(bk, wrapper, capture)
     try:
-        setattr(bk, counter, 0)
+        for counter in COUNTER.values():
+            setattr(bk, counter, 0)
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = getattr(bk, counter)
+        launches = {kind: getattr(bk, c) for kind, c in COUNTER.items()}
     finally:
         setattr(bk, wrapper, launch)
     return result, launches, wall, captured
+
+
+def routed(label, launches, captured, kind=None):
+    """The one solve a driven path made: it launched the kernel its route
+    names once and no other (and ``kind`` when given). Returns
+    ``(inputs, route)``."""
+    assert len(captured) == 1, f"{label}: {len(captured)} solves"
+    inp, route = captured[0]
+    want = {k: int(k == route.kind) for k in COUNTER}
+    assert launches == want, f"{label}: launches {launches}, route {route}"
+    assert kind is None or route.kind == kind, f"{label}: route {route}"
+    return inp, route
 
 
 def _specs(snap):
@@ -249,17 +325,18 @@ def _records(book):
     return {uid: (name, delta.tolist()) for uid, (name, delta) in book.items()}
 
 
-def schedule_path(snapshot, label, card):
+def schedule_path(snapshot, label, card, kind):
     """``PlacementModel().schedule`` on ``snapshot()`` through the kernel,
     checked: every pod decided, some committed, node capacity respected,
     and equal to ``PlacementModel(device="cpu")`` on an identical
-    snapshot (placements, waiting pods, reservation records and specs).
-    Returns ``(result, launches, captured kernel inputs)``."""
+    snapshot (placements, waiting pods, reservation records and specs);
+    the route must be ``kind``. Returns ``(result, launches of the routed
+    kernel, captured kernel inputs)``."""
     snap = snapshot()
     model = PlacementModel()
     result, launches, wall, captured = drive(lambda: model.schedule(snap))
     assert model.last_solver == "kernel", model.last_solver
-    assert launches > 0, f"{label} did not launch the kernel"
+    _, route = routed(label, launches, captured, kind)
     assert len(result) == len(snap.pending_pods)
     committed = sum(n is not None for n in result.values())
     assert committed > 0
@@ -280,7 +357,9 @@ def schedule_path(snapshot, label, card):
           f"{len(result.waiting)} waiting; lower_s {tm['lower_s']:.4f} "
           f"stage_s {tm['stage_s']:.4f} solve_s {tm['solve_s']:.4f} wall "
           f"{wall:.4f} s = {len(snap.pending_pods) / wall:.1f} pending pods/s "
-          f"(n_pending / wall); cuda == cpu; launches {launches}", flush=True)
+          f"(n_pending / wall); cuda == cpu; route {route_name(route)} "
+          f"({route.n_loc} rows per CTA); launches {launches[route.kind]}",
+          flush=True)
     warm = PlacementModel()
     warm_snap = snapshot()
     t0 = time.perf_counter()
@@ -292,7 +371,7 @@ def schedule_path(snapshot, label, card):
           f"{tm['solve_s']:.4f} wall {wall:.4f} s = "
           f"{len(warm_snap.pending_pods) / wall:.1f} pending pods/s",
           flush=True)
-    return result, launches, captured
+    return result, launches[route.kind], captured
 
 
 def same_solve(got, want) -> None:
@@ -354,66 +433,62 @@ def trimmed(out, n):
                            if getattr(out, f) is not None})
 
 
-def compare_sharded(inp, shards, label, card, reps=3) -> dict:
-    """Hold the cluster kernel against its plain twin on ``inp`` at
-    ``shards`` CTAs (tolerance: exact, every output) and time both, as
-    :func:`compare` does for the one-block kernel."""
-    got = bk.binpack_sharded(inp, shards)
-    torch.cuda.synchronize()
-    want = []
-    plain_ms = cuda_ms(
-        lambda: want.append(bk.binpack_sharded_plain(inp, shards)), 1)
-    err = max_abs_err(got, want[0])
-    ms = cuda_ms(lambda: bk.binpack_sharded(inp, shards), reps)
-    print(f"{label}, {shards} CTAs: cluster kernel == plain twin "
-          f"({int((got.assign >= 0).sum())}/{inp.req.shape[0]} placed, "
-          f"max_abs_err {err}) [{card}]: kernel {ms:.3f} ms, plain twin "
-          f"{plain_ms:.3f} ms", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-
-
 def cluster_path(label, name, solve_one, sharded_solver, card) -> dict:
-    """Phase 7 at one input: ``solve_one()`` is the one-block kernel's
-    solve, ``sharded_solver(k)`` the solve through
-    ``shard_kernel_solver(k)``. For each k in SHARDS, the sharded solve
-    is driven with the cluster launch count zeroed, held against the
-    one-block solve on every output and its kernel against the one-block
-    kernel on every kernel output, and both kernels are timed (5
-    launches after a warm-up, CUDA events, in turns). At the fastest k
-    the cluster kernel is held against its plain twin. Returns the
-    ``kernels`` entry."""
-    want, _, _, single_in = drive(solve_one)
-    single = bk.binpack(single_in[0])
-    n = single_in[0].alloc.shape[0]
-    bound_ms, bound_by = bound(single_in[0])
+    """Phase 7 at one input: ``solve_one()`` is the routed solve,
+    ``sharded_solver(k)`` the solve through ``shard_kernel_solver(k)``.
+    For each k in SHARDS, the sharded solve is driven with the launch
+    counts zeroed, held against the routed solve on every output and its
+    kernel against the routed kernel on every kernel output, and both
+    kernels are timed (5 launches after a warm-up, CUDA events, in
+    turns). At the fastest k the cluster kernel is held against its
+    plain twin. Returns the ``kernels`` entry."""
+    want, _, _, captured = drive(solve_one)
+    single_in, single_route = captured[0]
+    single = bk.binpack(single_in)
+    n = single_in.alloc.shape[0]
+    p = single_in.req.shape[0]
+    bound_ms, bound_by = bound(single_in)
     runs = {}
     for k in SHARDS:
         got, launches, wall, captured = drive(
-            lambda: sharded_solver(k), "binpack_sharded", "CLUSTER_LAUNCHES")
-        assert launches == 1, f"{label}: {launches} cluster launches, k={k}"
+            lambda: sharded_solver(k), "binpack_sharded")
+        inp, route = routed(f"{label}, k={k}", launches, captured)
         same_solve(got, want)
-        inp = captured[0]
         err = max_abs_err(trimmed(bk.binpack_sharded(inp, k), n), single)
-        one_ms = cuda_ms(lambda: bk.binpack(single_in[0]), 5)
+        one_ms = cuda_ms(lambda: bk.binpack(single_in), 5)
         ms = cuda_ms(lambda: bk.binpack_sharded(inp, k), 5)
-        one_ms = (one_ms + cuda_ms(lambda: bk.binpack(single_in[0]), 5)) / 2
-        runs[k] = dict(launches=launches, max_abs_err=err, ms=ms, inp=inp)
-        print(f"{label}, {k} CTAs [{card}]: shard_kernel_solver == one-block "
-              f"kernel solve (every output), cluster kernel == one-block "
-              f"kernel (max_abs_err {err}); cluster kernel {ms:.3f} ms "
-              f"({ms / inp.req.shape[0] * 1e3:.3f} us/pod), one-block "
-              f"kernel {one_ms:.3f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}); solve wall {wall:.4f} s; launches {launches}",
-              flush=True)
+        one_ms = (one_ms + cuda_ms(lambda: bk.binpack(single_in), 5)) / 2
+        runs[k] = dict(launches=launches[route.kind], max_abs_err=err, ms=ms,
+                       inp=inp, route=route)
+        print(f"{label}, {k} CTAs, {route.kind} ({route.n_loc} rows per CTA) "
+              f"[{card}]: shard_kernel_solver == routed solve (every "
+              f"output), kernel == routed kernel (max_abs_err {err}); "
+              f"{ms:.3f} ms ({ms / p * 1e3:.3f} us/pod), routed "
+              f"{route_name(single_route)} kernel {one_ms:.3f} ms "
+              f"({one_ms / p * 1e3:.3f} us/pod), bound {bound_ms:.5f} ms "
+              f"({bound_by}); solve wall {wall:.4f} s; launches "
+              f"{launches[route.kind]}", flush=True)
     k = min(runs, key=lambda x: runs[x]["ms"])
     best = runs[k]
-    twin = compare_sharded(best["inp"], k, f"{label}, full size", card,
-                           reps=5)
-    return dict(name=f"{name}_k{k}", replaces=f"{REPLACES}:317",
-                launches=best["launches"],
-                max_abs_err=max(best["max_abs_err"], twin["max_abs_err"]),
-                ms=best["ms"], plain_ms=twin["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, source=CLUSTER_SOURCE)
+    twin_stats = compare(best["inp"], f"{label}, full size, {k} CTAs", card,
+                         reps=5, shards=k)
+    return dict(name=f"{name}_{route_name(best['route'])}",
+                replaces=f"{REPLACES}:317", launches=best["launches"],
+                max_abs_err=max(best["max_abs_err"],
+                                twin_stats["max_abs_err"]),
+                ms=best["ms"], plain_ms=twin_stats["plain_ms"],
+                bound_ms=bound_ms, bound_by=bound_by, source=CLUSTER_SOURCE)
+
+
+def solve_entry(label, solve, card, kind, replaces_line, reps=3) -> dict:
+    """Drive ``solve()`` (a ``kernel_solve_batch`` call) with the launch
+    counts zeroed, assert its route is ``kind``, then hold and time the
+    routed kernel against its twin on the captured inputs. Returns the
+    ``kernels`` entry."""
+    _, launches, _, captured = drive(solve)
+    inp, route = routed(label, launches, captured, kind)
+    stats = compare(inp, label, card, reps=reps)
+    return entry("binpack", launches[route.kind], stats, replaces_line)
 
 
 def main() -> int:
@@ -427,22 +502,21 @@ def main() -> int:
     lib = bk.build_library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
     for line in bk.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "smem" in line):
             print(f"ptxas: {line.strip()}", flush=True)
 
-    # -- 2. kernel vs plain twin on the card ---------------------------------
-    errs = []
+    # -- 2. the routed kernel vs its plain twin on the card -------------------
     state, pods, params = testing.example_problem(NODES, PENDING, seed=1)
-    errs.append(compare(bk.kernel_inputs(state, pods, params),
-                        f"plain {NODES} nodes x {PENDING} pods",
-                        card)["max_abs_err"])
-    state, pods, params, quota, _ = testing.quota_gang_problem(
+    plain = compare(bk.kernel_inputs(state, pods, params),
+                    f"plain {NODES} nodes x {PENDING} pods", card)
+    state, pods, params, quota, gang = testing.quota_gang_problem(
         QUOTA_NODES, QUOTA_PODS, QUOTAS, GANGS, GANG_SIZE, seed=1)
-    qin = (quota.min, quota_runtime(quota), quota.used, quota.np_used)
-    errs.append(compare(bk.kernel_inputs(state, pods, params, qin),
-                        f"quota+gang {QUOTA_NODES} nodes x "
-                        f"{pods.req.shape[0]} pods ({QUOTAS} quotas, "
-                        f"{GANGS} gangs x {GANG_SIZE})", card)["max_abs_err"])
+    kernels = [solve_entry(
+        f"quota+gang {QUOTA_NODES} nodes x {pods.req.shape[0]} pods "
+        f"({QUOTAS} quotas, {GANGS} gangs x {GANG_SIZE})",
+        lambda: bk.kernel_solve_batch(state, pods, params, quota, gang),
+        card, "block", 93)]
 
     # -- 3. the main path ------------------------------------------------------
     def snapshot():
@@ -452,14 +526,13 @@ def main() -> int:
                                         n_gangs=GANGS, gang_size=GANG_SIZE,
                                         seed=7)
 
-    _, launches, captured = schedule_path(snapshot, "main path", card)
+    _, launches, captured = schedule_path(snapshot, "main path", card,
+                                          "cluster")
 
     # -- 4. the kernel at the main path's inputs --------------------------------
-    main = compare(captured[0], "binpack at the main path's inputs", card,
-                   reps=5)
-    main["max_abs_err"] = max(errs + [main["max_abs_err"]])
-    kernels = [dict(name="binpack", replaces=f"{REPLACES}:93",
-                    launches=launches, **main)]
+    main = compare(captured[0][0], "the main path's inputs", card, reps=5)
+    main["max_abs_err"] = max(main["max_abs_err"], plain["max_abs_err"])
+    kernels.append(entry("binpack", launches, main, 317))
 
     # -- 5. the reservation main path --------------------------------------------
     def resv_snapshot():
@@ -467,18 +540,17 @@ def main() -> int:
                                         MIGRATION_RESV, seed=11)
 
     result, launches, captured = schedule_path(
-        resv_snapshot, "reservation main path", card)
-    n_resv = captured[0].resv[0].shape[0]
+        resv_snapshot, "reservation main path", card, "cluster")
+    n_resv = captured[0][0].resv[0].shape[0]
     assert n_resv == LABEL_RESV + MIGRATION_RESV, n_resv
     consumed = len(result.resv_committed) + len(result.resv_allocs)
     assert consumed > 0, "no pod consumed a reservation"
     print(f"reservation main path: {n_resv} reservations, {consumed} pods "
           f"consumed one ({len(result.resv_committed)} committed, "
           f"{len(result.resv_allocs)} waiting)", flush=True)
-    resv = compare(captured[0], "binpack use_resv at the reservation main "
-                   "path's inputs", card, reps=5)
-    kernels.append(dict(name="binpack_resv", replaces=f"{REPLACES}:205",
-                        launches=launches, **resv))
+    resv = compare(captured[0][0], "the reservation main path's inputs", card,
+                   reps=5)
+    kernels.append(entry("binpack", launches, resv, 205))
 
     # -- 6. the fused solve, bench config #8 -------------------------------------
     for most in (False, True):
@@ -486,12 +558,14 @@ def main() -> int:
         s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
             FUSED_NODES, FUSED_PODS, seed=8)
         safe = bk.kernel_resv_score_safe(rv.node, rv.free, s_.alloc)
-        assert bk.kernel_routing_ok(s_, p_, None, rv, safe, aux)
+        assert bk.kernel_routing_ok(s_, p_, None, rv, safe, aux,
+                                    n_quota=q.min.shape[0])
         solved, launches, wall, captured = drive(
             lambda: bk.kernel_solve_batch(
                 s_, p_, pr, q, g, numa_aux=aux, resv=rv, most_allocated=most,
                 resv_score_checked=True))
-        assert launches > 0, "the fused solve did not launch the kernel"
+        inp, route = routed(f"fused solve, NUMA {scorer}", launches,
+                            captured, "cluster")
         placed = int(solved.commit.sum())
         took_numa = int(solved.numa_consumed.sum())
         took_resv = int((solved.resv_vstar >= 0).sum())
@@ -499,15 +573,26 @@ def main() -> int:
         print(f"fused solve, NUMA {scorer} [{card}]: {FUSED_NODES} nodes x "
               f"{FUSED_PODS} pods, quota+gang+numa+resv: {placed} committed, "
               f"{took_numa} took NUMA, {took_resv} consumed a reservation; "
-              f"wall {wall:.4f} s; launches {launches}", flush=True)
-        fused = compare(captured[0], f"binpack use_numa ({scorer}) + use_resv "
-                        f"+ quota at config #8", card, reps=3)
+              f"wall {wall:.4f} s; route {route_name(route)}; launches "
+              f"{launches[route.kind]}", flush=True)
+        fused = compare(inp, f"config #8, NUMA {scorer}", card, reps=3)
         loop_check(most, card)
-        kernels.append(dict(name=f"binpack_numa_{scorer}_resv_quota",
-                            replaces=f"{REPLACES}:259", launches=launches,
-                            **fused))
+        kernels.append(entry("binpack", launches[route.kind], fused, 259))
+    s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
+        BLOCK_NODES, BLOCK_PODS, seed=8)
+    for most in (False, True):
+        kernels.append(solve_entry(
+            f"config #8 cut to {BLOCK_NODES} x {BLOCK_PODS}, NUMA "
+            f"{'most' if most else 'least'}",
+            lambda: bk.kernel_solve_batch(s_, p_, pr, q, g, numa_aux=aux,
+                                          resv=rv, most_allocated=most),
+            card, "block", 259))
+    kernels.append(solve_entry(
+        f"config #8 cut to {BLOCK_NODES} x {BLOCK_PODS}, no NUMA",
+        lambda: bk.kernel_solve_batch(s_, p_, pr, q, g, resv=rv),
+        card, "block", 205))
 
-    # -- 7. the node-sharded kernel: CTAs of one thread-block cluster ---------
+    # -- 7. the cluster kernel at every CTA count ---------------------------------
     args, kwargs = main_path_solve_args(snapshot)
     main_sharded = cluster_path(
         "main path's solve", "binpack_sharded",
@@ -522,26 +607,33 @@ def main() -> int:
         lambda k: shard_kernel_solver(k)(s_, p_, pr, q, g, aux, rv), card)
     state, pods, params, quota, _ = testing.quota_gang_problem(
         QUOTA_NODES, QUOTA_PODS, QUOTAS, GANGS, GANG_SIZE, seed=1)
-    reduced = compare_sharded(
+    reduced = compare(
         bk.kernel_inputs(state, pods, params, bk.quota_inputs(quota)),
-        QUOTA_SHARDS, f"quota+gang {QUOTA_NODES} nodes x {pods.req.shape[0]} "
-        "pods", card)
+        f"quota+gang {QUOTA_NODES} nodes x {pods.req.shape[0]} pods", card,
+        shards=QUOTA_SHARDS)
     s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
         LOOP_NODES, LOOP_PODS, seed=8)
-    reduced_fused = compare_sharded(
+    reduced_fused = compare(
         bk.kernel_inputs(s_, p_, pr, bk.quota_inputs(q), numa_aux=aux,
                          resv=rv, most_allocated=True),
-        LOOP_SHARDS, f"config #8 cut to {LOOP_NODES} nodes x {LOOP_PODS} "
-        "pods, NUMA most + reservations", card)
+        f"config #8 cut to {LOOP_NODES} nodes x {LOOP_PODS} pods, NUMA most "
+        "+ reservations", card, shards=LOOP_SHARDS)
     main_sharded["max_abs_err"] = max(main_sharded["max_abs_err"],
                                       reduced["max_abs_err"])
     fused_sharded["max_abs_err"] = max(fused_sharded["max_abs_err"],
                                        reduced_fused["max_abs_err"])
     kernels += [main_sharded, fused_sharded]
 
+    # -- 8. past 16 CTAs' shared memory: the L2 form --------------------------
+    state, pods, params, quota, gang = testing.quota_gang_problem(
+        L2_NODES, L2_QUOTA_PODS, QUOTAS, L2_GANGS, L2_GANG_SIZE, seed=3)
+    kernels.append(solve_entry(
+        f"quota+gang {L2_NODES} nodes x {pods.req.shape[0]} pods",
+        lambda: bk.kernel_solve_batch(state, pods, params, quota, gang),
+        card, "l2", 317))
+
     print(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda",
-         "source": k.get("source", SOURCE),
+        {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -364,14 +364,19 @@ class PlacementModel:
 
     def _dispatch_solve(self, state, batch, quota_state, gang_state, extras,
                         resv=None, resv_kernel_safe: bool = True):
-        """Eligible solves go to the kernel (on CUDA tensors it launches;
-        a build or launch failure raises). Configurations the kernel does
+        """Eligible solves go to the kernel that
+        ``ops/binpack_kernel.kernel_route`` names by size: the one-block
+        kernel, or the cluster kernel at the CTA count the route picks (on
+        CUDA tensors it launches; a build or launch failure raises; on CPU
+        tensors the chosen kernel's plain twin runs). Configurations the kernel does
         not cover, solves with host extras, and reservation tables whose
         credit could overflow the packed key's score budget
         (``resv_kernel_safe``, checked on the host in
         :meth:`_build_resv`) run the per-pod loop on the same device."""
+        n_quota = 0 if quota_state is None else int(quota_state.min.shape[0])
         if self._kernel_eligible and kernel_routing_ok(
-                state, batch, extras, resv, resv_kernel_safe):
+                state, batch, extras, resv, resv_kernel_safe,
+                n_quota=n_quota):
             self.last_solver = "kernel"
             return kernel_solve_batch(
                 state, batch, self.params, quota_state, gang_state,

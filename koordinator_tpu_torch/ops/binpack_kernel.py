@@ -1,9 +1,14 @@
-"""The hand-written placement kernel: its wrapper, plain twin, gates and
-epilogue.
+"""The hand-written placement kernels: their wrappers, the route between
+them, plain twins, gates and epilogue.
 
 Replaces ``koordinator_tpu/ops/pallas_binpack.py``: the Pallas kernel
 ``_make_kernel`` (plain, ``use_quota``, ``use_resv`` and ``use_numa``
-least/most variants) becomes the CUDA C++ kernel in ``csrc/binpack.cu``;
+least/most variants) becomes two CUDA C++ kernels sharing one solve
+(``csrc/binpack_common.cuh``): the one-block kernel (``csrc/binpack.cu``)
+and the thread-block-cluster kernel (``csrc/binpack_cluster.cu``, one
+node slice per CTA; the reference's ``n_shards > 1``). Each CTA keeps
+its slice in shared memory for the whole solve, or, past what 16 CTAs
+hold, in a device-memory workspace (the L2 form).
 ``_pallas_solve``'s input layout becomes :func:`kernel_inputs`;
 ``_solve_full``/``pallas_solve_batch`` become :func:`kernel_solve_batch`;
 the gates ``pallas_supported``, ``pallas_routing_ok``,
@@ -11,24 +16,26 @@ the gates ``pallas_supported``, ``pallas_routing_ok``,
 :func:`kernel_supported`, :func:`kernel_routing_ok`,
 :func:`kernel_resv_supported` and :func:`kernel_resv_score_safe`;
 ``_kernel_epilogue`` is ``ops/binpack.resolve_gangs``, shared with the
-loop solver. The distributed variant (``n_shards > 1``) becomes the
-thread-block-cluster kernel in ``csrc/binpack_cluster.cu``, one node
-shard per CTA, launched by :func:`binpack_sharded` beside its twin
-:func:`binpack_sharded_plain` (``parallel/mesh.shard_kernel_solver`` is
-its solve).
+loop solver.
+
+:func:`kernel_route`, a pure function of the solve's sizes, names the
+kernel and its CTA count; :func:`binpack` follows it on every device and
+records it in :data:`LAST_ROUTE`. :func:`binpack_sharded` runs the
+cluster kernel at a given CTA count (``parallel/mesh.shard_kernel_solver``
+is its solve).
 
 Reservations reach the kernel as a node -> reservation CSR (reservation
 ids sorted by ``(node, id)`` and ``[N+1]`` offsets) beside the dense
 ``[P,V]`` owner-match bytes, so the thread that owns a node row also
 owns its reservations' free rows.
 
-:func:`binpack` and :func:`binpack_sharded` launch their kernel for CUDA
-tensors and run their plain twin for CPU tensors; nothing else selects
-between them. The library is built with ``nvcc`` at first use, from
-``csrc/`` only (one ``nvcc`` per source, started together, then one
-link), into ``koordinator_tpu_torch/_build/`` (git ignores it), and
-bound with ``ctypes``. A build or launch failure raises; it never falls
-back to the plain twin.
+The wrappers launch a kernel for CUDA tensors and run the chosen
+kernel's plain twin (:func:`binpack_plain`, :func:`binpack_sharded_plain`)
+for CPU tensors; nothing else selects between them. The library is built
+with ``nvcc`` at first use, from ``csrc/`` only (one ``nvcc`` per source,
+started together, then one link), into ``koordinator_tpu_torch/_build/``
+(git ignores it), and bound with ``ctypes``. A build or launch failure
+raises; it never falls back to a twin, another kernel or fewer CTAs.
 """
 
 from __future__ import annotations
@@ -58,17 +65,19 @@ from koordinator_tpu_torch.ops.common import I32, percent_rounded
 from koordinator_tpu_torch.ops.quota import quota_runtime
 from koordinator_tpu_torch.parallel.mesh import shard_tile_bucket
 
-#: kernel launches since import: the count that shows a run went
-#: through the kernel (one per ``binpack`` call on CUDA tensors)
-LAUNCHES = 0
-#: the same for the cluster kernel (one per ``binpack_sharded`` call on
-#: CUDA tensors)
-CLUSTER_LAUNCHES = 0
+#: kernel launches since import, one counter per kernel: the counts that
+#: show a run went through it (one per launch on CUDA tensors)
+LAUNCHES = 0            # the one-block kernel (binpack.cu)
+CLUSTER_LAUNCHES = 0    # the cluster kernel, slices in shared memory
+L2_LAUNCHES = 0         # the cluster kernel's L2 form
+
+#: the route of the last :func:`binpack` or :func:`binpack_sharded` call
+LAST_ROUTE = None
 
 #: the packed argmax key carries the node index in 16 bits
 MAX_NODES = 65536
 
-#: node shards of the cluster kernel: one CTA each, at most the largest
+#: node slices of the cluster kernel: one CTA each, at most the largest
 #: cluster Hopper schedules (16, above the portable 8)
 MAX_SHARDS = 16
 
@@ -91,8 +100,127 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 #: must stay a positive int32)
 SCORE_BUDGET = 32767
 
+#: threads of each CTA of both kernels (``NT`` in ``binpack_common.cuh``)
+THREADS = 1024
+#: dynamic shared memory a CTA may ask for: the 232,448 bytes a Hopper
+#: block can opt into, less 1 KB for the kernels' static slots
+SMEM_BYTES = 232448 - 1024
+#: pods per prefetched chunk, and the most the two chunk buffers may take
+#: before the chunk shrinks (wide match rows), down to 2 pods
+POD_CHUNK = 32
+POD_BUFFER_BYTES = 16384
+#: the words of a pod record before its match bits (``REC_MATCH``)
+RECORD_HEAD = 24
+#: a solve of at most this many nodes takes the one-block kernel when it
+#: fits there; a larger one takes the cluster, with its CTA count raised
+#: until each slice has at most this many rows (if one fits)
+ROWS_PER_CTA = 1024
+
 _LIB = None
 _LIB_LOCK = threading.Lock()
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def row_words(n_resv: int, numa: bool) -> int:
+    """Words of one slice row (``row_words`` in ``binpack_common.cuh``):
+    alloc, used, usage + est and the division constants of alloc (8
+    each), their 8 shift bytes and a flags word (35); with NUMA the
+    capacity, the free carry, the capacity's constants and shifts (26);
+    with reservations the row's first reservation (1); made odd."""
+    return (35 + (26 if numa else 0) + (1 if n_resv else 0)) | 1
+
+
+def slice_bytes(n_loc: int, n_resv: int, numa: bool) -> int:
+    """Bytes of one CTA's node slice of ``n_loc`` rows (and an end row)
+    with room for ``n_resv`` reservations of 11 words each
+    (``slice_bytes`` in ``binpack_common.cuh``)."""
+    b = _round16((n_loc + 1) * row_words(n_resv, numa) * 4)
+    if n_resv:
+        b += _round16(n_resv * 11 * 4)
+    return b
+
+
+def record_words(n_resv: int) -> int:
+    """Words of a pod record: req, est, flags, the NUMA policy, then the
+    match bits padded to a 16-byte multiple."""
+    words = -(-n_resv // 32)
+    return RECORD_HEAD + ((words + 3) & ~3)
+
+
+def pod_chunk(rw: int) -> int:
+    """Pods per prefetched chunk for records of ``rw`` words."""
+    return max(2, min(POD_CHUNK, POD_BUFFER_BYTES // (2 * rw * 4)))
+
+
+class Route(NamedTuple):
+    """Which kernel runs a solve, and how it is laid out."""
+
+    kind: str       # "block", "cluster" (slices in shared memory), "l2"
+    shards: int     # CTAs: 1 for the block, 2..16 for a cluster
+    n_loc: int      # rows of each CTA's slice
+    chunk: int      # pods per prefetched chunk
+    smem: int       # dynamic shared memory bytes per CTA
+    work: int       # bytes of device-memory workspace (the L2 form)
+
+
+def kernel_route(n_nodes: int, numa: bool = False, n_resv: int = 0,
+                 n_quota: int = 0, shards: Optional[int] = None
+                 ) -> Optional[Route]:
+    """The kernel for a solve of ``n_nodes`` nodes, ``n_resv``
+    reservations and ``n_quota`` quota groups (with or without NUMA),
+    from the kernels' shared-memory budgets: the one-block kernel when
+    the slice fits one CTA and has at most :data:`ROWS_PER_CTA` rows;
+    else the cluster kernel at the smallest CTA count whose slices fit
+    and have at most that many rows, or else the smallest that fits;
+    else the L2 form at 16 CTAs. With ``shards`` (2..16) the cluster
+    kernel at that count: its slices in shared memory when they fit, the
+    L2 form otherwise. None when no kernel takes the solve (more than
+    65,536 nodes, or quota carries and pod buffers beyond one CTA's
+    shared memory): the loop solver's."""
+    if not 0 < n_nodes <= MAX_NODES:
+        return None
+    rw = record_words(n_resv)
+    chunk = pod_chunk(rw)
+    fixed = 2 * chunk * rw * 4 + n_quota * R * 4 * 4
+    if fixed > SMEM_BYTES:
+        return None
+
+    def n_loc(k):
+        return shard_tile_bucket(n_nodes, k) // k
+
+    def slice_of(rows):
+        return slice_bytes(rows, n_resv, numa)
+
+    def fits(rows):
+        return fixed + slice_of(rows) <= SMEM_BYTES
+
+    def cluster(k):
+        rows = n_loc(k)
+        if fits(rows):
+            return Route("cluster", k, rows, chunk, fixed + slice_of(rows), 0)
+        return Route("l2", k, rows, chunk, fixed, k * slice_of(rows))
+
+    if shards is not None:
+        if not 2 <= shards <= MAX_SHARDS:
+            raise ValueError(f"shards must be 2..{MAX_SHARDS}, got {shards}")
+        return cluster(shards)
+    if n_nodes <= ROWS_PER_CTA and fits(n_nodes):
+        return Route("block", 1, n_nodes, chunk, fixed + slice_of(n_nodes), 0)
+    resident = [k for k in range(2, MAX_SHARDS + 1) if fits(n_loc(k))]
+    small = [k for k in resident if n_loc(k) <= ROWS_PER_CTA]
+    return cluster((small or resident or [MAX_SHARDS])[0])
+
+
+def route_of(inp: "KernelInputs", shards: Optional[int] = None
+             ) -> Optional[Route]:
+    """:func:`kernel_route` for the kernel inputs ``inp``."""
+    return kernel_route(
+        int(inp.alloc.shape[0]), inp.numa is not None,
+        0 if inp.resv is None else int(inp.resv[0].shape[0]),
+        0 if inp.quota is None else int(inp.quota[0].shape[0]), shards)
 
 
 class KernelInputs(NamedTuple):
@@ -186,22 +314,25 @@ def kernel_resv_score_safe(node, free, alloc) -> bool:
 def kernel_routing_ok(state: NodeState, pods: PodBatch, extras,
                       resv: Optional[ResvArrays] = None,
                       resv_score_safe: bool = True,
-                      numa_aux: Optional[NumaAux] = None) -> bool:
-    """Per-solve eligibility: no host extras, 1..65536 nodes (the packed
-    key's 16 node bits), at least one pod, NUMA inventories when NUMA is
-    asked for, and a reservation table the kernel takes
-    (:func:`kernel_resv_supported`) whose score budget the caller has
-    checked (``resv_score_safe``, :func:`kernel_resv_score_safe`)."""
+                      numa_aux: Optional[NumaAux] = None,
+                      n_quota: int = 0) -> bool:
+    """Per-solve eligibility: no host extras, at least one pod, NUMA
+    inventories when NUMA is asked for, a reservation table the kernel
+    takes (:func:`kernel_resv_supported`) whose score budget the caller
+    has checked (``resv_score_safe``, :func:`kernel_resv_score_safe`),
+    and a kernel whose budgets take the solve (:func:`kernel_route`:
+    1..65,536 nodes, the packed key's 16 node bits; ``n_quota`` quota
+    groups)."""
     n = int(state.alloc.shape[0])
+    n_resv = 0 if resv is None else int(resv.node.shape[0])
     return (
         extras is None
-        and 0 < n <= MAX_NODES
         and pods.req.shape[0] > 0
         and (numa_aux is None
              or (state.numa_cap is not None and state.numa_free is not None))
         and (resv is None
-             or (kernel_resv_supported(int(resv.node.shape[0]))
-                 and resv_score_safe))
+             or (kernel_resv_supported(n_resv) and resv_score_safe))
+        and kernel_route(n, numa_aux is not None, n_resv, n_quota) is not None
     )
 
 
@@ -522,9 +653,8 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-#: the cluster kernel's instances as (resv, numa, most)
-CLUSTER_VARIANTS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (0, 1, 1),
-                    (1, 1, 1))
+#: the kernels' instances as (resv, numa, most)
+VARIANTS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (0, 1, 1), (1, 1, 1))
 
 
 def _library():
@@ -533,23 +663,23 @@ def _library():
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            args = [ptr, ptr, ptr, i32,              # req, est, flags, P
+            args = [ptr, i32, i32, i32,              # records, P, rw, chunk
                     ptr, ptr, ptr, ptr, ptr, i32,    # alloc..la_ok, N
                     ptr, i32,                        # weight, wsum
                     ptr, ptr, ptr,                   # used0, est0, prod0
                     ptr, ptr, ptr, ptr, i32,         # quota in, Q
-                    ptr, ptr, ptr, ptr, i32, i32,    # numa in, on, most
-                    ptr, ptr, ptr, ptr, ptr, i32,    # resv in, V
+                    ptr, ptr, ptr, i32, i32,         # numa in, on, most
+                    ptr, ptr, ptr, ptr, i32,         # resv in, V
                     ptr, ptr, ptr, ptr, ptr, ptr,    # outputs
                     ptr, ptr,                        # numa outputs
                     ptr, ptr, ptr, ptr]              # resv outputs
-            lib.binpack_launch.argtypes = args + [ptr]          # stream
+            lib.binpack_launch.argtypes = args + [i32, ptr]   # smem, stream
             lib.binpack_launch.restype = i32
             lib.binpack_cluster_launch.argtypes = args + [
-                i32, i32, ptr]                      # shards, n_loc, stream
+                i32, i32, i32, ptr, i32, ptr]  # shards n_loc resident work smem stream
             lib.binpack_cluster_launch.restype = i32
             lib.binpack_cluster_occupancy.argtypes = [
-                i32, i32, i32, i32, ctypes.POINTER(i32)]
+                i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
             lib.binpack_cluster_occupancy.restype = i32
             lib.binpack_error_string.argtypes = [i32]
             lib.binpack_error_string.restype = ctypes.c_char_p
@@ -586,10 +716,44 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(inp: KernelInputs, shards: Optional[int] = None) -> KernelOutputs:
-    """Launch the one-block kernel, or with ``shards`` the cluster kernel
-    of that many CTAs, on the inputs' device and current stream."""
-    global LAUNCHES, CLUSTER_LAUNCHES
+def pod_records(inp: KernelInputs) -> torch.Tensor:
+    """The kernels' per-pod records, ``[P, record_words(V)]`` int32: req,
+    est, flags, the NUMA policy, the bit masks of the columns with req !=
+    0 and with req > 0, the columns with req != 0 in ascending order (4
+    bits each, the first lowest), then the match row as bits
+    (reservation v is bit ``v & 31`` of word ``v >> 5``)."""
+    p = inp.req.shape[0]
+    v = 0 if inp.resv is None else inp.resv[0].shape[0]
+    dev = inp.req.device
+    rec = torch.zeros((p, record_words(v)), dtype=I32, device=dev)
+    rec[:, :R] = inp.req
+    rec[:, R:2 * R] = inp.est
+    rec[:, 2 * R:2 * R + 4] = inp.flags
+    if inp.numa is not None:
+        rec[:, 2 * R + 4] = inp.numa[3]
+    bit = 1 << torch.arange(R, dtype=I32, device=dev)
+    rec[:, 2 * R + 5] = ((inp.req != 0) * bit).sum(dim=1, dtype=I32)
+    rec[:, 2 * R + 6] = ((inp.req > 0) * bit).sum(dim=1, dtype=I32)
+    asked = (inp.req != 0).to(I32)
+    slot = 4 * (torch.cumsum(asked, dim=1, dtype=I32) - 1)
+    cols = torch.arange(R, dtype=I32, device=dev)
+    rec[:, 2 * R + 7] = (asked * (cols << slot.clamp(min=0))).sum(
+        dim=1, dtype=I32)
+    if v:
+        words = -(-v // 32)
+        bits = torch.zeros((p, words * 32), dtype=torch.int64, device=dev)
+        bits[:, :v] = inp.resv[4]
+        packed = (bits.view(p, words, 32)
+                  << torch.arange(32, device=dev)).sum(dim=-1)
+        packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
+        rec[:, RECORD_HEAD:RECORD_HEAD + words] = packed.to(I32)
+    return rec
+
+
+def _launch(inp: KernelInputs, route: Route) -> KernelOutputs:
+    """Launch the kernel ``route`` names on the inputs' device and
+    current stream."""
+    global LAUNCHES, CLUSTER_LAUNCHES, L2_LAUNCHES
     dev = inp.alloc.device
     p, n = inp.req.shape[0], inp.alloc.shape[0]
     if not (0 < n <= MAX_NODES and p > 0):
@@ -624,31 +788,31 @@ def _launch(inp: KernelInputs, shards: Optional[int] = None) -> KernelOutputs:
                 (I32, I32, I32, I32, torch.uint8)):
             _check(name, t, shape, dev, dtype)
     lib = _library()
+    rec = pod_records(inp)
     assign = torch.empty(p, dtype=I32, device=dev)
     used, est, prod = (torch.empty_like(inp.alloc) for _ in range(3))
     out = KernelOutputs(assign, used, est, prod, None, None)
     qptrs = [None] * 4
     if quota is not None:
-        # the cluster kernel keeps one copy per CTA; copy 0 is the result
-        copies = 1 if shards is None else shards
+        # one copy per CTA; copy 0 is the result
         out = out._replace(
-            qused=torch.empty((copies, q, R), dtype=I32, device=dev)[0],
-            qnp=torch.empty((copies, q, R), dtype=I32, device=dev)[0])
+            qused=torch.empty((route.shards, q, R), dtype=I32, device=dev)[0],
+            qnp=torch.empty((route.shards, q, R), dtype=I32, device=dev)[0])
         qptrs = [t.data_ptr() for t in quota]
-    nptrs = [None] * 4
+    nptrs = [None] * 3
     if numa is not None:
         out = out._replace(nfree=torch.empty_like(inp.alloc),
                            consumed=torch.empty(p, dtype=I32, device=dev))
-        nptrs = [t.data_ptr() for t in numa]
-    rptrs = [None] * 5
+        nptrs = [t.data_ptr() for t in numa[:3]]
+    rptrs = [None] * 4
     if resv is not None:
         out = out._replace(vstar=torch.empty(p, dtype=I32, device=dev),
                            delta=torch.empty_like(inp.req),
                            rem=torch.empty_like(inp.req),
                            rfree=torch.empty_like(resv[0]))
-        rptrs = [t.data_ptr() for t in resv]
+        rptrs = [t.data_ptr() for t in resv[:4]]
     args = (
-        inp.req.data_ptr(), inp.est.data_ptr(), inp.flags.data_ptr(), p,
+        rec.data_ptr(), p, rec.shape[1], route.chunk,
         inp.alloc.data_ptr(), inp.usage.data_ptr(), inp.sched.data_ptr(),
         inp.fresh.data_ptr(), inp.la_ok.data_ptr(), n,
         inp.weight.data_ptr(), inp.wsum,
@@ -661,63 +825,80 @@ def _launch(inp: KernelInputs, shards: Optional[int] = None) -> KernelOutputs:
         _ptr(out.nfree), _ptr(out.consumed),
         _ptr(out.vstar), _ptr(out.delta), _ptr(out.rem), _ptr(out.rfree),
     )
-    if shards is None:
-        rc = _on_device(dev, lambda stream: lib.binpack_launch(*args, stream))
+    if route.kind == "block":
+        rc = _on_device(dev, lambda stream: lib.binpack_launch(
+            *args, route.smem, stream))
         if rc != 0:
             raise _cuda_error(lib, "binpack kernel launch", rc)
         LAUNCHES += 1
         return out
-    n_loc = shard_tile_bucket(n, shards) // shards
+    work = (torch.empty(route.work, dtype=torch.uint8, device=dev)
+            if route.kind == "l2" else None)
     rc = _on_device(dev, lambda stream: lib.binpack_cluster_launch(
-        *args, shards, n_loc, stream))
+        *args, route.shards, route.n_loc, int(route.kind == "cluster"),
+        _ptr(work), route.smem, stream))
     if rc != 0:
-        raise _cuda_error(lib, f"binpack cluster kernel launch ({shards} CTAs)",
-                          rc)
-    CLUSTER_LAUNCHES += 1
+        raise _cuda_error(lib, f"binpack cluster kernel launch "
+                          f"({route.shards} CTAs, {route.kind})", rc)
+    if route.kind == "cluster":
+        CLUSTER_LAUNCHES += 1
+    else:
+        L2_LAUNCHES += 1
     return out
 
 
-def binpack(inp: KernelInputs) -> KernelOutputs:
-    """Run the placement kernel: the CUDA kernel for CUDA tensors, the
-    plain twin for CPU tensors."""
+def _run(inp: KernelInputs, route: Optional[Route]) -> KernelOutputs:
+    global LAST_ROUTE
+    if route is None:
+        raise ValueError("no kernel takes this solve (kernel_route): "
+                         "use the loop solver")
+    LAST_ROUTE = route
     if inp.alloc.device.type == "cuda":
-        return _launch(inp)
+        return _launch(inp, route)
     if inp.alloc.device.type != "cpu":
         raise ValueError(f"unsupported device {inp.alloc.device}")
-    return binpack_plain(inp)
+    if route.kind == "block":
+        return binpack_plain(inp)
+    return binpack_sharded_plain(inp, route.shards)
+
+
+def binpack(inp: KernelInputs) -> KernelOutputs:
+    """Run the placement solve on the kernel :func:`kernel_route` names
+    for these inputs: that kernel for CUDA tensors, its plain twin for
+    CPU tensors. Every route gives the same outputs."""
+    return _run(inp, route_of(inp))
 
 
 def binpack_sharded(inp: KernelInputs, shards: int) -> KernelOutputs:
-    """Run the node-sharded placement kernel: ``shards`` (2..16) CTAs of
-    one thread-block cluster, one node shard each, for CUDA tensors;
-    :func:`binpack_sharded_plain` for CPU tensors. Equal to
+    """Run the cluster kernel at ``shards`` (2..16) CTAs, one node slice
+    each (in shared memory when it fits, else the L2 form), for CUDA
+    tensors; :func:`binpack_sharded_plain` for CPU tensors. Equal to
     :func:`binpack` on every output."""
     if not 2 <= shards <= MAX_SHARDS:
         raise ValueError(f"shards must be 2..{MAX_SHARDS}, got {shards}")
-    if inp.alloc.device.type == "cuda":
-        return _launch(inp, shards)
-    if inp.alloc.device.type != "cpu":
-        raise ValueError(f"unsupported device {inp.alloc.device}")
-    return binpack_sharded_plain(inp, shards)
+    return _run(inp, route_of(inp, shards))
 
 
 def cluster_occupancy(shards: int, device) -> int:
     """How many clusters of ``shards`` CTAs of the cluster kernel can be
-    resident on the CUDA ``device`` at once, the least over its
-    instances (``cudaOccupancyMaxActiveClusters``, with the kernel's
-    threads, registers and shared memory). Raises with CUDA's message
-    when the query fails."""
+    resident on the CUDA ``device`` at once, the least over its instances
+    and both forms at the most shared memory a CTA may ask for
+    (``cudaOccupancyMaxActiveClusters``). Raises with CUDA's message when
+    the query fails."""
     lib = _library()
 
     def query(_stream):
         least = None
-        for resv, numa, most in CLUSTER_VARIANTS:
-            count = ctypes.c_int(0)
-            rc = lib.binpack_cluster_occupancy(shards, resv, numa, most,
-                                               ctypes.byref(count))
-            if rc != 0:
-                raise _cuda_error(lib, "cluster occupancy query", rc)
-            least = count.value if least is None else min(least, count.value)
+        for resident in (1, 0):
+            for resv, numa, most in VARIANTS:
+                count = ctypes.c_int(0)
+                rc = lib.binpack_cluster_occupancy(
+                    shards, resident, resv, numa, most, SMEM_BYTES,
+                    ctypes.byref(count))
+                if rc != 0:
+                    raise _cuda_error(lib, "cluster occupancy query", rc)
+                least = (count.value if least is None
+                         else min(least, count.value))
         return least
 
     return _on_device(torch.device(device), query)

@@ -4,8 +4,11 @@ The reference shards the node axis over the chips of a mesh. On one
 H100 the counterpart of a shard is a CTA of a thread-block cluster:
 :func:`shard_kernel_solver` runs the reference's array-level entry of the
 same name on the cluster kernel (``csrc/binpack_cluster.cu``), k CTAs
-of one cluster, one node shard each, with the per-pod winner merged
-through distributed shared memory.
+of one cluster, one node shard each (held in the CTA's shared memory,
+or in the L2 form's device-memory workspace when it does not fit), with
+the per-pod winner merged through distributed shared memory. The
+port's ``PlacementModel`` reaches the same kernel through
+``ops/binpack_kernel.kernel_route``, which picks k by size.
 
 Ported here: the bucket helpers (:func:`pow2_quarter_bucket`,
 :func:`shard_node_bucket`, :func:`shard_tile_bucket`, pure integer
@@ -60,9 +63,10 @@ def shard_tile_bucket(n: int, shards: int) -> int:
 def cluster_kernel_supported(shards: int, device: DeviceLike = None) -> bool:
     """Whether :func:`shard_kernel_solver` can run ``shards`` node shards
     on ``device``: on a CUDA device, whether a cluster of that many CTAs
-    of the cluster kernel (its threads, registers and shared memory) can
-    be resident (``cudaOccupancyMaxActiveClusters`` > 0, for every
-    instance); on the CPU, the plain twin takes any 2..16."""
+    of the cluster kernel (its threads, registers and the most shared
+    memory a CTA may ask for) can be resident
+    (``cudaOccupancyMaxActiveClusters`` > 0, for every instance of both
+    forms); on the CPU, the plain twin takes any 2..16."""
     from koordinator_tpu_torch.ops import binpack_kernel as bk
 
     device = resolve_device(device)
@@ -82,9 +86,10 @@ def _pad_rows(a, n_pad):
 def shard_kernel_solver(shards: int, config: SolverConfig = SolverConfig(),
                         device: DeviceLike = None):
     """The placement kernel over ``shards`` node shards: the CTAs of one
-    thread-block cluster on a CUDA device (``shards`` 2..16; one shard
-    is the one-block kernel of ``kernel_solve_batch``), the cluster
-    kernel's plain twin on the CPU.
+    thread-block cluster on a CUDA device (``shards`` 2..16, each slice
+    in shared memory when it fits, else the L2 form; ``kernel_solve_batch``
+    picks its own kernel and CTA count by size), the cluster kernel's
+    plain twin on the CPU.
 
     Returns ``solve(state, pods, params, quota_state=None,
     gang_state=None, numa_aux=None, resv=None) -> SolveResult``, equal
@@ -93,12 +98,13 @@ def shard_kernel_solver(shards: int, config: SolverConfig = SolverConfig(),
     axis is padded with unschedulable zero rows to
     :func:`shard_tile_bucket` and the padding trimmed off ``node_state``.
     The quota runtime is water-filled once per solve; the gang epilogue
-    is the one-block kernel's. Raises ``ValueError`` where the reference
+    is ``kernel_solve_batch``'s. Raises ``ValueError`` where the reference
     does: a configuration the kernel does not take, more than 65,536
     padded nodes, an empty reservation table (pass None), a table whose
     credit could overflow the packed key's score budget. Raises
     ``RuntimeError`` when a cluster of ``shards`` CTAs cannot be resident
-    on the device; it never falls back to another kernel or the twin.
+    on the device; it never falls back to another kernel, fewer CTAs or
+    the twin.
     The inputs must lie on ``device``."""
     from koordinator_tpu_torch.ops import binpack_kernel as bk
 

@@ -117,6 +117,11 @@ def test_default_device_is_cuda():
         assert build(device="cpu").device.type == "cpu", name
 
 
+def _all_launches():
+    return (binpack_kernel.LAUNCHES + binpack_kernel.CLUSTER_LAUNCHES
+            + binpack_kernel.L2_LAUNCHES)
+
+
 def _cuda_problem(n_nodes=300, n_pods=700, seed=3):
     from koordinator_tpu_torch import testing
 
@@ -292,10 +297,10 @@ def test_cuda_resv_numa_edge_shapes_match_plain_twin(n_nodes, n_pods, n_quota,
         pytest.skip("needs an NVIDIA GPU")
     inp = _resv_numa_inputs(n_nodes, n_pods, n_quota, layout, numa,
                             seed=n_nodes + n_pods)
-    before = binpack_kernel.LAUNCHES
+    before = _all_launches()
     got = binpack_kernel.binpack(inp)
     torch.cuda.synchronize()
-    assert binpack_kernel.LAUNCHES == before + 1
+    assert _all_launches() == before + 1   # the routed kernel
     want = binpack_kernel.binpack_plain(inp)
     for g, w, name in zip(got, want, got._fields):
         if w is None:
@@ -347,7 +352,8 @@ class _FakeClusterLibrary:
         self.launches += 1
         return self.launch_rc
 
-    def binpack_cluster_occupancy(self, shards, resv, numa, most, clusters):
+    def binpack_cluster_occupancy(self, shards, resident, resv, numa, most,
+                                  smem, clusters):
         clusters._obj.value = self.clusters
         return self.query_rc
 
@@ -380,7 +386,7 @@ def test_cluster_failures_raise_and_never_run_the_twin(monkeypatch):
     monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
     before = binpack_kernel.CLUSTER_LAUNCHES
     with pytest.raises(RuntimeError, match="refused by the fake library 719"):
-        binpack_kernel._launch(inp, 4)
+        binpack_kernel._launch(inp, binpack_kernel.route_of(inp, 4))
     assert lib.launches == 1 and binpack_kernel.CLUSTER_LAUNCHES == before
 
     lib = _FakeClusterLibrary(query_rc=1)
@@ -414,10 +420,10 @@ def _cluster_inputs(n_nodes, n_pods, n_quota, layout, numa, seed):
 
 
 def _cluster_matches_twin(inp, shards):
-    before = binpack_kernel.CLUSTER_LAUNCHES
+    before = _all_launches()
     got = binpack_kernel.binpack_sharded(inp, shards)
     torch.cuda.synchronize()
-    assert binpack_kernel.CLUSTER_LAUNCHES == before + 1
+    assert _all_launches() == before + 1   # in shared memory or the L2 form
     want = binpack_kernel.binpack_sharded_plain(inp, shards)
     for g, w, name in zip(got, want, got._fields):
         if w is None:
@@ -463,3 +469,157 @@ def test_cuda_cluster_kernel_one_node_per_shard(shards):
     alloc = inp.alloc.clone()
     alloc[::128, 0], alloc[::128, 1] = 64000, 32768
     _cluster_matches_twin(inp._replace(sched=sched, alloc=alloc), shards)
+
+
+def _same(got, want):
+    for g, w, name in zip(got, want, got._fields):
+        if w is None:
+            assert g is None, name
+        else:
+            assert torch.equal(g, w), name
+
+
+def _routed_matches_twins(inp, shards=None):
+    """The kernel the route names (or the cluster kernel at ``shards``)
+    launches once and equals both the one-block twin and the twin of the
+    chosen kernel on every output. Returns the route."""
+    before = _all_launches()
+    got = (binpack_kernel.binpack(inp) if shards is None
+           else binpack_kernel.binpack_sharded(inp, shards))
+    torch.cuda.synchronize()
+    assert _all_launches() == before + 1
+    route = binpack_kernel.LAST_ROUTE
+    _same(got, binpack_kernel.binpack_plain(inp))
+    if route.kind != "block":
+        _same(got, binpack_kernel.binpack_sharded_plain(inp, route.shards))
+    return route
+
+
+def _one_block_rows(numa, n_resv, n_quota):
+    """The most nodes the route gives the one-block kernel."""
+    n = 1
+    while (binpack_kernel.kernel_route(n + 1, numa, n_resv, n_quota).kind
+           == "block"):
+        n += 1
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numa,layout,n_quota", [
+    (None, None, 0), (None, "many", 5), ("least", None, 4),
+    ("most", "many", 3)])
+def test_cuda_one_block_capacity_edge(numa, layout, n_quota):
+    """N at the one-block kernel's last row and one row over (the
+    cluster kernel), every output equal to the twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n_resv = 600 if layout else 0
+    edge = _one_block_rows(numa is not None, n_resv, n_quota)
+    for n, kind in ((edge, "block"), (edge + 1, "cluster")):
+        inp = _cluster_inputs(n, 150, n_quota, layout, numa, seed=n)
+        assert _routed_matches_twins(inp).kind == kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 5, 16])
+def test_cuda_cluster_capacity_edge(shards):
+    """The largest node count whose slices fit at ``shards`` CTAs (in
+    shared memory) and the next 128 rows over (the L2 form)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    bk = binpack_kernel
+    n = 128 * shards
+    while bk.kernel_route(n + 128 * shards, False, 0, 3,
+                          shards=shards).kind == "cluster":
+        n += 128 * shards
+    for nodes, kind in ((n, "cluster"), (n + 1, "l2")):
+        inp = _cluster_inputs(nodes, 60, 3, None, None, seed=nodes)
+        assert _routed_matches_twins(inp, shards).kind == kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4, 16])
+def test_cuda_tie_across_cta_edge(shards):
+    """Two identical empty nodes, the last row of CTA 0 and the first of
+    CTA 1, everything else unschedulable: every pod's best score ties
+    across the CTA edge and must go to the smaller index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _cluster_inputs(128 * shards, 200, 2, None, None, seed=shards)
+    edge = binpack_kernel.kernel_route(128 * shards, shards=shards).n_loc
+    sched = torch.zeros_like(inp.sched)
+    sched[edge - 1:edge + 1] = 1
+    used0 = inp.used0.clone()
+    used0[edge - 1:edge + 1] = 0
+    usage = inp.usage.clone()
+    usage[edge - 1:edge + 1] = 0
+    alloc = inp.alloc.clone()
+    alloc[edge - 1:edge + 1] = torch.tensor(
+        [64000, 32768, 0, 0, 0, 0, 400, 0], dtype=alloc.dtype,
+        device=alloc.device)
+    inp = inp._replace(sched=sched, used0=used0, usage=usage, alloc=alloc,
+                       est0=torch.zeros_like(inp.est0))
+    _routed_matches_twins(inp, shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,shards", [(1, 16), (130, 16), (300, 8)])
+def test_cuda_padding_only_ctas(n_nodes, shards):
+    """CTAs whose slice holds no node at all (n_loc is 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _cluster_inputs(n_nodes, 120, 3, "ends", "least", seed=n_nodes)
+    _routed_matches_twins(inp, shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,numa", [(2, None), (4, "most"), (8, "least")])
+def test_cuda_reservations_on_cta_edges(shards, numa):
+    """Reservations on the first and last row of every CTA's slice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n = 128 * shards
+    inp = _cluster_inputs(n, 300, 4, "one", numa, seed=n)
+    rng = np.random.default_rng(n)
+    nodes = np.array([j for s in range(shards)
+                      for j in (128 * s, 128 * s + 127)] * 3, np.int32)
+    v = nodes.shape[0]
+    free = np.zeros((v, 8), np.int32)
+    free[:, 0] = rng.integers(0, 4000, v)
+    free[:, 1] = rng.integers(0, 8192, v)
+    dev = inp.alloc.device
+    node_t = torch.as_tensor(nodes, device=dev)
+    offsets, ids = binpack_kernel.resv_csr(node_t, n)
+    blocked = inp.req[:, 0] == binpack_kernel.BLOCKED_REQ
+    match = (torch.as_tensor(rng.uniform(size=(300, v)) < 0.4, device=dev)
+             & ~blocked[:, None])
+    resv = (torch.as_tensor(free, device=dev),
+            torch.as_tensor((rng.uniform(size=v) < 0.5).astype(np.int32),
+                            device=dev),
+            offsets, ids, match.to(torch.uint8).contiguous())
+    out = binpack_kernel.binpack_plain(inp._replace(resv=resv))
+    assert int((out.vstar >= 0).sum()) > 0
+    _routed_matches_twins(inp._replace(resv=resv), shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights,n_nodes", [
+    ((-3, 1, 0, 0, 0, 0, 2, 0), 700),    # negative sums, positive wsum
+    ((-3, 1, 0, 0, 0, 0, 0, 0), 700),    # wsum < 0: no division constant
+    ((-3, 1, 0, 0, 0, 0, 2, 0), 3000),
+])
+def test_cuda_negative_score_dividends(weights, n_nodes):
+    """Negative resource weights make the score sums negative, so the
+    floor of a negative dividend runs (through ~x, or through the plain
+    division when the weight sum is not positive); with NUMA most and a
+    free carry above capacity the NUMA numerator goes negative too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _cluster_inputs(n_nodes, 300, 3, "many", "most", seed=n_nodes)
+    w = torch.tensor(weights, dtype=inp.weight.dtype, device=inp.weight.device)
+    ncap, nfree, npol, ppol = inp.numa
+    nfree = nfree.clone()
+    nfree[::7] = ncap[::7] + 5000
+    inp = inp._replace(weight=w, wsum=int(w.sum()) or 1,
+                       numa=(ncap, nfree, npol, ppol))
+    _routed_matches_twins(inp)
