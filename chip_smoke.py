@@ -17,7 +17,10 @@ the microseconds per pod and the bound (see :func:`bound`).
    (assignments and every carry): the example problem at 5,000 nodes x
    10,000 pods (the cluster kernel), and 1,000 nodes with 5,000 pods in
    50 quota groups plus 200 gangs x 32 members (the one-block kernel,
-   driven through ``kernel_solve_batch`` with the launch counts zeroed).
+   driven through ``kernel_solve_batch`` with the launch counts zeroed);
+   then 1,000 nodes with 2,000 pods in 2,000 quota groups, whose tables
+   do not fit shared memory (the one-block kernel with its quota carries
+   in device memory).
 3. The main path: ``PlacementModel().schedule`` on a seeded snapshot of
    5,000 nodes, 10,000 assigned pods with metrics and 10,000 pending pods
    in 50 quota groups and 200 gangs of 32. The launch counts are zeroed
@@ -119,13 +122,12 @@ SHARDS = (2, 4, 8, 16)
 QUOTA_SHARDS, LOOP_SHARDS = 8, 4
 # phase 8: past 16 CTAs' shared memory (quota pods, gangs x members)
 L2_NODES, L2_QUOTA_PODS, L2_GANGS, L2_GANG_SIZE = 40000, 600, 20, 20
+# phase 2: quota tables beyond shared memory (nodes, pods, groups)
+WIDE_NODES, WIDE_PODS, WIDE_QUOTAS = 1000, 2000, 2000
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
-#: the launch counter of each kernel, by route kind
-COUNTER = {"block": "LAUNCHES", "cluster": "CLUSTER_LAUNCHES",
-           "l2": "L2_LAUNCHES"}
 
 
 def card_line() -> str:
@@ -223,7 +225,7 @@ def compare(inp, label, card, reps=3, shards=None) -> dict:
                 else bk.binpack_sharded(inp, shards))
 
     got = run()
-    route = bk.LAST_ROUTE
+    route = bk.route_of(inp, shards)
     torch.cuda.synchronize()
     want = []
     plain_ms = cuda_ms(lambda: want.append(twin(inp, route)), 1)
@@ -232,11 +234,13 @@ def compare(inp, label, card, reps=3, shards=None) -> dict:
     bound_ms, bound_by = bound(inp)
     p = inp.req.shape[0]
     placed = int((got.assign >= 0).sum())
+    quota_in = "shared" if route.quota_shared else "device"
     print(f"{label}: {route_name(route)} kernel == plain twin ({placed}/{p} "
           f"placed, max_abs_err {err}) [{card}]: kernel {ms:.3f} ms "
           f"({ms / p * 1e3:.3f} us/pod, {route.n_loc} rows per CTA, smem "
-          f"{route.smem} B), plain twin {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+          f"{route.smem} B, quota tables in {quota_in} memory), plain twin "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, route=route,
                 variant=variant(inp))
@@ -287,18 +291,18 @@ def drive(run, wrapper="binpack"):
 
     def capture(inp, *args):
         out = launch(inp, *args)
-        captured.append((inp, bk.LAST_ROUTE))
+        captured.append((inp, bk.route_of(inp, *args)))
         return out
 
     setattr(bk, wrapper, capture)
     try:
-        for counter in COUNTER.values():
-            setattr(bk, counter, 0)
+        for kind in bk.LAUNCHES:
+            bk.LAUNCHES[kind] = 0
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {kind: getattr(bk, c) for kind, c in COUNTER.items()}
+        launches = dict(bk.LAUNCHES)
     finally:
         setattr(bk, wrapper, launch)
     return result, launches, wall, captured
@@ -310,7 +314,7 @@ def routed(label, launches, captured, kind=None):
     ``(inputs, route)``."""
     assert len(captured) == 1, f"{label}: {len(captured)} solves"
     inp, route = captured[0]
-    want = {k: int(k == route.kind) for k in COUNTER}
+    want = {k: int(k == route.kind) for k in bk.LAUNCHES}
     assert launches == want, f"{label}: launches {launches}, route {route}"
     assert kind is None or route.kind == kind, f"{label}: route {route}"
     return inp, route
@@ -480,15 +484,18 @@ def cluster_path(label, name, solve_one, sharded_solver, card) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, source=CLUSTER_SOURCE)
 
 
-def solve_entry(label, solve, card, kind, replaces_line, reps=3) -> dict:
+def solve_entry(label, solve, card, kind, replaces_line, reps=3,
+                name="binpack", quota_shared=True) -> dict:
     """Drive ``solve()`` (a ``kernel_solve_batch`` call) with the launch
-    counts zeroed, assert its route is ``kind``, then hold and time the
+    counts zeroed, assert its route is ``kind`` (its quota tables in
+    shared memory or not, as ``quota_shared``), then hold and time the
     routed kernel against its twin on the captured inputs. Returns the
     ``kernels`` entry."""
     _, launches, _, captured = drive(solve)
     inp, route = routed(label, launches, captured, kind)
+    assert route.quota_shared == quota_shared, f"{label}: route {route}"
     stats = compare(inp, label, card, reps=reps)
-    return entry("binpack", launches[route.kind], stats, replaces_line)
+    return entry(name, launches[route.kind], stats, replaces_line)
 
 
 def main() -> int:
@@ -517,6 +524,14 @@ def main() -> int:
         f"({QUOTAS} quotas, {GANGS} gangs x {GANG_SIZE})",
         lambda: bk.kernel_solve_batch(state, pods, params, quota, gang),
         card, "block", 93)]
+    state, pods, params, quota, gang = testing.quota_gang_problem(
+        WIDE_NODES, WIDE_PODS, WIDE_QUOTAS, 20, 8, seed=2)
+    kernels.append(solve_entry(
+        f"quota+gang {WIDE_NODES} nodes x {pods.req.shape[0]} pods "
+        f"({WIDE_QUOTAS} quotas: tables in device memory)",
+        lambda: bk.kernel_solve_batch(state, pods, params, quota, gang),
+        card, "block", 282, name="binpack_quota_in_device_memory",
+        quota_shared=False))
 
     # -- 3. the main path ------------------------------------------------------
     def snapshot():
@@ -558,8 +573,7 @@ def main() -> int:
         s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
             FUSED_NODES, FUSED_PODS, seed=8)
         safe = bk.kernel_resv_score_safe(rv.node, rv.free, s_.alloc)
-        assert bk.kernel_routing_ok(s_, p_, None, rv, safe, aux,
-                                    n_quota=q.min.shape[0])
+        assert bk.kernel_routing_ok(s_, p_, None, rv, safe, aux)
         solved, launches, wall, captured = drive(
             lambda: bk.kernel_solve_batch(
                 s_, p_, pr, q, g, numa_aux=aux, resv=rv, most_allocated=most,

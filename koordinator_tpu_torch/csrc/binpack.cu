@@ -41,10 +41,12 @@ struct OneBlock {
 
 }  // namespace
 
-// smem: dynamic shared memory bytes (pod chunks, quota copy, the slice)
-extern "C" int binpack_launch(BINPACK_C_PARAMS, int smem, void* stream) {
+// qshared: the quota tables in shared memory; smem: dynamic shared memory
+// bytes (pod chunks, the quota tables when qshared, the slice)
+extern "C" int binpack_launch(BINPACK_C_PARAMS, int qshared, int smem,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args args = BINPACK_ARGS_INIT(N, nullptr);
+  const Args args = BINPACK_ARGS_INIT(N, nullptr, qshared);
   const cudaError_t e = with_instance<OneBlock>(V > 0, numa, most, [&](auto kern) {
     const cudaError_t a = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

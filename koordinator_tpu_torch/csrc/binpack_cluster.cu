@@ -16,10 +16,12 @@
 // (its rank in the cluster) owns global rows [s*n_loc, (s+1)*n_loc) and
 // stages them, with the reservations on them, in its shared memory
 // (RESIDENT) or, past what 16 CTAs' shared memory holds, in its part of
-// a device-memory workspace (the L2 form, the same code). Every CTA
-// keeps its own copy of the [Q,8] quota carries and replays the same
-// admits and adds, as every TPU shard does, so the gate needs no
-// exchange; copy s goes to qused/qnp[s] ([k,Q,8]), copy 0 is the output.
+// a device-memory workspace (the L2 form, the same code, tiles of 32
+// rows stored field by field). Every CTA keeps its own copy of the
+// [Q,8] quota carries (in shared memory, or in qused/qnp[s] when the
+// tables do not fit there) and replays the same admits and adds, as
+// every TPU shard does, so the gate needs no exchange; copy s ends in
+// qused/qnp[s] ([k,Q,8]), copy 0 is the output.
 //
 // Per pod: every warp scores its rows and writes its best into a shared
 // slot; one block barrier; warp 0 writes the CTA's best (or -1 when its
@@ -92,12 +94,14 @@ cudaError_t with_form(int resident, int resv, int numa, int most, F&& f) {
 }  // namespace
 
 // qused/qnp are [shards, Q, 8]: one copy per CTA, slice 0 the result;
-// resident = 0 runs the L2 form over `work` (shards slices)
+// resident = 0 runs the L2 form over `work` (shards slices); qshared = 0
+// keeps each CTA's quota carries in its slice of qused/qnp
 extern "C" int binpack_cluster_launch(BINPACK_C_PARAMS, int shards,
-                                      int n_loc, int resident, void* work,
-                                      int smem, void* stream) {
+                                      int n_loc, int resident, int qshared,
+                                      void* work, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args args = BINPACK_ARGS_INIT(n_loc, static_cast<char*>(work));
+  const Args args =
+      BINPACK_ARGS_INIT(n_loc, static_cast<char*>(work), qshared);
   const cudaError_t e = with_form(resident, V > 0, numa, most, [&](auto kern) {
     const cudaError_t a = allow(kern, shards, smem);
     if (a != cudaSuccess) return a;

@@ -59,8 +59,14 @@
 //     prod is never read by the score: it stays in device memory, and
 //     only the winner's row gets a fire-and-forget atomic add (its owner
 //     is the only writer). A slice too large for 16 CTAs' shared memory
-//     keeps the same layout in a device-memory workspace (RESIDENT =
-//     false, the "L2 form"); the code is the same.
+//     lives in a device-memory workspace (RESIDENT = false, the "L2
+//     form"), in tiles of 32 rows stored field by field, so a warp's
+//     load of one field is one 128-byte line and a field is still an
+//     immediate offset from its row (Row below); the code is the same.
+//     The [Q,8] quota tables sit in shared memory beside the pod
+//     buffers when the route leaves room (Args::qshared); otherwise the
+//     gate reads min and runtime from device memory and keeps the CTA's
+//     carries in its own slice of the qused/qnp outputs.
 //  b. Exact division by constants (Granlund & Montgomery 1994): every
 //     divisor is fixed for the solve (alloc[j,r] and cap[j,r] clamped to
 //     >= 1, wsum, the NUMA counts 1..8), and every dividend is clamped to
@@ -85,7 +91,9 @@
 //  d. Pods are prefetched: each pod's req, est, flags, NUMA policy and
 //     match bits sit in one record ([P, rw] int32, built by the wrapper),
 //     copied in chunks of `chunk` pods into a double buffer with cp.async
-//     a chunk ahead, so no device-memory load is left on a pod's path.
+//     a chunk ahead, so no device-memory load is left on a pod's path
+//     (but the L2 form's rows, and quota tables too large for shared
+//     memory).
 //
 // Ownership: thread t of a CTA owns the slice rows t, t + NT, ...: it is
 // the only thread that ever reads or writes their carries, reservations
@@ -126,6 +134,7 @@ struct Args {
   int* nfree; int* consumed; int* vstar; int* delta; int* rem; int* rfree;
   int n_loc;    // rows of each CTA's slice
   char* work;   // RESIDENT = false: the slices, slice_bytes() apart
+  int qshared;  // the quota tables in shared memory (else device memory)
 };
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
@@ -134,28 +143,55 @@ __host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
 // constants of alloc[8], their 8 shift bytes (2 words), the flags word;
 // with NUMA the capacity[8], numa_free[8], the capacity's constants[8]
 // and shift bytes (2 words); with RESV the row's first reservation.
-// Rows are row-major with an odd word stride, so a warp's 32 rows fall
-// on 32 banks and every field is an immediate offset from the row.
 constexpr int W_ALLOC = 0, W_USED = 8, W_UE = 16, W_MAG = 24, W_SHF = 32,
               W_FLAGS = 34, W_NUMA = 35, NUMA_WORDS = 26;
 // a reservation: free[8], id, allocate_once, one word of padding
 constexpr int RESV_WORDS = 11;
+// rows of a tile of the L2 form
+constexpr int TILE = 32;
 
 __host__ __device__ constexpr int row_words(bool resv, bool numa) {
   return (W_NUMA + (numa ? NUMA_WORDS : 0) + (resv ? 1 : 0)) | 1;
 }
 
-// bytes of one CTA's slice of n_loc rows (and the end row that closes
-// the last row's reservations) with room for v reservations;
+// the rows a slice of n_loc rows lays out: one more (the end row that
+// closes the last row's reservations), in the L2 form whole tiles
+__host__ __device__ constexpr int slice_rows(int n_loc, bool resident) {
+  return resident ? n_loc + 1 : (n_loc + TILE) & ~(TILE - 1);
+}
+
+// bytes of one CTA's slice of n_loc rows with room for v reservations;
 // ops/binpack_kernel.py::slice_bytes is the same formula
 __host__ __device__ inline size_t slice_bytes(int n_loc, int v, bool resv,
-                                              bool numa) {
-  size_t b = round16((n_loc + 1) * row_words(resv, numa) * 4);
+                                              bool numa, bool resident) {
+  size_t b = round16(slice_rows(n_loc, resident) * row_words(resv, numa) * 4);
   if (resv) b += round16(v * RESV_WORDS * 4);
   return b;
 }
 
-template <bool RESV, bool NUMA>
+// One row of a slice, its words reached as row[w]. In shared memory
+// (RESIDENT) the words follow each other: an odd row stride puts a
+// warp's 32 rows on 32 banks. In the L2 form row i is lane i % 32 of a
+// tile of 32 rows stored field by field (word w at tile[w * 32 + i % 32]),
+// so a warp's access to one field is one 128-byte line, where rows one
+// after another would touch 32. Either way a field is an immediate
+// offset from the row's address.
+template <bool RESIDENT>
+struct Row {
+  static constexpr int S = RESIDENT ? 1 : TILE;   // words between fields
+  int* p;
+  __device__ __forceinline__ int& operator[](int w) const { return p[w * S]; }
+  // shift byte r (0..7) of the two words at w
+  __device__ __forceinline__ int shift(int w, int r) const {
+    if constexpr (RESIDENT) {
+      return reinterpret_cast<const unsigned char*>(p + w)[r];
+    } else {
+      return (p[(w + (r >> 2)) * S] >> (8 * (r & 3))) & 255;
+    }
+  }
+};
+
+template <bool RESIDENT, bool RESV, bool NUMA>
 struct Slice {
   static constexpr int W = row_words(RESV, NUMA);
   static constexpr int LOFF = W_NUMA + (NUMA ? NUMA_WORDS : 0);
@@ -163,16 +199,19 @@ struct Slice {
   int* res;
   __device__ __forceinline__ Slice(char* base, int n_loc)
       : rows(reinterpret_cast<int*>(base)),
-        res(reinterpret_cast<int*>(base + round16((n_loc + 1) * W * 4))) {}
-  __device__ __forceinline__ int* row(int i) const { return rows + i * W; }
+        res(reinterpret_cast<int*>(
+            base + round16(slice_rows(n_loc, RESIDENT) * W * 4))) {}
+  __device__ __forceinline__ Row<RESIDENT> row(int i) const {
+    if constexpr (RESIDENT) {
+      return {rows + i * W};
+    } else {
+      return {rows + (i / TILE) * (TILE * W) + (i % TILE)};
+    }
+  }
   __device__ __forceinline__ int* resv(int c) const {
     return res + c * RESV_WORDS;
   }
 };
-
-__device__ __forceinline__ unsigned char* shifts(int* row, int word) {
-  return reinterpret_cast<unsigned char*>(row + word);
-}
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -246,7 +285,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-
 // pods [first, first + count) of the record array into dst, 16 bytes a
 // thread at a time (rw is a multiple of 4 words)
 __device__ __forceinline__ void stage_pods(int* dst, const Args& a, int first,
@@ -283,15 +321,23 @@ __device__ __forceinline__ void solve(const Args& a) {
   const int rows = hi - lo;
 
   int* pods = reinterpret_cast<int*>(smem);    // [2][C][RW]
-  int* q_min = pods + 2 * C * RW;              // [Q][8] each
-  int* q_rt = q_min + Q * R;
-  int* q_used = q_rt + Q * R;
-  int* q_np = q_used + Q * R;
-  char* base = RESIDENT ? reinterpret_cast<char*>(q_np + Q * R)
-                        : a.work + static_cast<size_t>(shard) *
-                                       slice_bytes(a.n_loc, a.V, RESV, NUMA);
-  const Slice<RESV, NUMA> s(base, a.n_loc);
-  constexpr int LOFF = Slice<RESV, NUMA>::LOFF;
+  // the quota tables, [Q][8] each: min, runtime and this CTA's carries,
+  // in shared memory after the pods, or else min and runtime read where
+  // they lie and the carries kept in the CTA's slice of the outputs
+  int* qs = pods + 2 * C * RW;
+  const bool qsh = a.qshared;
+  const int* q_min = qsh ? qs : a.qmin;
+  const int* q_rt = qsh ? qs + Q * R : a.qrt;
+  const size_t mine = static_cast<size_t>(shard) * Q * R;
+  int* q_used = qsh ? qs + 2 * Q * R : a.qused + mine;
+  int* q_np = qsh ? qs + 3 * Q * R : a.qnp + mine;
+  char* base = RESIDENT
+                   ? reinterpret_cast<char*>(qs + (qsh ? 4 * Q * R : 0))
+                   : a.work + static_cast<size_t>(shard) *
+                                  slice_bytes(a.n_loc, a.V, RESV, NUMA, false);
+  using S = Slice<RESIDENT, RESV, NUMA>;
+  const S s(base, a.n_loc);
+  constexpr int LOFF = S::LOFF;
   const int r0 = RESV ? a.roff[lo] : 0;        // my reservations (CSR)
   const int nv = RESV ? a.roff[hi] - r0 : 0;
 
@@ -299,8 +345,9 @@ __device__ __forceinline__ void solve(const Args& a) {
   stage_pods(pods, a, 0, min(C, P));
   for (int i = tid; i < rows; i += NT) {
     const int j = lo + i;
-    int* row = s.row(i);
+    const auto row = s.row(i);
     int al[R], v[R], e[R];
+    unsigned sh[2] = {0, 0};
     load_row(a.alloc, j, al);
     load_row(a.used0, j, v);
 #pragma unroll
@@ -309,8 +356,10 @@ __device__ __forceinline__ void solve(const Args& a) {
       row[W_ALLOC + r] = al[r];
       row[W_USED + r] = v[r];
       row[W_MAG + r] = static_cast<int>(magic_of(max(al[r], 1), &l));
-      shifts(row, W_SHF)[r] = static_cast<unsigned char>(l);
+      sh[r >> 2] |= static_cast<unsigned>(l) << (8 * (r & 3));
     }
+    row[W_SHF] = static_cast<int>(sh[0]);
+    row[W_SHF + 1] = static_cast<int>(sh[1]);
     load_row(a.usage, j, v);
     load_row(a.est0, j, e);
 #pragma unroll
@@ -323,14 +372,17 @@ __device__ __forceinline__ void solve(const Args& a) {
       f |= a.npol[j] > 0 ? F_NPOL : 0;
       load_row(a.ncap, j, al);
       load_row(a.nfree0, j, v);
+      unsigned nsh[2] = {0, 0};
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         int l;
         row[W_NUMA + r] = al[r];
         row[W_NUMA + 8 + r] = v[r];
         row[W_NUMA + 16 + r] = static_cast<int>(magic_of(max(al[r], 1), &l));
-        shifts(row, W_NUMA + 24)[r] = static_cast<unsigned char>(l);
+        nsh[r >> 2] |= static_cast<unsigned>(l) << (8 * (r & 3));
       }
+      row[W_NUMA + 24] = static_cast<int>(nsh[0]);
+      row[W_NUMA + 25] = static_cast<int>(nsh[1]);
     }
     row[W_FLAGS] = static_cast<int>(f);
     if (RESV) row[LOFF] = a.roff[j] - r0;
@@ -349,8 +401,10 @@ __device__ __forceinline__ void solve(const Args& a) {
     }
   }
   for (int x = tid; x < Q * R; x += NT) {
-    q_min[x] = a.qmin[x];
-    q_rt[x] = a.qrt[x];
+    if (qsh) {
+      qs[x] = a.qmin[x];
+      qs[Q * R + x] = a.qrt[x];
+    }
     q_used[x] = a.qused0[x];
     q_np[x] = a.qnp0[x];
   }
@@ -419,14 +473,14 @@ __device__ __forceinline__ void solve(const Args& a) {
     int best = -1;
     if (admit) {
       for (int i = tid; i < rows; i += NT) {
-        int* row = s.row(i);
+        const auto row = s.row(i);
         const unsigned fl = static_cast<unsigned>(row[W_FLAGS]);
         if (!(fl & F_SCHED)) continue;
         const bool fr = fl & F_FRESH;
         if (!(is_ds || !fr || (fl & F_LA_OK))) continue;
         // used minus the matched reservations' free, on column r
         const int c0 = RESV ? row[LOFF] : 0;
-        const int c1 = RESV ? row[Slice<RESV, NUMA>::W + LOFF] : 0;
+        const int c1 = RESV ? s.row(i + 1)[LOFF] : 0;
         auto used_of = [&](int r) {
           int u = row[W_USED + r];
           if (RESV) {
@@ -456,7 +510,7 @@ __device__ __forceinline__ void solve(const Args& a) {
           const int r = (wcols >> (4 * c)) & 15;
           const int al = row[W_ALLOC + r];
           const unsigned m = static_cast<unsigned>(row[W_MAG + r]);
-          const int l = shifts(row, W_SHF)[r];
+          const int l = row.shift(W_SHF, r);
           const int wr = s_w[r];
           s1 = wadd(s1, wmul(least_fast(al, wadd(used_of(r), rec[r]), m, l), wr));
           if (fr) {
@@ -483,7 +537,7 @@ __device__ __forceinline__ void solve(const Args& a) {
               const int numer = MOST ? nreq : wsub(cap, nreq);
               psum = wadd(psum, floor_fast(
                   wmul(numer, 100), static_cast<unsigned>(row[W_NUMA + 16 + r]),
-                  shifts(row, W_NUMA + 24)[r]));
+                  row.shift(W_NUMA + 24, r)));
             }
           }
           const int cnt = __popc(pmask);
@@ -528,7 +582,7 @@ __device__ __forceinline__ void solve(const Args& a) {
     if (node >= 0) {
       const int i = node - lo;
       if (i >= 0 && i < rows && i % NT == tid) {   // the owner updates it
-        int* row = s.row(i);
+        const auto row = s.row(i);
         int rq[R], ev[R], net[R];
         {
           const int4 a0 = rec4[0], a1 = rec4[1], b0 = rec4[2], b1 = rec4[3];
@@ -543,7 +597,7 @@ __device__ __forceinline__ void solve(const Args& a) {
           // the most-free matched reservation on this node: ids ascend
           // within the node, so a strict '>' keeps the smallest id
           int bf = 0, vs = -1;
-          for (int c = row[LOFF]; c < row[Slice<RESV, NUMA>::W + LOFF]; ++c) {
+          for (int c = row[LOFF], c1 = s.row(i + 1)[LOFF]; c < c1; ++c) {
             const int* rv = s.resv(c);
             const int id = rv[R];
             if (!((mbits[id >> 5] >> (id & 31)) & 1u)) continue;
@@ -614,7 +668,7 @@ __device__ __forceinline__ void solve(const Args& a) {
   // -- epilogue: each owner writes its rows and reservations back --
   for (int i = tid; i < rows; i += NT) {
     const int j = lo + i;
-    const int* row = s.row(i);
+    const auto row = s.row(i);
     int v[R], us[R];
     load_row(a.usage, j, us);
 #pragma unroll
@@ -629,7 +683,7 @@ __device__ __forceinline__ void solve(const Args& a) {
       store_row(a.nfree, j, v);
     }
     if (RESV) {
-      for (int c = row[LOFF]; c < row[Slice<RESV, NUMA>::W + LOFF]; ++c) {
+      for (int c = row[LOFF], c1 = s.row(i + 1)[LOFF]; c < c1; ++c) {
         const int* rv = s.resv(c);
 #pragma unroll
         for (int r = 0; r < R; ++r) v[r] = rv[r];
@@ -637,7 +691,7 @@ __device__ __forceinline__ void solve(const Args& a) {
       }
     }
   }
-  if (tid < R) {   // this CTA's quota copy (the cluster's slice `shard`)
+  if (qsh && tid < R) {   // this CTA's quota copy (qused/qnp[shard])
     int* qu = a.qused + static_cast<size_t>(shard) * Q * R;
     int* qn = a.qnp + static_cast<size_t>(shard) * Q * R;
     for (int q = 0; q < Q; ++q) {
@@ -680,10 +734,11 @@ cudaError_t with_instance(int resv, int numa, int most, F&& f) {
       int *estx, int *prod, int *qused, int *qnp, int *nfree,              \
       int *consumed, int *vstar, int *delta, int *rem, int *rfree
 
-#define BINPACK_ARGS_INIT(n_loc, work)                                     \
+#define BINPACK_ARGS_INIT(n_loc, work, qshared)                            \
   Args{rec, P, rw, chunk, alloc, usage, sched, fresh, la_ok, N, weight,    \
        wsum, used0, est0, prod0, qmin, qrt, qused0, qnp0, Q, ncap, nfree0, \
        npol, rfree0, aonce, roff, rids, V, assign, used, estx, prod,       \
-       qused, qnp, nfree, consumed, vstar, delta, rem, rfree, n_loc, work}
+       qused, qnp, nfree, consumed, vstar, delta, rem, rfree, n_loc, work,  \
+       qshared}
 
 }  // namespace

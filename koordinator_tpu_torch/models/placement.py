@@ -373,10 +373,8 @@ class PlacementModel:
         credit could overflow the packed key's score budget
         (``resv_kernel_safe``, checked on the host in
         :meth:`_build_resv`) run the per-pod loop on the same device."""
-        n_quota = 0 if quota_state is None else int(quota_state.min.shape[0])
         if self._kernel_eligible and kernel_routing_ok(
-                state, batch, extras, resv, resv_kernel_safe,
-                n_quota=n_quota):
+                state, batch, extras, resv, resv_kernel_safe):
             self.last_solver = "kernel"
             return kernel_solve_batch(
                 state, batch, self.params, quota_state, gang_state,

@@ -8,7 +8,8 @@ least/most variants) becomes two CUDA C++ kernels sharing one solve
 and the thread-block-cluster kernel (``csrc/binpack_cluster.cu``, one
 node slice per CTA; the reference's ``n_shards > 1``). Each CTA keeps
 its slice in shared memory for the whole solve, or, past what 16 CTAs
-hold, in a device-memory workspace (the L2 form).
+hold, in a device-memory workspace (the L2 form); the quota tables sit in
+shared memory when they leave the slice room, else in device memory.
 ``_pallas_solve``'s input layout becomes :func:`kernel_inputs`;
 ``_solve_full``/``pallas_solve_batch`` become :func:`kernel_solve_batch`;
 the gates ``pallas_supported``, ``pallas_routing_ok``,
@@ -19,10 +20,10 @@ the gates ``pallas_supported``, ``pallas_routing_ok``,
 loop solver.
 
 :func:`kernel_route`, a pure function of the solve's sizes, names the
-kernel and its CTA count; :func:`binpack` follows it on every device and
-records it in :data:`LAST_ROUTE`. :func:`binpack_sharded` runs the
-cluster kernel at a given CTA count (``parallel/mesh.shard_kernel_solver``
-is its solve).
+kernel and its CTA count (:func:`route_of` for a solve's inputs);
+:func:`binpack` follows it on every device. :func:`binpack_sharded` runs
+the cluster kernel at a given CTA count
+(``parallel/mesh.shard_kernel_solver`` is its solve).
 
 Reservations reach the kernel as a node -> reservation CSR (reservation
 ids sorted by ``(node, id)`` and ``[N+1]`` offsets) beside the dense
@@ -65,14 +66,11 @@ from koordinator_tpu_torch.ops.common import I32, percent_rounded
 from koordinator_tpu_torch.ops.quota import quota_runtime
 from koordinator_tpu_torch.parallel.mesh import shard_tile_bucket
 
-#: kernel launches since import, one counter per kernel: the counts that
-#: show a run went through it (one per launch on CUDA tensors)
-LAUNCHES = 0            # the one-block kernel (binpack.cu)
-CLUSTER_LAUNCHES = 0    # the cluster kernel, slices in shared memory
-L2_LAUNCHES = 0         # the cluster kernel's L2 form
-
-#: the route of the last :func:`binpack` or :func:`binpack_sharded` call
-LAST_ROUTE = None
+#: kernel launches since import by :attr:`Route.kind`: the one-block
+#: kernel (binpack.cu), the cluster kernel with its slices in shared
+#: memory, and its L2 form; one per launch on CUDA tensors, the counts
+#: that show a run went through a kernel
+LAUNCHES = {"block": 0, "cluster": 0, "l2": 0}
 
 #: the packed argmax key carries the node index in 16 bits
 MAX_NODES = 65536
@@ -133,11 +131,14 @@ def row_words(n_resv: int, numa: bool) -> int:
     return (35 + (26 if numa else 0) + (1 if n_resv else 0)) | 1
 
 
-def slice_bytes(n_loc: int, n_resv: int, numa: bool) -> int:
-    """Bytes of one CTA's node slice of ``n_loc`` rows (and an end row)
-    with room for ``n_resv`` reservations of 11 words each
-    (``slice_bytes`` in ``binpack_common.cuh``)."""
-    b = _round16((n_loc + 1) * row_words(n_resv, numa) * 4)
+def slice_bytes(n_loc: int, n_resv: int, numa: bool,
+                resident: bool = True) -> int:
+    """Bytes of one CTA's node slice of ``n_loc`` rows (and an end row;
+    in the L2 form, ``resident`` False, whole tiles of 32 rows) with room
+    for ``n_resv`` reservations of 11 words each (``slice_bytes`` in
+    ``binpack_common.cuh``)."""
+    rows = n_loc + 1 if resident else (n_loc + 32) & ~31
+    b = _round16(rows * row_words(n_resv, numa) * 4)
     if n_resv:
         b += _round16(n_resv * 11 * 4)
     return b
@@ -164,6 +165,9 @@ class Route(NamedTuple):
     chunk: int      # pods per prefetched chunk
     smem: int       # dynamic shared memory bytes per CTA
     work: int       # bytes of device-memory workspace (the L2 form)
+    #: the [Q,8] quota tables in shared memory; else min and runtime are
+    #: read from device memory and each CTA keeps its carries there
+    quota_shared: bool = True
 
 
 def kernel_route(n_nodes: int, numa: bool = False, n_resv: int = 0,
@@ -177,16 +181,33 @@ def kernel_route(n_nodes: int, numa: bool = False, n_resv: int = 0,
     and have at most that many rows, or else the smallest that fits;
     else the L2 form at 16 CTAs. With ``shards`` (2..16) the cluster
     kernel at that count: its slices in shared memory when they fit, the
-    L2 form otherwise. None when no kernel takes the solve (more than
-    65,536 nodes, or quota carries and pod buffers beyond one CTA's
-    shared memory): the loop solver's."""
+    L2 form otherwise. The quota tables take shared memory beside the
+    pod buffers; where they do not fit there, or would push the slices
+    out of it, they go to device memory and the slices stay. None only
+    when no kernel takes the solve: more than 65,536 nodes (the packed
+    key's 16 node bits), or none."""
+    if shards is not None and not 2 <= shards <= MAX_SHARDS:
+        raise ValueError(f"shards must be 2..{MAX_SHARDS}, got {shards}")
     if not 0 < n_nodes <= MAX_NODES:
         return None
     rw = record_words(n_resv)
     chunk = pod_chunk(rw)
-    fixed = 2 * chunk * rw * 4 + n_quota * R * 4 * 4
-    if fixed > SMEM_BYTES:
-        return None
+    pods = 2 * chunk * rw * 4
+    quota = n_quota * R * 4 * 4
+    route = None
+    if pods + quota <= SMEM_BYTES:
+        route = _layout(n_nodes, numa, n_resv, chunk, pods + quota, shards)
+    if n_quota and (route is None or route.kind == "l2"):
+        in_device = _layout(n_nodes, numa, n_resv, chunk, pods,
+                            shards)._replace(quota_shared=False)
+        if route is None or in_device.kind != "l2":
+            route = in_device
+    return route
+
+
+def _layout(n_nodes, numa, n_resv, chunk, fixed, shards) -> Route:
+    """:func:`kernel_route`'s choice with ``fixed`` bytes of shared
+    memory per CTA taken before the slice."""
 
     def n_loc(k):
         return shard_tile_bucket(n_nodes, k) // k
@@ -201,11 +222,10 @@ def kernel_route(n_nodes: int, numa: bool = False, n_resv: int = 0,
         rows = n_loc(k)
         if fits(rows):
             return Route("cluster", k, rows, chunk, fixed + slice_of(rows), 0)
-        return Route("l2", k, rows, chunk, fixed, k * slice_of(rows))
+        return Route("l2", k, rows, chunk, fixed,
+                     k * slice_bytes(rows, n_resv, numa, resident=False))
 
     if shards is not None:
-        if not 2 <= shards <= MAX_SHARDS:
-            raise ValueError(f"shards must be 2..{MAX_SHARDS}, got {shards}")
         return cluster(shards)
     if n_nodes <= ROWS_PER_CTA and fits(n_nodes):
         return Route("block", 1, n_nodes, chunk, fixed + slice_of(n_nodes), 0)
@@ -314,15 +334,14 @@ def kernel_resv_score_safe(node, free, alloc) -> bool:
 def kernel_routing_ok(state: NodeState, pods: PodBatch, extras,
                       resv: Optional[ResvArrays] = None,
                       resv_score_safe: bool = True,
-                      numa_aux: Optional[NumaAux] = None,
-                      n_quota: int = 0) -> bool:
+                      numa_aux: Optional[NumaAux] = None) -> bool:
     """Per-solve eligibility: no host extras, at least one pod, NUMA
     inventories when NUMA is asked for, a reservation table the kernel
     takes (:func:`kernel_resv_supported`) whose score budget the caller
     has checked (``resv_score_safe``, :func:`kernel_resv_score_safe`),
-    and a kernel whose budgets take the solve (:func:`kernel_route`:
-    1..65,536 nodes, the packed key's 16 node bits; ``n_quota`` quota
-    groups)."""
+    and a kernel that takes the solve (:func:`kernel_route`: 1..65,536
+    nodes, the packed key's 16 node bits; the quota groups only decide
+    where the kernel keeps their tables)."""
     n = int(state.alloc.shape[0])
     n_resv = 0 if resv is None else int(resv.node.shape[0])
     return (
@@ -332,7 +351,7 @@ def kernel_routing_ok(state: NodeState, pods: PodBatch, extras,
              or (state.numa_cap is not None and state.numa_free is not None))
         and (resv is None
              or (kernel_resv_supported(n_resv) and resv_score_safe))
-        and kernel_route(n, numa_aux is not None, n_resv, n_quota) is not None
+        and kernel_route(n, numa_aux is not None, n_resv) is not None
     )
 
 
@@ -673,10 +692,12 @@ def _library():
                     ptr, ptr, ptr, ptr, ptr, ptr,    # outputs
                     ptr, ptr,                        # numa outputs
                     ptr, ptr, ptr, ptr]              # resv outputs
-            lib.binpack_launch.argtypes = args + [i32, ptr]   # smem, stream
+            # qshared, smem, stream
+            lib.binpack_launch.argtypes = args + [i32, i32, ptr]
             lib.binpack_launch.restype = i32
+            # shards, n_loc, resident, qshared, work, smem, stream
             lib.binpack_cluster_launch.argtypes = args + [
-                i32, i32, i32, ptr, i32, ptr]  # shards n_loc resident work smem stream
+                i32, i32, i32, i32, ptr, i32, ptr]
             lib.binpack_cluster_launch.restype = i32
             lib.binpack_cluster_occupancy.argtypes = [
                 i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
@@ -753,7 +774,6 @@ def pod_records(inp: KernelInputs) -> torch.Tensor:
 def _launch(inp: KernelInputs, route: Route) -> KernelOutputs:
     """Launch the kernel ``route`` names on the inputs' device and
     current stream."""
-    global LAUNCHES, CLUSTER_LAUNCHES, L2_LAUNCHES
     dev = inp.alloc.device
     p, n = inp.req.shape[0], inp.alloc.shape[0]
     if not (0 < n <= MAX_NODES and p > 0):
@@ -825,34 +845,29 @@ def _launch(inp: KernelInputs, route: Route) -> KernelOutputs:
         _ptr(out.nfree), _ptr(out.consumed),
         _ptr(out.vstar), _ptr(out.delta), _ptr(out.rem), _ptr(out.rfree),
     )
+    qshared = int(route.quota_shared)
     if route.kind == "block":
         rc = _on_device(dev, lambda stream: lib.binpack_launch(
-            *args, route.smem, stream))
+            *args, qshared, route.smem, stream))
         if rc != 0:
             raise _cuda_error(lib, "binpack kernel launch", rc)
-        LAUNCHES += 1
-        return out
-    work = (torch.empty(route.work, dtype=torch.uint8, device=dev)
-            if route.kind == "l2" else None)
-    rc = _on_device(dev, lambda stream: lib.binpack_cluster_launch(
-        *args, route.shards, route.n_loc, int(route.kind == "cluster"),
-        _ptr(work), route.smem, stream))
-    if rc != 0:
-        raise _cuda_error(lib, f"binpack cluster kernel launch "
-                          f"({route.shards} CTAs, {route.kind})", rc)
-    if route.kind == "cluster":
-        CLUSTER_LAUNCHES += 1
     else:
-        L2_LAUNCHES += 1
+        work = (torch.empty(route.work, dtype=torch.uint8, device=dev)
+                if route.kind == "l2" else None)
+        rc = _on_device(dev, lambda stream: lib.binpack_cluster_launch(
+            *args, route.shards, route.n_loc, int(route.kind == "cluster"),
+            qshared, _ptr(work), route.smem, stream))
+        if rc != 0:
+            raise _cuda_error(lib, f"binpack cluster kernel launch "
+                              f"({route.shards} CTAs, {route.kind})", rc)
+    LAUNCHES[route.kind] += 1
     return out
 
 
 def _run(inp: KernelInputs, route: Optional[Route]) -> KernelOutputs:
-    global LAST_ROUTE
     if route is None:
         raise ValueError("no kernel takes this solve (kernel_route): "
                          "use the loop solver")
-    LAST_ROUTE = route
     if inp.alloc.device.type == "cuda":
         return _launch(inp, route)
     if inp.alloc.device.type != "cpu":

@@ -217,7 +217,7 @@ def test_kernel_cpu_path_matches_pallas_interpret(kind, n_nodes, n_pods):
     want = pallas_solve_batch(state, pods, params, jbp.SolverConfig(),
                               quota_state=quota, gang_state=gang,
                               interpret=True)
-    before = binpack_kernel.LAUNCHES
+    before = dict(binpack_kernel.LAUNCHES)
     got = binpack_kernel.kernel_solve_batch(
         *port(state, pods, params, quota, gang))
     assert binpack_kernel.LAUNCHES == before  # CPU tensors: the plain twin

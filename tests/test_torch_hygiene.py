@@ -117,11 +117,6 @@ def test_default_device_is_cuda():
         assert build(device="cpu").device.type == "cpu", name
 
 
-def _all_launches():
-    return (binpack_kernel.LAUNCHES + binpack_kernel.CLUSTER_LAUNCHES
-            + binpack_kernel.L2_LAUNCHES)
-
-
 def _cuda_problem(n_nodes=300, n_pods=700, seed=3):
     from koordinator_tpu_torch import testing
 
@@ -155,10 +150,10 @@ def test_cuda_kernel_matches_plain_twin():
     inp = binpack_kernel.kernel_inputs(
         state, pods, params,
         (quota.min, quota_runtime(quota), quota.used, quota.np_used))
-    before = binpack_kernel.LAUNCHES
+    before = binpack_kernel.LAUNCHES["block"]
     got = binpack_kernel.binpack(inp)
     torch.cuda.synchronize()
-    assert binpack_kernel.LAUNCHES == before + 1
+    assert binpack_kernel.LAUNCHES["block"] == before + 1
     want = binpack_kernel.binpack_plain(inp)
     for g, w, name in zip(got, want, got._fields):
         if w is None:   # outputs of variants this solve does not use
@@ -297,10 +292,11 @@ def test_cuda_resv_numa_edge_shapes_match_plain_twin(n_nodes, n_pods, n_quota,
         pytest.skip("needs an NVIDIA GPU")
     inp = _resv_numa_inputs(n_nodes, n_pods, n_quota, layout, numa,
                             seed=n_nodes + n_pods)
-    before = _all_launches()
+    route = binpack_kernel.route_of(inp)
+    before = binpack_kernel.LAUNCHES[route.kind]
     got = binpack_kernel.binpack(inp)
     torch.cuda.synchronize()
-    assert _all_launches() == before + 1   # the routed kernel
+    assert binpack_kernel.LAUNCHES[route.kind] == before + 1   # routed
     want = binpack_kernel.binpack_plain(inp)
     for g, w, name in zip(got, want, got._fields):
         if w is None:
@@ -384,10 +380,10 @@ def test_cluster_failures_raise_and_never_run_the_twin(monkeypatch):
 
     lib = _FakeClusterLibrary(launch_rc=719)
     monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
-    before = binpack_kernel.CLUSTER_LAUNCHES
+    before = dict(binpack_kernel.LAUNCHES)
     with pytest.raises(RuntimeError, match="refused by the fake library 719"):
         binpack_kernel._launch(inp, binpack_kernel.route_of(inp, 4))
-    assert lib.launches == 1 and binpack_kernel.CLUSTER_LAUNCHES == before
+    assert lib.launches == 1 and binpack_kernel.LAUNCHES == before
 
     lib = _FakeClusterLibrary(query_rc=1)
     monkeypatch.setattr(binpack_kernel, "_library", lambda: lib)
@@ -420,10 +416,11 @@ def _cluster_inputs(n_nodes, n_pods, n_quota, layout, numa, seed):
 
 
 def _cluster_matches_twin(inp, shards):
-    before = _all_launches()
+    route = binpack_kernel.route_of(inp, shards)   # shared memory or L2
+    before = binpack_kernel.LAUNCHES[route.kind]
     got = binpack_kernel.binpack_sharded(inp, shards)
     torch.cuda.synchronize()
-    assert _all_launches() == before + 1   # in shared memory or the L2 form
+    assert binpack_kernel.LAUNCHES[route.kind] == before + 1
     want = binpack_kernel.binpack_sharded_plain(inp, shards)
     for g, w, name in zip(got, want, got._fields):
         if w is None:
@@ -483,12 +480,13 @@ def _routed_matches_twins(inp, shards=None):
     """The kernel the route names (or the cluster kernel at ``shards``)
     launches once and equals both the one-block twin and the twin of the
     chosen kernel on every output. Returns the route."""
-    before = _all_launches()
+    route = binpack_kernel.route_of(inp, shards)
+    before = dict(binpack_kernel.LAUNCHES)
     got = (binpack_kernel.binpack(inp) if shards is None
            else binpack_kernel.binpack_sharded(inp, shards))
     torch.cuda.synchronize()
-    assert _all_launches() == before + 1
-    route = binpack_kernel.LAST_ROUTE
+    before[route.kind] += 1
+    assert binpack_kernel.LAUNCHES == before
     _same(got, binpack_kernel.binpack_plain(inp))
     if route.kind != "block":
         _same(got, binpack_kernel.binpack_sharded_plain(inp, route.shards))
@@ -623,3 +621,22 @@ def test_cuda_negative_score_dividends(weights, n_nodes):
     inp = inp._replace(weight=w, wsum=int(w.sum()) or 1,
                        numa=(ncap, nfree, npol, ppol))
     _routed_matches_twins(inp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,n_quota,layout,numa,shards,kind", [
+    (1000, 2000, None, None, None, "block"),
+    (3000, 2000, "many", "least", None, "cluster"),
+    (3000, 2000, None, "most", 2, "l2"),
+    (20000, 1000, None, None, None, "cluster"),
+])
+def test_cuda_quota_tables_in_device_memory(n_nodes, n_quota, layout, numa,
+                                            shards, kind):
+    """Quota tables too large for shared memory beside the slices (1,000
+    and 2,000 groups): each CTA keeps its carries in device memory, on
+    every kernel and form, equal to the twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _cluster_inputs(n_nodes, 200, n_quota, layout, numa, seed=n_quota)
+    route = _routed_matches_twins(inp, shards)
+    assert route.kind == kind and not route.quota_shared, route

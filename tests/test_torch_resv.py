@@ -176,7 +176,7 @@ def test_kernel_twin_matches_pallas_interpret():
     table = testing.resv_table_arrays(72, 90, 13, seed=10)
     want = pallas_solve_batch(state, pods, params, jbp.SolverConfig(), quota,
                               gang, resv=jresv(table), interpret=True)
-    before = bk.LAUNCHES
+    before = dict(bk.LAUNCHES)
     got = bk.kernel_solve_batch(*port(state, pods, params, quota, gang),
                                 resv=tresv(table))
     assert bk.LAUNCHES == before          # CPU tensors: the plain twin

@@ -2,7 +2,8 @@
 
 - :func:`kernel_route` at the capacity edges of the one-block kernel, of
   k CTAs and of 16 CTAs, for every variant, with and without
-  reservations and quotas (the budgets are ``binpack_common.cuh``'s).
+  reservations and quotas (the budgets are ``binpack_common.cuh``'s),
+  and with quota tables that go to device memory.
 - The kernels' exact division by precomputed constants
   (Granlund-Montgomery, 32-bit constants), emulated in numpy with
   uint64 products: it equals floor division on edge dividends and
@@ -33,9 +34,13 @@ _VARIANTS = [(False, 0, 0), (False, 0, 50), (False, 256, 50), (True, 0, 50),
              (True, 64, 50), (True, 600, 3)]
 
 
-def _fixed(n_resv, n_quota):
+def _pods(n_resv):
     rw = bk.record_words(n_resv)
-    return 2 * bk.pod_chunk(rw) * rw * 4 + n_quota * 8 * 16
+    return 2 * bk.pod_chunk(rw) * rw * 4
+
+
+def _fixed(n_resv, n_quota):
+    return _pods(n_resv) + n_quota * 8 * 16
 
 
 def _fits(rows, numa, n_resv, n_quota):
@@ -87,8 +92,22 @@ def test_route_cluster_edges(numa, n_resv, n_quota):
             assert _fits(route.n_loc, numa, n_resv, n_quota)
         nxt = bk.kernel_route(n + 1, numa, n_resv, n_quota, shards=k)
         if _n_loc(n + 1, k) > cap:
-            assert (nxt.kind, nxt.shards) == ("l2", k)
-            assert nxt.work == k * bk.slice_bytes(nxt.n_loc, n_resv, numa)
+            _assert_past_shared_memory(nxt, k, numa, n_resv, n_quota)
+
+
+def _assert_past_shared_memory(route, k, numa, n_resv, n_quota):
+    """Slices that do not fit beside the quota tables: the quota tables
+    go to device memory if the slices then fit, else the L2 form."""
+    assert route.shards == k
+    if n_quota and _fits(route.n_loc, numa, n_resv, 0):
+        assert route.kind == "cluster" and not route.quota_shared
+        assert route.smem == _pods(n_resv) + bk.slice_bytes(route.n_loc,
+                                                            n_resv, numa)
+    else:
+        assert route.kind == "l2" and route.quota_shared
+        assert route.work == k * bk.slice_bytes(route.n_loc, n_resv, numa,
+                                                resident=False)
+        assert route.smem == _fixed(n_resv, n_quota)
 
 
 @pytest.mark.parametrize("numa,n_resv,n_quota", _VARIANTS)
@@ -101,7 +120,11 @@ def test_route_l2_beyond_sixteen(numa, n_resv, n_quota):
     if n16 is not None and n16 < bk.MAX_NODES:
         assert bk.kernel_route(n16, numa, n_resv, n_quota).kind == "cluster"
         over = bk.kernel_route(n16 + 1, numa, n_resv, n_quota)
-        assert (over.kind, over.shards) == ("l2", 16)
+        if over.kind == "l2" or not n_quota:
+            assert (over.kind, over.shards) == ("l2", 16)
+        else:   # fits once the quota tables leave shared memory
+            _assert_past_shared_memory(over, over.shards, numa, n_resv,
+                                       n_quota)
     top = bk.kernel_route(bk.MAX_NODES, numa, n_resv, n_quota)
     assert top.shards >= 2
     assert bk.kernel_route(bk.MAX_NODES + 1, numa, n_resv, n_quota) is None
@@ -112,14 +135,43 @@ def test_route_main_path_shapes_and_limits():
     main = bk.kernel_route(5000, False, 0, 50)
     assert main.kind == "cluster" and _n_loc(5000, main.shards) <= 1024
     assert bk.kernel_route(1000, False, 0, 50).kind == "block"
-    # quota carries beyond one CTA's shared memory: no kernel
-    assert bk.kernel_route(100, False, 0, 2000) is None
+    assert main.quota_shared and main.smem <= bk.SMEM_BYTES
     with pytest.raises(ValueError, match="shards"):
         bk.kernel_route(100, shards=17)
     # wide match rows shrink the pod chunk, never below 2
     assert bk.pod_chunk(bk.record_words(0)) == bk.POD_CHUNK
     assert bk.pod_chunk(bk.record_words(1 << 16)) == 2
     assert bk.record_words(1) == 28 and bk.record_words(129) == 32
+
+
+@pytest.mark.parametrize("n_nodes,numa,n_resv,n_quota,want", [
+    # quota tables beyond one CTA's shared memory (256,000 bytes)
+    (100, False, 0, 2000, ("block", 1, False)),
+    (5000, False, 0, 2000, ("cluster", 5, False)),
+    (5000, True, 64, 2000, ("cluster", 7, False)),
+    (40000, False, 0, 2000, ("l2", 16, False)),
+    (bk.MAX_NODES, True, 600, 2000, ("l2", 16, False)),
+    # tables that fit, but would push the slices to the L2 form
+    (20000, False, 0, 1000, ("cluster", 14, False)),
+    # tables that fit beside the slices: in shared memory
+    (5000, False, 0, 1000, ("cluster", 8, True)),
+])
+def test_route_quota_tables_in_device_memory(n_nodes, numa, n_resv, n_quota,
+                                             want):
+    """Every solve of at most 65,536 nodes takes a kernel, however many
+    quota groups it has: tables that do not fit shared memory, or that
+    would push the slices out of it, go to device memory."""
+    route = bk.kernel_route(n_nodes, numa, n_resv, n_quota)
+    assert (route.kind, route.shards, route.quota_shared) == want
+    quota = 0 if not route.quota_shared else n_quota * 8 * 16
+    if route.kind == "l2":
+        assert route.smem == _pods(n_resv) + quota
+    else:
+        assert route.smem == (_pods(n_resv) + quota
+                              + bk.slice_bytes(route.n_loc, n_resv, numa))
+        assert route.smem <= bk.SMEM_BYTES
+    forced = bk.kernel_route(n_nodes, numa, n_resv, n_quota, shards=16)
+    assert forced.shards == 16 and forced.smem <= bk.SMEM_BYTES
 
 
 # -- exact division by constants ---------------------------------------------
@@ -158,7 +210,8 @@ _DIVISORS = sorted({1, 2, 3, 5, 7, 10, 100, 1000, 4096, 65535, 65536, 65537,
 def _edge_dividends(d):
     top = (1 << 31) - 1
     cand = {0, 1, 2, d - 1, d, d + 1, 2 * d - 1, 2 * d, top, top - 1,
-            top // d * d, top // d * d - 1, (top // d) * d + min(d - 1, top % d)}
+            top // d * d, top // d * d - 1,
+            (top // d) * d + min(d - 1, top % d)}
     for q in (3, 100, 12345, top // max(d, 1)):
         cand |= {q * d - 1, q * d, q * d + 1}
     return np.array(sorted(x for x in cand if 0 <= x <= top), np.int64)
@@ -206,7 +259,7 @@ def test_least_term_by_constants_drawn(a, v):
 
 # -- the routed solve against the reference ------------------------------------
 
-def test_routed_model_matches_reference_past_one_block():
+def test_routed_model_matches_reference_past_one_block(monkeypatch):
     """2,500 nodes: past one CTA's rows, so the route names the cluster
     kernel and the CPU runs its twin ``binpack_sharded_plain``; the
     placements equal the JAX ``PlacementModel``."""
@@ -216,10 +269,16 @@ def test_routed_model_matches_reference_past_one_block():
     tsnap = testing.build_snapshot(spec, ttypes, TResourceName)
     want = JPlacementModel(use_pallas=False).schedule(jsnap)
     model = PlacementModel(device="cpu")
-    bk.LAST_ROUTE = None
+    routes, run = [], bk._run
+
+    def record(inp, route):
+        routes.append(route)
+        return run(inp, route)
+
+    monkeypatch.setattr(bk, "_run", record)
     got = model.schedule(tsnap)
     assert model.last_solver == "kernel"
-    route = bk.LAST_ROUTE
+    [route] = routes
     assert route.kind == "cluster" and route.shards > 1, route
     assert dict(got) == dict(want) and got.waiting == want.waiting
     assert any(n is not None for n in got.values())

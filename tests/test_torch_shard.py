@@ -94,9 +94,9 @@ def test_padding_only_shards(kind):
     """20 nodes over 16 shards of 128 rows: shards 1..15 hold no node."""
     inp = _kernel_inputs(kind, 20, 60, seed=4)
     want = bk.binpack_plain(inp)
-    before = bk.CLUSTER_LAUNCHES
+    before = dict(bk.LAUNCHES)
     assert_same_outputs(bk.binpack_sharded(inp, 16), want)
-    assert bk.CLUSTER_LAUNCHES == before      # CPU tensors: the plain twin
+    assert bk.LAUNCHES == before      # CPU tensors: the plain twin
     assert int((want.assign >= 0).sum()) > 0
 
 
