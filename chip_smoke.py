@@ -61,8 +61,26 @@ the microseconds per pod and the bound (see :func:`bound`).
    config #8 cut to 1,000 x 2,000 with NUMA most.
 8. A solve beyond what 16 CTAs' shared memory holds (40,000 nodes x
    1,000 pods, quota and gangs): the L2 form at 16 CTAs, held against its
-   twin and timed. Then one JSON line of kernels, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+   twin and timed.
+9. The scheduling round on the card: ``Scheduler(enable_preemption=
+   False)`` fed through its intake methods. (a) Phase 3's world as a
+   burst: ``schedule_pending`` must launch the routed cluster kernel once
+   and equal the same feed through a Scheduler on ``PlacementModel(
+   device="cpu")``; a second round with no new events must take the
+   staging cache's delta path and equal the CPU run again. (b) The
+   reference's bench config #9 (churn ticks: 5,000 nodes, 50 metric
+   refreshes and a 64-pod wave per tick, 12 ticks) through three
+   Schedulers fed the same events: on the card with the staging cache, on
+   the card restaging in full every tick (``model.reset_staging()``), and
+   on the CPU. Every tick's placements and waiting pods must be equal
+   across the three, every card tick must launch the kernel once, and
+   every delta tick after the first must take the delta path; after the
+   last tick the cache, brought up to the cache's snapshot, must equal a
+   fresh staging of it. Prints the median tick wall and the lower/stage/
+   solve split of both card runs (ticks 0-1 excluded) and their ratio,
+   then holds the kernel against its twin on the last tick's inputs.
+Then one JSON line of kernels, and the result line ``{"ok": true,
+"device": {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -84,8 +102,11 @@ from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
 from koordinator_tpu_torch.ops.binpack import SolverConfig, solve_batch
+from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
+from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+from koordinator_tpu_torch.state.cluster import lower_nodes
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -124,6 +145,10 @@ QUOTA_SHARDS, LOOP_SHARDS = 8, 4
 L2_NODES, L2_QUOTA_PODS, L2_GANGS, L2_GANG_SIZE = 40000, 600, 20, 20
 # phase 2: quota tables beyond shared memory (nodes, pods, groups)
 WIDE_NODES, WIDE_PODS, WIDE_QUOTAS = 1000, 2000, 2000
+# phase 9: bench config #9 (nodes, metric refreshes and pending per tick,
+# ticks; ticks before WARM_TICKS are left out of the times)
+CHURN_NODES, CHURN_DIRTY, CHURN_PENDING, CHURN_TICKS = 5000, 50, 64, 12
+WARM_TICKS = 2
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -498,6 +523,124 @@ def solve_entry(label, solve, card, kind, replaces_line, reps=3,
     return entry(name, launches[route.kind], stats, replaces_line)
 
 
+def fed_scheduler(snap, device=None) -> Scheduler:
+    """A Scheduler on ``PlacementModel(device=device)`` fed ``snap``."""
+    sched = Scheduler(model=PlacementModel(device=device),
+                      enable_preemption=False)
+    testing.feed_scheduler(sched, snap)
+    return sched
+
+
+def same_round(got, want, label) -> None:
+    """Two schedulers' rounds: equal placements and waiting pods."""
+    assert dict(got) == dict(want), f"{label}: cuda != cpu placements"
+    assert got.waiting == want.waiting, f"{label}: cuda != cpu waiting"
+
+
+def scheduler_burst(snapshot, card) -> None:
+    """Phase 9 (a): phase 3's world through the Scheduler's intake, two
+    rounds, each on the routed kernel once and equal to the CPU run."""
+    gpu, cpu = fed_scheduler(snapshot()), fed_scheduler(snapshot(), "cpu")
+    for rnd, now, path in ((1, 20.0, "full"), (2, 21.0, "delta")):
+        label = f"scheduler burst, round {rnd}"
+        pending = len(gpu.cache.pending)
+        result, launches, wall, captured = drive(
+            lambda: gpu.schedule_pending(now=now))
+        _, route = routed(label, launches, captured, "cluster")
+        assert gpu.model.last_staging == path, gpu.model.last_staging
+        same_round(result, cpu.schedule_pending(now=now), label)
+        assert cpu.model.last_staging == path
+        committed = sum(n is not None for n in result.values())
+        assert committed > 0 or rnd == 2
+        tm = gpu.model.last_timings
+        print(f"{label} [{card}]: {len(gpu.cache.nodes)} nodes, {pending} "
+              f"pending: {committed} committed, {len(result.waiting)} "
+              f"waiting; {path} staging; lower_s {tm['lower_s']:.4f} "
+              f"stage_s {tm['stage_s']:.4f} solve_s {tm['solve_s']:.4f} "
+              f"wall {wall:.4f} s; cuda == cpu; route {route_name(route)}; "
+              f"launches {launches[route.kind]}", flush=True)
+
+
+def churn_ticks(card):
+    """Phase 9 (b): bench config #9 through three Schedulers fed the same
+    events. Returns ``(launches of the delta run, the last delta tick's
+    kernel inputs)``."""
+    snap, _ = testing.churn_world(CHURN_NODES, assigned_per_node=2, seed=42)
+    delta, full = fed_scheduler(snap), fed_scheduler(snap)
+    cpu = fed_scheduler(snap, "cpu")
+    rng = np.random.default_rng(7)
+    times = {"delta": [], "full": []}
+    node_lower = {"delta": [], "full": []}   # the cache's own lower_s
+    dirty_rows = []                          # rows a delta tick rewrote
+    for name, sched in (("delta", delta), ("full", full)):
+        ensure = sched.model.staged_cache.ensure
+
+        def timed(snapshot, want_device=True, ensure=ensure, name=name):
+            out = ensure(snapshot, want_device)
+            node_lower[name].append(out[2]["lower_s"])
+            if name == "delta" and out[3][1].idx is not None:
+                dirty_rows.append(out[3][1].idx.size)
+            return out
+
+        sched.model.staged_cache.ensure = timed
+    launches_delta, last_inp = 0, None
+    for t in range(CHURN_TICKS):
+        now = 20.0 + t
+        testing.feed_churn_tick((delta, full, cpu), snap, rng,
+                                dirty=CHURN_DIRTY, pending=CHURN_PENDING,
+                                t=t, now=now)
+        results = {}
+        for name, sched in (("delta", delta), ("full", full)):
+            if name == "full":
+                sched.model.reset_staging()
+            result, launches, wall, captured = drive(
+                lambda: sched.schedule_pending(now=now))
+            inp, route = routed(f"churn tick {t}, {name}", launches,
+                                captured, "cluster")
+            want_path = "full" if name == "full" or t == 0 else "delta"
+            assert sched.model.last_staging == want_path, (
+                name, t, sched.model.last_staging)
+            results[name] = result
+            if name == "delta":
+                launches_delta += launches[route.kind]
+                last_inp = inp
+            if t >= WARM_TICKS:
+                times[name].append((wall, dict(sched.model.last_timings)))
+        want = cpu.schedule_pending(now=now)
+        for name, result in results.items():
+            same_round(result, want, f"churn tick {t}, {name}")
+    now = 20.0 + CHURN_TICKS
+    for name, sched in (("delta", delta), ("cpu", cpu)):
+        snapshot = sched.cache.snapshot(now=now)
+        sched.model.prestage(snapshot)
+        assert sched.model.staged_cache.last_path == "delta", name
+        fresh = sched.model.stage_nodes(
+            lower_nodes(snapshot, **sched.model.lowering_kwargs()))
+        for f in STAGED_NODE_FIELDS:
+            assert torch.equal(getattr(sched.model.staged_cache.state, f),
+                               getattr(fresh, f)), f"{name} cache: {f}"
+    medians = {}
+    for name, rows in times.items():
+        medians[name] = {"wall": float(np.median([w for w, _ in rows]))}
+        for k in ("lower_s", "stage_s", "solve_s"):
+            medians[name][k] = float(np.median([tm[k] for _, tm in rows]))
+        m = medians[name]
+        nodes_s = float(np.median(node_lower[name][WARM_TICKS:CHURN_TICKS]))
+        print(f"churn ticks, {name} staging [{card}]: {CHURN_NODES} nodes, "
+              f"{CHURN_DIRTY} metrics + {CHURN_PENDING} pending per tick, "
+              f"median of ticks {WARM_TICKS}-{CHURN_TICKS - 1}: tick wall "
+              f"{m['wall']:.4f} s, lower_s {m['lower_s']:.4f} (node rows "
+              f"{nodes_s:.4f}) stage_s {m['stage_s']:.4f} solve_s "
+              f"{m['solve_s']:.4f}", flush=True)
+    print(f"churn ticks [{card}]: every tick equal across delta, full and "
+          f"cpu; ticks 1-{CHURN_TICKS - 1} delta (median {np.median(dirty_rows):.0f} "
+          f"node rows re-lowered); cache == fresh staging; "
+          f"tick wall full / delta = "
+          f"{medians['full']['wall'] / medians['delta']['wall']:.2f}",
+          flush=True)
+    return launches_delta, last_inp
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -535,8 +678,8 @@ def main() -> int:
 
     # -- 3. the main path ------------------------------------------------------
     def snapshot():
-        snap = testing.churn_world(NODES, assigned_per_node=ASSIGNED_PER_NODE,
-                                   seed=42)
+        snap, _ = testing.churn_world(
+            NODES, assigned_per_node=ASSIGNED_PER_NODE, seed=42)
         return testing.add_pending_wave(snap, PENDING, n_quota=QUOTAS,
                                         n_gangs=GANGS, gang_size=GANG_SIZE,
                                         seed=7)
@@ -645,6 +788,13 @@ def main() -> int:
         f"quota+gang {L2_NODES} nodes x {pods.req.shape[0]} pods",
         lambda: bk.kernel_solve_batch(state, pods, params, quota, gang),
         card, "l2", 317))
+
+    # -- 9. the scheduling round on the card -----------------------------------
+    scheduler_burst(snapshot, card)
+    launches, inp = churn_ticks(card)
+    churn = compare(inp, f"churn tick, {CHURN_NODES} x {CHURN_PENDING}", card,
+                    reps=5)
+    kernels.append(entry("binpack_churn_tick", launches, churn, 317))
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

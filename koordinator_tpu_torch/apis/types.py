@@ -1,9 +1,9 @@
 """The typed objects a placement solve consumes.
 
 Counterpart of ``koordinator_tpu/apis/types.py``, cut to the fields the
-placement path reads: pods, nodes, node metrics, gangs, quotas,
-reservations and the cluster snapshot. All quantities are canonical integer units (CPU in
-millicores, memory in MiB).
+placement path and the scheduling round read: pods, nodes, node metrics,
+gangs, quotas, reservations and the cluster snapshot. All quantities are
+canonical integer units (CPU in millicores, memory in MiB).
 """
 
 from __future__ import annotations
@@ -77,6 +77,12 @@ class PodSpec:
     host_ports: Optional[List] = None
     #: pod labels (reservation owner matching reads them)
     labels: Dict[str, str] = dataclasses.field(default_factory=dict)
+    #: pod annotations (a cpuset or NUMA-policy resource spec lives here)
+    annotations: Dict[str, str] = dataclasses.field(default_factory=dict)
+    #: device requests by device resource name (DeviceShare)
+    device_requests: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: placed at the gang Permit barrier: holds its node, not bound yet
+    waiting_permit: bool = False
 
     def __post_init__(self) -> None:
         if self.priority_class is None:
@@ -121,6 +127,10 @@ class GangSpec:
 
     name: str
     min_member: int
+    #: declared child count (carried, not read by admission)
+    total_member: int = 0
+    #: seconds a placed member may wait at the Permit barrier
+    wait_time: float = 600.0
     mode: GangMode = GangMode.STRICT
     #: gangs that must be admitted together (gang group)
     gang_group: List[str] = dataclasses.field(default_factory=list)
@@ -186,9 +196,13 @@ class ReservationSpec:
 class ClusterSnapshot:
     """Everything the placement solver needs for one solve.
 
-    ``delta_tracker`` exists so a snapshot built for the reference reads
-    the same here; it is ignored (the snapshot is lowered in full, which
-    gives identical results)."""
+    ``delta_tracker`` is the producer's ``state.cluster.
+    ClusterDeltaTracker`` (None: the model lowers the snapshot in full);
+    with it the model's staging cache re-lowers only the node rows the
+    tracker marked. ``delta_epoch`` is the tracker's epoch when the
+    snapshot was taken, captured under the producer's lock: the cache
+    syncs to it, so a mark racing in after the snapshot is re-lowered
+    next round instead of lost."""
 
     nodes: List[NodeSpec] = dataclasses.field(default_factory=list)
     pods: List[PodSpec] = dataclasses.field(default_factory=list)  # assigned
@@ -199,5 +213,8 @@ class ClusterSnapshot:
     reservations: List[ReservationSpec] = dataclasses.field(default_factory=list)
     now: float = 0.0
     delta_tracker: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    delta_epoch: Optional[int] = dataclasses.field(
         default=None, repr=False, compare=False
     )

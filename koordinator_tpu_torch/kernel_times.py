@@ -101,7 +101,7 @@ def main(argv=None) -> int:
         return solve(*a, **kw)
 
     snap = testing.add_pending_wave(
-        testing.churn_world(5000, assigned_per_node=2, seed=42), 10000,
+        testing.churn_world(5000, assigned_per_node=2, seed=42)[0], 10000,
         n_quota=50, n_gangs=200, gang_size=32, seed=7)
     placement.kernel_solve_batch = record
     try:

@@ -8,18 +8,26 @@ otherwise), and read the result back once in
 :meth:`InFlightSchedule.finalize`, which also books each consumed
 reservation on its ``ReservationSpec``.
 
-Not in this slice of the port, each queued in ROADMAP.md: the staging
-cache and delta lowering (a snapshot with a delta tracker is lowered in
-full, which gives identical results), the host path for tiny solves,
-pod-shape and reservation-axis bucketing (they share XLA compiles, which
-eager PyTorch does not have; results are identical without them), the
-kernel's cached reservation one-hot (the CUDA kernel has none), the
-fine-grained NUMA/device manager, preemption, the remote backend and the
-observability hooks.
+A snapshot that carries a ``ClusterDeltaTracker`` (every snapshot of the
+scheduler cache does) goes through :class:`StagedStateCache`: the host
+node arrays and the staged ``NodeState`` live on between solves, and
+each solve re-lowers and scatters only the rows the tracker marked (and
+the rows whose metric crossed the expiration window). Without a tracker
+the snapshot is lowered and staged in full; the results are identical.
+
+Not in this port yet, each queued in ROADMAP.md: the staging cache's
+working-set registration and its demotion rungs (``state/workingset.py``)
+and sharded staging (no mesh on one card), the host path for tiny
+solves, pod-shape and reservation-axis bucketing (they share XLA
+compiles, which eager PyTorch does not have; results are identical
+without them), the kernel's cached reservation one-hot (the CUDA kernel
+has none), the fine-grained NUMA/device manager, preemption, the remote
+backend and the observability hooks.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, FrozenSet, List, Optional, Tuple
 
@@ -37,12 +45,14 @@ from koordinator_tpu_torch.apis.types import (
     vector_to_resources,
 )
 from koordinator_tpu_torch.ops.binpack import (
+    STAGED_NODE_FIELDS,
     Extras,
     NodeState,
     PodBatch,
     ResvArrays,
     ScoreParams,
     SolverConfig,
+    scatter_node_rows,
     solve_batch,
 )
 from koordinator_tpu_torch.ops.binpack_kernel import (
@@ -66,6 +76,7 @@ from koordinator_tpu_torch.state.cluster import (
     NodeArrays,
     PendingPodArrays,
     lower_nodes,
+    lower_nodes_delta,
     lower_pending_pods,
 )
 
@@ -107,11 +118,12 @@ class ScheduleResult(Dict[str, Optional[str]]):
 
 
 def _apply_reservations(resv_specs, vstar, delta, pods_in_order, commit,
-                        waiting) -> Tuple[dict, dict]:
+                        waiting, tracker=None) -> Tuple[dict, dict]:
     """Book each kept pod's reservation consumption on its
     ``ReservationSpec`` (allocated += delta, the pod's uid appended, an
     ``allocate_once`` reservation Succeeded), as the incremental Reserve
-    does. Returns ``(resv_allocs, resv_committed)``."""
+    does, and mark the reservation's node on ``tracker``: its lowered
+    hold changed. Returns ``(resv_allocs, resv_committed)``."""
     keep = commit | waiting
     allocs: Dict[str, tuple] = {}
     committed: Dict[str, tuple] = {}
@@ -127,15 +139,20 @@ def _apply_reservations(resv_specs, vstar, delta, pods_in_order, commit,
             spec.state = ReservationState.SUCCEEDED
         book = allocs if waiting[i] else committed
         book[pod.uid] = (spec.name, delta[i].copy())
+        if tracker is not None:
+            tracker.mark_node(spec.node_name)
     return allocs, committed
 
 
 class InFlightSchedule:
     """A dispatched solve that has not been read back. On CUDA the kernel
-    runs asynchronously; :meth:`finalize` is the one read-back point."""
+    runs asynchronously; :meth:`finalize` is the one read-back point.
+    ``pinned`` is the staging cache's generation the solve reads, held
+    against in-place scatters until :meth:`finalize` releases it."""
 
     def __init__(self, result, node_names, pod_uids, t_staged, timings,
-                 resv_specs=None, pods_in_order=None):
+                 resv_specs=None, pods_in_order=None, cache=None,
+                 pinned=None, tracker=None):
         self.result = result
         self.node_names = node_names
         self.pod_uids = pod_uids
@@ -143,6 +160,9 @@ class InFlightSchedule:
         self.timings = timings
         self.resv_specs = resv_specs
         self.pods_in_order = pods_in_order
+        self.cache = cache
+        self.pinned = pinned
+        self.tracker = tracker
         self._final: Optional[ScheduleResult] = None
 
     def finalize(self) -> ScheduleResult:
@@ -159,7 +179,7 @@ class InFlightSchedule:
             resv_allocs, resv_committed = _apply_reservations(
                 self.resv_specs, result.resv_vstar.cpu().numpy(),
                 result.resv_delta.cpu().numpy(), self.pods_in_order, commit,
-                waiting)
+                waiting, self.tracker)
         self.timings["solve_s"] = time.perf_counter() - self.t_staged
         names = self.node_names
         self._final = ScheduleResult(
@@ -175,7 +195,224 @@ class InFlightSchedule:
             resv_allocs=resv_allocs,
             resv_committed=resv_committed,
         )
+        if self.pinned is not None:
+            self.cache.unpin(self.pinned)
         return self._final
+
+
+class NodeStagingDelta:
+    """How the staged node state last changed. ``base_epoch`` None means
+    it was rebuilt from scratch; otherwise ``idx``/``rows`` carry the row
+    update that takes a holder of ``base_epoch`` to ``epoch`` (what a
+    remote solver would be sent in place of the world)."""
+
+    __slots__ = ("epoch", "base_epoch", "idx", "rows")
+
+    def __init__(self, epoch: int, base_epoch: Optional[int] = None,
+                 idx: Optional[np.ndarray] = None,
+                 rows: Optional[Dict[str, np.ndarray]] = None):
+        self.epoch = epoch
+        self.base_epoch = base_epoch
+        self.idx = idx
+        self.rows = rows
+
+
+def merge_staging_deltas(prev: Optional[NodeStagingDelta],
+                         new: NodeStagingDelta) -> NodeStagingDelta:
+    """Fold ``new`` onto an untaken ``prev``, so one delta covers every
+    ``ensure`` since the last take: rows unioned, the later write of a
+    row winning; a full restage (``base_epoch`` None) resets the chain."""
+    if new.base_epoch is None or prev is None:
+        return new
+    if prev.base_epoch is None:
+        # an untaken full restage already holds everything after it
+        return NodeStagingDelta(new.epoch)
+    if new.idx is None or new.idx.size == 0:
+        return NodeStagingDelta(new.epoch, prev.base_epoch, prev.idx,
+                                prev.rows)
+    if prev.idx is None or prev.idx.size == 0:
+        return NodeStagingDelta(new.epoch, prev.base_epoch, new.idx,
+                                new.rows)
+    combined = np.concatenate([prev.idx, new.idx])
+    # the last occurrence of each index wins
+    _, first_in_rev = np.unique(combined[::-1], return_index=True)
+    sel = np.sort(combined.size - 1 - first_in_rev)
+    rows = {f: np.concatenate([prev.rows[f], new.rows[f]])[sel]
+            for f in prev.rows}
+    return NodeStagingDelta(new.epoch, prev.base_epoch, combined[sel], rows)
+
+
+class StagedStateCache:
+    """The staged cluster state, kept across solves.
+
+    A steady scheduling round changes a few node rows (metric reports,
+    binds, reservation changes), but a full path re-lowers every node in
+    Python and re-uploads the ``[N, R]`` world. This cache keeps both
+    halves: the host :class:`NodeArrays`, patched in place by
+    ``state.cluster.lower_nodes_delta`` (the rows the snapshot's tracker
+    marked), and the staged ``NodeState``, updated by
+    ``ops.binpack.scatter_node_rows``.
+
+    It lowers and stages in full when the snapshot has no tracker or
+    another tracker than last time, when the node set or order changed
+    (``mark_structure``), and after :meth:`invalidate`.
+
+    Generations: while a dispatched solve holds the staged generation
+    (:meth:`pin`), the scatter writes a new generation beside it instead
+    of into it; an unpinned generation is written in place. Stream order
+    alone would protect the kernel's reads, but not a solve output that
+    aliases a staged tensor and is read at ``finalize``."""
+
+    def __init__(self, model: "PlacementModel"):
+        self.model = model
+        self.arrays: Optional[NodeArrays] = None   # host, patched in place
+        self.state: Optional[NodeState] = None     # staged, before a solve
+        self.tracker = None
+        self.seen_epoch = -1
+        #: version of the staged state (a remote delta's sync point)
+        self.epoch = 0
+        self.last_delta: Optional[NodeStagingDelta] = None
+        self.last_path: Optional[str] = None       # "full" | "delta"
+        #: snapshot.now of the last ensure(): the time base of the
+        #: cached ``metric_fresh`` column
+        self.last_now: Optional[float] = None
+        self._pinned: Optional[NodeState] = None
+        self._wire_delta: Optional[NodeStagingDelta] = None
+        # ensure()'s compound update (host patch, scatter, epochs) is
+        # atomic under this lock; one model is driven by one loop
+        self._lock = threading.Lock()
+
+    def ensure(self, snapshot: ClusterSnapshot, want_device: bool = True
+               ) -> Tuple[NodeArrays, Optional[NodeState], Dict[str, float],
+                          Tuple[int, Optional[NodeStagingDelta]]]:
+        """``(host arrays, staged state, {"lower_s", "stage_s"}, (epoch,
+        delta))`` for this snapshot, incrementally when its tracker
+        allows. ``want_device=False`` keeps only the host half current
+        (the staged state is then None, and is staged again from the host
+        arrays the next time it is wanted)."""
+        with self._lock:
+            tracker = snapshot.delta_tracker
+            # sync to the epoch captured when the snapshot was taken: a
+            # mark racing in after it is re-lowered next time; the live
+            # epoch serves producers that mutate their snapshot in place
+            epoch_now = snapshot.delta_epoch
+            if epoch_now is None and tracker is not None:
+                epoch_now = tracker.epoch
+            t0 = time.perf_counter()
+            if (tracker is not None and tracker is self.tracker
+                    and self.arrays is not None
+                    and tracker.structure_epoch <= self.seen_epoch):
+                idx = lower_nodes_delta(
+                    snapshot, self.arrays,
+                    tracker.dirty_since(self.seen_epoch),
+                    **self.model.lowering_kwargs())
+                if idx is not None:
+                    return self._delta(snapshot, epoch_now, idx, want_device,
+                                       t0)
+            if epoch_now is None:
+                epoch_now = -1
+            arrays = lower_nodes(snapshot, **self.model.lowering_kwargs())
+            t1 = time.perf_counter()
+            state = self.model.stage_nodes(arrays) if want_device else None
+            self.arrays = arrays
+            self.state = state
+            self.tracker = tracker
+            self.seen_epoch = epoch_now
+            self.last_now = snapshot.now
+            self.epoch += 1
+            self.last_delta = NodeStagingDelta(self.epoch)
+            self._wire_delta = self.last_delta
+            self.last_path = "full"
+            return arrays, state, {
+                "lower_s": t1 - t0,
+                "stage_s": time.perf_counter() - t1,
+            }, (self.epoch, self.last_delta)
+
+    def _delta(self, snapshot, epoch_now, idx, want_device, t0):
+        """The rest of a delta ``ensure``, the host rows in ``idx``
+        already patched."""
+        self.seen_epoch = epoch_now
+        self.last_now = snapshot.now
+        t1 = time.perf_counter()
+        base = self.epoch
+        rows = {}
+        if idx.size:
+            rows = {f: np.ascontiguousarray(getattr(self.arrays, f)[idx])
+                    for f in STAGED_NODE_FIELDS}
+            if want_device and self.state is not None:
+                dev = self.model.device
+                self.state = scatter_node_rows(
+                    self.state,
+                    torch.as_tensor(idx.astype(np.int64), device=dev),
+                    {f: torch.as_tensor(a, device=dev)
+                     for f, a in rows.items()},
+                    in_place=self.state is not self._pinned)
+            else:
+                self.state = None  # the staged half is stale
+            self.epoch += 1
+        self.last_delta = NodeStagingDelta(self.epoch, base, idx, rows)
+        self._wire_delta = merge_staging_deltas(self._wire_delta,
+                                                self.last_delta)
+        if want_device and self.state is None:
+            # stage again from the current host arrays (content unchanged,
+            # so the epoch does not move)
+            self.state = self.model.stage_nodes(self.arrays)
+        self.last_path = "delta"
+        return self.arrays, self.state, {
+            "lower_s": t1 - t0,
+            "stage_s": time.perf_counter() - t1,
+        }, (self.epoch, self.last_delta)
+
+    def invalidate(self) -> None:
+        """Forget the staged world: the next ``ensure`` lowers and stages
+        in full. The epoch stays monotone."""
+        with self._lock:
+            self.arrays = None
+            self.state = None
+            self.tracker = None
+            self.seen_epoch = -1
+            self.last_delta = None
+            self.last_path = None
+            self.last_now = None
+            self._wire_delta = None
+
+    def take_wire_delta(self) -> Optional[Tuple[int, NodeStagingDelta]]:
+        """Pop the ``(epoch, delta)`` that covers every ``ensure`` since
+        the last take."""
+        with self._lock:
+            delta = self._wire_delta
+            self._wire_delta = None
+            return None if delta is None else (self.epoch, delta)
+
+    def pin(self, state: Optional[NodeState]) -> None:
+        """``state`` is held by a dispatched solve: until :meth:`unpin`,
+        a delta ``ensure`` writes a new generation instead of into it."""
+        with self._lock:
+            self._pinned = state
+
+    def unpin(self, state: Optional[NodeState]) -> None:
+        """The solve holding ``state`` was read back (identity-checked, so
+        a stale unpin cannot release a newer pin)."""
+        with self._lock:
+            if self._pinned is state:
+                self._pinned = None
+
+    def device_bytes(self) -> int:
+        """Bytes of the staged generations held: the current one and a
+        pinned one beside it."""
+        with self._lock:
+            generations = [self.state]
+            if self._pinned is not None and self._pinned is not self.state:
+                generations.append(self._pinned)
+        return sum(t.nbytes for gen in generations if gen is not None
+                   for t in gen if t is not None)
+
+    def audit_view(self):
+        """``(arrays, state, tracker, seen_epoch, last_now)`` captured
+        under the cache lock: a settled generation for a parity probe."""
+        with self._lock:
+            return (self.arrays, self.state, self.tracker, self.seen_epoch,
+                    self.last_now)
 
 
 def _match_matrix(specs, pods) -> np.ndarray:
@@ -253,13 +490,46 @@ class PlacementModel:
         #: wall-time breakdown of the last schedule(): lower_s, stage_s,
         #: solve_s (solve_s is filled at read-back)
         self.last_timings: Optional[Dict[str, float]] = None
+        #: the staged node state reused across solves of snapshots that
+        #: carry a delta tracker
+        self.staged_cache = StagedStateCache(self)
+        #: how the last solve staged its nodes: the cache's "full" or
+        #: "delta", or None (no tracker: lowered and staged in full)
+        self.last_staging: Optional[str] = None
+        #: the staging cache's (epoch, delta) taken by the last solve
+        #: (the sync point a remote solver would be sent)
+        self.staging_delta = None
 
     # -- staging ------------------------------------------------------------
 
+    def reset_staging(self) -> None:
+        """Drop the staged state: the next solve lowers and stages in
+        full."""
+        self.staged_cache.invalidate()
+
+    def lowering_kwargs(self) -> dict:
+        """The ``lower_nodes`` configuration this model schedules with."""
+        return {"scaling_factors": self.scaling_factors,
+                "resource_weights": self.resource_weights}
+
+    def prestage(self, snapshot: ClusterSnapshot
+                 ) -> Optional[Dict[str, float]]:
+        """Bring the staging cache up to ``snapshot`` ahead of its solve
+        (while an earlier solve may still run: a pinned generation is
+        never written). Returns ``ensure``'s timings, or None when the
+        snapshot has no tracker."""
+        if snapshot.delta_tracker is None:
+            return None
+        _, _, times, _ = self.staged_cache.ensure(snapshot)
+        return times
+
     def stage_nodes(self, arrays: NodeArrays) -> NodeState:
-        """Copy host node arrays to the model's device."""
+        """Copy host node arrays to the model's device. Always a copy, on
+        the CPU too: the staging cache patches the host arrays in place,
+        and a staged tensor that shared their memory would change with
+        no scatter."""
         def put(a):
-            return torch.as_tensor(a, device=self.device)
+            return torch.tensor(a, device=self.device)
 
         return NodeState(
             alloc=put(arrays.alloc),
@@ -302,11 +572,17 @@ class PlacementModel:
         gang_index = {name: i for i, name in enumerate(gang_names)}
         quota_index = {name: i for i, name in enumerate(quota_names)}
 
-        node_arrays = lower_nodes(
-            snapshot,
-            scaling_factors=self.scaling_factors,
-            resource_weights=self.resource_weights,
-        )
+        staged_state = None
+        cache_stage_s = 0.0
+        self.last_staging = None
+        if snapshot.delta_tracker is not None:
+            node_arrays, staged_state, cache_times, _ = (
+                self.staged_cache.ensure(snapshot))
+            cache_stage_s = cache_times["stage_s"]
+            self.last_staging = self.staged_cache.last_path
+            self.staging_delta = self.staged_cache.take_wire_delta()
+        else:
+            node_arrays = lower_nodes(snapshot, **self.lowering_kwargs())
         pod_arrays = lower_pending_pods(
             snapshot.pending_pods,
             quota_index=quota_index or None,
@@ -332,7 +608,13 @@ class PlacementModel:
             snapshot, node_arrays, pods_in_order)
         t_host_done = time.perf_counter()
 
-        state = self.stage_nodes(node_arrays)
+        if staged_state is not None:
+            state = staged_state
+            # the solve about to dispatch reads this generation: later
+            # scatters write beside it until finalize() unpins it
+            self.staged_cache.pin(state)
+        else:
+            state = self.stage_nodes(node_arrays)
         batch = self.stage_pods(pod_arrays, blocked if blocked.any() else None)
         gang_state = (GangState.build(**gang_arrays, device=self.device)
                       if gang_arrays is not None else None)
@@ -350,8 +632,9 @@ class PlacementModel:
                                  for k, v in resv_np.items()})
         t_staged = time.perf_counter()
         self.last_timings = {
-            "lower_s": t_host_done - t_start,
-            "stage_s": t_staged - t_host_done,
+            # host lowering, less the staging the cache did inside it
+            "lower_s": (t_host_done - t_start) - cache_stage_s,
+            "stage_s": (t_staged - t_host_done) + cache_stage_s,
             "solve_s": 0.0,
         }
         result = self._dispatch_solve(state, batch, quota_state, gang_state,
@@ -360,7 +643,8 @@ class PlacementModel:
             result, node_arrays.names, pod_arrays.uids, t_staged,
             self.last_timings,
             resv_specs=resv_specs if resv is not None else None,
-            pods_in_order=pods_in_order)
+            pods_in_order=pods_in_order, cache=self.staged_cache,
+            pinned=staged_state, tracker=snapshot.delta_tracker)
 
     def _dispatch_solve(self, state, batch, quota_state, gang_state, extras,
                         resv=None, resv_kernel_safe: bool = True):

@@ -21,6 +21,14 @@ This is the reference's ``lax.scan`` solver written as a loop: the route
 for configurations the hand-written kernel (ops/binpack_kernel.py) does
 not take, and for solves that carry host ``Extras`` rows. Gangs resolve
 at batch end (:func:`resolve_gangs`), shared with the kernel path.
+
+:func:`scatter_node_rows` writes re-lowered node rows into a staged
+``NodeState``: the device half of incremental staging. The reference's
+is an XLA ``.at[idx].set`` outside any Pallas kernel, so here it is a
+plain torch op. The reference pads the dirty-row count to power-of-two
+buckets (``bucket_row_update``/``dirty_row_bucket``) so drifting counts
+share one compiled XLA scatter; eager PyTorch compiles nothing, so they
+are not ported (the scatter's result is the same without them).
 """
 
 from __future__ import annotations
@@ -63,6 +71,33 @@ class NodeState(NamedTuple):
     schedulable: torch.Tensor   # [N] bool
     numa_cap: Optional[torch.Tensor] = None   # [N,R] Σ NUMA-node allocatable
     numa_free: Optional[torch.Tensor] = None  # [N,R] Σ NUMA-node free
+
+
+#: the NodeState columns an incremental staging update rewrites (the
+#: NUMA inventories ride the fine-grained path, which always restages)
+STAGED_NODE_FIELDS = (
+    "alloc", "used_req", "usage", "prod_usage", "est_extra", "prod_base",
+    "metric_fresh", "schedulable",
+)
+
+
+def scatter_node_rows(state: NodeState, idx: torch.Tensor, rows,
+                      in_place: bool) -> NodeState:
+    """Write the dirty nodes' re-lowered rows into a staged ``NodeState``
+    at ``idx`` (int64, on the state's device); ``rows`` maps each
+    :data:`STAGED_NODE_FIELDS` name to its ``[D, ...]`` update there.
+    ``in_place`` writes into ``state``'s tensors (``index_copy_``, the
+    reference's donated scatter) and returns ``state``; otherwise a new
+    generation is written beside it (``index_copy``) and ``state`` is
+    left as it was, for a solve that still holds it."""
+    if in_place:
+        for f in STAGED_NODE_FIELDS:
+            getattr(state, f).index_copy_(0, idx, rows[f])
+        return state
+    return state._replace(**{
+        f: getattr(state, f).index_copy(0, idx, rows[f])
+        for f in STAGED_NODE_FIELDS
+    })
 
 
 class PodBatch(NamedTuple):

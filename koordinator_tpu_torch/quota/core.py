@@ -1,9 +1,10 @@
-"""Host quota tree: request propagation and runtime refresh (counterpart of
-``koordinator_tpu/quota/core.py``, exact-rational mode).
+"""Host quota tree: request and used accounting and runtime refresh
+(counterpart of ``koordinator_tpu/quota/core.py``, exact-rational mode).
 
 The placement model computes each group's runtime once per solve here,
 for trees of any depth, and ships it to the device as the precomputed
-``QuotaState.runtime``. The weighted share rounds half up exactly,
+``QuotaState.runtime``; the scheduler keeps one manager per quota tree
+for its request and used bookkeeping (``quota/trees.py``). The weighted share rounds half up exactly,
 ``(2*w*T + W) // (2*W)``: the semantics of the device path
 (ops/quota.py) and of the reference manager with ``exact_rational=True``.
 
@@ -86,6 +87,9 @@ class QuotaInfo:
     shared_weight: np.ndarray      # defaults to max
     request: np.ndarray            # own + child limited requests
     child_request: np.ndarray
+    non_preemptible_request: np.ndarray
+    used: np.ndarray
+    non_preemptible_used: np.ndarray
     runtime: np.ndarray
     children: List[str]
 
@@ -107,8 +111,8 @@ def _zeros() -> np.ndarray:
 
 
 class GroupQuotaManager:
-    """The hierarchical quota tree: request accounting and runtime
-    refresh by a full root-to-leaf recomputation."""
+    """The hierarchical quota tree: request and used accounting, and
+    runtime refresh by a full root-to-leaf recomputation."""
 
     def __init__(self, cluster_total: Optional[Dict] = None):
         self.quotas: Dict[str, QuotaInfo] = {}
@@ -128,6 +132,9 @@ class GroupQuotaManager:
             ),
             request=_zeros(),
             child_request=_zeros(),
+            non_preemptible_request=_zeros(),
+            used=_zeros(),
+            non_preemptible_used=_zeros(),
             runtime=_zeros(),
             children=[],
         )
@@ -135,8 +142,15 @@ class GroupQuotaManager:
         return info
 
     def update_quota(self, spec: QuotaSpec) -> None:
-        """Add a quota group to the tree."""
-        self._insert(spec)
+        """Add a quota group to the tree, or reconfigure one (its
+        accounting carries over)."""
+        existing = self.quotas.get(spec.name)
+        info = self._insert(spec)
+        if existing is not None:
+            for field in ("request", "child_request",
+                          "non_preemptible_request", "used",
+                          "non_preemptible_used", "children"):
+                setattr(info, field, getattr(existing, field))
         self._rebuild_children()
 
     def _rebuild_children(self) -> None:
@@ -160,14 +174,19 @@ class GroupQuotaManager:
             cur = self.quotas.get(cur.parent)
         return chain
 
-    def add_request(self, name: str, delta: np.ndarray) -> None:
+    def add_request(self, name: str, delta: np.ndarray,
+                    non_preemptible: bool = False) -> None:
         """Propagate a request delta up the tree: each level accumulates
         it into ``child_request``, rewrites ``request`` (floored at min
         for non-lent groups) and hands its parent the change in its
-        max-limited request."""
+        max-limited request. A non-preemptible delta also adds unchanged
+        into every level's ``non_preemptible_request``."""
         d = np.asarray(delta, dtype=np.int64)
+        npd = d if non_preemptible else np.zeros_like(d)
         for info in self._ancestry(name):
             old_limited = info.limited_request
+            info.non_preemptible_request = np.maximum(
+                info.non_preemptible_request + npd, 0)
             if info.name == ROOT_QUOTA:
                 info.request = np.maximum(info.request + d, 0)
                 return
@@ -178,6 +197,28 @@ class GroupQuotaManager:
             info.request = real
             d = info.limited_request - old_limited
 
+    def add_used(self, name: str, delta: np.ndarray,
+                 non_preemptible: bool = False) -> None:
+        """``used += delta`` (floored at 0) on the group and every
+        ancestor, and on ``non_preemptible_used`` for a non-preemptible
+        pod."""
+        d = np.asarray(delta, dtype=np.int64)
+        for info in self._ancestry(name):
+            info.used = np.maximum(info.used + d, 0)
+            if non_preemptible:
+                info.non_preemptible_used = np.maximum(
+                    info.non_preemptible_used + d, 0)
+
+    def _available_total(self) -> np.ndarray:
+        """The cluster total less what the system and default groups
+        use."""
+        total = self.cluster_total.copy()
+        for special in (SYSTEM_QUOTA, DEFAULT_QUOTA):
+            info = self.quotas.get(special)
+            if info is not None:
+                total = total - info.used
+        return total
+
     def refresh_runtime(self, name: str) -> Optional[np.ndarray]:
         """Runtime of ``name`` after a root-to-leaf refresh along its
         ancestry, capped at its max."""
@@ -185,10 +226,10 @@ class GroupQuotaManager:
         if info is None:
             return None
         if name == ROOT_QUOTA:
-            return self.cluster_total.copy()
+            return self._available_total()
         if name in (SYSTEM_QUOTA, DEFAULT_QUOTA):
             return info.max.copy()
-        total = self.cluster_total.copy()
+        total = self._available_total()
         for info in reversed(self._ancestry(name)):
             if info.name == ROOT_QUOTA:
                 continue

@@ -1,0 +1,496 @@
+"""The scheduler's batched round (counterpart of
+``koordinator_tpu/scheduler/scheduler.py``).
+
+Informer-style intake keeps a :class:`SchedulerCache` (whose every
+mutation marks the delta tracker), the quota trees and the gang manager
+up to date; each round takes a snapshot, solves the whole pending queue
+through the ``PlacementModel`` (on ``cuda`` by default) and assumes the
+committed placements, and the waiting gang members' holds, into the
+cache. The model's staging cache re-lowers only the node rows the round's
+events touched.
+
+Not in this slice of the port; each raises ``NotImplementedError`` and is
+queued in ROADMAP.md:
+- preemption (``enable_preemption=True``, the reference's default);
+- the plugin chain: ``schedule_one`` and ``batched_placement=False``;
+- the fine-grained NUMA/device manager: ``update_node_topology``,
+  ``update_node_devices``, and a round whose pending queue holds a pod
+  that manager would place (host ports, managed device requests, a
+  cpuset or a NUMA policy);
+- the trace, metrics, pod timelines and device observatory, the bus
+  wiring (publish and eviction sinks) and the migration arbiter: the
+  round runs without them.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from koordinator_tpu_torch.apis.extension import QoSClass, ResourceName
+from koordinator_tpu_torch.apis.types import (
+    GangSpec,
+    NodeMetric,
+    NodeSpec,
+    PodSpec,
+    QuotaSpec,
+    ReservationSpec,
+    ReservationState,
+    resources_to_vector,
+    vector_to_resources,
+)
+from koordinator_tpu_torch.gang.manager import GangManager
+from koordinator_tpu_torch.models.placement import (
+    InFlightSchedule,
+    PlacementModel,
+    ScheduleResult,
+)
+from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
+from koordinator_tpu_torch.scheduler.cache import SchedulerCache
+from koordinator_tpu_torch.scheduler.plugins.elasticquota import (
+    ElasticQuotaPlugin,
+)
+from koordinator_tpu_torch.scheduler.reservation_controller import (
+    ReservationController,
+)
+
+#: the pod annotation holding a cpuset / NUMA resource spec
+ANNOTATION_RESOURCE_SPEC = "koordinator.tpu/resource-spec"
+#: the values a resource spec's policies may take
+_CPU_BIND_POLICIES = frozenset(
+    ("Default", "FullPCPUs", "SpreadByPCPUs", "ConstrainedBurst"))
+_CPU_EXCLUSIVE_POLICIES = frozenset(("None", "PCPULevel", "NUMANodeLevel"))
+_NUMA_POLICIES = frozenset(("", "BestEffort", "Restricted", "SingleNUMANode"))
+#: device resource names the DeviceShare plugin manages
+MANAGED_DEVICE_RESOURCES = frozenset((
+    "nvidia.com/gpu", "koordinator/gpu", "gpu-core", "gpu-memory",
+    "gpu-memory-ratio", "rdma", "fpga",
+))
+
+_FINE_GRAINED = ("the fine-grained NUMA/device manager is the next slice "
+                 "of the port (models/finegrained.py)")
+
+
+def fine_grained_need(pod: PodSpec) -> Optional[str]:
+    """Why the reference's fine-grained manager would take ``pod`` through
+    its validate loop (``FineGrained.pod_flags``), or None: host ports,
+    a managed device request, or, for a pod with requests, a cpuset (an
+    LSE/LSR pod asking CPU, or a required bind policy), a NUMA topology
+    policy or an unreadable resource spec."""
+    if pod.host_ports:
+        return "host ports"
+    if any(name in MANAGED_DEVICE_RESOURCES and qty
+           for name, qty in (pod.device_requests or {}).items()):
+        return "a managed device request"
+    if not pod.requests:
+        return None
+    try:
+        spec = json.loads(
+            (pod.annotations or {}).get(ANNOTATION_RESOURCE_SPEC, "{}"))
+        required_bind = bool(spec.get("requiredCPUBindPolicy", False))
+        numa_policy = spec.get("numaTopologyPolicy", "")
+        readable = (spec.get("cpuBindPolicy", "Default") in _CPU_BIND_POLICIES
+                    and spec.get("cpuExclusivePolicy", "None")
+                    in _CPU_EXCLUSIVE_POLICIES
+                    and numa_policy in _NUMA_POLICIES)
+    except (ValueError, AttributeError, TypeError):
+        readable = False
+    if not readable:
+        return "an unreadable resource spec"
+    if required_bind or (pod.qos in (QoSClass.LSE, QoSClass.LSR)
+                         and pod.requests.get(ResourceName.CPU, 0) > 0):
+        return "a cpuset"
+    if numa_policy:
+        return "a NUMA topology policy"
+    return None
+
+
+class PendingTick:
+    """One round between dispatch (:meth:`Scheduler.begin_tick`) and
+    retirement (:meth:`Scheduler.commit_tick`, exactly once)."""
+
+    __slots__ = ("at", "pending", "inflight")
+
+    def __init__(self, at: float, pending: Dict[str, PodSpec],
+                 inflight: InFlightSchedule):
+        self.at = at
+        self.pending = pending
+        self.inflight = inflight
+
+
+class Scheduler:
+    """The batched scheduler: ``schedule_pending()`` solves the whole
+    queue in one solve and assumes the results into the cache."""
+
+    def __init__(self, model: Optional[PlacementModel] = None,
+                 cluster_total=None, enable_preemption: bool = True):
+        if enable_preemption:
+            raise NotImplementedError(
+                "preemption is a later slice of the port (ops/preempt.py, "
+                "scheduler/preemption.py): pass enable_preemption=False")
+        self.cache = SchedulerCache()
+        self.quota_registry = QuotaTreeRegistry(cluster_total=cluster_total
+                                                or {})
+        self.quota_manager = self.quota_registry.default
+        self.gang_manager = GangManager()
+        #: pods placed at the Permit barrier: uid -> held node. They hold
+        #: resources (assumed) but are not bound until their gang group
+        #: completes.
+        self._waiting: Dict[str, str] = {}
+        #: when each waiting pod entered the barrier (WaitTime expiry)
+        self._waiting_since: Dict[str, float] = {}
+        #: BatchedPlacement gate; False (per-pod cycles) is not ported
+        self.batched_placement = True
+        #: waiting pods' reservation consumption (uid -> (reservation
+        #: name, delta vector)), rolled back if the wait expires
+        self._resv_waiting: Dict[str, tuple] = {}
+        #: committed pods' consumption in the current round, rollback-able
+        #: until the bind publishes; cleared at round start
+        self._resv_inflight: Dict[str, tuple] = {}
+        self.reservation_controller = ReservationController(self.cache)
+        self._quota_plugin = ElasticQuotaPlugin(
+            self.quota_registry, enable_preemption=enable_preemption)
+        self.model = model if model is not None else PlacementModel()
+
+    # -- informer-style intake ----------------------------------------------
+
+    def add_node(self, node: NodeSpec) -> None:
+        self.cache.add_node(node)
+
+    def remove_node(self, name: str) -> None:
+        """Node deleted: drop it and its metric."""
+        self.cache.remove_node(name)
+        self.cache.node_metrics.pop(name, None)
+
+    def remove_quota(self, name: str) -> None:
+        self.cache.quotas.pop(name, None)
+        # withdraws the quota's accounting from its ancestors first
+        self.quota_registry.remove_quota(name)
+
+    def remove_gang(self, name: str) -> None:
+        self.cache.gangs.pop(name, None)
+        gm = self.gang_manager
+        record = gm.gangs.pop(name, None)
+        key = gm.gang_group_key.pop(name, None)
+        group = gm.groups.get(key) if key else None
+        if record is not None:
+            for uid in list(record.children):
+                gm.pod_gang.pop(uid, None)
+                if group is not None:
+                    # a stale cycle attempt would wedge the group's cycle
+                    group.child_cycle.pop(uid, None)
+        if group is not None:
+            group.gangs.discard(name)
+            if not group.gangs:
+                gm.groups.pop(key, None)
+
+    def remove_reservation(self, name: str) -> None:
+        resv = self.cache.reservations.pop(name, None)
+        if resv is not None:
+            # an Available reservation's hold leaves its node's row
+            self.cache.delta_tracker.mark_node(resv.node_name)
+
+    def remove_node_metric(self, name: str) -> None:
+        if self.cache.node_metrics.pop(name, None) is not None:
+            self.cache.delta_tracker.mark_node(name)
+
+    def update_pod(self, pod: PodSpec) -> None:
+        """Pod object changed. Quota and gang registration re-run only
+        when an accounted field changed, so a status update never counts
+        a request twice."""
+        old = self.cache.pods.get(pod.uid) or self.cache.pending.get(pod.uid)
+        if old is None:
+            self.add_pod(pod)
+            return
+        if old is pod:
+            # the same object, mutated in place by a bind elsewhere: the
+            # binding must still be observed
+            if (pod.node_name is not None and not pod.waiting_permit
+                    and pod.uid in self.cache.pending):
+                self._observe_binding(pod)
+            return
+        if (old.node_name is None and pod.node_name is not None
+                and not pod.waiting_permit):
+            # another scheduler's bind arrived as a fresh object
+            self._observe_binding(pod)
+            return
+        accounted_changed = (
+            old.quota != pod.quota
+            or old.requests != pod.requests
+            or old.gang != pod.gang
+            or old.preemptible != pod.preemptible
+        )
+        assigned = old.node_name is not None
+        if accounted_changed and not assigned:
+            self.remove_pod(old)
+            self.add_pod(pod)
+            return
+        # a refresh that keeps the placement
+        pod.node_name = old.node_name
+        pod.assign_time = old.assign_time
+        if accounted_changed:
+            # an assigned pod: swap its quota request and used in place
+            self._quota_plugin.on_pod_delete(old)
+            self._account_quota(old, release=True)
+            if old.gang != pod.gang:
+                self.gang_manager.on_pod_delete(pod.uid)
+                if pod.gang:
+                    self.gang_manager.on_pod_add(pod.uid, pod.gang)
+                    self.gang_manager.on_pod_bound(pod.uid)
+            self._quota_plugin.on_pod_add(pod)
+            self._account_quota(pod)
+        if pod.uid in self.cache.pods:
+            self.cache.pods[pod.uid] = pod
+        else:
+            self.cache.pending[pod.uid] = pod
+
+    def update_node_metric(self, metric: NodeMetric) -> None:
+        self.cache.update_node_metric(metric)
+
+    def update_gang(self, spec: GangSpec) -> None:
+        self.cache.update_gang(spec)
+        self.gang_manager.update_gang(spec)
+
+    def update_quota(self, spec: QuotaSpec) -> None:
+        self.cache.update_quota(spec)
+        self.quota_registry.update_quota(spec)
+
+    def update_reservation(self, spec: ReservationSpec) -> None:
+        self.cache.update_reservation(spec)
+
+    def update_node_topology(self, node_name: str, options) -> None:
+        raise NotImplementedError(_FINE_GRAINED)
+
+    def update_node_devices(self, node_name: str, entries) -> None:
+        raise NotImplementedError(_FINE_GRAINED)
+
+    def add_pod(self, pod: PodSpec) -> None:
+        self.cache.add_pod(pod)
+        bound = pod.node_name is not None and not pod.waiting_permit
+        if pod.gang:
+            self.gang_manager.on_pod_add(pod.uid, pod.gang)
+            if bound:
+                self.gang_manager.on_pod_bound(pod.uid)
+        self._quota_plugin.on_pod_add(pod)
+        if bound:
+            # a bound pod entering the cache: its quota used was booked
+            # by whoever bound it, so mirror it here
+            self._account_quota(pod)
+
+    def _observe_binding(self, pod: PodSpec) -> None:
+        """A binding decided elsewhere became visible: pending ->
+        assigned, with the quota used and gang bound it implies."""
+        self.cache.promote_assigned(pod)
+        self._account_quota(pod)
+        if pod.gang:
+            self.gang_manager.on_pod_bound(pod.uid)
+
+    def remove_pod(self, pod: PodSpec) -> None:
+        cached = self.cache.pods.get(pod.uid)
+        was_assigned = cached is not None and cached.node_name is not None
+        self.cache.remove_pod(pod.uid)
+        self.gang_manager.on_pod_delete(pod.uid)
+        self._quota_plugin.on_pod_delete(pod)
+        # a deleted waiting pod never ran: undo its reservation use
+        self._rollback_reservation(pod.uid)
+        # a deleted committed pod ran: its credit is the reservation
+        # controller's to reconcile
+        self._resv_inflight.pop(pod.uid, None)
+        if was_assigned and (not cached.waiting_permit
+                             or pod.uid in self._waiting):
+            # used was booked at assume time (or at bound intake); a pod
+            # held at another scheduler's barrier was never booked here
+            self._account_quota(cached, release=True)
+        self._waiting.pop(pod.uid, None)
+        self._waiting_since.pop(pod.uid, None)
+
+    # -- scheduling ---------------------------------------------------------
+
+    def schedule_pending(self, now: Optional[float] = None) -> ScheduleResult:
+        """One batched round: :meth:`begin_tick` then :meth:`commit_tick`."""
+        return self.commit_tick(self.begin_tick(now))
+
+    def begin_tick(self, now: Optional[float] = None) -> PendingTick:
+        """Round start through dispatch: expire stale waits and
+        reservations, take the snapshot, and hand the pending queue to the
+        model without reading the result back."""
+        at0 = now if now is not None else time.time()
+        # the previous round's binds have published (or were forgotten):
+        # their rollback window is over
+        self._resv_inflight = {}
+        self.expire_waiting(at0)
+        self.reservation_controller.sync(at0)
+        if not self.batched_placement:
+            raise NotImplementedError(
+                "per-pod rounds (batched_placement=False) need the plugin "
+                "chain, a later slice of the port (scheduler/framework.py)")
+        snapshot = self.cache.snapshot(now=now)
+        for pod in snapshot.pending_pods:
+            need = fine_grained_need(pod)
+            if need is not None:
+                raise NotImplementedError(
+                    f"pending pod {pod.uid} has {need}: {_FINE_GRAINED}")
+        pending = {pod.uid: pod for pod in snapshot.pending_pods}
+        return PendingTick(at0, pending, self.model.schedule_async(snapshot))
+
+    def commit_tick(self, tick: PendingTick) -> ScheduleResult:
+        """Read a :meth:`begin_tick` dispatch back and assume committed
+        placements (and waiting holds) into the cache, then open the
+        Permit barrier of waiting pods whose gang group is now complete."""
+        result = tick.inflight.finalize()
+        at = tick.at
+        pending = tick.pending
+        for uid, node in result.items():
+            if node is None:
+                continue
+            self.cache.assume_pod(uid, node, now=at)
+            self.gang_manager.on_pod_bound(uid)
+            # keep the host quota managers' used in step with the solve
+            self._account_quota(pending.get(uid))
+            if uid in result.resv_committed:
+                self._resv_inflight[uid] = result.resv_committed[uid]
+        for uid, node in result.waiting.items():
+            # a waiting member holds its node and quota, unbound
+            self.cache.assume_pod(uid, node, now=at)
+            held = self.cache.pods.get(uid)
+            if held is not None:
+                held.waiting_permit = True
+            self._account_quota(pending.get(uid))
+            self._waiting[uid] = node
+            self._waiting_since.setdefault(uid, at)
+            self.gang_manager.on_pod_waiting(uid)
+            if uid in result.resv_allocs:
+                self._resv_waiting[uid] = result.resv_allocs[uid]
+        self._resolve_waiting(result)
+        return result
+
+    def schedule_one(self, pod_uid: str, now: Optional[float] = None):
+        raise NotImplementedError(
+            "schedule_one runs the plugin chain, a later slice of the port "
+            "(scheduler/framework.py)")
+
+    def forget_assumed_unbound(self) -> List[str]:
+        """Release every assumed-but-unbound pod back to pending, undoing
+        its quota, gang and reservation holds (a round aborted before its
+        binds published). Returns the forgotten uids."""
+        forgotten: List[str] = []
+        for uid in list(self.cache.assumed):
+            pod = self.cache.pods.get(uid)
+            if pod is None:
+                self.cache.forget_pod(uid)
+                continue
+            if uid in self._waiting:
+                self._release_waiting(uid)
+            else:
+                self._account_quota(pod, release=True)
+                self._apply_resv_rollback(
+                    uid, self._resv_inflight.pop(uid, None))
+                self.cache.forget_pod(uid)
+            self.gang_manager.on_pod_forgotten(uid)
+            forgotten.append(uid)
+        return forgotten
+
+    def expire_waiting(self, now: float) -> List[str]:
+        """Reject waiting pods whose gang WaitTime elapsed, with (Strict)
+        their whole gang group: holds released, pods back to pending.
+        Returns the released uids."""
+        released: List[str] = []
+        for uid, since in list(self._waiting_since.items()):
+            if uid not in self._waiting:
+                self._waiting_since.pop(uid, None)
+                continue
+            pod = self.cache.pods.get(uid)
+            if pod is None:
+                self._waiting_since.pop(uid, None)
+                self._waiting.pop(uid, None)
+                continue
+            spec = self.cache.gangs.get(pod.gang) if pod.gang else None
+            wait_time = spec.wait_time if spec is not None else 600.0
+            if not wait_time or (now - since) < wait_time:
+                continue
+            siblings = self.gang_manager.unreserve(uid)
+            for r in {uid, *siblings}:
+                if r in self._waiting:
+                    self._release_waiting(r)
+                    released.append(r)
+        return released
+
+    def _release_waiting(self, uid: str) -> None:
+        """Release one waiting pod's holds (node, quota, reservation) and
+        return it to pending."""
+        self._waiting.pop(uid, None)
+        self._waiting_since.pop(uid, None)
+        self._account_quota(self.cache.pods.get(uid), release=True)
+        self._rollback_reservation(uid)
+        self.cache.forget_pod(uid)
+
+    def _rollback_reservation(self, uid: str) -> None:
+        """Undo a waiting pod's reservation consumption."""
+        self._apply_resv_rollback(uid, self._resv_waiting.pop(uid, None))
+
+    def _apply_resv_rollback(self, uid: str, info) -> None:
+        """Restore one pod's recorded reservation consumption."""
+        if info is None:
+            return
+        name, delta = info
+        resv = self.cache.reservations.get(name)
+        if resv is None:
+            return
+        cur = resources_to_vector(resv.allocated)
+        resv.allocated = vector_to_resources(np.maximum(cur - delta, 0))
+        if uid in resv.allocated_pod_uids:
+            resv.allocated_pod_uids.remove(uid)
+        if resv.allocate_once and resv.state == ReservationState.SUCCEEDED:
+            resv.state = ReservationState.AVAILABLE
+        self.cache.delta_tracker.mark_node(resv.node_name)
+
+    def _account_quota(self, pod: Optional[PodSpec],
+                       release: bool = False) -> None:
+        if pod is None or not pod.quota:
+            return
+        vec = resources_to_vector(pod.requests)
+        self.quota_registry.manager_for_quota(pod.quota).add_used(
+            pod.quota, -vec if release else vec,
+            non_preemptible=not pod.preemptible)
+
+    def _resolve_waiting(self, result: ScheduleResult) -> None:
+        """Open the Permit barrier for waiting pods whose gang group is
+        now satisfied: report them as committed placements."""
+        if not self._waiting:
+            return
+        assigned_count: Dict[str, int] = {}
+        for pod in self.cache.pods.values():
+            if pod.gang and pod.node_name is not None:
+                assigned_count[pod.gang] = assigned_count.get(pod.gang, 0) + 1
+        gangs = self.cache.gangs
+
+        def group_of(gang_name: str) -> List[str]:
+            spec = gangs.get(gang_name)
+            if spec is None or not spec.gang_group:
+                return [gang_name]
+            return list(spec.gang_group)
+
+        for uid, node in list(self._waiting.items()):
+            pod = self.cache.pods.get(uid)
+            if pod is None or pod.gang is None:
+                self._waiting.pop(uid, None)
+                continue
+            satisfied = all(
+                assigned_count.get(g, 0)
+                >= (gangs[g].min_member if g in gangs else 1)
+                for g in group_of(pod.gang))
+            if satisfied:
+                self._waiting.pop(uid)
+                self._waiting_since.pop(uid, None)
+                info = self._resv_waiting.pop(uid, None)
+                if info is not None:
+                    # final once the bind publishes; rollback-able until
+                    self._resv_inflight[uid] = info
+                result.waiting.pop(uid, None)
+                result[uid] = node
+                # bindable; the assume stays open until the publish
+                self.cache.open_permit(uid)
+                self.gang_manager.on_pod_bound(uid)

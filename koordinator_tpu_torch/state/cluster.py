@@ -1,6 +1,7 @@
 """Lower a typed cluster snapshot onto dense int32 arrays (counterpart of
-``koordinator_tpu/state/cluster.py``: the full lowering, reservation
-holds included; the delta lowering and resident-pod world are a later
+``koordinator_tpu/state/cluster.py``: the full lowering with reservation
+holds, the delta tracker and the delta lowering that patches only the
+rows a tracker marked; the resident-pod world and padding are a later
 slice).
 
 Lowering runs on the host in exact integer arithmetic (Python ints and
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -117,10 +119,61 @@ class NodeArrays:
     prod_base: np.ndarray      # [N,R] prod-mode score base
     metric_fresh: np.ndarray   # [N] bool: metric exists and is not expired
     schedulable: np.ndarray    # [N] bool
+    #: [N] float64 metric update times (-inf: no metric), host only and
+    #: never staged: the delta lowering recomputes ``metric_fresh`` from
+    #: it as ``snapshot.now`` advances, without marks
+    metric_update_time: Optional[np.ndarray] = None
 
     @property
     def n(self) -> int:
         return len(self.names)
+
+    def index(self) -> Dict[str, int]:
+        return {name: i for i, name in enumerate(self.names)}
+
+
+class ClusterDeltaTracker:
+    """Which node rows changed, for incremental lowering.
+
+    A snapshot producer (``scheduler/cache.SchedulerCache``, or a test
+    that mutates a snapshot) marks the node rows its mutations touch;
+    the model's staging cache then re-lowers only those rows. Marks are
+    kept as ``name -> epoch``, so each consumer diffs against its own
+    last-seen epoch.
+    Anything that changes the node set or its order must call
+    :meth:`mark_structure`, and consumers fall back to a full lowering.
+    The lock keeps two racing marks from sharing an epoch (markers run
+    under the cache lock and outside it)."""
+
+    def __init__(self) -> None:
+        self.epoch = 0            # the mark clock, monotone
+        self.structure_epoch = 0  # last epoch the node set or order changed
+        self._marks: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def mark_node(self, name: Optional[str]) -> None:
+        """Node ``name``'s lowered row may have changed."""
+        if name is None:
+            return
+        with self._lock:
+            self.epoch += 1
+            self._marks[name] = self.epoch
+
+    def mark_nodes(self, names) -> None:
+        for name in names:
+            self.mark_node(name)
+
+    def mark_structure(self) -> None:
+        """The node set or its order changed: row indices are stale."""
+        with self._lock:
+            self.epoch += 1
+            self.structure_epoch = self.epoch
+            self._marks.clear()
+
+    def dirty_since(self, epoch: int) -> List[str]:
+        """Node names marked after ``epoch``."""
+        with self._lock:
+            return [name for name, at in self._marks.items() if at > epoch]
 
 
 @dataclasses.dataclass
@@ -149,6 +202,13 @@ def clip_i32(a: np.ndarray) -> np.ndarray:
     return np.clip(a, info.min, info.max).astype(np.int32)
 
 
+def _metric_fresh(now, update_time, metric_expiration_seconds):
+    """The metric-expiration verdict, scalar in :func:`_node_metric_row`
+    and over the cached ``metric_update_time`` column in
+    :func:`lower_nodes_delta`: one definition for both paths."""
+    return (now - update_time) < metric_expiration_seconds
+
+
 def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
                      metric_expiration_seconds: float, scaling_factors,
                      resource_weights):
@@ -163,7 +223,7 @@ def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
     prod_usage = np.zeros(NUM_RESOURCES, dtype=np.int64)
     prod_base = np.zeros(NUM_RESOURCES, dtype=np.int64)
     usage = resources_to_vector(metric.node_usage)
-    fresh = (now - metric.update_time) < metric_expiration_seconds
+    fresh = _metric_fresh(now, metric.update_time, metric_expiration_seconds)
     est_sum = np.zeros(NUM_RESOURCES, dtype=np.int64)
     reported_sum = np.zeros(NUM_RESOURCES, dtype=np.int64)
     for pod in assigned:
@@ -196,7 +256,8 @@ def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
 
 
 def _node_hold_rows(snapshot: ClusterSnapshot, index: Dict[str, int]):
-    """``used_req`` int64 rows and the assigned pods of each node, in
+    """``used_req`` int64 rows and the assigned pods of each node in
+    ``index`` (all of them, or the delta lowering's dirty ones), in
     snapshot order. ``used_req`` is Σ assigned pod requests plus every
     Available reservation's unallocated remainder on its node (the net
     view of the reference's reserve pod and restore chain)."""
@@ -240,6 +301,7 @@ def lower_nodes(
     prod_base = np.zeros(shape, dtype=np.int64)
     metric_fresh = np.zeros(n, dtype=bool)
     schedulable = np.ones(n, dtype=bool)
+    metric_update_time = np.full(n, -np.inf)
     for i, node in enumerate(snapshot.nodes):
         alloc[i] = resources_to_vector(node.allocatable)
         schedulable[i] = not node.unschedulable
@@ -248,6 +310,7 @@ def lower_nodes(
         if name not in index:
             continue
         i = index[name]
+        metric_update_time[i] = metric.update_time
         (
             usage[i], prod_usage[i], est_extra[i], prod_base[i],
             metric_fresh[i],
@@ -269,7 +332,132 @@ def lower_nodes(
         prod_base=clip_i32(prod_base),
         metric_fresh=metric_fresh,
         schedulable=schedulable,
+        metric_update_time=metric_update_time,
     )
+
+
+def lower_nodes_delta(
+    snapshot: ClusterSnapshot,
+    prev: NodeArrays,
+    dirty_names,
+    *,
+    metric_expiration_seconds: float = DEFAULT_NODE_METRIC_EXPIRATION_SECONDS,
+    scaling_factors: Optional[Mapping[ResourceName, int]] = None,
+    resource_weights: Optional[Mapping[ResourceName, int]] = None,
+) -> Optional[np.ndarray]:
+    """Re-lower ``prev``'s rows of ``dirty_names`` in place against
+    ``snapshot``, and flip ``metric_fresh`` on every row whose metric
+    crossed the expiration window as ``snapshot.now`` moved.
+
+    Returns the sorted int32 indices of the rows rewritten (possibly
+    none), or None when the node set or order no longer matches ``prev``
+    (the caller then lowers in full). Dirty rows go through the same
+    per-row helpers and int32 clip as :func:`lower_nodes`, so ``prev``
+    ends bit-identical to a full lowering of ``snapshot`` when every
+    mutated node was marked."""
+    if prev.metric_update_time is None:
+        return None
+    names = [node.name for node in snapshot.nodes]
+    if names != prev.names:
+        return None
+    index = prev.index()
+    dirty = sorted({name for name in dirty_names if name in index})
+    fresh_now = _metric_fresh(snapshot.now, prev.metric_update_time,
+                              metric_expiration_seconds)
+    flipped = np.nonzero(fresh_now != prev.metric_fresh)[0]
+    sub_index = {name: k for k, name in enumerate(dirty)}
+    if sub_index:
+        used_req, assigned_by_node = _node_hold_rows(snapshot, sub_index)
+        for name, k in sub_index.items():
+            i = index[name]
+            node = snapshot.nodes[i]
+            prev.alloc[i] = clip_i32(resources_to_vector(node.allocatable))
+            prev.schedulable[i] = not node.unschedulable
+            prev.used_req[i] = clip_i32(used_req[k])
+            metric = snapshot.node_metrics.get(name)
+            if metric is None:
+                prev.metric_update_time[i] = -np.inf
+                for column in (prev.usage, prev.prod_usage, prev.est_extra,
+                               prev.prod_base):
+                    column[i] = 0
+                prev.metric_fresh[i] = False
+                continue
+            prev.metric_update_time[i] = metric.update_time
+            u, pu, ee, pb, fresh = _node_metric_row(
+                metric,
+                assigned_by_node.get(name, ()),
+                now=snapshot.now,
+                metric_expiration_seconds=metric_expiration_seconds,
+                scaling_factors=scaling_factors,
+                resource_weights=resource_weights,
+            )
+            prev.usage[i] = clip_i32(u)
+            prev.prod_usage[i] = clip_i32(pu)
+            prev.est_extra[i] = clip_i32(ee)
+            prev.prod_base[i] = clip_i32(pb)
+            prev.metric_fresh[i] = fresh
+    rows = {index[name] for name in dirty}
+    # a flip on an unmarked row touches only its freshness
+    for i in flipped.tolist():
+        if i not in rows:
+            prev.metric_fresh[i] = fresh_now[i]
+            rows.add(i)
+    return np.asarray(sorted(rows), dtype=np.int32)
+
+
+def lower_node_rows(
+    snapshot: ClusterSnapshot,
+    names: Sequence[str],
+    *,
+    metric_expiration_seconds: float = DEFAULT_NODE_METRIC_EXPIRATION_SECONDS,
+    scaling_factors: Optional[Mapping[ResourceName, int]] = None,
+    resource_weights: Optional[Mapping[ResourceName, int]] = None,
+) -> Dict[str, np.ndarray]:
+    """Lower just ``names``'s rows from the snapshot into new buffers:
+    ``{staged field: [K, ...] array}`` aligned to ``names`` (a subset of
+    the snapshot's nodes), through the same per-row helpers as
+    :func:`lower_nodes`. A parity probe compares such rows against the
+    staged arrays."""
+    sub_index = {name: k for k, name in enumerate(names)}
+    k_count = len(sub_index)
+    node_by_name = {node.name: node for node in snapshot.nodes}
+    shape = (k_count, NUM_RESOURCES)
+    alloc = np.zeros(shape, dtype=np.int64)
+    usage = np.zeros(shape, dtype=np.int64)
+    prod_usage = np.zeros(shape, dtype=np.int64)
+    est_extra = np.zeros(shape, dtype=np.int64)
+    prod_base = np.zeros(shape, dtype=np.int64)
+    metric_fresh = np.zeros(k_count, dtype=bool)
+    schedulable = np.ones(k_count, dtype=bool)
+    used_req, assigned_by_node = _node_hold_rows(snapshot, sub_index)
+    for name, k in sub_index.items():
+        node = node_by_name[name]
+        alloc[k] = resources_to_vector(node.allocatable)
+        schedulable[k] = not node.unschedulable
+        metric = snapshot.node_metrics.get(name)
+        if metric is None:
+            continue
+        (
+            usage[k], prod_usage[k], est_extra[k], prod_base[k],
+            metric_fresh[k],
+        ) = _node_metric_row(
+            metric,
+            assigned_by_node.get(name, ()),
+            now=snapshot.now,
+            metric_expiration_seconds=metric_expiration_seconds,
+            scaling_factors=scaling_factors,
+            resource_weights=resource_weights,
+        )
+    return {
+        "alloc": clip_i32(alloc),
+        "used_req": clip_i32(used_req),
+        "usage": clip_i32(usage),
+        "prod_usage": clip_i32(prod_usage),
+        "est_extra": clip_i32(est_extra),
+        "prod_base": clip_i32(prod_base),
+        "metric_fresh": metric_fresh,
+        "schedulable": schedulable,
+    }
 
 
 def schedule_order(pods: Sequence[PodSpec]) -> List[int]:

@@ -9,6 +9,8 @@ dicts, or ``build`` keyword arguments) that either package can take.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from koordinator_tpu_torch import DeviceLike, convert, resolve_device
@@ -27,6 +29,7 @@ from koordinator_tpu_torch.apis.types import (
 from koordinator_tpu_torch.ops.binpack import NumaAux
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
+from koordinator_tpu_torch.state.cluster import ClusterDeltaTracker
 
 CPU, MEM = ResourceName.CPU, ResourceName.MEMORY
 
@@ -237,10 +240,13 @@ def full_features_problem(n_nodes, n_pods, seed=8, device: DeviceLike = None):
             convert.numa_aux(dict(node_policy=node_policy), device))
 
 
-def churn_world(n_nodes, *, assigned_per_node=2, seed=42) -> ClusterSnapshot:
+def churn_world(n_nodes, *, assigned_per_node=2, seed=42,
+                with_tracker=False):
     """The typed churn world: ``n_nodes`` uniform nodes, ``assigned_per_node
     * n_nodes`` randomly bound pods, a metric on every node at t=10, the
-    snapshot at now=20. Draws as the reference's ``testing.churn_world``."""
+    snapshot at now=20, with a ``ClusterDeltaTracker`` when
+    ``with_tracker``. Returns ``(snapshot, tracker)``. Draws as the
+    reference's ``testing.churn_world``."""
     rng = np.random.default_rng(seed)
     nodes = [
         NodeSpec(name=f"n{i}", allocatable={CPU: 64000, MEM: 131072})
@@ -263,8 +269,96 @@ def churn_world(n_nodes, *, assigned_per_node=2, seed=42) -> ClusterSnapshot:
         )
         for i in range(n_nodes)
     }
-    return ClusterSnapshot(nodes=nodes, pods=pods, pending_pods=[],
-                           node_metrics=metrics, now=20.0)
+    tracker = ClusterDeltaTracker() if with_tracker else None
+    snap = ClusterSnapshot(nodes=nodes, pods=pods, pending_pods=[],
+                           node_metrics=metrics, now=20.0,
+                           delta_tracker=tracker)
+    return snap, tracker
+
+
+def churn_tick_events(snap, tracker, rng, *, dirty, pending, t, now):
+    """One churn tick's events, applied to ``snap`` in place: ``dirty``
+    random nodes get a fresh metric (pod usages kept, ``tracker`` marked)
+    and a ``pending``-pod wave replaces ``snap.pending_pods``; ``snap.now``
+    moves to ``now``. Returns ``{uid: pod}`` of the wave. The rng draw
+    order is the reference's ``testing.churn_tick_events``, so a seed
+    gives the same ticks in both packages."""
+    n_nodes = len(snap.nodes)
+    for i in rng.choice(n_nodes, dirty, replace=False):
+        name = snap.nodes[int(i)].name
+        old = snap.node_metrics[name]
+        snap.node_metrics[name] = NodeMetric(
+            node_name=name,
+            node_usage={CPU: int(rng.integers(500, 30000)),
+                        MEM: int(rng.integers(512, 65536))},
+            update_time=now,
+            pod_usages=old.pod_usages,
+        )
+        if tracker is not None:
+            tracker.mark_node(name)
+    snap.pending_pods = [
+        PodSpec(
+            name=f"t{t}p{j}",
+            requests={CPU: int(rng.integers(200, 1500)),
+                      MEM: int(rng.integers(128, 1024))},
+        )
+        for j in range(pending)
+    ]
+    snap.now = now
+    return {p.uid: p for p in snap.pending_pods}
+
+
+def fold_churn_binds(snap, tracker, result, by_uid, now):
+    """Fold one tick's committed placements back into ``snap``: the
+    placed pods become assigned pods (``tracker`` marked per node)."""
+    for uid, node in result.items():
+        if node is not None:
+            pod = by_uid[uid]
+            pod.node_name = node
+            pod.assign_time = now
+            snap.pods.append(pod)
+            if tracker is not None:
+                tracker.mark_node(node)
+
+
+def feed_scheduler(scheduler, snap: ClusterSnapshot) -> None:
+    """Feed a copy of ``snap``'s contents into a ``Scheduler`` through
+    its intake methods, in the order an informer would deliver them:
+    nodes, metrics, quotas, gangs and reservations before the pods that
+    name them; assigned pods, then pending pods in snapshot order (the
+    cache keeps insertion order, so the scheduler's snapshots list them
+    as ``snap`` does). Copies, so schedulers fed the same snapshot share
+    no object."""
+    for node in snap.nodes:
+        scheduler.add_node(copy.deepcopy(node))
+    for metric in snap.node_metrics.values():
+        scheduler.update_node_metric(copy.deepcopy(metric))
+    for quota in snap.quotas.values():
+        scheduler.update_quota(copy.deepcopy(quota))
+    for gang in snap.gangs.values():
+        scheduler.update_gang(copy.deepcopy(gang))
+    for resv in snap.reservations:
+        scheduler.update_reservation(copy.deepcopy(resv))
+    for pod in list(snap.pods) + list(snap.pending_pods):
+        scheduler.add_pod(copy.deepcopy(pod))
+
+
+def feed_churn_tick(schedulers, snap, rng, *, dirty, pending, t, now):
+    """One churn tick (:func:`churn_tick_events` on the source ``snap``),
+    fed into every scheduler of ``schedulers`` as intake events: the
+    fresh metrics and the pending wave, copied per scheduler. Binds are
+    not folded into ``snap``: each scheduler assumes its own."""
+    before = dict(snap.node_metrics)
+    by_uid = churn_tick_events(snap, None, rng, dirty=dirty,
+                               pending=pending, t=t, now=now)
+    fresh = [m for name, m in snap.node_metrics.items()
+             if m is not before.get(name)]
+    for scheduler in schedulers:
+        for metric in fresh:
+            scheduler.update_node_metric(copy.deepcopy(metric))
+        for pod in by_uid.values():
+            scheduler.add_pod(copy.deepcopy(pod))
+    return by_uid
 
 
 def add_pending_wave(snap: ClusterSnapshot, n_pods, *, n_quota, n_gangs,

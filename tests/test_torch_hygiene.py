@@ -66,6 +66,12 @@ def _entry_points():
     from koordinator_tpu_torch.models.placement import PlacementModel
     from koordinator_tpu_torch.ops.gang import GangState
     from koordinator_tpu_torch.ops.quota import QuotaState
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+
+    def scheduler_model(**kw):
+        # Scheduler() builds its own model, on the default device
+        model = PlacementModel(**kw) if kw else None
+        return Scheduler(model=model, enable_preemption=False).model
 
     nodes, pods, params, quota, gang = testing.quota_gang_arrays(
         6, 5, 2, 2, 3, seed=0)
@@ -76,6 +82,7 @@ def _entry_points():
 
     return [
         ("PlacementModel", lambda **kw: PlacementModel(**kw).params.weights),
+        ("Scheduler", lambda **kw: scheduler_model(**kw).params.weights),
         ("convert.node_state", lambda **kw: convert.node_state(nodes, **kw).alloc),
         ("convert.pod_batch", lambda **kw: convert.pod_batch(pods, **kw).req),
         ("convert.score_params",
@@ -640,3 +647,70 @@ def test_cuda_quota_tables_in_device_memory(n_nodes, n_quota, layout, numa,
     inp = _cluster_inputs(n_nodes, 200, n_quota, layout, numa, seed=n_quota)
     route = _routed_matches_twins(inp, shards)
     assert route.kind == kind and not route.quota_shared, route
+
+
+def _staged_equals_fresh(model, snap, state):
+    from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
+    from koordinator_tpu_torch.state.cluster import lower_nodes
+
+    want = model.stage_nodes(lower_nodes(snap, **model.lowering_kwargs()))
+    for f in STAGED_NODE_FIELDS:
+        assert getattr(state, f).device.type == "cuda", f
+        assert torch.equal(getattr(state, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_staged_state_after_delta_ticks_equals_fresh_staging():
+    """Churn ticks through the staging cache on the card: after every
+    tick the staged tensors equal a fresh staging of that tick's
+    snapshot, every tick after the first takes the delta path, and the
+    placements equal the CPU model's on the same ticks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from koordinator_tpu_torch import testing
+    from koordinator_tpu_torch.models.placement import PlacementModel
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        snap, tracker = testing.churn_world(1500, with_tracker=True)
+        model = PlacementModel(device=device)
+        rng = np.random.default_rng(7)
+        log = []
+        for t in range(6):
+            now = 20.0 + t
+            by_uid = testing.churn_tick_events(
+                snap, tracker, rng, dirty=30, pending=48, t=t, now=now)
+            result = model.schedule(snap)
+            assert model.last_staging == ("full" if t == 0 else "delta")
+            if device == "cuda":
+                _staged_equals_fresh(model, snap, model.staged_cache.state)
+            log.append(sorted(result.items()))
+            testing.fold_churn_binds(snap, tracker, result, by_uid, now)
+        runs.append(log)
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_solve_leaves_staged_inputs_unchanged():
+    """A kernel-routed solve (quota, gangs, rejected releases) reads its
+    staged inputs and writes none of them: after read-back the pinned
+    generation still equals a fresh staging of the snapshot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from koordinator_tpu_torch import testing
+    from koordinator_tpu_torch.models.placement import PlacementModel
+    from koordinator_tpu_torch.state.cluster import ClusterDeltaTracker
+
+    for n_nodes in (800, 3000):   # one block, then the cluster kernel
+        snap, _ = testing.churn_world(n_nodes, seed=5)
+        snap = testing.add_pending_wave(snap, 2000, n_quota=8, n_gangs=30,
+                                        gang_size=8)
+        snap.delta_tracker = ClusterDeltaTracker()
+        model = PlacementModel()
+        inflight = model.schedule_async(snap)
+        staged = inflight.pinned
+        assert staged is model.staged_cache.state
+        result = inflight.finalize()
+        assert model.last_solver == "kernel"
+        assert any(n is not None for n in result.values())
+        _staged_equals_fresh(model, snap, staged)

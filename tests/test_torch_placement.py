@@ -144,7 +144,7 @@ def test_add_reservations_builder():
     pod's uid), some consumed through the kernel path, and the node
     holds left after the solve within capacity."""
     snap = testing.add_pending_wave(
-        testing.churn_world(60, seed=42), 300, n_quota=6, n_gangs=10,
+        testing.churn_world(60, seed=42)[0], 300, n_quota=6, n_gangs=10,
         gang_size=8, seed=7)
     snap = testing.add_reservations(snap, 10, 6, seed=11)
     resvs = snap.reservations
