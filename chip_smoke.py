@@ -79,6 +79,24 @@ the microseconds per pod and the bound (see :func:`bound`).
    fresh staging of it. Prints the median tick wall and the lower/stage/
    solve split of both card runs (ticks 0-1 excluded) and their ratio,
    then holds the kernel against its twin on the last tick's inputs.
+10. The fine-grained burst through the Scheduler: phase 3's world with a
+   ``zone`` label on every node, a NUMA topology on every 4th node, 8
+   GPUs on every 10th, and, by a seeded draw, 100 cpuset (LSR) pods, 100
+   GPU pods, 50 host-port pods (20 distinct ports) and 2,000 node-selector
+   pods among the 10,000 pending (``testing.add_fine_grained``), fed with
+   ``update_node_topology``/``update_node_devices``. Two rounds; each
+   prints its wall and split, the refine iterations and the solver of
+   every solve, the host time in ``FineGrained.rows``, the kernel's ms
+   per launch, and the committed and waiting counts. Every solve must
+   launch the routed kernel (none on the loop) and the final solve's
+   launch must equal its twin bit for bit. The same stream cut to 1,000
+   nodes x 2,000 pending (the same shares) must give, on the card and on
+   the CPU, the same placements, annotations, NUMA and device
+   allocations. A sub-run with node policy ``SingleNUMANode`` (every pod
+   with requests special) at 200 x 400 records its host rows' cost.
+   Beside phase 6's loop check, one extras solve (config #8 cut to 1,000
+   x 2,000 with 20% selector rows and 5% fine-grained rows) runs on the
+   kernel and on the loop, with equal results; both are timed.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -101,7 +119,11 @@ from koordinator_tpu_torch.apis.types import ReservationState, resources_to_vect
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
-from koordinator_tpu_torch.ops.binpack import SolverConfig, solve_batch
+from koordinator_tpu_torch.ops.binpack import (
+    ExtrasRows,
+    SolverConfig,
+    solve_batch,
+)
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
@@ -127,6 +149,8 @@ NUMA_OPS_PER_PAIR = 8 * 11 + 3
 #: per (pod, reservation) pair: the match test; per matched pair the 8
 #: subtractions of the credit
 CREDIT_OPS_PER_MATCH = 8
+#: per (pod with an extras row, node) pair: the mask test, the score add
+EXTRAS_OPS_PER_PAIR = 2
 
 # the flagship burst (BASELINE.json north star) and BASELINE configs #3/#4
 NODES, ASSIGNED_PER_NODE, PENDING = 5000, 2, 10000
@@ -149,6 +173,14 @@ WIDE_NODES, WIDE_PODS, WIDE_QUOTAS = 1000, 2000, 2000
 # ticks; ticks before WARM_TICKS are left out of the times)
 CHURN_NODES, CHURN_DIRTY, CHURN_PENDING, CHURN_TICKS = 5000, 50, 64, 12
 WARM_TICKS = 2
+# phase 10: the fine-grained pods of the burst (cpuset, GPU, host-port,
+# node-selector pods; distinct host ports), the cut held against the
+# CPU, the SingleNUMANode sub-run, and the extras solve's row shares
+FINE_CPUSET, FINE_GPU, FINE_PORTS, FINE_SELECTOR, FINE_DISTINCT = (
+    100, 100, 50, 2000, 20)
+FINE_CUT_NODES, FINE_CUT_PENDING = 1000, 2000
+SNN_NODES, SNN_PENDING = 200, 400
+EXTRAS_SELECTOR, EXTRAS_SCORED = 0.2, 0.05
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -191,7 +223,9 @@ def bound(inp):
     output written once at the memory rate, and the operations this
     data needs at the scalar rate: the (pod, schedulable node) pairs,
     with the NUMA terms when NUMA is on, plus one match test per (pod,
-    reservation) pair and the credit's subtractions per matched pair."""
+    reservation) pair and the credit's subtractions per matched pair,
+    and the extras rows' mask test and score add per (pod with a row,
+    schedulable node) pair."""
     tensors = [t for x in inp if isinstance(x, (torch.Tensor, tuple))
                for t in (x if isinstance(x, tuple) else (x,))]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -209,6 +243,12 @@ def bound(inp):
         match = inp.resv[4]
         out_words += p + 2 * p * 8 + inp.resv[0].numel()  # vstar, delta, rem, free
         ops += match.numel() + CREDIT_OPS_PER_MATCH * int(match.sum())
+    if inp.extras is not None:
+        # the compact rows are inputs, read once (counted above); per
+        # (pod with a row, schedulable node) pair the mask test and the
+        # score add
+        ops += (EXTRAS_OPS_PER_PAIR * int((inp.extras[0] >= 0).sum())
+                * int(inp.sched.sum()))
     nbytes += 4 * out_words
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
@@ -641,6 +681,190 @@ def churn_ticks(card):
     return launches_delta, last_inp
 
 
+def extras_loop_check(card) -> dict:
+    """Beside phase 6's loop check: one extras solve, config #8 cut to
+    LOOP_NODES x LOOP_PODS with EXTRAS_SELECTOR of the pods on shared
+    selector rows and EXTRAS_SCORED on their own scored rows, on the
+    kernel and on the loop ``solve_batch`` (which expands the rows); the
+    results must be equal on every output. Returns the ``kernels`` entry
+    of the kernel's extras instance at this shape."""
+    s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
+        LOOP_NODES, LOOP_PODS, seed=8)
+    row, mask, score = testing.extras_arrays(
+        LOOP_NODES, LOOP_PODS, selector_frac=EXTRAS_SELECTOR,
+        scored_frac=EXTRAS_SCORED, seed=13)
+    extras = ExtrasRows(*(torch.as_tensor(a, device=s_.alloc.device)
+                          for a in (row, mask, score)))
+    got = []
+    _, launches, _, captured = drive(lambda: got.append(
+        bk.kernel_solve_batch(s_, p_, pr, q, g, numa_aux=aux, resv=rv,
+                              extras=extras)))
+    inp, route = routed("extras solve", launches, captured)
+    ms = cuda_ms(lambda: bk.kernel_solve_batch(
+        s_, p_, pr, q, g, numa_aux=aux, resv=rv, extras=extras), 3)
+    want = []
+    loop_ms = cuda_ms(lambda: want.append(solve_batch(
+        s_, p_, pr, SolverConfig(), q, g, extras, resv=rv, numa=aux)), 1)
+    same_solve(got[0], want[0])
+    n_rows = int((extras.row_of_pod >= 0).sum())
+    print(f"extras solve == loop solve_batch, config #8 cut to {LOOP_NODES} "
+          f"nodes x {LOOP_PODS} pods, {n_rows} pods with a row "
+          f"({mask.shape[0]} distinct rows) [{card}]: "
+          f"{int(got[0].commit.sum())} committed, placements equal; kernel "
+          f"solve {ms:.3f} ms, loop {loop_ms:.3f} ms", flush=True)
+    stats = compare(inp, f"extras, config #8 cut to {LOOP_NODES} x "
+                    f"{LOOP_PODS}", card, reps=3)
+    return entry("binpack_extras", launches[route.kind], stats, 259)
+
+
+def fine_world(n_nodes, n_pending, node_policy=""):
+    """Phase 3's world at ``n_nodes`` x ``n_pending`` with the phase's
+    fine-grained shares (:func:`testing.add_fine_grained`): ``(snapshot,
+    topologies, devices)``."""
+    f = n_pending / PENDING
+    snap, _ = testing.churn_world(n_nodes, assigned_per_node=ASSIGNED_PER_NODE,
+                                  seed=42)
+    testing.add_pending_wave(
+        snap, n_pending, n_quota=max(1, round(QUOTAS * f)),
+        n_gangs=max(1, round(GANGS * f)),
+        gang_size=GANG_SIZE if n_pending >= 2000 else 4, seed=7)
+    topo, dev = testing.add_fine_grained(
+        snap, n_cpuset=round(FINE_CPUSET * f), n_gpu=round(FINE_GPU * f),
+        n_ports=round(FINE_PORTS * f), n_selector=round(FINE_SELECTOR * f),
+        n_distinct_ports=max(2, round(FINE_DISTINCT * f)),
+        node_policy=node_policy)
+    return snap, topo, dev
+
+
+class FineProbe:
+    """A Scheduler on ``PlacementModel(device=device)`` fed a fine
+    world, with its model's ``FineGrained.rows`` timed (host seconds and
+    calls) and the solver of every solve recorded."""
+
+    def __init__(self, world, device=None):
+        import copy
+
+        snap, topo, dev = world
+        self.sched = fed_scheduler(copy.deepcopy(snap), device)
+        testing.feed_fine_grained(self.sched, topo, dev)
+        model = self.sched.model
+        self.rows_s, self.rows_calls, self.solvers = 0.0, 0, []
+        rows, dispatch = model.fine.rows, model._dispatch_solve
+
+        def timed_rows(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return rows(*args, **kwargs)
+            finally:
+                self.rows_s += time.perf_counter() - t0
+                self.rows_calls += 1
+
+        def recorded(*args, **kwargs):
+            out = dispatch(*args, **kwargs)
+            self.solvers.append(model.last_solver)
+            return out
+
+        model.fine.rows = timed_rows
+        model._dispatch_solve = recorded
+
+    def round(self, now):
+        """One round, driven with the launch counts zeroed: ``(result,
+        launches, wall, captured)``; the probe's counters restart."""
+        self.rows_s, self.rows_calls, self.solvers = 0.0, 0, []
+        return drive(lambda: self.sched.schedule_pending(now=now))
+
+    def state(self):
+        """Placements, annotations, NUMA and device holds, plain data."""
+        s = self.sched
+        pods = {**s.cache.pending, **s.cache.pods}
+        return (
+            {u: (p.node_name, dict(p.annotations)) for u, p in pods.items()},
+            {n: {u: ([int(c) for c in a.cpuset],
+                     {k: {int(r): v for r, v in res.items()}
+                      for k, res in a.numa_resources.items()})
+                 for u, a in na.pods.items()}
+             for n, na in s.numa_manager.node_allocations.items()},
+            {n: {u: {t.value: [(a.minor, {k.value: v for k, v in
+                                         a.resources.items()})
+                               for a in allocs]
+                     for t, allocs in by_type.items()}
+                 for u, by_type in nd.allocations.items()}
+             for n, nd in s.device_cache.nodes.items()},
+            sorted(s._fine_waiting))
+
+
+def fine_round_line(label, probe, result, launches, wall, card, ms) -> str:
+    """The printed line of one phase-10 round."""
+    tm = probe.sched.model.last_timings
+    committed = sum(n is not None for n in result.values())
+    kinds = {k: v for k, v in launches.items() if v}
+    return (f"{label} [{card}]: {len(probe.sched.cache.nodes)} nodes: "
+            f"{committed} committed, {len(result.waiting)} waiting "
+            f"({len(probe.sched._fine_waiting)} with fine-grained holds); "
+            f"wall {wall:.4f} s, lower_s {tm['lower_s']:.4f} stage_s "
+            f"{tm['stage_s']:.4f} solve_s {tm['solve_s']:.4f}; refine "
+            f"iterations {len(probe.solvers) - 1}, solvers {probe.solvers}; "
+            f"FineGrained.rows {probe.rows_s:.4f} s host over "
+            f"{probe.rows_calls} calls; launches {kinds}, kernel "
+            f"{ms:.3f} ms per launch (the final solve's inputs)")
+
+
+def fine_rounds(label, probe, card, rounds=2, reference=None):
+    """``rounds`` rounds of ``probe``: every solve kernel-routed and
+    launched once, the final solve's launch == its twin bit for bit and
+    timed; with ``reference`` (a CPU probe) every round equal to it.
+    Returns the first round's ``compare`` stats (the whole burst) and the
+    launches of all rounds."""
+    first, total = None, 0
+    for r in range(rounds):
+        now = 20.0 + r
+        result, launches, wall, captured = probe.round(now)
+        assert probe.solvers and set(probe.solvers) == {"kernel"}, (
+            label, probe.solvers)
+        assert len(captured) == len(probe.solvers) == sum(
+            launches.values()), (label, len(captured), launches)
+        if reference is not None:
+            want, _, _, _ = reference.round(now)
+            assert set(reference.solvers) == {"kernel"}, reference.solvers
+            same_round(result, want, f"{label}, round {r + 1}")
+            assert probe.state() == reference.state(), (
+                f"{label}, round {r + 1}: cuda != cpu fine-grained state")
+        inp, _ = captured[-1]
+        stats = compare(inp, f"{label}, round {r + 1}, final solve", card,
+                        reps=3)
+        first = first or stats
+        total += sum(launches.values())
+        print(fine_round_line(f"{label}, round {r + 1}", probe, result,
+                              launches, wall, card, stats["ms"])
+              + ("; cuda == cpu (placements, annotations, NUMA and device "
+                 "holds)" if reference is not None else ""), flush=True)
+    return first, total
+
+
+def fine_grained_burst(card) -> list:
+    """Phase 10. Returns its ``kernels`` entries."""
+    probe = FineProbe(fine_world(NODES, PENDING))
+    stats, launches = fine_rounds("fine-grained burst", probe, card)
+    _, numa, devices, _ = probe.state()
+    held = sum(len(v) for v in numa.values())
+    gpus = sum(len(v) for v in devices.values())
+    assert held > 0 and gpus > 0, (held, gpus)
+    print(f"fine-grained burst: {held} pods hold NUMA resources or a "
+          f"cpuset, {gpus} hold GPUs", flush=True)
+    kernels = [entry("binpack_extras", launches, stats, 259)]
+    world = fine_world(FINE_CUT_NODES, FINE_CUT_PENDING)
+    stats, launches = fine_rounds(
+        "fine-grained burst cut", FineProbe(world), card,
+        reference=FineProbe(world, "cpu"))
+    kernels.append(entry("binpack_extras_cut", launches, stats, 259))
+    world = fine_world(SNN_NODES, SNN_PENDING, node_policy="SingleNUMANode")
+    stats, launches = fine_rounds(
+        "SingleNUMANode nodes", FineProbe(world), card, rounds=1,
+        reference=FineProbe(world, "cpu"))
+    kernels.append(entry("binpack_extras_single_numa", launches, stats, 259))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -735,6 +959,7 @@ def main() -> int:
         fused = compare(inp, f"config #8, NUMA {scorer}", card, reps=3)
         loop_check(most, card)
         kernels.append(entry("binpack", launches[route.kind], fused, 259))
+    kernels.append(extras_loop_check(card))
     s_, p_, pr, q, g, rv, aux = testing.full_features_problem(
         BLOCK_NODES, BLOCK_PODS, seed=8)
     for most in (False, True):
@@ -795,6 +1020,9 @@ def main() -> int:
     churn = compare(inp, f"churn tick, {CHURN_NODES} x {CHURN_PENDING}", card,
                     reps=5)
     kernels.append(entry("binpack_churn_tick", launches, churn, 317))
+
+    # -- 10. the fine-grained burst through the Scheduler ----------------------
+    kernels += fine_grained_burst(card)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

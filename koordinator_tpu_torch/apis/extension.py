@@ -81,3 +81,20 @@ class ResourceName(enum.IntEnum):
 
 #: Number of resource columns in substrate arrays.
 NUM_RESOURCES = len(ResourceName)
+
+
+# -- annotation keys the fine-grained plugins read and write (the same
+# strings as ``koordinator_tpu/apis/extension.py``) --------------------------
+
+DOMAIN = "koordinator.tpu"
+
+#: a pod's cpuset / NUMA resource spec (JSON)
+ANNOTATION_RESOURCE_SPEC = f"{DOMAIN}/resource-spec"
+#: the cpuset and NUMA-node resources allocated to a pod (JSON, PreBind)
+ANNOTATION_RESOURCE_STATUS = f"{DOMAIN}/resource-status"
+#: the devices allocated to a pod (JSON, PreBind)
+ANNOTATION_DEVICE_ALLOCATED = f"{DOMAIN}/device-allocated"
+#: a pod's device selection hints per device type (JSON)
+ANNOTATION_DEVICE_ALLOCATE_HINTS = f"{DOMAIN}/device-allocate-hints"
+#: a pod's joint device allocation spec (JSON)
+ANNOTATION_DEVICE_JOINT_ALLOCATE = f"{DOMAIN}/device-joint-allocate"

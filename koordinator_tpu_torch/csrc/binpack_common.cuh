@@ -18,8 +18,11 @@
 //   s3[j]    = floor mean over requested r of (cap-nreq)*100 // cap
 //              (least) or nreq*100 // cap (most), nreq = cap-nfree+req,
 //              0 where cap == 0 or nreq > cap                 (NUMA only)
-//   mask[j]  = fit & (daemonset | !fresh | la_ok) & quota_admit(p)
-//   key[j]   = mask ? (s1//wsum + s2//wsum + s3) << 16 | (65535 - j) : -1
+//   s4[j]    = xscore[x, j], x = the pod's extras row        (extras only)
+//   mask[j]  = fit & (daemonset | !fresh | la_ok) & xmask[x, j]
+//              & quota_admit(p)
+//   key[j]   = mask ? (s1//wsum + s2//wsum + s3 + s4) << 16 | (65535 - j)
+//                   : -1
 // then the max key names the top score at the smallest node index, and
 // the winner's request, estimate and (for prod pods) prod estimate are
 // added into its row. The quota gate checks used+req <= runtime (and
@@ -30,7 +33,14 @@
 // delta = min(rfree, req), an allocate_once reservation releases the
 // rest (rem) and drops to zero, and only req - delta - rem lands in
 // used. With NUMA the winner's numa_free loses req when the pod or the
-// node declares a topology policy.
+// node declares a topology policy. A pod with an extras row x >= 0 (the
+// host rows of node selectors, host ports and the fine-grained plugins,
+// one [X, N] byte mask and int32 score shared by the pods whose rows are
+// equal) reads xmask[x, j] and xscore[x, j] for its own rows from device
+// memory (consecutive threads, consecutive nodes: the loads coalesce);
+// a pod without one (x = -1) pays one uniform branch. The wrapper routes
+// extras here only when every score lies in [0, 100], so the key keeps
+// its 15-bit score budget.
 //
 // Integer semantics are the reference's int32: sums and products wrap
 // (done in unsigned arithmetic, where wrapping is defined), divisions
@@ -115,9 +125,10 @@ constexpr unsigned FULL = 0xffffffffu;
 // the pod record: req[8], est[8], daemonset (unblocked), prod, quota id,
 // non-preemptible, NUMA policy, the masks of the columns with req != 0
 // and with req > 0, the columns with req != 0 in ascending order (4 bits
-// each, the first lowest), then the match bits (reservation v is bit
-// v & 31 of word v >> 5), padded to 4 words
-constexpr int REC_EST = 8, REC_MATCH = 24;
+// each, the first lowest), the extras row (-1: none) and 3 words of
+// padding, then the match bits (reservation v is bit v & 31 of word
+// v >> 5), padded to 4 words
+constexpr int REC_EST = 8, REC_XROW = 24, REC_MATCH = 28;
 // the row flags word
 constexpr unsigned F_SCHED = 1, F_FRESH = 2, F_LA_OK = 4, F_NPOL = 8;
 
@@ -130,6 +141,7 @@ struct Args {
   const int* qmin; const int* qrt; const int* qused0; const int* qnp0; int Q;
   const int* ncap; const int* nfree0; const int* npol;
   const int* rfree0; const int* aonce; const int* roff; const int* rids; int V;
+  const unsigned char* xmask; const int* xscore;   // [X, N] extras rows
   int* assign; int* used; int* estx; int* prod; int* qused; int* qnp;
   int* nfree; int* consumed; int* vstar; int* delta; int* rem; int* rfree;
   int n_loc;    // rows of each CTA's slice
@@ -450,6 +462,11 @@ __device__ __forceinline__ void solve(const Args& a) {
     const unsigned rcols = static_cast<unsigned>(mk4.w);
     const bool quota_on = Q > 0 && qid >= 0 && qid < Q;
     const unsigned* mbits = reinterpret_cast<const unsigned*>(rec + REC_MATCH);
+    // the pod's extras row, or none
+    const int xrow = rec[REC_XROW];
+    const size_t xoff = static_cast<size_t>(xrow) * a.N;
+    const unsigned char* xm = xrow >= 0 ? a.xmask + xoff : nullptr;
+    const int* xs = xrow >= 0 ? a.xscore + xoff : nullptr;
 
     // the quota gate: lane r of warp 0 checks resource r on this CTA's
     // copy; the other warps score meanwhile and the verdict is applied
@@ -478,6 +495,11 @@ __device__ __forceinline__ void solve(const Args& a) {
         if (!(fl & F_SCHED)) continue;
         const bool fr = fl & F_FRESH;
         if (!(is_ds || !fr || (fl & F_LA_OK))) continue;
+        int xsc = 0;
+        if (xm != nullptr) {
+          if (!xm[lo + i]) continue;
+          xsc = xs[lo + i];
+        }
         // used minus the matched reservations' free, on column r
         const int c0 = RESV ? row[LOFF] : 0;
         const int c1 = RESV ? s.row(i + 1)[LOFF] : 0;
@@ -543,6 +565,7 @@ __device__ __forceinline__ void solve(const Args& a) {
           const int cnt = __popc(pmask);
           score = wadd(score, floor_fast(psum, s_cnt_mag[cnt], s_cnt_shf[cnt]));
         }
+        score = wadd(score, xsc);
         const int key = static_cast<int>((static_cast<unsigned>(score) << 16) |
                                          static_cast<unsigned>(65535 - (lo + i)));
         best = max(best, key);
@@ -730,15 +753,16 @@ cudaError_t with_instance(int resv, int numa, int most, F&& f) {
       const int *qmin, const int *qrt, const int *qused0, const int *qnp0, \
       int Q, const int *ncap, const int *nfree0, const int *npol,          \
       int numa, int most, const int *rfree0, const int *aonce,             \
-      const int *roff, const int *rids, int V, int *assign, int *used,     \
-      int *estx, int *prod, int *qused, int *qnp, int *nfree,              \
+      const int *roff, const int *rids, int V,                             \
+      const unsigned char *xmask, const int *xscore, int *assign,          \
+      int *used, int *estx, int *prod, int *qused, int *qnp, int *nfree,   \
       int *consumed, int *vstar, int *delta, int *rem, int *rfree
 
 #define BINPACK_ARGS_INIT(n_loc, work, qshared)                            \
   Args{rec, P, rw, chunk, alloc, usage, sched, fresh, la_ok, N, weight,    \
        wsum, used0, est0, prod0, qmin, qrt, qused0, qnp0, Q, ncap, nfree0, \
-       npol, rfree0, aonce, roff, rids, V, assign, used, estx, prod,       \
-       qused, qnp, nfree, consumed, vstar, delta, rem, rfree, n_loc, work,  \
-       qshared}
+       npol, rfree0, aonce, roff, rids, V, xmask, xscore, assign, used,    \
+       estx, prod, qused, qnp, nfree, consumed, vstar, delta, rem, rfree,  \
+       n_loc, work, qshared}
 
 }  // namespace

@@ -2,11 +2,21 @@
 of ``koordinator_tpu/models/placement.py``).
 
 One solve: lower the snapshot to int32 arrays on the host, stage them on
-the device, build the gang, quota and reservation state, dispatch the
-solve (the hand-written kernel for eligible solves, the per-pod loop
-otherwise), and read the result back once in
+the device, build the gang, quota and reservation state and the host
+extras rows, dispatch the solve (the hand-written kernel for eligible
+solves, the per-pod loop otherwise), and read the result back once in
 :meth:`InFlightSchedule.finalize`, which also books each consumed
 reservation on its ``ReservationSpec``.
+
+With a fine-grained manager (``fine``, ``models/finegrained.FineGrained``)
+the pods it must place on the host allocators (cpusets, NUMA policies,
+devices, host ports) are *special*: their host rows come from its
+plugins, NUMA inventories ride the staged node state, and a propose ->
+validate -> refine loop replays the solve's choices against the real
+managers, re-solving with refreshed rows until they agree (at most
+``MAX_SCORE_ITERS`` score-consistent rounds, then feasibility only).
+Host rows (:class:`HostRows`) reach the solver in compact form: one row
+per distinct (mask, score) pair, shared by the pods that have it.
 
 A snapshot that carries a ``ClusterDeltaTracker`` (every snapshot of the
 scheduler cache does) goes through :class:`StagedStateCache`: the host
@@ -21,15 +31,14 @@ and sharded staging (no mesh on one card), the host path for tiny
 solves, pod-shape and reservation-axis bucketing (they share XLA
 compiles, which eager PyTorch does not have; results are identical
 without them), the kernel's cached reservation one-hot (the CUDA kernel
-has none), the fine-grained NUMA/device manager, preemption, the remote
-backend and the observability hooks.
+has none), preemption, the remote backend and the observability hooks.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, FrozenSet, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +55,9 @@ from koordinator_tpu_torch.apis.types import (
 )
 from koordinator_tpu_torch.ops.binpack import (
     STAGED_NODE_FIELDS,
-    Extras,
+    ExtrasRows,
     NodeState,
+    NumaAux,
     PodBatch,
     ResvArrays,
     ScoreParams,
@@ -56,15 +66,19 @@ from koordinator_tpu_torch.ops.binpack import (
     solve_batch,
 )
 from koordinator_tpu_torch.ops.binpack_kernel import (
-    kernel_resv_score_safe,
+    BASE_SCORE_WORST,
+    SCORE_BUDGET,
+    kernel_extras_score_safe,
     kernel_routing_ok,
     kernel_solve_batch,
     kernel_supported,
+    resv_score_worst,
     weight_sum,
 )
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
 from koordinator_tpu_torch.quota.core import GroupQuotaManager
+from koordinator_tpu_torch.scheduler.plugins.nodeports import pod_host_ports
 from koordinator_tpu_torch.scheduler.plugins.reservation import (
     is_reserve_pod,
     reservation_free,
@@ -88,17 +102,58 @@ def _vec(mapping) -> np.ndarray:
     return out
 
 
-def pod_host_ports(pod) -> FrozenSet[str]:
-    """Normalized "proto:port" set of a pod's host ports (counterpart of
-    scheduler/plugins/nodeports.py ``pod_host_ports``)."""
-    out = set()
-    for entry in getattr(pod, "host_ports", None) or ():
-        if isinstance(entry, int):
-            out.add(f"tcp:{entry}")
-        else:
-            text = str(entry).lower()
-            out.add(text if ":" in text else f"tcp:{text}")
-    return frozenset(out)
+class HostRows:
+    """A solve's host extras rows in compact form: pod ``i`` reads row
+    ``row_of_pod[i]`` (-1: no row, every node feasible, score 0); pods
+    whose (mask, score) rows are equal share one row. Rows are keyed by
+    content, so a pod whose row changes (the refine loop) moves to the
+    row of its new content; :meth:`arrays` keeps only the rows in use."""
+
+    def __init__(self, n_pods: int, n_nodes: int):
+        self.n_nodes = n_nodes
+        self.row_of_pod = np.full(n_pods, -1, np.int32)
+        self.masks: List[np.ndarray] = []
+        self.scores: List[np.ndarray] = []
+        self._by_content: Dict[bytes, int] = {}
+
+    def __bool__(self) -> bool:
+        return bool((self.row_of_pod >= 0).any())
+
+    def assign(self, i: int, mask: np.ndarray, score: np.ndarray) -> None:
+        """Pod ``i``'s row is now ``(mask [N] bool, score [N] int32)``."""
+        mask = np.ascontiguousarray(mask, dtype=bool)
+        score = np.ascontiguousarray(score, dtype=np.int32)
+        key = mask.tobytes() + score.tobytes()
+        row = self._by_content.get(key)
+        if row is None:
+            row = len(self.masks)
+            self.masks.append(mask)
+            self.scores.append(score)
+            self._by_content[key] = row
+        self.row_of_pod[i] = row
+
+    def get(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Pod ``i``'s ``(mask, score)`` (all True and 0 without a row);
+        read-only views."""
+        row = int(self.row_of_pod[i])
+        if row < 0:
+            return (np.ones(self.n_nodes, bool),
+                    np.zeros(self.n_nodes, np.int32))
+        return self.masks[row], self.scores[row]
+
+    def arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(row_of_pod [P], mask [X,N], score [X,N])`` over the rows
+        some pod reads, renumbered in first-use order."""
+        used = np.unique(self.row_of_pod[self.row_of_pod >= 0])
+        # one slot more, left at -1: row -1 (no row) maps to it
+        remap = np.full(len(self.masks) + 1, -1, np.int32)
+        remap[used] = np.arange(used.size, dtype=np.int32)
+        n = self.n_nodes
+        mask = (np.stack([self.masks[r] for r in used]) if used.size
+                else np.zeros((0, n), bool))
+        score = (np.stack([self.scores[r] for r in used]) if used.size
+                 else np.zeros((0, n), np.int32))
+        return remap[self.row_of_pod], mask, score
 
 
 class ScheduleResult(Dict[str, Optional[str]]):
@@ -107,12 +162,16 @@ class ScheduleResult(Dict[str, Optional[str]]):
     their node at the Permit barrier and must not be bound yet.
     ``resv_allocs`` (waiting pods) and ``resv_committed`` (committed pods)
     map a pod uid to ``(reservation name, delta vector)``: the
-    reservation it consumed, so a caller can roll the consumption back."""
+    reservation it consumed, so a caller can roll the consumption back.
+    ``fine_states`` maps a waiting pod's uid to ``(node name,
+    CycleState)``: its fine-grained holds, applied but not yet annotated
+    (PreBind runs when its Permit barrier opens)."""
 
     def __init__(self, assignments, waiting=None, resv_allocs=None,
-                 resv_committed=None):
+                 resv_committed=None, fine_states=None):
         super().__init__(assignments)
         self.waiting: Dict[str, str] = dict(waiting or {})
+        self.fine_states: Dict[str, tuple] = dict(fine_states or {})
         self.resv_allocs: Dict[str, tuple] = dict(resv_allocs or {})
         self.resv_committed: Dict[str, tuple] = dict(resv_committed or {})
 
@@ -152,7 +211,8 @@ class InFlightSchedule:
 
     def __init__(self, result, node_names, pod_uids, t_staged, timings,
                  resv_specs=None, pods_in_order=None, cache=None,
-                 pinned=None, tracker=None):
+                 pinned=None, tracker=None, fine=None, applied=(),
+                 snapshot=None, node_by_name=None):
         self.result = result
         self.node_names = node_names
         self.pod_uids = pod_uids
@@ -163,6 +223,12 @@ class InFlightSchedule:
         self.cache = cache
         self.pinned = pinned
         self.tracker = tracker
+        #: the fine-grained manager and the holds its validate loop
+        #: applied: (pod index, node name, CycleState)
+        self.fine = fine
+        self.applied = list(applied)
+        self.snapshot = snapshot
+        self.node_by_name = node_by_name
         self._final: Optional[ScheduleResult] = None
 
     def finalize(self) -> ScheduleResult:
@@ -174,6 +240,21 @@ class InFlightSchedule:
         assignments = result.assign.cpu().numpy()
         commit = result.commit.cpu().numpy()
         waiting = result.waiting.cpu().numpy()
+        # the fine-grained epilogue: gang-rejected holds roll back,
+        # committed pods are annotated (PreBind), waiting pods keep their
+        # holds for the scheduler to annotate when the barrier opens
+        fine_states: Dict[str, tuple] = {}
+        if self.applied:
+            rejected = result.rejected.cpu().numpy()
+            for i, node_name, cstate in self.applied:
+                pod = self.pods_in_order[i]
+                node = self.node_by_name[node_name]
+                if rejected[i]:
+                    self.fine.rollback(self.snapshot, pod, node, cstate)
+                elif commit[i]:
+                    self.fine.pre_bind(self.snapshot, pod, node, cstate)
+                else:
+                    fine_states[pod.uid] = (node_name, cstate)
         resv_allocs = resv_committed = None
         if self.resv_specs is not None:
             resv_allocs, resv_committed = _apply_reservations(
@@ -194,6 +275,7 @@ class InFlightSchedule:
             },
             resv_allocs=resv_allocs,
             resv_committed=resv_committed,
+            fine_states=fine_states,
         )
         if self.pinned is not None:
             self.cache.unpin(self.pinned)
@@ -449,6 +531,9 @@ class PlacementModel:
     """Batched placement on one device (``cuda`` unless ``device`` says
     otherwise)."""
 
+    #: score-consistent refinement rounds before the extras scores freeze
+    MAX_SCORE_ITERS = 8
+
     def __init__(
         self,
         config: SolverConfig = SolverConfig(),
@@ -459,12 +544,10 @@ class PlacementModel:
         device: DeviceLike = None,
         fine=None,
     ):
-        if fine is not None:
-            raise NotImplementedError(
-                "the fine-grained NUMA/device manager is a later slice of "
-                "the port (models/finegrained.py)"
-            )
         self.device = resolve_device(device)
+        #: the fine-grained manager (``models/finegrained.FineGrained``),
+        #: or None; a Scheduler binds its own
+        self.fine = fine
         self.config = config
         self.resource_weights = dict(resource_weights or DEFAULT_RESOURCE_WEIGHTS)
         self.scaling_factors = dict(
@@ -499,6 +582,9 @@ class PlacementModel:
         #: the staging cache's (epoch, delta) taken by the last solve
         #: (the sync point a remote solver would be sent)
         self.staging_delta = None
+        #: the last solve staged NUMA inventories (restaged in full, so
+        #: the next ensure skips the cache's device half)
+        self._numa_staging = False
 
     # -- staging ------------------------------------------------------------
 
@@ -523,11 +609,12 @@ class PlacementModel:
         _, _, times, _ = self.staged_cache.ensure(snapshot)
         return times
 
-    def stage_nodes(self, arrays: NodeArrays) -> NodeState:
-        """Copy host node arrays to the model's device. Always a copy, on
-        the CPU too: the staging cache patches the host arrays in place,
-        and a staged tensor that shared their memory would change with
-        no scatter."""
+    def stage_nodes(self, arrays: NodeArrays, numa_cap=None,
+                    numa_free=None) -> NodeState:
+        """Copy host node arrays (and the NUMA inventories, when given) to
+        the model's device. Always a copy, on the CPU too: the staging
+        cache patches the host arrays in place, and a staged tensor that
+        shared their memory would change with no scatter."""
         def put(a):
             return torch.tensor(a, device=self.device)
 
@@ -540,9 +627,12 @@ class PlacementModel:
             prod_base=put(arrays.prod_base),
             metric_fresh=put(arrays.metric_fresh),
             schedulable=put(arrays.schedulable),
+            numa_cap=None if numa_cap is None else put(numa_cap),
+            numa_free=None if numa_free is None else put(numa_free),
         )
 
-    def stage_pods(self, arrays: PendingPodArrays, blocked=None) -> PodBatch:
+    def stage_pods(self, arrays: PendingPodArrays, blocked=None,
+                   has_numa_policy=None) -> PodBatch:
         """Copy host pending-pod arrays to the model's device."""
         def put(a):
             return torch.as_tensor(a, device=self.device)
@@ -556,6 +646,8 @@ class PlacementModel:
             non_preemptible=put(arrays.non_preemptible),
             gang_id=put(arrays.gang_id),
             blocked=None if blocked is None else put(blocked),
+            has_numa_policy=(None if has_numa_policy is None
+                             else put(has_numa_policy)),
         )
 
     # -- solve --------------------------------------------------------------
@@ -565,7 +657,9 @@ class PlacementModel:
         return self.schedule_async(snapshot).finalize()
 
     def schedule_async(self, snapshot: ClusterSnapshot) -> InFlightSchedule:
-        """Lower, stage and dispatch one solve without reading it back."""
+        """Lower, stage and dispatch one solve without reading it back.
+        With fine-grained specials the propose -> validate -> refine loop
+        runs here (it reads each proposal back), so such rounds block."""
         t_start = time.perf_counter()
         gang_names = sorted(snapshot.gangs)
         quota_names = sorted(snapshot.quotas)
@@ -577,7 +671,12 @@ class PlacementModel:
         self.last_staging = None
         if snapshot.delta_tracker is not None:
             node_arrays, staged_state, cache_times, _ = (
-                self.staged_cache.ensure(snapshot))
+                self.staged_cache.ensure(
+                    snapshot,
+                    # a solve that stages NUMA inventories restages in full
+                    # below: skip the cache's device half (decided from the
+                    # last solve: one extra stage when topology appears)
+                    want_device=not self._numa_staging))
             cache_stage_s = cache_times["stage_s"]
             self.last_staging = self.staged_cache.last_path
             self.staging_delta = self.staged_cache.take_wire_delta()
@@ -592,6 +691,36 @@ class PlacementModel:
         )
         uid_to_pod = {pod.uid: pod for pod in snapshot.pending_pods}
         pods_in_order = [uid_to_pod[uid] for uid in pod_arrays.uids]
+        node_by_name = {node.name: node for node in snapshot.nodes}
+
+        # fine-grained classification and NUMA lowering: one annotation
+        # parse per pod gives the specials (host rows) and the pod-level
+        # NUMA policy flags (in-solve consumption)
+        fine = self.fine
+        specials: List[int] = []
+        pod_policy = None
+        numa_cap = numa_free = node_policy = None
+        use_numa = fine is not None and fine.has_topology(node_arrays.names)
+        node_policy_present = use_numa and fine.any_node_policy(
+            node_arrays.names)
+        if fine is not None:
+            pod_policy = np.zeros(len(pods_in_order), bool)
+            for i, pod in enumerate(pods_in_order):
+                special, has_policy = fine.pod_flags(pod, node_policy_present)
+                if special:
+                    specials.append(i)
+                pod_policy[i] = has_policy
+        if use_numa:
+            numa_cap, numa_free, node_policy = fine.numa_arrays(
+                node_arrays.names)
+        self._numa_staging = use_numa
+        if self._numa_staging:
+            # NUMA inventories ride the NodeState but live outside the
+            # staging cache: restage in full (the host arrays stay
+            # delta-maintained), as the reference does
+            staged_state = None
+            self.last_staging = "full"
+
         # a gang pod whose GangSpec has not been observed must not bind solo
         blocked = np.array(
             [pod.gang is not None and pod.gang not in gang_index
@@ -603,9 +732,9 @@ class PlacementModel:
         quota_arrays = (self._quota_arrays(snapshot, quota_names, quota_index,
                                            node_arrays)
                         if quota_names else None)
-        extras_np = self._extras_rows(snapshot, pods_in_order)
-        resv_np, resv_specs, resv_kernel_safe = self._build_resv(
+        resv_np, resv_specs, resv_worst = self._build_resv(
             snapshot, node_arrays, pods_in_order)
+        rows, affinity = self._host_rows(snapshot, pods_in_order, specials)
         t_host_done = time.perf_counter()
 
         if staged_state is not None:
@@ -614,67 +743,132 @@ class PlacementModel:
             # scatters write beside it until finalize() unpins it
             self.staged_cache.pin(state)
         else:
-            state = self.stage_nodes(node_arrays)
-        batch = self.stage_pods(pod_arrays, blocked if blocked.any() else None)
+            state = self.stage_nodes(node_arrays, numa_cap, numa_free)
+        batch = self.stage_pods(pod_arrays, blocked if blocked.any() else None,
+                                pod_policy if use_numa else None)
+        numa_aux = (NumaAux(node_policy=torch.as_tensor(node_policy,
+                                                        device=self.device))
+                    if use_numa else None)
         gang_state = (GangState.build(**gang_arrays, device=self.device)
                       if gang_arrays is not None else None)
         quota_state = (QuotaState.build(**quota_arrays, device=self.device)
                        if quota_arrays is not None else None)
-        extras = None
-        if extras_np is not None:
-            extras = Extras(
-                mask=torch.as_tensor(extras_np[0], device=self.device),
-                score=torch.as_tensor(extras_np[1], device=self.device),
-            )
         resv = None
         if resv_np is not None:
             resv = ResvArrays(**{k: torch.as_tensor(v, device=self.device)
                                  for k, v in resv_np.items()})
         t_staged = time.perf_counter()
         self.last_timings = {
-            # host lowering, less the staging the cache did inside it
+            # host lowering and the first host rows, less the staging the
+            # cache did inside it; the refine loop counts in solve_s
             "lower_s": (t_host_done - t_start) - cache_stage_s,
             "stage_s": (t_staged - t_host_done) + cache_stage_s,
             "solve_s": 0.0,
         }
-        result = self._dispatch_solve(state, batch, quota_state, gang_state,
-                                      extras, resv, resv_kernel_safe)
+
+        # propose -> validate -> refine
+        applied: List[tuple] = []   # (pod index, node name, CycleState)
+        iteration = 0
+        while True:
+            extras, extras_safe = self._stage_rows(rows, resv_worst)
+            result = self._dispatch_solve(
+                state, batch, quota_state, gang_state, extras, resv,
+                resv_worst <= SCORE_BUDGET, numa_aux, extras_safe)
+            if not specials:
+                break
+            raw = result.raw_assign.cpu().numpy()
+            frozen = iteration >= self.MAX_SCORE_ITERS
+            dirty = False
+            for i in specials:
+                a = int(raw[i])
+                if a < 0:
+                    continue
+                pod = pods_in_order[i]
+                node = node_by_name[node_arrays.names[a]]
+                mask_i, score_i = rows.get(i)
+                if not frozen:
+                    m_row, s_row = fine.rows(snapshot, pod, snapshot.nodes)
+                    if i in affinity:   # a node selector always applies
+                        m_row = m_row & affinity[i]
+                    if not (np.array_equal(m_row, mask_i)
+                            and np.array_equal(s_row, score_i)):
+                        rows.assign(i, m_row, s_row)
+                        dirty = True
+                        break
+                ok, cstate = fine.apply(snapshot, pod, node)
+                if not ok:
+                    m_row = mask_i.copy()
+                    m_row[a] = False
+                    rows.assign(i, m_row, score_i)
+                    dirty = True
+                    break
+                applied.append((i, node.name, cstate))
+            if not dirty:
+                break
+            for i, node_name, cstate in reversed(applied):
+                fine.rollback(snapshot, pods_in_order[i],
+                              node_by_name[node_name], cstate)
+            applied = []
+            iteration += 1
         return InFlightSchedule(
             result, node_arrays.names, pod_arrays.uids, t_staged,
             self.last_timings,
             resv_specs=resv_specs if resv is not None else None,
             pods_in_order=pods_in_order, cache=self.staged_cache,
-            pinned=staged_state, tracker=snapshot.delta_tracker)
+            pinned=staged_state, tracker=snapshot.delta_tracker,
+            fine=fine, applied=applied, snapshot=snapshot,
+            node_by_name=node_by_name)
+
+    def _stage_rows(self, rows: "HostRows", worst: int
+                    ) -> Tuple[Optional[ExtrasRows], bool]:
+        """The host rows on the device as :class:`ExtrasRows` (None when
+        no pod has one), and whether the kernel may take them
+        (:func:`kernel_extras_score_safe` against the solve's worst score
+        before extras)."""
+        if not rows:
+            return None, True
+        row_of_pod, mask, score = rows.arrays()
+        extras = ExtrasRows(
+            row_of_pod=torch.as_tensor(row_of_pod, device=self.device),
+            mask=torch.as_tensor(mask, device=self.device),
+            score=torch.as_tensor(score, device=self.device))
+        return extras, kernel_extras_score_safe(score, worst)
 
     def _dispatch_solve(self, state, batch, quota_state, gang_state, extras,
-                        resv=None, resv_kernel_safe: bool = True):
+                        resv=None, resv_kernel_safe: bool = True,
+                        numa_aux=None, extras_safe: bool = True):
         """Eligible solves go to the kernel that
         ``ops/binpack_kernel.kernel_route`` names by size: the one-block
         kernel, or the cluster kernel at the CTA count the route picks (on
         CUDA tensors it launches; a build or launch failure raises; on CPU
-        tensors the chosen kernel's plain twin runs). Configurations the kernel does
-        not cover, solves with host extras, and reservation tables whose
-        credit could overflow the packed key's score budget
-        (``resv_kernel_safe``, checked on the host in
-        :meth:`_build_resv`) run the per-pod loop on the same device."""
+        tensors the chosen kernel's plain twin runs). Host extras rows
+        ride along in compact form. Configurations the kernel does not
+        cover, reservation tables whose credit could overflow the packed
+        key's score budget (``resv_kernel_safe``) and extras tables with
+        a score outside [0, 100] or past that budget (``extras_safe``),
+        both checked on the host where they are built, and solves past
+        65,536 nodes run the per-pod loop on the same device."""
         if self._kernel_eligible and kernel_routing_ok(
-                state, batch, extras, resv, resv_kernel_safe):
+                state, batch, extras, resv, resv_kernel_safe, numa_aux,
+                extras_safe):
             self.last_solver = "kernel"
             return kernel_solve_batch(
                 state, batch, self.params, quota_state, gang_state,
-                self._wsum, resv=resv,
+                self._wsum, numa_aux=numa_aux, resv=resv,
                 most_allocated=self.config.numa_most_allocated,
-                resv_score_checked=True)
+                resv_score_checked=True, extras=extras,
+                extras_score_checked=True)
         self.last_solver = "loop"
         return solve_batch(state, batch, self.params, self.config,
-                           quota_state, gang_state, extras, resv)
+                           quota_state, gang_state, extras, resv, numa_aux)
 
     def _build_resv(self, snapshot, node_arrays, pods_in_order):
         """The Available reservations with a free remainder on a known
         node, as ``(ResvArrays fields as numpy, their specs indexed by v,
-        kernel_safe)``, or ``(None, [], True)`` when there are none.
-        ``kernel_safe`` is :func:`kernel_resv_score_safe` on the host
-        arrays, so dispatch can route an unsafe table to the loop."""
+        worst)``, or ``(None, [], BASE_SCORE_WORST)`` when there are
+        none. ``worst`` is :func:`resv_score_worst` on the host arrays:
+        past ``SCORE_BUDGET`` dispatch routes the table to the loop, and
+        the extras check adds the largest extras score to it."""
         index = {name: j for j, name in enumerate(node_arrays.names)}
         specs, nodes, frees, once = [], [], [], []
         for resv in snapshot.reservations:
@@ -690,14 +884,14 @@ class PlacementModel:
             frees.append(free)
             once.append(resv.allocate_once)
         if not specs:
-            return None, [], True
+            return None, [], BASE_SCORE_WORST
         node_np = np.asarray(nodes, np.int32)
         free_np = np.stack(frees).astype(np.int32)
         arrays = dict(node=node_np, free=free_np,
                       allocate_once=np.asarray(once, bool),
                       match=_match_matrix(specs, pods_in_order))
-        return arrays, specs, kernel_resv_score_safe(node_np, free_np,
-                                                     node_arrays.alloc)
+        return arrays, specs, resv_score_worst(node_np, free_np,
+                                               node_arrays.alloc)
 
     def _gang_arrays(self, snapshot, gang_names) -> dict:
         """``GangState.build`` arguments: min member, members already
@@ -773,47 +967,72 @@ class PlacementModel:
                     allow_lent=allow, child_request=child_request, used=used,
                     total=node_total, runtime=runtime)
 
-    def _extras_rows(self, snapshot, pods_in_order) -> Optional[tuple]:
-        """Host ``(mask[P,N], score[P,N])`` rows for pods with a required
-        node selector or host ports, or None when no pod has either.
-        A host-port pod conflicts with the ports of pods already assigned
-        to a node; a later pending pod claiming a port an earlier one
-        claimed is deferred (all-False row) to the next round."""
+    def _host_rows(self, snapshot, pods_in_order, specials
+                   ) -> Tuple[HostRows, Dict[int, np.ndarray]]:
+        """The solve's host rows and, per pod, the static part its
+        refreshed special rows are AND-ed with (``affinity``).
+        - Specials: the fine-grained manager's rows (NUMA and device
+          filters, device score) against its current state.
+        - A required node selector: a mask row, built once per distinct
+          selector.
+        - Host ports, when no fine-grained ports plugin resolves them: a
+          row against the ports of pods already assigned to each node; a
+          later pending pod claiming a port an earlier one claimed is
+          deferred (all-False row) to the next round, and only a pod with
+          a feasible node claims its ports.
+        Equal to the reference's dense ``[P,N]`` rows."""
+        fine = self.fine
+        nodes = snapshot.nodes
+        n = len(nodes)
+        rows = HostRows(len(pods_in_order), n)
+        affinity: Dict[int, np.ndarray] = {}
         selector_pods = [i for i, pod in enumerate(pods_in_order)
                          if pod.node_selector]
-        port_pods = [i for i, pod in enumerate(pods_in_order)
-                     if pod.host_ports]
-        if not (selector_pods or port_pods):
-            return None
-        p, n = len(pods_in_order), len(snapshot.nodes)
-        mask = np.ones((p, n), bool)
-        score = np.zeros((p, n), np.int32)
+        port_pods = []
+        if fine is None or fine.ports_plugin is None:
+            port_pods = [i for i, pod in enumerate(pods_in_order)
+                         if pod.host_ports]
+        if not (specials or selector_pods or port_pods):
+            return rows, affinity
+        current: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for i in specials:
+            current[i] = fine.rows(snapshot, pods_in_order[i], nodes)
+        zeros = np.zeros(n, np.int32)
+        by_selector: Dict[frozenset, np.ndarray] = {}
         for i in selector_pods:
             selector = pods_in_order[i].node_selector
-            mask[i] &= np.fromiter(
-                (selector_matches(selector, node.labels)
-                 for node in snapshot.nodes),
-                dtype=bool, count=n,
-            )
+            key = frozenset(selector.items())
+            row = by_selector.get(key)
+            if row is None:
+                row = np.fromiter(
+                    (selector_matches(selector, node.labels)
+                     for node in nodes), dtype=bool, count=n)
+                by_selector[key] = row
+            affinity[i] = row
+            mask, score = current.get(i, (row, zeros))
+            current[i] = (mask & row, score)
         if port_pods:
             used_by_node = [set() for _ in range(n)]
-            node_idx = {nd.name: j for j, nd in enumerate(snapshot.nodes)}
+            node_idx = {nd.name: j for j, nd in enumerate(nodes)}
             for ap in snapshot.pods:
                 j = node_idx.get(ap.node_name)
                 if j is not None:
                     used_by_node[j] |= pod_host_ports(ap)
             claimed: set = set()
             for i in port_pods:
+                mask, score = current.get(i, (np.ones(n, bool), zeros))
                 want = pod_host_ports(pods_in_order[i])
                 if want & claimed:
-                    mask[i] = False
+                    current[i] = (np.zeros(n, bool), score)
+                    affinity[i] = np.zeros(n, bool)
                     continue
                 row = np.fromiter(
                     (not (want & used_by_node[j]) for j in range(n)),
-                    dtype=bool, count=n,
-                )
-                # only a pod with a feasible node claims its ports
-                if (mask[i] & row).any():
+                    dtype=bool, count=n)
+                if (mask & row).any():
                     claimed |= want
-                mask[i] &= row
-        return mask, score
+                affinity[i] = affinity.get(i, np.ones(n, bool)) & row
+                current[i] = (mask & row, score)
+        for i, (mask, score) in current.items():
+            rows.assign(i, mask, score)
+        return rows, affinity

@@ -19,7 +19,10 @@ request out of ``numa_free``.
 
 This is the reference's ``lax.scan`` solver written as a loop: the route
 for configurations the hand-written kernel (ops/binpack_kernel.py) does
-not take, and for solves that carry host ``Extras`` rows. Gangs resolve
+not take (non-unit plugin weights, prod-usage thresholds and scoring,
+score-unsafe reservation or extras tables, more than 65,536 nodes). The
+kernel takes host ``Extras`` rows in compact form (:class:`ExtrasRows`);
+this loop expands them to the dense form. Gangs resolve
 at batch end (:func:`resolve_gangs`), shared with the kernel path.
 
 :func:`scatter_node_rows` writes re-lowered node rows into a staged
@@ -151,6 +154,32 @@ class Extras(NamedTuple):
 
     mask: torch.Tensor   # [P,N] bool
     score: torch.Tensor  # [P,N] int32, added to feasible nodes' scores
+
+
+class ExtrasRows(NamedTuple):
+    """:class:`Extras` in compact form: only the pods that have a row
+    appear, and pods whose rows are equal may share one. Pod ``p`` reads
+    row ``row_of_pod[p]`` (-1: no row, every node feasible, score 0)."""
+
+    row_of_pod: torch.Tensor  # [P] int32
+    mask: torch.Tensor        # [X,N] bool
+    score: torch.Tensor       # [X,N] int32
+
+    def dense(self) -> Extras:
+        """The same rows as ``[P,N]`` :class:`Extras`, bit for bit."""
+        has = self.row_of_pod >= 0
+        row = torch.clamp(self.row_of_pod, min=0).long()
+        if self.mask.shape[0] == 0:
+            p, n = self.row_of_pod.shape[0], self.mask.shape[1]
+            return Extras(
+                mask=torch.ones((p, n), dtype=torch.bool,
+                                device=self.mask.device),
+                score=torch.zeros((p, n), dtype=I32, device=self.mask.device))
+        return Extras(
+            mask=torch.where(has[:, None], self.mask.index_select(0, row),
+                             True),
+            score=torch.where(has[:, None], self.score.index_select(0, row),
+                              0).to(I32))
 
 
 class ResvArrays(NamedTuple):
@@ -289,13 +318,16 @@ def resolve_gangs(node_state: NodeState, quota_state, assign, pods: PodBatch,
 
 def solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
                 config: SolverConfig = SolverConfig(), quota_state=None,
-                gang_state=None, extras: Optional[Extras] = None,
+                gang_state=None, extras=None,
                 resv: Optional[ResvArrays] = None,
                 numa: Optional[NumaAux] = None) -> SolveResult:
     """Place a whole pending queue, pod by pod, with quota admission,
-    host extras, reservation credit and consumption, NUMA scoring and
-    consumption, and batch-end gang resolution. Bit-identical to the
-    reference's ``solve_batch`` on the same inputs."""
+    host extras (:class:`Extras`, or :class:`ExtrasRows` expanded to it),
+    reservation credit and consumption, NUMA scoring and consumption, and
+    batch-end gang resolution. Bit-identical to the reference's
+    ``solve_batch`` on the same inputs."""
+    if isinstance(extras, ExtrasRows):
+        extras = extras.dense()
     n_pods = pods.req.shape[0]
     dev = pods.req.device
     if numa is not None and (state.numa_cap is None or state.numa_free is None):

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.ops.binpack import (
+    ExtrasRows,
     NodeState,
     NumaAux,
     PodBatch,
@@ -108,7 +109,15 @@ SMEM_BYTES = 232448 - 1024
 POD_CHUNK = 32
 POD_BUFFER_BYTES = 16384
 #: the words of a pod record before its match bits (``REC_MATCH``)
-RECORD_HEAD = 24
+RECORD_HEAD = 28
+#: the word of a pod record holding its extras row (``REC_XROW``)
+RECORD_XROW = 24
+#: an extras score the kernel takes lies in [0, this] (DeviceShare's
+#: score is ``min(..., 100)``; selector and port rows score 0)
+EXTRAS_SCORE_MAX = 100
+#: the worst score without reservation credit or extras: LeastAllocated,
+#: LoadAware and NUMA, each at most 100
+BASE_SCORE_WORST = 300
 #: a solve of at most this many nodes takes the one-block kernel when it
 #: fits there; a larger one takes the cluster, with its CTA count raised
 #: until each slice has at most this many rows (if one fits)
@@ -145,8 +154,9 @@ def slice_bytes(n_loc: int, n_resv: int, numa: bool,
 
 
 def record_words(n_resv: int) -> int:
-    """Words of a pod record: req, est, flags, the NUMA policy, then the
-    match bits padded to a 16-byte multiple."""
+    """Words of a pod record: req, est, flags, the NUMA policy, the
+    column lists, the extras row, then the match bits padded to a
+    16-byte multiple."""
     words = -(-n_resv // 32)
     return RECORD_HEAD + ((words + 3) & ~3)
 
@@ -271,6 +281,10 @@ class KernelInputs(NamedTuple):
     #: id), node j's at ids[offsets[j]:offsets[j+1]]; blocked pods'
     #: match rows are zero
     resv: Optional[tuple] = None
+    #: None, or (row_of_pod [P] int32, mask [X,N] uint8, score [X,N]
+    #: int32): pod p's host extras row, -1 for none (ops/binpack.py
+    #: ``ExtrasRows``); every score in [0, EXTRAS_SCORE_MAX]
+    extras: Optional[tuple] = None
 
 
 class KernelOutputs(NamedTuple):
@@ -312,13 +326,12 @@ def kernel_resv_supported(n_resv: int) -> bool:
     return n_resv >= 1
 
 
-def kernel_resv_score_safe(node, free, alloc) -> bool:
-    """The packed key budgets 15 bits for the score. Without reservations
-    every component is at most 100 (fit + LoadAware + NUMA <= 300); the
-    matched credit can push the fit term to ~100 * (1 + credit/alloc),
-    since ``used - credit`` may go far negative. A table whose worst
-    per-node credit ratio could overflow the budget must take the loop
-    solver. The free table only shrinks within a solve, so the initial
+def resv_score_worst(node, free, alloc) -> int:
+    """The worst score a solve with this reservation table can reach
+    before extras. Without reservations every component is at most 100
+    (fit + LoadAware + NUMA <= 300); the matched credit can push the fit
+    term to ~100 * (1 + credit/alloc), since ``used - credit`` may go far
+    negative. The free table only shrinks within a solve, so the initial
     per-node sums bound the credit for the whole solve. Reads the
     tensors back to the host."""
     node = torch.as_tensor(node).cpu().long().numpy()
@@ -327,25 +340,54 @@ def kernel_resv_score_safe(node, free, alloc) -> bool:
     credit = np.zeros_like(alloc)
     np.add.at(credit, node, free)
     ratio = -(-credit // np.maximum(alloc, 1))  # ceil; alloc == 0 scores 0
-    worst = 300 + 100 * int(np.where(alloc > 0, ratio, 0).max(initial=0))
-    return worst <= SCORE_BUDGET
+    return BASE_SCORE_WORST + 100 * int(
+        np.where(alloc > 0, ratio, 0).max(initial=0))
+
+
+def kernel_resv_score_safe(node, free, alloc) -> bool:
+    """The packed key budgets 15 bits for the score: a reservation table
+    whose worst score (:func:`resv_score_worst`) could overflow it must
+    take the loop solver."""
+    return resv_score_worst(node, free, alloc) <= SCORE_BUDGET
+
+
+def kernel_extras_score_safe(score, worst: int = BASE_SCORE_WORST) -> bool:
+    """Whether a table of extras scores maps onto the kernel: every score
+    in [0, :data:`EXTRAS_SCORE_MAX`], and ``worst`` (the solve's worst
+    score before extras, :func:`resv_score_worst` with reservations) plus
+    the largest of them within the packed key's budget. A negative score
+    must never reach the kernel: the scan treats a masked-in negative
+    score as infeasible (``where(mask, score, -1)``, first max), the
+    packed key does not. ``score`` is any array; it is read on the host
+    once per solve, where the rows are built."""
+    score = np.asarray(score)
+    if score.size == 0:
+        return worst <= SCORE_BUDGET
+    lo, hi = int(score.min()), int(score.max())
+    return (0 <= lo and hi <= EXTRAS_SCORE_MAX
+            and worst + hi <= SCORE_BUDGET)
 
 
 def kernel_routing_ok(state: NodeState, pods: PodBatch, extras,
                       resv: Optional[ResvArrays] = None,
                       resv_score_safe: bool = True,
-                      numa_aux: Optional[NumaAux] = None) -> bool:
-    """Per-solve eligibility: no host extras, at least one pod, NUMA
-    inventories when NUMA is asked for, a reservation table the kernel
-    takes (:func:`kernel_resv_supported`) whose score budget the caller
-    has checked (``resv_score_safe``, :func:`kernel_resv_score_safe`),
-    and a kernel that takes the solve (:func:`kernel_route`: 1..65,536
-    nodes, the packed key's 16 node bits; the quota groups only decide
-    where the kernel keeps their tables)."""
+                      numa_aux: Optional[NumaAux] = None,
+                      extras_score_safe: bool = True) -> bool:
+    """Per-solve eligibility: host extras only in compact form
+    (``ExtrasRows``) with scores the caller has checked
+    (``extras_score_safe``, :func:`kernel_extras_score_safe`), at least
+    one pod, NUMA inventories when NUMA is asked for, a reservation
+    table the kernel takes (:func:`kernel_resv_supported`) whose score
+    budget the caller has checked (``resv_score_safe``,
+    :func:`kernel_resv_score_safe`), and a kernel that takes the solve
+    (:func:`kernel_route`: 1..65,536 nodes, the packed key's 16 node
+    bits; the quota groups only decide where the kernel keeps their
+    tables)."""
     n = int(state.alloc.shape[0])
     n_resv = 0 if resv is None else int(resv.node.shape[0])
     return (
-        extras is None
+        (extras is None
+         or (isinstance(extras, ExtrasRows) and extras_score_safe))
         and pods.req.shape[0] > 0
         and (numa_aux is None
              or (state.numa_cap is not None and state.numa_free is not None))
@@ -377,14 +419,16 @@ def kernel_inputs(state: NodeState, pods: PodBatch, params: ScoreParams,
                   quota=None, wsum: Optional[int] = None,
                   numa_aux: Optional[NumaAux] = None,
                   resv: Optional[ResvArrays] = None,
-                  most_allocated: bool = False) -> KernelInputs:
+                  most_allocated: bool = False,
+                  extras: Optional[ExtrasRows] = None) -> KernelInputs:
     """Lay the solve out for the kernel: precompute the LoadAware filter
     verdict per node, pack the per-pod flags, and encode host-blocked
     pods as unplaceable. ``quota`` is None or (min, runtime, used,
     np_used); ``wsum`` is :func:`weight_sum` of ``params``, read from them
     when not given. With ``numa_aux`` the NUMA inventories ride along;
     with ``resv`` the reservation table becomes the node CSR, and
-    blocked pods' match rows are zeroed so no credit lets them fit."""
+    blocked pods' match rows are zeroed so no credit lets them fit; with
+    ``extras`` the compact rows ride along, the mask as bytes."""
     upct = percent_rounded(state.usage, state.alloc)
     over = (state.alloc > 0) & (params.thresholds > 0) & (
         upct >= params.thresholds)
@@ -417,6 +461,10 @@ def kernel_inputs(state: NodeState, pods: PodBatch, params: ScoreParams,
         most_allocated=bool(most_allocated),
         resv=None if resv is None else _resv_inputs(resv, pods,
                                                     state.alloc.shape[0]),
+        extras=None if extras is None else (
+            extras.row_of_pod.to(I32).contiguous(),
+            extras.mask.to(torch.uint8).contiguous(),
+            extras.score.to(I32).contiguous()),
     )
 
 
@@ -497,6 +545,11 @@ def _plain(inp: KernelInputs, shards: int) -> KernelOutputs:
         once_c = aonce.index_select(0, ids) > 0
         vstars, deltas, rems = [], [], []
     consumed = []
+    xrow = None
+    if inp.extras is not None:
+        # the rows each pod reads, named on the host once
+        xrow = inp.extras[0].cpu().tolist()
+        xmask, xscore = inp.extras[1] > 0, inp.extras[2]
 
     def score(value):
         # Σ_r w_r * (alloc - value)*100 // alloc, 0 where alloc == 0 or
@@ -533,6 +586,9 @@ def _plain(inp: KernelInputs, shards: int) -> KernelOutputs:
                 cnt > 0, torch.div(per.sum(dim=-1, dtype=I32),
                                    torch.clamp(cnt, min=1),
                                    rounding_mode="floor"), 0)
+        if xrow is not None and xrow[p] >= 0:
+            mask = mask & xmask[xrow[p]]
+            total = total + xscore[xrow[p]]
         if quota:
             # each shard gates its rows with its own copy
             qid = inp.flags[p, 2]
@@ -689,6 +745,7 @@ def _library():
                     ptr, ptr, ptr, ptr, i32,         # quota in, Q
                     ptr, ptr, ptr, i32, i32,         # numa in, on, most
                     ptr, ptr, ptr, ptr, i32,         # resv in, V
+                    ptr, ptr,                        # extras mask, score
                     ptr, ptr, ptr, ptr, ptr, ptr,    # outputs
                     ptr, ptr,                        # numa outputs
                     ptr, ptr, ptr, ptr]              # resv outputs
@@ -741,8 +798,9 @@ def pod_records(inp: KernelInputs) -> torch.Tensor:
     """The kernels' per-pod records, ``[P, record_words(V)]`` int32: req,
     est, flags, the NUMA policy, the bit masks of the columns with req !=
     0 and with req > 0, the columns with req != 0 in ascending order (4
-    bits each, the first lowest), then the match row as bits
-    (reservation v is bit ``v & 31`` of word ``v >> 5``)."""
+    bits each, the first lowest), the extras row (-1: none), then the
+    match row as bits (reservation v is bit ``v & 31`` of word
+    ``v >> 5``)."""
     p = inp.req.shape[0]
     v = 0 if inp.resv is None else inp.resv[0].shape[0]
     dev = inp.req.device
@@ -760,6 +818,7 @@ def pod_records(inp: KernelInputs) -> torch.Tensor:
     cols = torch.arange(R, dtype=I32, device=dev)
     rec[:, 2 * R + 7] = (asked * (cols << slot.clamp(min=0))).sum(
         dim=1, dtype=I32)
+    rec[:, RECORD_XROW] = -1 if inp.extras is None else inp.extras[0]
     if v:
         words = -(-v // 32)
         bits = torch.zeros((p, words * 32), dtype=torch.int64, device=dev)
@@ -807,6 +866,15 @@ def _launch(inp: KernelInputs, route: Route) -> KernelOutputs:
                 resv, ((v, R), (v,), (n + 1,), (v,), (p, v)),
                 (I32, I32, I32, I32, torch.uint8)):
             _check(name, t, shape, dev, dtype)
+    extras = inp.extras
+    xptrs = [None] * 2
+    if extras is not None:
+        x = extras[1].shape[0]
+        for name, t, shape, dtype in zip(
+                ("row_of_pod", "extras_mask", "extras_score"), extras,
+                ((p,), (x, n), (x, n)), (I32, torch.uint8, I32)):
+            _check(name, t, shape, dev, dtype)
+        xptrs = [extras[1].data_ptr(), extras[2].data_ptr()]
     lib = _library()
     rec = pod_records(inp)
     assign = torch.empty(p, dtype=I32, device=dev)
@@ -839,7 +907,7 @@ def _launch(inp: KernelInputs, route: Route) -> KernelOutputs:
         inp.used0.data_ptr(), inp.est0.data_ptr(), inp.prod0.data_ptr(),
         *qptrs, q,
         *nptrs, int(numa is not None), int(inp.most_allocated),
-        *rptrs, v,
+        *rptrs, v, *xptrs,
         assign.data_ptr(), used.data_ptr(), est.data_ptr(),
         prod.data_ptr(), _ptr(out.qused), _ptr(out.qnp),
         _ptr(out.nfree), _ptr(out.consumed),
@@ -953,7 +1021,9 @@ def kernel_solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
                        numa_aux: Optional[NumaAux] = None,
                        resv: Optional[ResvArrays] = None,
                        most_allocated: bool = False,
-                       resv_score_checked: bool = False) -> SolveResult:
+                       resv_score_checked: bool = False,
+                       extras: Optional[ExtrasRows] = None,
+                       extras_score_checked: bool = False) -> SolveResult:
     """The kernel path of a solve: quota runtime (water-filled once per
     solve), the kernel, then the batch-end gang epilogue. Equal to
     ``ops/binpack.solve_batch`` on every configuration
@@ -963,12 +1033,21 @@ def kernel_solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
     once per model, the second per solve), and the kernel wrapper checks
     the shapes it is given. A reservation table whose credit could
     overflow the packed key's score budget raises, unless the caller
-    checked it already (``resv_score_checked``)."""
+    checked it already (``resv_score_checked``); so does an extras table
+    (``ExtrasRows``) with a score outside [0, 100] or past the budget,
+    unless checked already (``extras_score_checked``)."""
     if resv is not None and not resv_score_checked and not (
             kernel_resv_score_safe(resv.node, resv.free, state.alloc)):
         raise ValueError("reservation credit could overflow the packed "
                          "key's 15-bit score budget: use the loop solver")
+    if extras is not None and not extras_score_checked:
+        worst = (BASE_SCORE_WORST if resv is None
+                 else resv_score_worst(resv.node, resv.free, state.alloc))
+        if not kernel_extras_score_safe(extras.score.cpu().numpy(), worst):
+            raise ValueError("an extras score outside [0, 100] or past the "
+                             "packed key's score budget: use the loop "
+                             "solver")
     out = binpack(kernel_inputs(state, pods, params, quota_inputs(quota_state),
-                                wsum, numa_aux, resv, most_allocated))
+                                wsum, numa_aux, resv, most_allocated, extras))
     return kernel_result(state, out, pods, quota_state, gang_state,
                          numa_aux is not None, resv is not None)

@@ -95,6 +95,21 @@ class SchedulerCache:
             self.pods[pod.uid] = pod
             self.delta_tracker.mark_node(pod.node_name)
 
+    def replace_pod(self, pod: PodSpec) -> None:
+        """A cached pod's object changed (a status refresh, a resize):
+        swap the new object in. An assigned pod's requests, limits and
+        priority feed its node's lowered row, so its node is marked (the
+        old and the new one when they differ)."""
+        with self._lock:
+            prev = self.pods.get(pod.uid)
+            if prev is None:
+                self.pending[pod.uid] = pod
+                return
+            self.pods[pod.uid] = pod
+            self.delta_tracker.mark_node(prev.node_name)
+            if pod.node_name != prev.node_name:
+                self.delta_tracker.mark_node(pod.node_name)
+
     def update_node_metric(self, metric: NodeMetric) -> None:
         with self._lock:
             self.node_metrics[metric.node_name] = metric

@@ -2,21 +2,25 @@
 ``koordinator_tpu/scheduler/scheduler.py``).
 
 Informer-style intake keeps a :class:`SchedulerCache` (whose every
-mutation marks the delta tracker), the quota trees and the gang manager
-up to date; each round takes a snapshot, solves the whole pending queue
-through the ``PlacementModel`` (on ``cuda`` by default) and assumes the
-committed placements, and the waiting gang members' holds, into the
-cache. The model's staging cache re-lowers only the node rows the round's
-events touched.
+mutation marks the delta tracker), the quota trees, the gang manager and
+the fine-grained state (the NUMA resource manager and the node device
+cache) up to date; each round takes a snapshot, solves the whole pending
+queue through the ``PlacementModel`` (on ``cuda`` by default), bound to
+this scheduler's ``FineGrained`` manager, and assumes the committed
+placements, and the waiting gang members' holds, into the cache. The
+model's staging cache re-lowers only the node rows the round's events
+touched.
+
+One deliberate difference from the reference: ``update_pod`` of an
+assigned pod swaps it in through the cache and marks its node (the
+reference swaps the object without a mark, so its staged row keeps the
+old requests), as ``remove_reservation`` and ``remove_node_metric`` mark
+theirs.
 
 Not in this slice of the port; each raises ``NotImplementedError`` and is
 queued in ROADMAP.md:
 - preemption (``enable_preemption=True``, the reference's default);
 - the plugin chain: ``schedule_one`` and ``batched_placement=False``;
-- the fine-grained NUMA/device manager: ``update_node_topology``,
-  ``update_node_devices``, and a round whose pending queue holds a pod
-  that manager would place (host ports, managed device requests, a
-  cpuset or a NUMA policy);
 - the trace, metrics, pod timelines and device observatory, the bus
   wiring (publish and eviction sinks) and the migration arbiter: the
   round runs without them.
@@ -24,13 +28,11 @@ queued in ROADMAP.md:
 
 from __future__ import annotations
 
-import json
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from koordinator_tpu_torch.apis.extension import QoSClass, ResourceName
 from koordinator_tpu_torch.apis.types import (
     GangSpec,
     NodeMetric,
@@ -42,71 +44,30 @@ from koordinator_tpu_torch.apis.types import (
     resources_to_vector,
     vector_to_resources,
 )
+from koordinator_tpu_torch.device.cache import NodeDeviceCache
 from koordinator_tpu_torch.gang.manager import GangManager
+from koordinator_tpu_torch.models.finegrained import FineGrained
 from koordinator_tpu_torch.models.placement import (
     InFlightSchedule,
     PlacementModel,
     ScheduleResult,
 )
+from koordinator_tpu_torch.numa.manager import ResourceManager, TopologyOptions
 from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
 from koordinator_tpu_torch.scheduler.cache import SchedulerCache
+from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
+    DeviceSharePlugin,
+)
 from koordinator_tpu_torch.scheduler.plugins.elasticquota import (
     ElasticQuotaPlugin,
 )
+from koordinator_tpu_torch.scheduler.plugins.nodenumaresource import (
+    NodeNUMAResourcePlugin,
+)
+from koordinator_tpu_torch.scheduler.plugins.nodeports import NodePortsPlugin
 from koordinator_tpu_torch.scheduler.reservation_controller import (
     ReservationController,
 )
-
-#: the pod annotation holding a cpuset / NUMA resource spec
-ANNOTATION_RESOURCE_SPEC = "koordinator.tpu/resource-spec"
-#: the values a resource spec's policies may take
-_CPU_BIND_POLICIES = frozenset(
-    ("Default", "FullPCPUs", "SpreadByPCPUs", "ConstrainedBurst"))
-_CPU_EXCLUSIVE_POLICIES = frozenset(("None", "PCPULevel", "NUMANodeLevel"))
-_NUMA_POLICIES = frozenset(("", "BestEffort", "Restricted", "SingleNUMANode"))
-#: device resource names the DeviceShare plugin manages
-MANAGED_DEVICE_RESOURCES = frozenset((
-    "nvidia.com/gpu", "koordinator/gpu", "gpu-core", "gpu-memory",
-    "gpu-memory-ratio", "rdma", "fpga",
-))
-
-_FINE_GRAINED = ("the fine-grained NUMA/device manager is the next slice "
-                 "of the port (models/finegrained.py)")
-
-
-def fine_grained_need(pod: PodSpec) -> Optional[str]:
-    """Why the reference's fine-grained manager would take ``pod`` through
-    its validate loop (``FineGrained.pod_flags``), or None: host ports,
-    a managed device request, or, for a pod with requests, a cpuset (an
-    LSE/LSR pod asking CPU, or a required bind policy), a NUMA topology
-    policy or an unreadable resource spec."""
-    if pod.host_ports:
-        return "host ports"
-    if any(name in MANAGED_DEVICE_RESOURCES and qty
-           for name, qty in (pod.device_requests or {}).items()):
-        return "a managed device request"
-    if not pod.requests:
-        return None
-    try:
-        spec = json.loads(
-            (pod.annotations or {}).get(ANNOTATION_RESOURCE_SPEC, "{}"))
-        required_bind = bool(spec.get("requiredCPUBindPolicy", False))
-        numa_policy = spec.get("numaTopologyPolicy", "")
-        readable = (spec.get("cpuBindPolicy", "Default") in _CPU_BIND_POLICIES
-                    and spec.get("cpuExclusivePolicy", "None")
-                    in _CPU_EXCLUSIVE_POLICIES
-                    and numa_policy in _NUMA_POLICIES)
-    except (ValueError, AttributeError, TypeError):
-        readable = False
-    if not readable:
-        return "an unreadable resource spec"
-    if required_bind or (pod.qos in (QoSClass.LSE, QoSClass.LSR)
-                         and pod.requests.get(ResourceName.CPU, 0) > 0):
-        return "a cpuset"
-    if numa_policy:
-        return "a NUMA topology policy"
-    return None
-
 
 class PendingTick:
     """One round between dispatch (:meth:`Scheduler.begin_tick`) and
@@ -136,6 +97,8 @@ class Scheduler:
                                                 or {})
         self.quota_manager = self.quota_registry.default
         self.gang_manager = GangManager()
+        self.numa_manager = ResourceManager()
+        self.device_cache = NodeDeviceCache()
         #: pods placed at the Permit barrier: uid -> held node. They hold
         #: resources (assumed) but are not bound until their gang group
         #: completes.
@@ -150,10 +113,22 @@ class Scheduler:
         #: committed pods' consumption in the current round, rollback-able
         #: until the bind publishes; cleared at round start
         self._resv_inflight: Dict[str, tuple] = {}
+        #: waiting pods' fine-grained holds, annotated when their barrier
+        #: opens (uid -> (node name, CycleState))
+        self._fine_waiting: Dict[str, tuple] = {}
         self.reservation_controller = ReservationController(self.cache)
         self._quota_plugin = ElasticQuotaPlugin(
             self.quota_registry, enable_preemption=enable_preemption)
-        self.model = model if model is not None else PlacementModel()
+        self._numa_plugin = NodeNUMAResourcePlugin(self.numa_manager)
+        self._device_plugin = DeviceSharePlugin(self.device_cache)
+        self._ports_plugin = NodePortsPlugin()
+        model = model if model is not None else PlacementModel()
+        # the model binds to this scheduler's managers: a model reused
+        # across schedulers would otherwise apply holds to the old one's
+        model.fine = FineGrained(numa_plugin=self._numa_plugin,
+                                 device_plugin=self._device_plugin,
+                                 ports_plugin=self._ports_plugin)
+        self.model = model
 
     # -- informer-style intake ----------------------------------------------
 
@@ -161,9 +136,12 @@ class Scheduler:
         self.cache.add_node(node)
 
     def remove_node(self, name: str) -> None:
-        """Node deleted: drop it and its metric."""
+        """Node deleted: drop it and its per-node state (metric, NUMA
+        topology, devices)."""
         self.cache.remove_node(name)
         self.cache.node_metrics.pop(name, None)
+        self.numa_manager.update_topology(name, TopologyOptions())
+        self.device_cache.update_node(name, [])
 
     def remove_quota(self, name: str) -> None:
         self.cache.quotas.pop(name, None)
@@ -242,10 +220,10 @@ class Scheduler:
                     self.gang_manager.on_pod_bound(pod.uid)
             self._quota_plugin.on_pod_add(pod)
             self._account_quota(pod)
-        if pod.uid in self.cache.pods:
-            self.cache.pods[pod.uid] = pod
-        else:
-            self.cache.pending[pod.uid] = pod
+        # under the cache's lock, marking an assigned pod's node: its
+        # requests feed the lowered row (the reference swaps the object
+        # without a mark)
+        self.cache.replace_pod(pod)
 
     def update_node_metric(self, metric: NodeMetric) -> None:
         self.cache.update_node_metric(metric)
@@ -261,11 +239,15 @@ class Scheduler:
     def update_reservation(self, spec: ReservationSpec) -> None:
         self.cache.update_reservation(spec)
 
-    def update_node_topology(self, node_name: str, options) -> None:
-        raise NotImplementedError(_FINE_GRAINED)
+    def update_node_topology(self, node_name: str,
+                             options: TopologyOptions) -> None:
+        """NodeResourceTopology intake: the node's CPU topology, NUMA
+        policy and per-NUMA-node resources."""
+        self.numa_manager.update_topology(node_name, options)
 
     def update_node_devices(self, node_name: str, entries) -> None:
-        raise NotImplementedError(_FINE_GRAINED)
+        """Device CRD intake: the node's device inventory."""
+        self.device_cache.update_node(node_name, entries)
 
     def add_pod(self, pod: PodSpec) -> None:
         self.cache.add_pod(pod)
@@ -288,12 +270,25 @@ class Scheduler:
         if pod.gang:
             self.gang_manager.on_pod_bound(pod.uid)
 
+    def _release_node_holds(self, pod: PodSpec) -> None:
+        """Release a pod's fine-grained node holds (cpuset and NUMA
+        resources, devices): one sequence for delete and forget."""
+        if pod.node_name is None:
+            return
+        self.numa_manager.release(pod.node_name, pod.uid)
+        node_device = self.device_cache.get(pod.node_name)
+        if node_device is not None:
+            node_device.release(pod.uid)
+
     def remove_pod(self, pod: PodSpec) -> None:
         cached = self.cache.pods.get(pod.uid)
         was_assigned = cached is not None and cached.node_name is not None
+        if was_assigned:
+            self._release_node_holds(cached)
         self.cache.remove_pod(pod.uid)
         self.gang_manager.on_pod_delete(pod.uid)
         self._quota_plugin.on_pod_delete(pod)
+        self._fine_waiting.pop(pod.uid, None)
         # a deleted waiting pod never ran: undo its reservation use
         self._rollback_reservation(pod.uid)
         # a deleted committed pod ran: its credit is the reservation
@@ -328,11 +323,6 @@ class Scheduler:
                 "per-pod rounds (batched_placement=False) need the plugin "
                 "chain, a later slice of the port (scheduler/framework.py)")
         snapshot = self.cache.snapshot(now=now)
-        for pod in snapshot.pending_pods:
-            need = fine_grained_need(pod)
-            if need is not None:
-                raise NotImplementedError(
-                    f"pending pod {pod.uid} has {need}: {_FINE_GRAINED}")
         pending = {pod.uid: pod for pod in snapshot.pending_pods}
         return PendingTick(at0, pending, self.model.schedule_async(snapshot))
 
@@ -364,6 +354,7 @@ class Scheduler:
             self.gang_manager.on_pod_waiting(uid)
             if uid in result.resv_allocs:
                 self._resv_waiting[uid] = result.resv_allocs[uid]
+        self._fine_waiting.update(result.fine_states)
         self._resolve_waiting(result)
         return result
 
@@ -385,7 +376,11 @@ class Scheduler:
             if uid in self._waiting:
                 self._release_waiting(uid)
             else:
+                # the validate loop applied real NUMA/device holds for
+                # this placement: the same release as remove_pod
+                self._release_node_holds(pod)
                 self._account_quota(pod, release=True)
+                self._fine_waiting.pop(uid, None)
                 self._apply_resv_rollback(
                     uid, self._resv_inflight.pop(uid, None))
                 self.cache.forget_pod(uid)
@@ -419,11 +414,17 @@ class Scheduler:
         return released
 
     def _release_waiting(self, uid: str) -> None:
-        """Release one waiting pod's holds (node, quota, reservation) and
-        return it to pending."""
+        """Release one waiting pod's holds (node, quota, fine-grained,
+        reservation) and return it to pending."""
         self._waiting.pop(uid, None)
         self._waiting_since.pop(uid, None)
-        self._account_quota(self.cache.pods.get(uid), release=True)
+        pod = self.cache.pods.get(uid)
+        self._account_quota(pod, release=True)
+        held = self._fine_waiting.pop(uid, None)
+        if held is not None and self.model.fine is not None:
+            node = self.cache.nodes.get(held[0])
+            if pod is not None and node is not None:
+                self.model.fine.rollback(None, pod, node, held[1])
         self._rollback_reservation(uid)
         self.cache.forget_pod(uid)
 
@@ -494,3 +495,17 @@ class Scheduler:
                 # bindable; the assume stays open until the publish
                 self.cache.open_permit(uid)
                 self.gang_manager.on_pod_bound(uid)
+                self._fine_pre_bind(uid)
+
+    def _fine_pre_bind(self, uid: str) -> None:
+        """Annotate a pod's fine-grained allocation (its deferred
+        PreBind) once its Permit barrier opens."""
+        held = self._fine_waiting.pop(uid, None)
+        if held is None or self.model.fine is None:
+            return
+        node_name, cstate = held
+        pod = self.cache.pods.get(uid)
+        node = self.cache.nodes.get(node_name)
+        if pod is not None and node is not None:
+            # PreBind reads only the CycleState: no snapshot needed
+            self.model.fine.pre_bind(None, pod, node, cstate)

@@ -14,7 +14,11 @@ import copy
 import numpy as np
 
 from koordinator_tpu_torch import DeviceLike, convert, resolve_device
-from koordinator_tpu_torch.apis.extension import NUM_RESOURCES, ResourceName
+from koordinator_tpu_torch.apis.extension import (
+    NUM_RESOURCES,
+    QoSClass,
+    ResourceName,
+)
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     GangMode,
@@ -165,6 +169,47 @@ def numa_arrays(alloc, n_pods, seed=7):
     has_policy = rng.uniform(size=n_pods) < 0.4
     node_policy = rng.uniform(size=cap.shape[0]) < 0.5
     return cap, free, has_policy, node_policy
+
+
+def extras_arrays(n_nodes, n_pods, *, selector_frac=0.2, scored_frac=0.05,
+                  deferred_frac=0.0, n_zones=4, seed=13):
+    """Compact host extras rows as the model builds them: node-selector
+    pods share one mask row per zone (``n_zones`` zones drawn over the
+    nodes), fine-grained pods have their own row (a 60% mask and a
+    DeviceShare-style score in [0, 100]), and deferred host-port
+    claimants share an all-False row. Returns ``(row_of_pod [P] int32,
+    mask [X,N] bool, score [X,N] int32)``; the other pods read -1."""
+    rng = np.random.default_rng(seed)
+    zone = rng.integers(0, n_zones, n_nodes)
+    masks = [zone == z for z in range(n_zones)]
+    scores = [np.zeros(n_nodes, np.int32) for _ in range(n_zones)]
+    row = np.full(n_pods, -1, np.int32)
+    draw = rng.uniform(size=n_pods)
+    sel = draw < selector_frac
+    row[sel] = rng.integers(0, n_zones, int(sel.sum()))
+    fine = (draw >= selector_frac) & (draw < selector_frac + scored_frac)
+    for p in np.flatnonzero(fine):
+        mask = rng.uniform(size=n_nodes) < 0.6
+        masks.append(mask)
+        scores.append(np.where(mask, rng.integers(0, 101, n_nodes),
+                               0).astype(np.int32))
+        row[p] = len(masks) - 1
+    lo = selector_frac + scored_frac
+    deferred = (draw >= lo) & (draw < lo + deferred_frac)
+    if deferred.any():
+        masks.append(np.zeros(n_nodes, bool))
+        scores.append(np.zeros(n_nodes, np.int32))
+        row[deferred] = len(masks) - 1
+    return row, np.stack(masks), np.stack(scores)
+
+
+def dense_extras(row_of_pod, mask, score):
+    """:func:`extras_arrays`' rows as the reference's dense ``[P,N]``
+    ``(mask, score)``."""
+    has = row_of_pod >= 0
+    idx = np.maximum(row_of_pod, 0)
+    return (np.where(has[:, None], mask[idx], True),
+            np.where(has[:, None], score[idx], 0).astype(np.int32))
 
 
 def full_features_arrays(n_nodes, n_pods, seed=8):
@@ -404,6 +449,82 @@ def add_pending_wave(snap: ClusterSnapshot, n_pods, *, n_quota, n_gangs,
         for j in range(n_pods)
     ]
     return snap
+
+
+def add_fine_grained(snap: ClusterSnapshot, *, n_cpuset, n_gpu, n_ports,
+                     n_selector, n_distinct_ports=20, topology_every=4,
+                     gpu_every=10, n_zones=4, node_policy="", seed=17):
+    """Make the fine-grained manager's work out of a snapshot with a
+    pending wave (:func:`add_pending_wave`), in place:
+    - every node gets a ``zone`` label, ``z<i % n_zones>``;
+    - every ``topology_every``-th node a NUMA topology: 2 sockets x 1
+      NUMA node x 16 cores x 2 threads = 64 CPUs (the churn world's
+      64,000 mCPU), 32,000 mCPU and 65,536 MiB per NUMA node, node
+      policy ``node_policy``;
+    - every ``gpu_every``-th node 8 GPUs (gpu-core 100, gpu-memory
+      16,384, gpu-memory-ratio 100), 4 on each NUMA node;
+    - of the pending pods, by one seeded permutation: ``n_cpuset`` LSR
+      pods asking 2-8 whole CPUs (a cpuset), ``n_gpu`` asking 1-2
+      ``nvidia.com/gpu``, ``n_ports`` claiming one host port of
+      ``n_distinct_ports``, ``n_selector`` with a required ``zone``
+      selector.
+    Returns ``(topologies, devices)``: the ``TopologyOptions`` and the
+    ``DeviceEntry`` lists by node name, for ``update_node_topology`` and
+    ``update_node_devices`` (:func:`feed_fine_grained`)."""
+    from koordinator_tpu_torch.device.cache import (
+        DeviceEntry,
+        DeviceResourceName,
+        DeviceType,
+    )
+    from koordinator_tpu_torch.numa.hints import NUMATopologyPolicy
+    from koordinator_tpu_torch.numa.manager import TopologyOptions
+    from koordinator_tpu_torch.numa.topology import CPUTopology
+
+    rng = np.random.default_rng(seed)
+    topologies, devices = {}, {}
+    gpu = {DeviceResourceName.GPU_CORE: 100,
+           DeviceResourceName.GPU_MEMORY: 16384,
+           DeviceResourceName.GPU_MEMORY_RATIO: 100}
+    for i, node in enumerate(snap.nodes):
+        node.labels["zone"] = f"z{i % n_zones}"
+        if i % topology_every == 0:
+            topologies[node.name] = TopologyOptions(
+                cpu_topology=CPUTopology.build(
+                    sockets=2, nodes_per_socket=1, cores_per_node=16,
+                    threads_per_core=2),
+                policy=NUMATopologyPolicy(node_policy),
+                numa_node_resources={k: {CPU: 32000, MEM: 65536}
+                                     for k in (0, 1)})
+        if i % gpu_every == 0:
+            devices[node.name] = [
+                DeviceEntry(minor=k, device_type=DeviceType.GPU,
+                            resources=dict(gpu), numa_node=k // 4,
+                            pcie_id=str(k // 2))
+                for k in range(8)]
+    order = rng.permutation(len(snap.pending_pods))
+    cuts = np.cumsum([n_cpuset, n_gpu, n_ports, n_selector])
+    for k, j in enumerate(order[:cuts[-1]]):
+        pod = snap.pending_pods[int(j)]
+        if k < cuts[0]:
+            pod.qos = QoSClass.LSR
+            pod.requests = dict(pod.requests)
+            pod.requests[CPU] = 1000 * int(rng.integers(2, 9))
+        elif k < cuts[1]:
+            pod.device_requests = {"nvidia.com/gpu": int(rng.integers(1, 3))}
+        elif k < cuts[2]:
+            pod.host_ports = [9000 + int(rng.integers(0, n_distinct_ports))]
+        else:
+            pod.node_selector = {"zone": f"z{int(rng.integers(0, n_zones))}"}
+    return topologies, devices
+
+
+def feed_fine_grained(scheduler, topologies, devices) -> None:
+    """Feed :func:`add_fine_grained`'s topologies and device inventories
+    into a ``Scheduler`` (copies, so schedulers share no object)."""
+    for name, options in topologies.items():
+        scheduler.update_node_topology(name, copy.deepcopy(options))
+    for name, entries in devices.items():
+        scheduler.update_node_devices(name, copy.deepcopy(entries))
 
 
 def add_reservations(snap: ClusterSnapshot, n_label, n_migration, *,

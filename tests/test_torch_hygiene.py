@@ -33,6 +33,12 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "koordinator_tpu_torch.models.placement" in mods
     assert "koordinator_tpu_torch.parallel.mesh" in mods
+    # the fine-grained slice: its own copies of numa/ and device/
+    for m in ("models.finegrained", "numa.accumulator", "numa.manager",
+              "device.allocator", "scheduler.framework",
+              "scheduler.plugins.nodenumaresource",
+              "scheduler.plugins.deviceshare", "scheduler.plugins.nodeports"):
+        assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -316,8 +322,8 @@ def test_cuda_resv_numa_edge_shapes_match_plain_twin(n_nodes, n_pods, n_quota,
 @pytest.mark.parametrize("seed,selectors,reservations", [
     (0, False, False), (2, True, False), (1, False, True)])
 def test_cuda_model_matches_cpu_model(seed, selectors, reservations):
-    """Both routes on the card (the kernel, and the per-pod loop for
-    node-selector and host-port pods) equal the CPU run, reservation
+    """The kernel on the card, with the host extras rows of node-selector
+    and host-port pods in compact form, equals the CPU run, reservation
     bookkeeping included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -332,14 +338,110 @@ def test_cuda_model_matches_cpu_model(seed, selectors, reservations):
     gsnap = testing.build_snapshot(spec, types, ResourceName)
     csnap = testing.build_snapshot(spec, types, ResourceName)
     got, want = gpu.schedule(gsnap), cpu.schedule(csnap)
-    assert gpu.last_solver == cpu.last_solver == (
-        "loop" if selectors else "kernel")
+    assert gpu.last_solver == cpu.last_solver == "kernel"
     assert dict(got) == dict(want) and got.waiting == want.waiting
     assert got.resv_committed.keys() == want.resv_committed.keys()
     assert ([(r.allocated, r.allocated_pod_uids, r.state)
              for r in gsnap.reservations]
             == [(r.allocated, r.allocated_pod_uids, r.state)
                 for r in csnap.reservations])
+
+
+def _with_extras(inp, seed):
+    """``inp`` with compact host extras rows: shared selector rows,
+    scored fine-grained rows and a deferred all-False row."""
+    from koordinator_tpu_torch import testing
+
+    n, p = inp.alloc.shape[0], inp.req.shape[0]
+    row, mask, score = testing.extras_arrays(
+        n, p, selector_frac=0.3, scored_frac=0.2, deferred_frac=0.05,
+        seed=seed)
+    dev = inp.alloc.device
+    return inp._replace(extras=(
+        torch.as_tensor(row, device=dev),
+        torch.as_tensor(mask.astype(np.uint8), device=dev),
+        torch.as_tensor(score, device=dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,n_nodes,n_pods,n_quota,layout,numa", [
+    (None, 1, 5, 0, None, None),
+    (None, 31, 200, 0, "same-node", "least"),
+    (None, 1000, 400, 3, None, "most"),
+    (None, 3000, 700, 12, "many", "least"),
+    (2, 1025, 300, 3, "ends", "most"),
+    (5, 5000, 300, 12, None, None),
+    (16, 65536, 20, 4, "ends", "most"),
+])
+def test_cuda_extras_match_twin(shards, n_nodes, n_pods, n_quota, layout,
+                                numa):
+    """Extras rows on every route: the routed kernel (``shards`` None:
+    one block or a cluster) and the cluster kernel at an explicit CTA
+    count (the L2 form at 65,536 nodes), each equal to its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    inp = _with_extras(_cluster_inputs(n_nodes, n_pods, n_quota, layout,
+                                       numa, seed=n_nodes + 7), n_nodes)
+    if shards is not None:
+        _cluster_matches_twin(inp, shards)
+        return
+    route = binpack_kernel.route_of(inp)
+    got = binpack_kernel.binpack(inp)
+    torch.cuda.synchronize()
+    want = (binpack_kernel.binpack_plain(inp) if route.kind == "block"
+            else binpack_kernel.binpack_sharded_plain(inp, route.shards))
+    for g, w, name in zip(got, want, got._fields):
+        if w is None:
+            assert g is None, name
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_cuda_fine_grained_scheduler_matches_cpu():
+    """The fine-grained burst at a small size through two Schedulers, on
+    the card and on the CPU: placements, annotations, NUMA and device
+    holds equal, every solve on the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import copy
+
+    from koordinator_tpu_torch import testing
+    from koordinator_tpu_torch.models.placement import PlacementModel
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+
+    snap, _ = testing.churn_world(80, seed=3)
+    testing.add_pending_wave(snap, 200, n_quota=4, n_gangs=6, gang_size=6)
+    topo, dev = testing.add_fine_grained(
+        snap, n_cpuset=10, n_gpu=10, n_ports=6, n_selector=40,
+        n_distinct_ports=4)
+    outs = []
+    for device in ("cuda", "cpu"):
+        sched = Scheduler(model=PlacementModel(device=device),
+                          enable_preemption=False)
+        testing.feed_scheduler(sched, copy.deepcopy(snap))
+        testing.feed_fine_grained(sched, topo, dev)
+        solvers = []
+        dispatch = sched.model._dispatch_solve
+
+        def record(*a, _d=dispatch, _s=sched, _l=solvers, **k):
+            out = _d(*a, **k)
+            _l.append(_s.model.last_solver)
+            return out
+
+        sched.model._dispatch_solve = record
+        rounds = [sched.schedule_pending(now=20.0 + r) for r in range(2)]
+        assert set(solvers) == {"kernel"}, solvers
+        outs.append((
+            [(dict(r), r.waiting) for r in rounds],
+            {u: (p.node_name, dict(p.annotations))
+             for u, p in {**sched.cache.pods, **sched.cache.pending}.items()},
+            {n: {u: [int(c) for c in a.cpuset] for u, a in na.pods.items()}
+             for n, na in sched.numa_manager.node_allocations.items()},
+            {n: sorted(nd.allocations) for n, nd in
+             sched.device_cache.nodes.items()}))
+    assert outs[0] == outs[1]
+    assert any(outs[0][2].values()) and any(outs[0][3].values())
 
 
 class _FakeClusterLibrary:

@@ -23,7 +23,10 @@ def _both(spec):
 @pytest.mark.parametrize("seed,selectors,solver", [
     (0, False, "kernel"),
     (1, False, "kernel"),
-    (2, True, "loop"),   # node selectors and host ports: the extras route
+    # node selectors and host ports: host extras rows, which the kernel
+    # takes in compact form (the case keeps the id it had when they took
+    # the loop)
+    pytest.param(2, True, "kernel", id="2-True-loop"),
 ])
 def test_schedule_matches_reference(seed, selectors, solver):
     jsnap, tsnap = _both(testing.mixed_snapshot_spec(seed, selectors=selectors))
@@ -134,8 +137,27 @@ def test_empty_and_unported_inputs():
     assert resv.allocated == {cpu: 1000}
     assert resv.state == ttypes.ReservationState.SUCCEEDED  # allocate_once
     assert out.resv_committed["default/owner"][0] == "r"
-    with pytest.raises(NotImplementedError):
-        PlacementModel(device="cpu", fine=object())
+    # a real fine-grained manager is accepted: with no topology, devices
+    # or specials it changes nothing
+    from koordinator_tpu_torch.models.finegrained import FineGrained
+    from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
+        DeviceSharePlugin,
+    )
+    from koordinator_tpu_torch.scheduler.plugins.nodenumaresource import (
+        NodeNUMAResourcePlugin,
+    )
+    from koordinator_tpu_torch.scheduler.plugins.nodeports import (
+        NodePortsPlugin,
+    )
+
+    fine = FineGrained(NodeNUMAResourcePlugin(), DeviceSharePlugin(),
+                       NodePortsPlugin())
+    fine_model = PlacementModel(device="cpu", fine=fine)
+    assert fine_model.fine is fine
+    resv.state = ttypes.ReservationState.AVAILABLE
+    resv.allocated, resv.allocated_pod_uids = {}, []
+    assert fine_model.schedule(snap) == out
+    assert fine_model.last_solver == "kernel"
 
 
 def test_add_reservations_builder():

@@ -141,7 +141,8 @@ def test_route_main_path_shapes_and_limits():
     # wide match rows shrink the pod chunk, never below 2
     assert bk.pod_chunk(bk.record_words(0)) == bk.POD_CHUNK
     assert bk.pod_chunk(bk.record_words(1 << 16)) == 2
-    assert bk.record_words(1) == 28 and bk.record_words(129) == 32
+    # the head holds the extras row since the extras slice: 28 words
+    assert bk.record_words(1) == 32 and bk.record_words(129) == 36
 
 
 @pytest.mark.parametrize("n_nodes,numa,n_resv,n_quota,want", [

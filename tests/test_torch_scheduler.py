@@ -7,8 +7,10 @@ waves, deletions of pending and bound pods, and binds seen from the bus.
 Round for round the results, the cache, the Permit barrier, the quota
 accounting, the reservation specs, ``expire_waiting``'s releases and the
 staged node fields must be equal (counterpart of
-``tests/test_scheduler.py``'s batched path); then every branch this slice
-does not port raises ``NotImplementedError``."""
+``tests/test_scheduler.py``'s batched path); each pod the fine-grained
+manager takes or passes through schedules as the reference's does; a
+bound pod's resize marks its node; and every branch this slice does not
+port raises ``NotImplementedError``."""
 
 import numpy as np
 import pytest
@@ -20,14 +22,14 @@ from koordinator_tpu.models.placement import PlacementModel as JPlacementModel
 from koordinator_tpu.scheduler.scheduler import Scheduler as JScheduler
 from koordinator_tpu_torch import testing
 from koordinator_tpu_torch.apis import types as ttypes
-from koordinator_tpu_torch.apis.extension import QoSClass
+from koordinator_tpu_torch.apis.extension import (
+    ANNOTATION_RESOURCE_SPEC,
+    QoSClass,
+)
 from koordinator_tpu_torch.apis.extension import ResourceName as TResourceName
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
-from koordinator_tpu_torch.scheduler.scheduler import (
-    ANNOTATION_RESOURCE_SPEC,
-    Scheduler,
-)
+from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 from koordinator_tpu_torch.state.cluster import lower_nodes
 
 CPU, MEM = 0, 1
@@ -396,11 +398,26 @@ def test_plugin_chain_paths_raise():
 
 
 def test_fine_grained_intake_raises():
-    sched = _cpu_scheduler()
-    with pytest.raises(NotImplementedError, match="fine-grained"):
-        sched.update_node_topology("n0", object())
-    with pytest.raises(NotImplementedError, match="fine-grained"):
-        sched.update_node_devices("n0", [])
+    """Topology and device intake reach the fine-grained manager as they
+    reach the reference's (the case keeps the name it had while the
+    manager was not ported and both raised)."""
+    from test_torch_finegrained import PORT as FPORT, REF as FREF, view
+
+    ref, port = FREF.scheduler(), FPORT.scheduler()
+    for s, pk in ((ref, FREF), (port, FPORT)):
+        s.add_node(pk.node("n0", 16000, 32768))
+        s.update_node_topology("n0", pk.numa(policy="Restricted"))
+        s.update_node_devices("n0", pk.gpus(4))
+        s.add_node(pk.node("n1", 16000, 32768))
+        s.update_node_devices("n1", pk.gpus(2))
+        s.remove_node("n1")
+    assert port.model.fine.any_node_policy(["n0"])
+    assert (port.model.fine.numa_arrays(["n0"])[0].tolist()
+            == np.asarray(ref.model.fine.numa_arrays(["n0"])[0]).tolist())
+    assert (sorted(port.device_cache.nodes) == sorted(ref.device_cache.nodes)
+            == ["n0", "n1"])
+    assert port.device_cache.get("n1").device_total == {}
+    assert view(port) == view(ref)
 
 
 @pytest.mark.parametrize("extra,special", [
@@ -421,15 +438,58 @@ def test_fine_grained_intake_raises():
                        '{"cpuBindPolicy": "FullPCPUs"}'}), None),
 ])
 def test_fine_grained_pending_pod_raises(extra, special):
-    """A round whose queue holds a pod the reference's fine-grained
-    manager would place raises; pods that manager would pass through
-    are solved as usual."""
+    """Each pod the fine-grained manager takes (``special``: what makes
+    it special) or passes through (None) schedules as the reference's
+    Scheduler schedules it: the result, the written annotations, the
+    NUMA and device holds. (The cases keep the name they had while such
+    a round raised.)"""
+    from test_torch_finegrained import PORT as FPORT, REF as FREF, view
+
+    from koordinator_tpu.apis.extension import QoSClass as JQoSClass
+
+    ref, port = FREF.scheduler(), FPORT.scheduler()
+    for s, pk in ((ref, FREF), (port, FPORT)):
+        s.add_node(pk.node("n0", 8000, 8192))
+        s.update_node_topology("n0", pk.numa(policy=""))
+        s.update_node_devices("n0", pk.gpus(2))
+        ref_extra = {k: JQoSClass[v.name] if isinstance(v, QoSClass) else v
+                     for k, v in extra.items()}
+        s.add_pod(pk.T.PodSpec(
+            name="p", requests=pk.res({CPU: 1000}),
+            **(ref_extra if pk is FREF else extra)))
+    want = ref.schedule_pending(now=1.0)
+    got = port.schedule_pending(now=1.0)
+    assert dict(got) == dict(want)
+    assert view(port) == view(ref)
+    placed = got["default/p"] == "n0"
+    # a readable spec places; an unreadable one fails the NUMA PreFilter
+    assert placed == (special != "unreadable")
+    if special in ("cpuset", "device"):
+        assert port.cache.pods["default/p"].annotations
+
+
+def test_resize_of_a_bound_pod_marks_its_node():
+    """``update_pod`` of a bound pod swaps it in under the cache's lock
+    and marks its node: after a resize from 1,000 to 9,000 mCPU the next
+    round's delta staging equals a fresh staging. (The reference swaps
+    the object without a mark; its staged row keeps 1,000.)"""
     sched = _cpu_scheduler()
-    sched.add_node(PORT.node(dict(name="n0", alloc={CPU: 8000, MEM: 8192})))
-    sched.add_pod(ttypes.PodSpec(
-        name="p", requests={TResourceName.CPU: 1000}, **extra))
-    if special is None:
-        assert sched.schedule_pending(now=1.0) == {"default/p": "n0"}
-    else:
-        with pytest.raises(NotImplementedError, match=special):
-            sched.schedule_pending(now=1.0)
+    for i in range(3):
+        sched.add_node(PORT.node(dict(name=f"n{i}",
+                                      alloc={CPU: 16000, MEM: 32768})))
+    sched.add_pod(PORT.pod(dict(name="bound", req={CPU: 1000}, node="n1",
+                                at=90.0)))
+    sched.add_pod(PORT.pod(dict(name="p0", req={CPU: 500})))
+    sched.schedule_pending(now=100.0)
+    sched.update_pod(PORT.pod(dict(name="bound", req={CPU: 9000}, node="n1",
+                                   at=90.0)))
+    assert sched.cache.pods["default/bound"].requests[TResourceName.CPU] == 9000
+    sched.add_pod(PORT.pod(dict(name="p1", req={CPU: 500})))
+    fresh = _capture_staging(sched.model)
+    sched.schedule_pending(now=101.0)
+    assert sched.model.last_staging == "delta"
+    state = sched.model.staged_cache.state
+    for f in STAGED_NODE_FIELDS:
+        assert torch.equal(getattr(state, f), getattr(fresh[-1], f)), f
+    used_n1 = int(fresh[-1].used_req[1, 0])
+    assert used_n1 >= 9000 and int(state.used_req[1, 0]) == used_n1
