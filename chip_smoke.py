@@ -97,6 +97,30 @@ the microseconds per pod and the bound (see :func:`bound`).
    Beside phase 6's loop check, one extras solve (config #8 cut to 1,000
    x 2,000 with 20% selector rows and 5% fine-grained rows) runs on the
    kernel and on the loop, with equal results; both are timed.
+11. Preemption on the card, on the reference's bench config #19 world
+   (``testing.preemption_storm(seed=11, n_nodes=1250,
+   residents_per_node=4, n_arrivals=1000)``: 5,000 preemptible BE
+   residents packed tight, 1,000 PROD arrivals that fit nowhere without
+   eviction). (a) The storm through ``Scheduler()`` with the reference's
+   defaults (preemption on, victim selection on the device): rounds until
+   no arrival is pending (at most 40); every round must launch the
+   routed kernel once and give the same placements, nominations and
+   evicted uids as a Scheduler on ``PlacementModel(device="cpu")`` fed
+   the same events, and the final caches must be equal. Each round
+   prints its wall, the model's lower/stage/solve split, the preemption
+   time, the preemptors tried, the evictions and the placements; the
+   kernel is held against its twin on round 0's inputs (all 1,000
+   arrivals pending) and on the last round's. (b) The per-pod sweep of
+   the first 24 arrivals: ``select_victims_device`` plus
+   ``evict_resident_rows`` on the card against the host walk
+   ``find_preemption`` plus a full re-lower per hit, identical (node,
+   ordered victims) answers, pods/s of each and their ratio (median and
+   range of 5 repeats, the arms in turns, each on a fresh world), at
+   config #19's shape and at 5,000 nodes x 4 residents. (c) ``preempt_scan_
+   device`` over all 1,000 arrivals in one call, equal to the CPU run,
+   with its wall. (d) ``Scheduler.defrag_headroom`` (one arrival's
+   requests, residents below priority 5,000) with ``preemption_backend=
+   "verify"``: the device plan must equal the host plan.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -107,6 +131,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -115,7 +140,11 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import testing
-from koordinator_tpu_torch.apis.types import ReservationState, resources_to_vector
+from koordinator_tpu_torch.apis.types import (
+    ClusterSnapshot,
+    ReservationState,
+    resources_to_vector,
+)
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
@@ -127,8 +156,12 @@ from koordinator_tpu_torch.ops.binpack import (
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
+from koordinator_tpu_torch.scheduler.preemption import find_preemption
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
-from koordinator_tpu_torch.state.cluster import lower_nodes
+from koordinator_tpu_torch.state.cluster import (
+    evict_resident_rows,
+    lower_nodes,
+)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -181,6 +214,13 @@ FINE_CPUSET, FINE_GPU, FINE_PORTS, FINE_SELECTOR, FINE_DISTINCT = (
 FINE_CUT_NODES, FINE_CUT_PENDING = 1000, 2000
 SNN_NODES, SNN_PENDING = 200, 400
 EXTRAS_SELECTOR, EXTRAS_SCORED = 0.2, 0.05
+# phase 11: bench config #19 (seed, nodes, residents per node, arrivals),
+# the round cap, the per-pod sweep's pods and its wider node count, and
+# the defrag's drain priority bound
+STORM_SEED, STORM_NODES, STORM_RPN, STORM_ARRIVALS = 11, 1250, 4, 1000
+STORM_MAX_ROUNDS = 40
+SWEEP_PODS, SWEEP_WIDE_NODES, SWEEP_REPEATS = 24, 5000, 5
+DEFRAG_MAX_PRIORITY = 5000
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -865,6 +905,247 @@ def fine_grained_burst(card) -> list:
     return kernels
 
 
+def storm_scheduler(device=None, backend="device") -> Scheduler:
+    """``Scheduler()`` with the reference's preemption defaults (or
+    ``backend``) on ``PlacementModel(device=device)``, fed config #19's
+    storm: nodes, residents, then the arrivals."""
+    nodes, residents, arrivals = testing.preemption_storm(
+        seed=STORM_SEED, n_nodes=STORM_NODES, residents_per_node=STORM_RPN,
+        n_arrivals=STORM_ARRIVALS)
+    sched = Scheduler(model=PlacementModel(device=device),
+                      preemption_backend=backend)
+    for node in nodes:
+        sched.add_node(node)
+    for pod in residents + arrivals:
+        sched.add_pod(pod)
+    return sched
+
+
+class PreemptProbe:
+    """Times a Scheduler's ``_preempt_unplaced`` (host seconds, a device
+    synchronise included) and counts the preemptors it tried (its
+    ``select_victims_device`` calls)."""
+
+    def __init__(self, sched):
+        self.seconds, self.tried = 0.0, 0
+        preempt = sched._preempt_unplaced
+        select = sched.model.select_victims_device
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            preempt(*args)
+            if sched.model.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - t0
+
+        def counted(*args, **kwargs):
+            self.tried += 1
+            return select(*args, **kwargs)
+
+        sched._preempt_unplaced = timed
+        sched.model.select_victims_device = counted
+
+
+def frozen(inp):
+    """A copy of kernel inputs ``inp`` that later rounds cannot change
+    (the staging cache rewrites the staged node tensors in place)."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if type(x) is tuple:
+            return tuple(copy(y) for y in x)
+        return x
+    return inp._replace(**{f: copy(getattr(inp, f)) for f in inp._fields})
+
+
+def storm_rounds(card) -> list:
+    """Phase 11 (a). Returns the ``kernels`` entries of the storm rounds'
+    placement kernel: held against its twin and timed on round 0's
+    inputs (every arrival pending) and on the last round's."""
+    gpu, cpu = storm_scheduler(), storm_scheduler("cpu")
+    probe = PreemptProbe(gpu)
+    launches, rounds, first, inp = {}, 0, None, None
+    t_storm = time.perf_counter()
+    for r in range(STORM_MAX_ROUNDS):
+        now = 100.0 + r
+        label = f"preemption storm, round {r}"
+        pending = len(gpu.cache.pending)
+        before = set(gpu.cache.pods)
+        probe.tried = 0
+        result, launched, wall, captured = drive(
+            lambda: gpu.schedule_pending(now=now))
+        inp, route = routed(label, launched, captured)
+        launches[route.kind] = launches.get(route.kind, 0) + 1
+        if first is None:
+            first = frozen(inp)
+        want = cpu.schedule_pending(now=now)
+        same_round(result, want, label)
+        assert result.nominations == want.nominations, label
+        evicted = before - set(gpu.cache.pods)
+        assert evicted == before - set(cpu.cache.pods), label
+        placed = [u for u, n in result.items() if n is not None]
+        tm = gpu.model.last_timings
+        print(f"{label} [{card}]: {pending} pending; wall {wall:.4f} s, "
+              f"lower_s {tm['lower_s']:.4f} stage_s {tm['stage_s']:.4f} "
+              f"solve_s {tm['solve_s']:.4f}, preemption {probe.seconds:.4f}"
+              f" s; {probe.tried} preemptors tried, {len(evicted)} "
+              f"evictions, {len(result.nominations)} nominations, "
+              f"{len(placed)} placements; cuda == cpu; route "
+              f"{route_name(route)}; launches {launched[route.kind]}",
+              flush=True)
+        for uid in placed:
+            gpu.cache.finish_binding(uid)
+            cpu.cache.finish_binding(uid)
+        rounds += 1
+        if not gpu.cache.pending:
+            break
+    storm_s = time.perf_counter() - t_storm
+    assert not gpu.cache.pending, f"storm not drained in {rounds} rounds"
+    assert ({u: p.node_name for u, p in gpu.cache.pods.items()}
+            == {u: p.node_name for u, p in cpu.cache.pods.items()})
+    assert list(gpu.cache.pending) == list(cpu.cache.pending)
+    print(f"preemption storm [{card}]: {STORM_ARRIVALS} arrivals placed in "
+          f"{rounds} rounds; final cache == cpu; kernel launches {launches}; "
+          f"phase wall {storm_s:.2f} s (cpu rounds included)", flush=True)
+    entries = []
+    for which, name, x in (("round 0", "binpack_preempt_storm", first),
+                           ("last round", "binpack_preempt_storm_last_round",
+                            inp)):
+        stats = compare(x, f"preemption storm, {which} ({STORM_NODES} "
+                        f"nodes)", card, reps=5)
+        kind = stats["route"].kind
+        entries.append(entry(name, launches[kind], stats,
+                             93 if kind == "block" else 317))
+    return entries
+
+
+def storm_world(n_nodes, n_arrivals):
+    """Config #19's storm at ``n_nodes``: ``(snapshot, arrivals)``."""
+    nodes, residents, arrivals = testing.preemption_storm(
+        seed=STORM_SEED, n_nodes=n_nodes, residents_per_node=STORM_RPN,
+        n_arrivals=n_arrivals)
+    return ClusterSnapshot(nodes=nodes, pods=residents, now=50.0), arrivals
+
+
+def sweep_device(n_nodes, model, pods):
+    """The device arm of phase 11 (b) on a fresh world: ``(answers,
+    seconds)``, timed after one warm-up selection."""
+    kw = model.lowering_kwargs()
+    snapshot, _ = storm_world(n_nodes, 0)
+    arrays = lower_nodes(snapshot, **kw)
+    resident = model.lower_residents(snapshot, arrays)
+    world = model.resident_world(resident)
+    model.select_victims_device(arrays, resident, pods[0], world=world)
+    torch.cuda.synchronize()
+    hits = []
+    t0 = time.perf_counter()
+    for pod in pods:
+        got = model.select_victims_device(arrays, resident, pod, world=world)
+        if got is not None:
+            evict_resident_rows(snapshot, arrays, resident, *got, **kw)
+        hits.append(got)
+    return hits, time.perf_counter() - t0
+
+
+def sweep_host(n_nodes, model, pods):
+    """The host arm of phase 11 (b) on a fresh world: ``(answers,
+    seconds)``."""
+    kw = model.lowering_kwargs()
+    snapshot, _ = storm_world(n_nodes, 0)
+    arrays = lower_nodes(snapshot, **kw)
+    thresholds = (model.params.thresholds.cpu().numpy(),
+                  model.params.prod_thresholds.cpu().numpy())
+    hits = []
+    t0 = time.perf_counter()
+    for pod in pods:
+        got = find_preemption(snapshot, pod, arrays=arrays,
+                              thresholds=thresholds[0],
+                              prod_thresholds=thresholds[1])
+        if got is not None:
+            gone = {v.uid for v in got[1]}
+            snapshot.pods = [p for p in snapshot.pods if p.uid not in gone]
+            arrays = lower_nodes(snapshot, **kw)
+            got = (got[0], [v.uid for v in got[1]])
+        hits.append(got)
+    return hits, time.perf_counter() - t0
+
+
+def spread(values, fmt="{:.1f}") -> str:
+    """``median (min-max)`` of ``values``."""
+    values = sorted(values)
+    return (fmt.format(statistics.median(values)) + " ("
+            + fmt.format(values[0]) + "-" + fmt.format(values[-1]) + ")")
+
+
+def victim_sweep(n_nodes, card) -> None:
+    """Phase 11 (b): the first SWEEP_PODS arrivals, evicting as they go,
+    on the card (``select_victims_device`` + ``evict_resident_rows``)
+    and on the host (``find_preemption`` + a full re-lower per hit),
+    SWEEP_REPEATS times each, the arms in turns, each on a fresh world."""
+    model = PlacementModel()
+    _, pods = storm_world(n_nodes, SWEEP_PODS)
+    device_rate, host_rate, ratio = [], [], []
+    for rep in range(SWEEP_REPEATS):
+        device_hits, device_s = sweep_device(n_nodes, model, pods)
+        host_hits, host_s = sweep_host(n_nodes, model, pods)
+        assert device_hits == host_hits, f"device sweep != host walk ({rep})"
+        hits = sum(h is not None for h in device_hits)
+        assert hits == len(pods), hits
+        device_rate.append(len(pods) / device_s)
+        host_rate.append(len(pods) / host_s)
+        ratio.append(host_s / device_s)
+    evictions = sum(len(h[1]) for h in device_hits)
+    print(f"victim sweep, {n_nodes} nodes x {STORM_RPN} residents, "
+          f"{len(pods)} preemptors, {SWEEP_REPEATS} repeats [{card}]: "
+          f"device == host walk every repeat ({hits} hits, {evictions} "
+          f"evictions); median (min-max): device {spread(device_rate)} "
+          f"pods/s, host {spread(host_rate)} pods/s, device / host "
+          f"{spread(ratio, '{:.2f}')}; per repeat device "
+          f"{[round(x, 1) for x in device_rate]}, host "
+          f"{[round(x, 2) for x in host_rate]}", flush=True)
+
+
+def scan_wave(card) -> None:
+    """Phase 11 (c): ``preempt_scan_device`` over the whole wave in one
+    call on the card (timed after a warm-up call), equal to the CPU
+    model's."""
+    snapshot, pods = storm_world(STORM_NODES, STORM_ARRIVALS)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = PlacementModel(device=device)
+        arrays = lower_nodes(snapshot, **model.lowering_kwargs())
+        resident = model.lower_residents(snapshot, arrays)
+        world = model.resident_world(resident)
+        model.preempt_scan_device(arrays, resident, pods[:4], world=world)
+        t0 = time.perf_counter()
+        out[device] = model.preempt_scan_device(arrays, resident, pods,
+                                                world=world)
+        out[device + "_s"] = time.perf_counter() - t0
+    assert out["cuda"] == out["cpu"], "preempt_scan_device: cuda != cpu"
+    hits = sum(h is not None for h in out["cuda"])
+    print(f"preempt_scan_device, {STORM_NODES} nodes x {STORM_RPN} "
+          f"residents, {len(pods)} preemptors in one call [{card}]: cuda == "
+          f"cpu ({hits} hits); wall {out['cuda_s']:.4f} s "
+          f"({len(pods) / out['cuda_s']:.1f} pods/s), cpu "
+          f"{out['cpu_s']:.4f} s", flush=True)
+
+
+def defrag_check(card) -> None:
+    """Phase 11 (d): ``defrag_headroom`` on the storm world with the
+    "verify" backend (device plan == host plan, else it raises)."""
+    sched = storm_scheduler(backend="verify")
+    arrival = next(iter(sched.cache.pending.values()))
+    target = resources_to_vector(arrival.requests)
+    t0 = time.perf_counter()
+    plan = sched.defrag_headroom(target, DEFRAG_MAX_PRIORITY, now=50.0)
+    wall = time.perf_counter() - t0
+    assert plan is not None and plan[1], plan
+    print(f"defrag_headroom, verify backend [{card}]: device plan == host "
+          f"plan: drain {len(plan[1])} pods on {plan[0]} for a hole of "
+          f"{target[:2].tolist()}; wall {wall:.4f} s (both plans)",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -1023,6 +1304,13 @@ def main() -> int:
 
     # -- 10. the fine-grained burst through the Scheduler ----------------------
     kernels += fine_grained_burst(card)
+
+    # -- 11. preemption on the card ----------------------------------------------
+    kernels.extend(storm_rounds(card))
+    for n_nodes in (STORM_NODES, SWEEP_WIDE_NODES):
+        victim_sweep(n_nodes, card)
+    scan_wave(card)
+    defrag_check(card)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

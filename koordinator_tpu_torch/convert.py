@@ -3,7 +3,8 @@
 A scheduler has no weights: what carries across is solver state. Each
 function takes one of the reference's NamedTuples (``NodeState``,
 ``PodBatch``, ``ScoreParams``, ``QuotaState``, ``GangState``,
-``ResvArrays``, ``NumaAux``) as a dict of numpy arrays, ``{k:
+``ResvArrays``, ``NumaAux``, and ``ops/preempt.py``'s ``ResidentWorld``
+and ``PreemptorBatch``) as a dict of numpy arrays, ``{k:
 np.asarray(v) for k, v in s._asdict().items()}``, and builds the port's
 counterpart on ``device`` (``cuda`` unless the caller passes one, as
 every entry point of the port). Values are taken as they are (the
@@ -27,6 +28,7 @@ from koordinator_tpu_torch.ops.binpack import (
     ScoreParams,
 )
 from koordinator_tpu_torch.ops.gang import GangState
+from koordinator_tpu_torch.ops.preempt import PreemptorBatch, ResidentWorld
 from koordinator_tpu_torch.ops.quota import QuotaState
 
 
@@ -74,3 +76,11 @@ def resv_arrays(d: Mapping, device: DeviceLike = None) -> ResvArrays:
 
 def numa_aux(d: Mapping, device: DeviceLike = None) -> NumaAux:
     return _build(NumaAux, d, device)
+
+
+def resident_world(d: Mapping, device: DeviceLike = None) -> ResidentWorld:
+    return _build(ResidentWorld, d, device)
+
+
+def preemptor_batch(d: Mapping, device: DeviceLike = None) -> PreemptorBatch:
+    return _build(PreemptorBatch, d, device)

@@ -28,10 +28,15 @@ the snapshot is lowered and staged in full; the results are identical.
 Not in this port yet, each queued in ROADMAP.md: the staging cache's
 working-set registration and its demotion rungs (``state/workingset.py``)
 and sharded staging (no mesh on one card), the host path for tiny
-solves, pod-shape and reservation-axis bucketing (they share XLA
-compiles, which eager PyTorch does not have; results are identical
+solves, pod-shape, reservation-axis and victim-axis bucketing (they share
+XLA compiles, which eager PyTorch does not have; results are identical
 without them), the kernel's cached reservation one-hot (the CUDA kernel
-has none), preemption, the remote backend and the observability hooks.
+has none), the remote backend and the observability hooks.
+
+The joint place+evict (``select_victims_device``, ``preempt_scan_device``,
+``plan_defrag_device``) runs ``ops/preempt.py`` on the model's device
+over the resident world ``lower_residents`` lowers and
+``resident_world`` stages.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import DeviceLike, resolve_device
-from koordinator_tpu_torch.apis.extension import NUM_RESOURCES
+from koordinator_tpu_torch.apis.extension import NUM_RESOURCES, PriorityClass
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     GangMode,
@@ -76,6 +81,13 @@ from koordinator_tpu_torch.ops.binpack_kernel import (
     weight_sum,
 )
 from koordinator_tpu_torch.ops.gang import GangState
+from koordinator_tpu_torch.ops.preempt import (
+    PreemptorBatch,
+    ResidentWorld,
+    headroom_repack,
+    preempt_scan,
+    select_victims,
+)
 from koordinator_tpu_torch.ops.quota import QuotaState
 from koordinator_tpu_torch.quota.core import GroupQuotaManager
 from koordinator_tpu_torch.scheduler.plugins.nodeports import pod_host_ports
@@ -89,9 +101,12 @@ from koordinator_tpu_torch.state.cluster import (
     DEFAULT_USAGE_THRESHOLDS,
     NodeArrays,
     PendingPodArrays,
+    ResidentPodArrays,
+    clip_i32,
     lower_nodes,
     lower_nodes_delta,
     lower_pending_pods,
+    lower_resident_pods,
 )
 
 
@@ -165,11 +180,15 @@ class ScheduleResult(Dict[str, Optional[str]]):
     reservation it consumed, so a caller can roll the consumption back.
     ``fine_states`` maps a waiting pod's uid to ``(node name,
     CycleState)``: its fine-grained holds, applied but not yet annotated
-    (PreBind runs when its Permit barrier opens)."""
+    (PreBind runs when its Permit barrier opens). ``nominations`` is
+    filled by the Scheduler's preemption."""
 
     def __init__(self, assignments, waiting=None, resv_allocs=None,
                  resv_committed=None, fine_states=None):
         super().__init__(assignments)
+        #: preemptors whose victims this round evicted: uid -> the node
+        #: they were nominated to (they bind in a later round)
+        self.nominations: Dict[str, str] = {}
         self.waiting: Dict[str, str] = dict(waiting or {})
         self.fine_states: Dict[str, tuple] = dict(fine_states or {})
         self.resv_allocs: Dict[str, tuple] = dict(resv_allocs or {})
@@ -649,6 +668,166 @@ class PlacementModel:
             has_numa_policy=(None if has_numa_policy is None
                              else put(has_numa_policy)),
         )
+
+    # -- joint place+evict (ops/preempt.py) ----------------------------------
+
+    def lower_residents(self, snapshot: ClusterSnapshot,
+                        arrays: NodeArrays) -> ResidentPodArrays:
+        """Lower the assigned-pod world for victim selection. The P axis
+        is not padded: eager torch shares no compiled program across
+        widths, and padding is inert (a test pins it)."""
+        return lower_resident_pods(snapshot, arrays)
+
+    def resident_world(self, resident: ResidentPodArrays) -> ResidentWorld:
+        """Stage the resident world on the model's device, once per
+        preemption round. Between evictions only ``valid`` shrinks: the
+        ``*_device`` methods take the staged world back and restage just
+        that mask. Always copies (evictions write the host arrays)."""
+        put = self._put
+        return ResidentWorld(req=put(resident.req),
+                             priority=put(resident.priority),
+                             quota_id=put(resident.quota_id),
+                             preemptible=put(resident.preemptible),
+                             valid=put(resident.valid))
+
+    def _put(self, a) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)
+
+    def _current_world(self, resident, world) -> ResidentWorld:
+        if world is None:
+            return self.resident_world(resident)
+        return world._replace(valid=self._put(resident.valid))
+
+    def _victim_uids(self, resident, node_index: int, mask) -> List[str]:
+        uids = resident.uids[node_index]
+        return [uids[j] for j in range(min(len(uids), mask.shape[0]))
+                if mask[j]]
+
+    def select_victims_device(
+        self,
+        arrays: NodeArrays,
+        resident: ResidentPodArrays,
+        pod,
+        quota_used=None,
+        used_limit=None,
+        world: Optional[ResidentWorld] = None,
+    ) -> Optional[Tuple[str, List[str]]]:
+        """One preemptor against the whole cluster on the device: ``(node
+        name, victim uids in importance order)``, the oracle's
+        ``find_preemption`` answer, or None. ``quota_used``/``used_limit``
+        arm the ElasticQuota reprieve gate (both None: a pod no quota
+        manages, the gate off, as the oracle). Reads back the winner and
+        its row only."""
+        world = self._current_world(resident, world)
+        quota_on = quota_used is not None and used_limit is not None
+        zeros = np.zeros(NUM_RESOURCES, dtype=np.int64)
+        put = self._put
+        best, victims, _, _ = select_victims(
+            put(clip_i32(resources_to_vector(pod.requests))),
+            put(np.int32(pod.priority)),
+            put(np.int32(resident.quota_id_of(pod.quota))),
+            put(bool(pod.is_daemonset)),
+            put(pod.priority_class == PriorityClass.PROD),
+            put(clip_i32(zeros if quota_used is None
+                         else np.asarray(quota_used))),
+            put(clip_i32(zeros if used_limit is None
+                         else np.asarray(used_limit))),
+            put(quota_on),
+            put(arrays.alloc), put(arrays.used_req), put(arrays.usage),
+            put(arrays.prod_usage), put(arrays.metric_fresh),
+            put(arrays.schedulable), put(resident.node_rank),
+            self.params.thresholds, self.params.prod_thresholds, world)
+        b = int(best)
+        if b < 0:
+            return None
+        row = victims[b].cpu().numpy()
+        return arrays.names[b], self._victim_uids(resident, b, row)
+
+    def preempt_scan_device(
+        self,
+        arrays: NodeArrays,
+        resident: ResidentPodArrays,
+        pods,
+        quota_rows=None,
+        world: Optional[ResidentWorld] = None,
+    ) -> List[Optional[Tuple[str, List[str]]]]:
+        """The whole preemptor batch in one call, the eviction deltas
+        carried on the device. ``quota_rows[k]`` is ``(quota_used,
+        used_limit)`` or None per pod, the round-start rows held for the
+        batch: equal to the per-pod path whenever the quota groups do not
+        overlap. Reads back each preemptor's winner and its row."""
+        k = len(pods)
+        if k == 0:
+            return []
+        req = np.zeros((k, NUM_RESOURCES), dtype=np.int64)
+        prio = np.zeros(k, dtype=np.int32)
+        quota = np.zeros(k, dtype=np.int32)
+        is_ds = np.zeros(k, dtype=bool)
+        is_prod = np.zeros(k, dtype=bool)
+        q_used = np.zeros((k, NUM_RESOURCES), dtype=np.int64)
+        q_limit = np.zeros((k, NUM_RESOURCES), dtype=np.int64)
+        q_en = np.zeros(k, dtype=bool)
+        for i, pod in enumerate(pods):
+            req[i] = resources_to_vector(pod.requests)
+            prio[i] = pod.priority
+            quota[i] = resident.quota_id_of(pod.quota)
+            is_ds[i] = pod.is_daemonset
+            is_prod[i] = pod.priority_class == PriorityClass.PROD
+            row = quota_rows[i] if quota_rows is not None else None
+            if row is not None:
+                q_used[i], q_limit[i] = np.asarray(row[0]), np.asarray(row[1])
+                q_en[i] = True
+        put = self._put
+        batch = PreemptorBatch(
+            req=put(clip_i32(req)), priority=put(prio), quota_id=put(quota),
+            is_daemonset=put(is_ds), is_prod=put(is_prod),
+            quota_used=put(clip_i32(q_used)),
+            used_limit=put(clip_i32(q_limit)), quota_enabled=put(q_en),
+            active=put(np.ones(k, dtype=bool)))
+        best_nodes, victim_cols = preempt_scan(
+            batch, put(arrays.alloc), put(arrays.used_req), put(arrays.usage),
+            put(arrays.prod_usage), put(arrays.metric_fresh),
+            put(arrays.schedulable), put(resident.node_rank),
+            self.params.thresholds, self.params.prod_thresholds,
+            self._current_world(resident, world))
+        best_nodes = best_nodes.cpu().numpy()
+        victim_cols = victim_cols.cpu().numpy()
+        out: List[Optional[Tuple[str, List[str]]]] = []
+        for i in range(k):
+            b = int(best_nodes[i])
+            out.append(None if b < 0 else (
+                arrays.names[b],
+                self._victim_uids(resident, b, victim_cols[i])))
+        return out
+
+    def plan_defrag_device(
+        self,
+        arrays: NodeArrays,
+        resident: ResidentPodArrays,
+        target_req,
+        max_victim_priority: int,
+        world: Optional[ResidentWorld] = None,
+    ) -> Optional[Tuple[str, List[str]]]:
+        """Headroom repack on the device: ``(node name, drain uids in
+        eviction order)`` for the cheapest node to drain until
+        ``target_req`` fits, draining preemptible residents strictly below
+        ``max_victim_priority`` least important first; None when the hole
+        already fits somewhere or no drain restores it."""
+        put = self._put
+        schedulable = put(arrays.schedulable)
+        best, drain_mask, _, fits_now = headroom_repack(
+            put(clip_i32(np.asarray(target_req))),
+            put(np.int32(max_victim_priority)),
+            put(arrays.alloc), put(arrays.used_req), schedulable,
+            put(resident.node_rank), self._current_world(resident, world))
+        if bool((fits_now & schedulable).any()):
+            return None  # a hole already exists: nothing to drain
+        b = int(best)
+        if b < 0:
+            return None
+        ordered = self._victim_uids(resident, b, drain_mask[b].cpu().numpy())
+        ordered.reverse()  # eviction order: least important first
+        return arrays.names[b], ordered
 
     # -- solve --------------------------------------------------------------
 

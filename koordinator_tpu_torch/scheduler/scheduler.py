@@ -17,13 +17,26 @@ reference swaps the object without a mark, so its staged row keeps the
 old requests), as ``remove_reservation`` and ``remove_node_metric`` mark
 theirs.
 
-Not in this slice of the port; each raises ``NotImplementedError`` and is
-queued in ROADMAP.md:
-- preemption (``enable_preemption=True``, the reference's default);
-- the plugin chain: ``schedule_one`` and ``batched_placement=False``;
-- the trace, metrics, pod timelines and device observatory, the bus
-  wiring (publish and eviction sinks) and the migration arbiter: the
-  round runs without them.
+After the placements, the round runs ElasticQuota's PostFilter for the
+pods it could not place (``_preempt_unplaced``, at most
+``MAX_PREEMPTIONS_PER_ROUND`` preemptors): victims are evicted now and the
+preemptor is nominated to their node, binding in a later round. The
+victim selection runs on ``preemption_backend``: ``"device"`` (the
+default: ``ops/preempt.py`` on the model's device over the resident
+world, re-lowering one node row per eviction), ``"host"`` (the scalar
+oracle, ``scheduler/preemption.py``, with a full re-lower per eviction)
+or ``"verify"`` (both, raising on any difference). ``defrag_headroom``
+plans (and applies) the cheapest drain that restores a hole of a given
+shape on the same backends. Evictions go to ``evict_pod_fn`` when set,
+else to :meth:`Scheduler.remove_pod`.
+
+Not in this slice of the port, and queued in ROADMAP.md:
+- the plugin chain: ``schedule_one`` and ``batched_placement=False``
+  raise ``NotImplementedError``;
+- the trace, metrics (the preemption counters among them), pod timelines
+  and device observatory, the bus wiring's publish sink and the migration
+  arbiter: the round runs without them, and evictions are not
+  arbitrated.
 """
 
 from __future__ import annotations
@@ -65,9 +78,15 @@ from koordinator_tpu_torch.scheduler.plugins.nodenumaresource import (
     NodeNUMAResourcePlugin,
 )
 from koordinator_tpu_torch.scheduler.plugins.nodeports import NodePortsPlugin
+from koordinator_tpu_torch.scheduler.preemption import plan_defrag
 from koordinator_tpu_torch.scheduler.reservation_controller import (
     ReservationController,
 )
+from koordinator_tpu_torch.state.cluster import (
+    evict_resident_rows,
+    lower_nodes,
+)
+
 
 class PendingTick:
     """One round between dispatch (:meth:`Scheduler.begin_tick`) and
@@ -86,12 +105,22 @@ class Scheduler:
     """The batched scheduler: ``schedule_pending()`` solves the whole
     queue in one solve and assumes the results into the cache."""
 
+    #: at most this many preemptors per batched round
+    MAX_PREEMPTIONS_PER_ROUND = 32
+
     def __init__(self, model: Optional[PlacementModel] = None,
-                 cluster_total=None, enable_preemption: bool = True):
-        if enable_preemption:
-            raise NotImplementedError(
-                "preemption is a later slice of the port (ops/preempt.py, "
-                "scheduler/preemption.py): pass enable_preemption=False")
+                 cluster_total=None, enable_preemption: bool = True,
+                 preemption_backend: str = "device"):
+        if preemption_backend not in ("device", "host", "verify"):
+            raise ValueError(
+                f"unknown preemption_backend {preemption_backend!r}")
+        #: the victim selection of ``_preempt_unplaced`` and
+        #: ``defrag_headroom``: "device", "host" or "verify" (both)
+        self.preemption_backend = preemption_backend
+        #: the eviction sink: called with each victim (a bus deletion
+        #: whose watch event re-enters ``remove_pod``); None removes the
+        #: victim from this scheduler's cache directly
+        self.evict_pod_fn = None
         self.cache = SchedulerCache()
         self.quota_registry = QuotaTreeRegistry(cluster_total=cluster_total
                                                 or {})
@@ -356,7 +385,129 @@ class Scheduler:
                 self._resv_waiting[uid] = result.resv_allocs[uid]
         self._fine_waiting.update(result.fine_states)
         self._resolve_waiting(result)
+        self._preempt_unplaced(result, pending, at)
         return result
+
+    def _preempt_unplaced(self, result: ScheduleResult, pending, now) -> None:
+        """Batched PostFilter: for pods the solve could not place, try
+        same-quota lower-priority preemption (preempt.go). Victims are
+        evicted now; the preemptor binds in a later round once the
+        capacity has freed (the reference's nominate-then-wait)."""
+        if not self._quota_plugin.enable_preemption:
+            return
+        unplaced = [uid for uid, node in result.items()
+                    if node is None and uid not in result.waiting]
+        if not unplaced:
+            return
+        snapshot = self.cache.snapshot(now=now)
+        assigned = [p for p in snapshot.pods if p.preemptible]
+        if not assigned:
+            return
+        backend = self.preemption_backend
+        model = self.model
+        lowering = model.lowering_kwargs()
+        min_priority = min(p.priority for p in assigned)
+        arrays = resident = world = thresholds = None
+        attempts = 0
+        for uid in unplaced:
+            if attempts >= self.MAX_PREEMPTIONS_PER_ROUND:
+                break
+            pod = pending.get(uid)
+            if pod is None or pod.priority <= min_priority:
+                continue  # no strictly lower-priority victim can exist
+            attempts += 1
+            if arrays is None:
+                arrays = lower_nodes(snapshot, **lowering)
+                if backend != "device":  # the host oracle's thresholds
+                    thresholds = (model.params.thresholds.cpu().numpy(),
+                                  model.params.prod_thresholds.cpu().numpy())
+                if backend != "host":
+                    resident = model.lower_residents(snapshot, arrays)
+                    world = model.resident_world(resident)
+            if backend != "device":
+                want = self._quota_plugin.post_filter(
+                    snapshot, pod, arrays, *thresholds)
+                want = None if want is None else (
+                    want[0], [v.uid for v in want[1]])
+            if backend == "host":
+                if want is None:
+                    continue
+                node_name, victim_uids = want
+                self._evict_victims(sorted(victim_uids))
+                # later preemptors see the eviction: a full re-lower
+                wanted = set(victim_uids)
+                snapshot.pods = [p for p in snapshot.pods
+                                 if p.uid not in wanted]
+                arrays = lower_nodes(snapshot, **lowering)
+                result.nominations[uid] = node_name
+                continue
+            # the device selection against the staged resident world; the
+            # eviction re-lowers one node row in place
+            rows = self._quota_plugin.quota_rows(pod)
+            got = model.select_victims_device(
+                arrays, resident, pod,
+                quota_used=rows[0] if rows is not None else None,
+                used_limit=rows[1] if rows is not None else None,
+                world=world)
+            if backend == "verify" and got != want:
+                raise AssertionError(
+                    f"preemption parity violation for {pod.uid}: device "
+                    f"{got!r} != oracle {want!r}")
+            if got is None:
+                continue
+            node_name, ordered_uids = got
+            self._evict_victims(sorted(ordered_uids))
+            evict_resident_rows(snapshot, arrays, resident, node_name,
+                                ordered_uids, **lowering)
+            result.nominations[uid] = node_name
+
+    def _evict_victims(self, uids: List[str]) -> List[str]:
+        """Evict ``uids`` through ``evict_pod_fn`` (its deletion event
+        re-enters :meth:`remove_pod`) or, without one, through
+        :meth:`remove_pod` directly, which marks each victim's node.
+        Returns the uids (no arbiter defers any)."""
+        for uid in uids:
+            victim = self.cache.pods.get(uid)
+            if victim is None:
+                continue
+            if self.evict_pod_fn is not None:
+                self.evict_pod_fn(victim)
+            else:
+                self.remove_pod(victim)
+        return list(uids)
+
+    def defrag_headroom(self, target_req, max_victim_priority: int,
+                        apply: bool = False, now: Optional[float] = None):
+        """Headroom repack: the cheapest node to drain (preemptible
+        residents strictly below ``max_victim_priority``, least important
+        first) until a ``target_req``-sized hole fits. Returns ``(node
+        name, drain uids in eviction order)``, or None (also when the hole
+        already fits somewhere). With ``apply=True`` the drains are
+        evicted through the same sink as preemption victims. The plan
+        runs on ``preemption_backend``; "verify" raises when the device
+        and host plans differ."""
+        target = np.asarray(target_req)
+        snapshot = self.cache.snapshot(now=now)
+        arrays = lower_nodes(snapshot, **self.model.lowering_kwargs())
+        got = want = None
+        if self.preemption_backend != "host":
+            resident = self.model.lower_residents(snapshot, arrays)
+            got = self.model.plan_defrag_device(
+                arrays, resident, target, max_victim_priority)
+        if self.preemption_backend != "device":
+            plan = plan_defrag(snapshot, target, max_victim_priority,
+                               arrays=arrays)
+            want = None if plan is None else (
+                plan[0], [v.uid for v in plan[1]])
+        if self.preemption_backend == "host":
+            got = want
+        elif self.preemption_backend == "verify" and got != want:
+            raise AssertionError(
+                f"defrag parity violation: device {got!r} != oracle "
+                f"{want!r}")
+        if got is not None and apply:
+            got = (got[0], self._evict_victims(got[1]))
+        return got
 
     def schedule_one(self, pod_uid: str, now: Optional[float] = None):
         raise NotImplementedError(

@@ -1,8 +1,8 @@
 """Lower a typed cluster snapshot onto dense int32 arrays (counterpart of
 ``koordinator_tpu/state/cluster.py``: the full lowering with reservation
-holds, the delta tracker and the delta lowering that patches only the
-rows a tracker marked; the resident-pod world and padding are a later
-slice).
+holds, the delta tracker, the delta lowering that patches only the
+rows a tracker marked, and the resident-pod world the preemption solve
+reads; node-row padding is a later slice).
 
 Lowering runs on the host in exact integer arithmetic (Python ints and
 numpy int64) and clips to int32 at the end. Reference semantics:
@@ -521,3 +521,136 @@ def lower_pending_pods(
         quota_id=quota_id,
         gang_id=gang_id,
     )
+
+
+# -- the resident-pod world (the victim side of the joint place+evict) --------
+
+
+@dataclasses.dataclass
+class ResidentPodArrays:
+    """Dense ``[N, P]`` resident-pod world for the victim selection
+    (``ops/preempt.py``), sorted per node in the oracle's importance order
+    (priority descending, then earlier assignment:
+    ``scheduler/preemption._more_important``), so a victim mask read along
+    the P axis is the oracle's ordered victim list.
+
+    ``quota_ids`` maps quota-group names (``""`` = no quota) to the ids in
+    ``quota_id``; a preemptor's id comes from :meth:`quota_id_of`, where an
+    unseen group matches no resident, as the oracle's string comparison.
+    ``node_rank`` is the oracle's node iteration order (the first
+    appearance of each ``node_name`` in ``snapshot.pods``, the order
+    ``find_preemption`` walks), the last tie-break of the ranking."""
+
+    uids: List[List[str]]      # [N][<=P] resident uids, importance order
+    req: np.ndarray            # [N,P,R] int32 requests
+    priority: np.ndarray       # [N,P] int32
+    quota_id: np.ndarray       # [N,P] int32
+    preemptible: np.ndarray    # [N,P] bool
+    valid: np.ndarray          # [N,P] bool (False = padding or evicted)
+    node_rank: np.ndarray      # [N] int32
+    quota_ids: Dict[str, int]  # quota name ("" = none) -> id
+
+    @property
+    def n(self) -> int:
+        return self.req.shape[0]
+
+    @property
+    def p(self) -> int:
+        return self.req.shape[1]
+
+    def quota_id_of(self, quota: Optional[str]) -> int:
+        """The preemptor-side id of ``quota``: ``-2`` (matching no
+        resident; padding is ``-3``) when no resident carries it."""
+        return self.quota_ids.get(quota or "", -2)
+
+    def columns_of(self, node_index: int, uids) -> List[int]:
+        """P-axis columns of ``uids`` on row ``node_index``."""
+        wanted = set(uids)
+        return [j for j, uid in enumerate(self.uids[node_index])
+                if uid in wanted]
+
+
+def lower_resident_pods(
+    snapshot: ClusterSnapshot,
+    arrays: NodeArrays,
+) -> ResidentPodArrays:
+    """Lower the assigned-pod world to :class:`ResidentPodArrays`, its
+    P axis as wide as the fullest node (the reference pads it to a
+    compile bucket; eager torch compiles nothing per width)."""
+    index = arrays.index()
+    by_node: Dict[int, List[PodSpec]] = {}
+    unranked = np.iinfo(np.int32).max
+    node_rank = np.full(arrays.n, unranked, dtype=np.int32)
+    rank = 0
+    for pod in snapshot.pods:
+        if pod.node_name is None:
+            continue
+        i = index.get(pod.node_name)
+        if i is None:
+            continue
+        if node_rank[i] == unranked:
+            node_rank[i] = rank
+            rank += 1
+        by_node.setdefault(i, []).append(pod)
+
+    quota_ids: Dict[str, int] = {}
+    for pods in by_node.values():
+        # a stable sort on the oracle's importance key
+        pods.sort(key=lambda p: (-p.priority, p.assign_time))
+        for pod in pods:
+            quota_ids.setdefault(pod.quota or "", len(quota_ids))
+
+    p = max((len(v) for v in by_node.values()), default=0)
+    p = max(p, 1)  # the loops need one column
+    n = arrays.n
+    req = np.zeros((n, p, NUM_RESOURCES), dtype=np.int64)
+    priority = np.zeros((n, p), dtype=np.int32)
+    quota_id = np.full((n, p), -3, dtype=np.int32)
+    preemptible = np.zeros((n, p), dtype=bool)
+    valid = np.zeros((n, p), dtype=bool)
+    uids: List[List[str]] = [[] for _ in range(n)]
+    for i, pods in by_node.items():
+        uids[i] = [pod.uid for pod in pods]
+        for j, pod in enumerate(pods):
+            req[i, j] = resources_to_vector(pod.requests)
+            priority[i, j] = pod.priority
+            quota_id[i, j] = quota_ids[pod.quota or ""]
+            preemptible[i, j] = pod.preemptible
+            valid[i, j] = True
+    return ResidentPodArrays(
+        uids=uids,
+        req=clip_i32(req),
+        priority=priority,
+        quota_id=quota_id,
+        preemptible=preemptible,
+        valid=valid,
+        node_rank=node_rank,
+        quota_ids=quota_ids,
+    )
+
+
+def evict_resident_rows(
+    snapshot: ClusterSnapshot,
+    arrays: NodeArrays,
+    resident: ResidentPodArrays,
+    node_name: str,
+    victim_uids,
+    **lowering_kwargs,
+) -> Optional[np.ndarray]:
+    """Apply an eviction: the victims leave ``snapshot.pods``, their
+    resident columns are invalidated in place, the snapshot's delta
+    tracker marks the node, and its row of ``arrays`` is re-lowered in
+    place through :func:`lower_nodes_delta` (the same per-row helpers as
+    the full lowering, so the row ends equal to a fresh lowering of the
+    reduced snapshot). Returns the rewritten row indices, or None when
+    the node set drifted (the caller lowers in full)."""
+    wanted = set(victim_uids)
+    snapshot.pods = [pod for pod in snapshot.pods if pod.uid not in wanted]
+    i = arrays.index().get(node_name)
+    if i is not None:
+        for j, uid in enumerate(resident.uids[i]):
+            if uid in wanted:
+                resident.valid[i, j] = False
+    if snapshot.delta_tracker is not None:
+        snapshot.delta_tracker.mark_node(node_name)
+    return lower_nodes_delta(snapshot, arrays, [node_name], **lowering_kwargs)

@@ -5,17 +5,21 @@ Every builder draws from ``numpy.random.default_rng(seed)`` in a fixed
 order, so the same seed gives the same problem in both packages: the
 ``*_arrays`` builders return plain numpy (the reference's NamedTuples as
 dicts, or ``build`` keyword arguments) that either package can take.
+:func:`preemption_storm` draws from ``random.Random(seed)``, as its
+counterpart in ``koordinator_tpu/testing/chaos.py`` does.
 """
 
 from __future__ import annotations
 
 import copy
+import random
 
 import numpy as np
 
 from koordinator_tpu_torch import DeviceLike, convert, resolve_device
 from koordinator_tpu_torch.apis.extension import (
     NUM_RESOURCES,
+    PriorityClass,
     QoSClass,
     ResourceName,
 )
@@ -796,3 +800,52 @@ def build_snapshot(spec, types, resource_name):
         ],
         now=spec["now"],
     )
+
+
+def preemption_storm(seed: int, n_nodes: int = 24,
+                     residents_per_node: int = 4, n_arrivals: int = 12,
+                     quota=None):
+    """The seeded preemption-storm world (the reference's bench config
+    #19 at ``preemption_storm(11, 1250, 4, 1000)``): every node packed
+    tight with low-priority preemptible BE residents, then a wave of
+    higher-priority PROD LS arrivals sized so plain fit fails, each
+    placeable only by evicting more than one resident. The same seed
+    gives the same storm as the reference's.
+
+    Returns ``(nodes, residents, arrivals)``; residents carry
+    ``node_name``, arrivals are pending. With ``quota`` every pod shares
+    that quota group, arming the ElasticQuota reprieve gate."""
+    rng = random.Random(seed)
+    nodes, residents, arrivals = [], [], []
+    for i in range(n_nodes):
+        nodes.append(NodeSpec(name=f"storm-n{i}",
+                              allocatable={CPU: 16000, MEM: 65536}))
+        for j in range(residents_per_node):
+            # each resident a share of the node with a little jitter:
+            # no room for an arrival without eviction
+            residents.append(PodSpec(
+                name=f"storm-be-{i}-{j}",
+                node_name=f"storm-n{i}",
+                requests={
+                    CPU: 16000 // residents_per_node,
+                    MEM: rng.randrange(49152 // residents_per_node,
+                                       65536 // residents_per_node + 1),
+                },
+                qos=QoSClass.BE,
+                priority=rng.randrange(100, 400),
+                quota=quota,
+                assign_time=float(rng.randrange(0, 1000)),
+            ))
+    for k in range(n_arrivals):
+        # an arrival needs more than any one resident frees: the least
+        # victim set has more than one pod, so the reprieve order matters
+        arrivals.append(PodSpec(
+            name=f"storm-ls-{k}",
+            requests={CPU: (16000 // residents_per_node) * 2,
+                      MEM: (49152 // residents_per_node) * 2},
+            qos=QoSClass.LS,
+            priority_class=PriorityClass.PROD,
+            priority=rng.randrange(5000, 9000),
+            quota=quota,
+        ))
+    return nodes, residents, arrivals

@@ -69,15 +69,44 @@ def _entry_points():
     """Each public constructor of the port that takes ``device``, as
     ``(name, call(**device_kwargs) -> a tensor it built)``."""
     from koordinator_tpu_torch import convert, testing
+    from koordinator_tpu_torch.apis.extension import ResourceName
+    from koordinator_tpu_torch.apis.types import (
+        ClusterSnapshot,
+        NodeSpec,
+        PodSpec,
+    )
     from koordinator_tpu_torch.models.placement import PlacementModel
+    from koordinator_tpu_torch.state.cluster import lower_nodes
     from koordinator_tpu_torch.ops.gang import GangState
     from koordinator_tpu_torch.ops.quota import QuotaState
     from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 
-    def scheduler_model(**kw):
+    def scheduler_model(enable_preemption=False, **kw):
         # Scheduler() builds its own model, on the default device
         model = PlacementModel(**kw) if kw else None
-        return Scheduler(model=model, enable_preemption=False).model
+        return Scheduler(model=model,
+                         enable_preemption=enable_preemption).model
+
+    def resident_world(**kw):
+        # the resident world stages on its model's device
+        snap = ClusterSnapshot(
+            nodes=[NodeSpec(name="n0", allocatable={ResourceName.CPU: 8})],
+            pods=[PodSpec(name="p", node_name="n0", priority=1)])
+        model = PlacementModel(**kw)
+        arrays = lower_nodes(snap, **model.lowering_kwargs())
+        return model.resident_world(model.lower_residents(snap, arrays))
+
+    res_world = dict(req=np.zeros((2, 3, 8), np.int32),
+                     priority=np.zeros((2, 3), np.int32),
+                     quota_id=np.zeros((2, 3), np.int32),
+                     preemptible=np.ones((2, 3), bool),
+                     valid=np.ones((2, 3), bool))
+    batch = dict(req=np.zeros((4, 8), np.int32),
+                 priority=np.zeros(4, np.int32), quota_id=np.zeros(4, np.int32),
+                 is_daemonset=np.zeros(4, bool), is_prod=np.zeros(4, bool),
+                 quota_used=np.zeros((4, 8), np.int32),
+                 used_limit=np.zeros((4, 8), np.int32),
+                 quota_enabled=np.zeros(4, bool), active=np.ones(4, bool))
 
     nodes, pods, params, quota, gang = testing.quota_gang_arrays(
         6, 5, 2, 2, 3, seed=0)
@@ -89,6 +118,16 @@ def _entry_points():
     return [
         ("PlacementModel", lambda **kw: PlacementModel(**kw).params.weights),
         ("Scheduler", lambda **kw: scheduler_model(**kw).params.weights),
+        ("Scheduler() with the reference's defaults (preemption on the "
+         "device)",
+         lambda **kw: scheduler_model(enable_preemption=True,
+                                      **kw).params.weights),
+        ("PlacementModel.resident_world",
+         lambda **kw: resident_world(**kw).req),
+        ("convert.resident_world",
+         lambda **kw: convert.resident_world(res_world, **kw).req),
+        ("convert.preemptor_batch",
+         lambda **kw: convert.preemptor_batch(batch, **kw).req),
         ("convert.node_state", lambda **kw: convert.node_state(nodes, **kw).alloc),
         ("convert.pod_batch", lambda **kw: convert.pod_batch(pods, **kw).req),
         ("convert.score_params",

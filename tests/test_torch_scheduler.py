@@ -10,7 +10,8 @@ staged node fields must be equal (counterpart of
 ``tests/test_scheduler.py``'s batched path); each pod the fine-grained
 manager takes or passes through schedules as the reference's does; a
 bound pod's resize marks its node; and every branch this slice does not
-port raises ``NotImplementedError``."""
+port raises ``NotImplementedError`` (preemption runs:
+``tests/test_torch_preempt_scheduler.py``)."""
 
 import numpy as np
 import pytest
@@ -380,10 +381,22 @@ def _cpu_scheduler():
 
 
 def test_preemption_raises():
-    with pytest.raises(NotImplementedError, match="preemption"):
-        Scheduler(model=PlacementModel(device="cpu"))
-    with pytest.raises(NotImplementedError, match="preemption"):
-        Scheduler(model=PlacementModel(device="cpu"), enable_preemption=True)
+    """The "verify" backend raises when the device's answer and the host
+    oracle's differ, in a preemption round and in ``defrag_headroom``
+    (the device side here made to find nothing)."""
+    sched = Scheduler(model=PlacementModel(device="cpu"),
+                      preemption_backend="verify")
+    sched.add_node(PORT.node(dict(name="n0", alloc={CPU: 10000})))
+    sched.add_pod(PORT.pod(dict(name="low", req={CPU: 8000}, prio=10)))
+    assert sched.schedule_pending(now=100.0)["default/low"] == "n0"
+    sched.model.select_victims_device = lambda *a, **k: None
+    sched.model.plan_defrag_device = lambda *a, **k: None
+    target = ttypes.resources_to_vector(PORT.res({CPU: 9000}))
+    with pytest.raises(AssertionError, match="defrag parity violation"):
+        sched.defrag_headroom(target, 50, now=100.5)
+    sched.add_pod(PORT.pod(dict(name="high", req={CPU: 8000}, prio=100)))
+    with pytest.raises(AssertionError, match="preemption parity violation"):
+        sched.schedule_pending(now=101.0)
 
 
 def test_plugin_chain_paths_raise():
