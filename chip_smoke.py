@@ -121,6 +121,26 @@ the microseconds per pod and the bound (see :func:`bound`).
    with its wall. (d) ``Scheduler.defrag_headroom`` (one arrival's
    requests, residents below priority 5,000) with ``preemption_backend=
    "verify"``: the device plan must equal the host plan.
+12. Descheduling on the card: ``LowNodeLoad`` (``descheduler/
+   loadaware.py``) whose "device" backend runs the balance sweep's kernel
+   (``csrc/rebalance_sweep.cu``). (a) The reference's bench config #5
+   (``testing.rebalance_world_spec``: 5,000 nodes, 30,000 running pods,
+   seed 5; pool low CPU 45 / memory 60, high 65 / 80): "host", "device"
+   and "verify" give the same ordered evictions as the port's
+   ``RebalanceOracle``; ``balance()`` timed per backend, 5 repeats in
+   turns. (b) Bench config #22 at its default (``testing.
+   rebalance_storm_spec``: 400 nodes, 10 pods per hot node, seed 22; low
+   30 / 30, high 60 / 60): device == host, then the budgeted arm
+   (``MigrationArbiter(MigrationBudget(max_per_node=1))`` asked by the
+   sink) must hold the reference's ``budget_bounded``, with its sweep
+   launches (one per refusal); then the same world and arbiter through
+   ``Scheduler.rebalance_sweep`` must evict the same pods, and the next
+   round's delta staging must equal a fresh staging. (c) Config #22
+   widened to 5,000 nodes (25,000 candidates), device == host. For each
+   of the three, the kernel is held against its plain version on the
+   pass's batch (every stream and the final headroom, exact) and timed.
+   Each pass is driven with the launch counts zeroed just before and read
+   just after.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -140,11 +160,24 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch import testing
+from koordinator_tpu_torch.apis import types as ttypes
+from koordinator_tpu_torch.apis.extension import ResourceName
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     ReservationState,
     resources_to_vector,
 )
+from koordinator_tpu_torch.control.migration import (
+    MigrationArbiter,
+    MigrationBudget,
+)
+from koordinator_tpu_torch.descheduler import (
+    LowNodeLoad,
+    LowNodeLoadArgs,
+    NodePool,
+    loadaware,
+)
+from koordinator_tpu_torch.descheduler.framework import Evictor
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
@@ -154,6 +187,8 @@ from koordinator_tpu_torch.ops.binpack import (
     solve_batch,
 )
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
+from koordinator_tpu_torch.ops import rebalance as rb
+from koordinator_tpu_torch.oracle.rebalance import RebalanceOracle
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
 from koordinator_tpu_torch.scheduler.preemption import find_preemption
@@ -221,10 +256,27 @@ STORM_SEED, STORM_NODES, STORM_RPN, STORM_ARRIVALS = 11, 1250, 4, 1000
 STORM_MAX_ROUNDS = 40
 SWEEP_PODS, SWEEP_WIDE_NODES, SWEEP_REPEATS = 24, 5000, 5
 DEFRAG_MAX_PRIORITY = 5000
+# phase 12: bench config #5 (nodes, running pods, seed) and its pool (low,
+# high percent of CPU and memory); config #22 (nodes, pods per hot node,
+# seed) and its pool, at the reference's default and widened to the main
+# path's node count; balance() repeats per backend, in turns
+REBAL_NODES, REBAL_PODS, REBAL_SEED = 5000, 30000, 5
+REBAL_LOW, REBAL_HIGH = (45, 60), (65, 80)
+STORM22_NODES, STORM22_PPN, STORM22_SEED = 400, 10, 22
+STORM22_WIDE_NODES = 5000
+STORM22_LOW, STORM22_HIGH = (30, 30), (60, 60)
+BALANCE_REPEATS = 5
+#: integer operations per candidate of the balance sweep: per resource
+#: the start select, the over test and its mask, the headroom test and its
+#: mask, the two subtractions (48); the two votes, the propose logic and
+#: the store (6)
+SWEEP_OPS_PER_CANDIDATE = 8 * 6 + 6
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
+SWEEP_SOURCE = "koordinator_tpu_torch/csrc/rebalance_sweep.cu"
+SWEEP_REPLACES = "koordinator_tpu/ops/rebalance.py:211"
 
 
 def card_line() -> str:
@@ -1146,6 +1198,253 @@ def defrag_check(card) -> None:
           flush=True)
 
 
+class RecordingSink(Evictor):
+    """Approves every eviction and mutates nothing, so every pass sees
+    the same world (the reference's bench sink); with ``arbiter`` each
+    eviction asks the arbiter first."""
+
+    def _do_evict(self, snapshot, pod, reason):
+        return True
+
+
+def rebalance_pool(low, high) -> NodePool:
+    cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+    return NodePool(low_thresholds={cpu: low[0], mem: low[1]},
+                    high_thresholds={cpu: high[0], mem: high[1]})
+
+
+def rebalance_snapshot(spec):
+    return testing.build_snapshot(spec, ttypes, ResourceName)
+
+
+def balance_pass(snapshot, pool, backend, arbiter=None):
+    """One ``LowNodeLoad.balance`` on ``backend`` ("device": the sweep
+    kernel on the card), every launch count zeroed just before and read
+    just after (a device synchronise ends the timed span). Returns
+    ``(ordered evictions, wall_s, sweep launches, the DeviceSweeps the
+    pass staged, the sink)``."""
+    made = []
+    base = loadaware.DeviceSweep
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    loadaware.DeviceSweep = Recorded
+    try:
+        plugin = LowNodeLoad(LowNodeLoadArgs(node_pools=[pool],
+                                             backend=backend))
+        sink = RecordingSink(arbiter=arbiter)
+        rb.LAUNCHES["rebalance_sweep"] = 0
+        for kind in bk.LAUNCHES:
+            bk.LAUNCHES[kind] = 0
+        t0 = time.perf_counter()
+        plugin.balance(snapshot, sink)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rb.LAUNCHES["rebalance_sweep"]
+    finally:
+        loadaware.DeviceSweep = base
+    assert not any(bk.LAUNCHES.values()), bk.LAUNCHES
+    if backend == "host":
+        assert launches == 0 and not made, (launches, len(made))
+    else:
+        assert launches >= 1 and len(made) == 1, (launches, len(made))
+    return ([(p.node_name, p.uid) for p in sink.evicted], wall, launches,
+            made, sink)
+
+
+def sweep_bound(sweep):
+    """(bound_ms, bound_by) of one sweep over ``sweep``'s batch: every
+    input (the batch, the blocked mask, the headroom and the resource
+    mask) read once and every output (three bytes per candidate, the
+    final headroom) written once at the memory rate, against
+    SWEEP_OPS_PER_CANDIDATE at the scalar rate."""
+    k = sweep.k
+    nbytes = sum(t.numel() * t.element_size() for t in sweep.batch)
+    nbytes += k + 4 * 8 + 8           # blocked, available, res_mask
+    nbytes += 3 * k + 4 * 8           # the streams, the final available
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = k * SWEEP_OPS_PER_CANDIDATE / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_entry(name, sweep, launches, label, card, reps=5) -> dict:
+    """The sweep kernel on a pass's staged batch (nothing blocked) held
+    against its plain version on the card (tolerance: exact, the three
+    streams and the final headroom) and timed: the kernel over ``reps``
+    launches after the comparison's launch as warm-up, the plain version
+    over its one comparison run. Returns the ``kernels`` line entry."""
+    blocked = torch.zeros(sweep.k, dtype=torch.bool, device=sweep.device)
+    args = (sweep.batch, blocked, sweep.available, sweep.res_mask)
+    got = rb.balance_sweep(*args)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(rb._balance_sweep(
+        *sweep.batch, blocked, sweep.available, sweep.res_mask)), 1)
+    streams, avail = want[0]
+    err = 0
+    for g, w, what in ((got[0][0], streams[0], "propose"),
+                       (got[0][1], streams[1], "over"),
+                       (got[0][2], streams[2], "avail_ok"),
+                       (got[1], avail, "available")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"sweep kernel != plain version on {what}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    ms = cuda_ms(lambda: rb.balance_sweep(*args), reps)
+    bound_ms, bound_by = sweep_bound(sweep)
+    proposed = int(got[0][0].sum())
+    print(f"{label}: sweep kernel == plain version ({proposed}/{sweep.k} "
+          f"proposed, max_abs_err {err}) [{card}]: kernel {ms:.4f} ms "
+          f"({ms / max(sweep.k, 1) * 1e6:.1f} ns per candidate), plain "
+          f"version on the card {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); launches on the path {launches}", flush=True)
+    return dict(name=name, source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def rebalance_config5(card) -> dict:
+    """Phase 12 (a): bench config #5 at full size through ``LowNodeLoad``
+    on every backend, equal to the port's oracle; balance() walls in
+    turns; the sweep kernel on the pass's batch."""
+    t0 = time.perf_counter()
+    snap = rebalance_snapshot(testing.rebalance_world_spec(
+        REBAL_NODES, REBAL_PODS, seed=REBAL_SEED))
+    build_s = time.perf_counter() - t0
+    pool = rebalance_pool(REBAL_LOW, REBAL_HIGH)
+    seq, wall, launches, sweeps, _ = balance_pass(snap, pool, "device")
+    t0 = time.perf_counter()
+    want = RebalanceOracle(LowNodeLoadArgs(node_pools=[pool])).sweep(snap)
+    oracle_s = time.perf_counter() - t0
+    walls = {"host": [], "device": [], "verify": []}
+    for rep in range(BALANCE_REPEATS):
+        for backend in walls:
+            got, w, *_ = balance_pass(snap, pool, backend)
+            assert got == want, f"config #5 {backend} != oracle ({rep})"
+            walls[backend].append(w)
+    assert seq == want and want, "config #5: device != oracle"
+    drained = len({n for n, _ in want})
+    print(f"rebalance config #5, {REBAL_NODES} nodes x {REBAL_PODS} pods "
+          f"[{card}]: host == device == verify == oracle: {len(want)} "
+          f"evictions, {drained} nodes drained, {sweeps[0].k} candidates; "
+          f"world built in {build_s:.2f} s, oracle {oracle_s:.2f} s; "
+          f"balance() median (min-max) of {BALANCE_REPEATS}, in turns: "
+          + ", ".join(f"{b} {spread(v, '{:.4f}')} s"
+                      for b, v in walls.items())
+          + f"; first device pass {wall:.4f} s, {launches} sweep launch",
+          flush=True)
+    return sweep_entry("rebalance_sweep_config5", sweeps[0], launches,
+                       "rebalance config #5's sweep", card)
+
+
+def storm22_scheduler(spec, budget):
+    """``Scheduler()`` on the card fed config #22's world (nodes, node
+    metrics, the running pods) and one pod that fits nowhere, so every
+    round solves; with the arbiter at ``budget``."""
+    sched = Scheduler()
+    sched.migration_arbiter = MigrationArbiter(budget)
+    snap = rebalance_snapshot(spec)
+    for node in snap.nodes:
+        sched.add_node(node)
+    for metric in snap.node_metrics.values():
+        sched.update_node_metric(metric)
+    for pod in snap.pods:
+        sched.add_pod(pod)
+    sched.add_pod(ttypes.PodSpec(name="unplaceable", requests={
+        ResourceName.CPU: 10**6}))
+    return sched
+
+
+def rebalance_storm(card) -> dict:
+    """Phase 12 (b): bench config #22 at the reference's default, device
+    against host, the budgeted arm (``max_per_node=1``), then the same
+    world and arbiter through ``Scheduler.rebalance_sweep`` and the next
+    round's delta staging against a fresh staging."""
+    spec = testing.rebalance_storm_spec(STORM22_NODES, STORM22_PPN,
+                                        seed=STORM22_SEED)
+    snap = rebalance_snapshot(spec)
+    pool = rebalance_pool(STORM22_LOW, STORM22_HIGH)
+    dev_seq, dev_wall, dev_launches, sweeps, _ = balance_pass(snap, pool,
+                                                              "device")
+    host_seq, host_wall, *_ = balance_pass(snap, pool, "host")
+    assert dev_seq == host_seq and host_seq, "config #22: device != host"
+    arbiter = MigrationArbiter(MigrationBudget(max_per_node=1))
+    _, budget_wall, rescans, budgeted, sink = balance_pass(
+        snap, pool, "device", arbiter=arbiter)
+    status = arbiter.status()
+    hot = {n for n, _ in host_seq}
+    budget_bounded = (
+        len(sink.evicted) <= len(hot)
+        and all(c <= 1 for c in status["window_nodes"].values())
+        and status["deferred_total"] > 0
+        and set(status["deferred_by_reason"]) <= {"node-budget", "cooldown"})
+    assert budget_bounded, status
+    print(f"rebalance config #22, {STORM22_NODES} nodes x {STORM22_PPN} pods "
+          f"per hot node [{card}]: device == host: {len(host_seq)} evictions "
+          f"({sweeps[0].k} candidates); balance() device {dev_wall:.4f} s "
+          f"({dev_launches} launch), host {host_wall:.4f} s; budgeted arm "
+          f"(max_per_node=1): {len(sink.evicted)} evicted, "
+          f"{status['deferred_total']} deferred "
+          f"{status['deferred_by_reason']}, budget_bounded true, "
+          f"{rescans} sweep launches (one per refusal, and the first), wall "
+          f"{budget_wall:.4f} s", flush=True)
+    sched = storm22_scheduler(spec, MigrationBudget(max_per_node=1))
+    _, launched, _, _ = drive(lambda: sched.schedule_pending(now=110.0))
+    assert sum(launched.values()) == 1, launched
+    plugin = LowNodeLoad(LowNodeLoadArgs(node_pools=[pool],
+                                         backend="device"))
+    rb.LAUNCHES["rebalance_sweep"] = 0
+    t0 = time.perf_counter()
+    evicted = sched.rebalance_sweep(plugin, now=120.0)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    sched_launches = rb.LAUNCHES["rebalance_sweep"]
+    assert evicted == [p.uid for p in sink.evicted], "Scheduler != sink arm"
+    assert not set(evicted) & set(sched.cache.pods)
+    fresh = []
+    dispatch = sched.model.schedule_async
+
+    def record(snapshot):
+        fresh.append(sched.model.stage_nodes(
+            lower_nodes(snapshot, **sched.model.lowering_kwargs())))
+        return dispatch(snapshot)
+
+    sched.model.schedule_async = record
+    sched.schedule_pending(now=121.0)
+    assert sched.model.last_staging == "delta", sched.model.last_staging
+    state = sched.model.staged_cache.state
+    for f in STAGED_NODE_FIELDS:
+        assert torch.equal(getattr(state, f), getattr(fresh[-1], f)), f
+    print(f"Scheduler.rebalance_sweep with the arbiter [{card}]: "
+          f"{len(evicted)} evicted == the budgeted arm's, "
+          f"{sched_launches} sweep launches, wall {sweep_wall:.4f} s; the "
+          f"next round's delta staging == a fresh staging", flush=True)
+    return sweep_entry("rebalance_sweep_config22_budgeted", budgeted[0],
+                       rescans, "rebalance config #22's sweep", card)
+
+
+def rebalance_wide(card) -> dict:
+    """Phase 12 (c): config #22 widened to the main path's node count, no
+    budget, device against host; the sweep kernel at that K."""
+    snap = rebalance_snapshot(testing.rebalance_storm_spec(
+        STORM22_WIDE_NODES, STORM22_PPN, seed=STORM22_SEED))
+    pool = rebalance_pool(STORM22_LOW, STORM22_HIGH)
+    dev_seq, dev_wall, launches, sweeps, _ = balance_pass(snap, pool,
+                                                          "device")
+    host_seq, host_wall, *_ = balance_pass(snap, pool, "host")
+    assert dev_seq == host_seq and host_seq, "config #22 wide: device != host"
+    print(f"rebalance config #22 widened, {STORM22_WIDE_NODES} nodes "
+          f"[{card}]: device == host: {len(host_seq)} evictions "
+          f"({sweeps[0].k} candidates); balance() device {dev_wall:.4f} s "
+          f"({launches} launch), host {host_wall:.4f} s", flush=True)
+    return sweep_entry("rebalance_sweep_config22_wide", sweeps[0], launches,
+                       f"config #22 at {STORM22_WIDE_NODES} nodes' sweep",
+                       card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -1311,6 +1610,11 @@ def main() -> int:
         victim_sweep(n_nodes, card)
     scan_wave(card)
     defrag_check(card)
+
+    # -- 12. descheduling on the card ------------------------------------------
+    kernels.append(rebalance_config5(card))
+    kernels.append(rebalance_storm(card))
+    kernels.append(rebalance_wide(card))
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

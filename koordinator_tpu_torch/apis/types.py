@@ -1,9 +1,10 @@
 """The typed objects a placement solve consumes.
 
 Counterpart of ``koordinator_tpu/apis/types.py``, cut to the fields the
-placement path and the scheduling round read: pods, nodes, node metrics,
-gangs, quotas, reservations and the cluster snapshot. All quantities are
-canonical integer units (CPU in millicores, memory in MiB).
+placement path, the scheduling round and the descheduler read: pods,
+nodes, node metrics, gangs, quotas, reservations, migration jobs and the
+cluster snapshot. All quantities are canonical integer units (CPU in
+millicores, memory in MiB).
 """
 
 from __future__ import annotations
@@ -83,6 +84,14 @@ class PodSpec:
     device_requests: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: placed at the gang Permit barrier: holds its node, not bound yet
     waiting_permit: bool = False
+    #: controller owner reference, "Kind/namespace/name": the workload the
+    #: descheduler's arbitrator groups by and duplicates are judged by
+    owner: Optional[str] = None
+    #: summed container restart counts (RemovePodsHavingTooManyRestarts)
+    restart_count: int = 0
+    #: creation time in wall-clock seconds: the eviction order's last
+    #: tie-break (newer pods are evicted first)
+    creation_time: float = 0.0
 
     def __post_init__(self) -> None:
         if self.priority_class is None:
@@ -190,6 +199,28 @@ class ReservationSpec:
     #: pods currently allocated from this reservation (bookkeeping, not
     #: matching)
     allocated_pod_uids: List[str] = dataclasses.field(default_factory=list)
+
+
+class MigrationPhase(enum.Enum):
+    PENDING = "Pending"
+    RUNNING = "Running"
+    SUCCEEDED = "Succeeded"
+    FAILED = "Failed"
+
+
+@dataclasses.dataclass
+class PodMigrationJob:
+    """A descheduler migration job (the PodMigrationJob CRD): the
+    reservation-first eviction state machine."""
+
+    name: str
+    pod_uid: str
+    phase: MigrationPhase = MigrationPhase.PENDING
+    reservation_name: Optional[str] = None
+    reason: str = ""
+    ttl: float = 300.0
+    create_time: float = 0.0
+    paused: bool = False
 
 
 @dataclasses.dataclass

@@ -3,13 +3,15 @@
 A scheduler has no weights: what carries across is solver state. Each
 function takes one of the reference's NamedTuples (``NodeState``,
 ``PodBatch``, ``ScoreParams``, ``QuotaState``, ``GangState``,
-``ResvArrays``, ``NumaAux``, and ``ops/preempt.py``'s ``ResidentWorld``
-and ``PreemptorBatch``) as a dict of numpy arrays, ``{k:
-np.asarray(v) for k, v in s._asdict().items()}``, and builds the port's
-counterpart on ``device`` (``cuda`` unless the caller passes one, as
-every entry point of the port). Values are taken as they are (the
-reference's ``build`` already saturated and normalized them). A field
-the port does not know raises.
+``ResvArrays``, ``NumaAux``, ``ops/preempt.py``'s ``ResidentWorld``
+and ``PreemptorBatch``, and ``ops/rebalance.py``'s ``SweepBatch``) as a
+dict of numpy arrays, ``{k: np.asarray(v) for k, v in
+s._asdict().items()}``, and builds the port's counterpart on ``device``
+(``cuda`` unless the caller passes one, as every entry point of the
+port). Values are taken as they are (the reference's ``build`` already
+saturated and normalized them); the sweep batch alone is cast to int32,
+as the reference's ``run_balance_sweep`` stages it. A field the port
+does not know raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from koordinator_tpu_torch.ops.binpack import (
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.preempt import PreemptorBatch, ResidentWorld
 from koordinator_tpu_torch.ops.quota import QuotaState
+from koordinator_tpu_torch.ops.rebalance import SweepBatch, stage_sweep_batch
 
 
 def _is_none(v) -> bool:
@@ -84,3 +87,9 @@ def resident_world(d: Mapping, device: DeviceLike = None) -> ResidentWorld:
 
 def preemptor_batch(d: Mapping, device: DeviceLike = None) -> PreemptorBatch:
     return _build(PreemptorBatch, d, device)
+
+
+def sweep_batch(d: Mapping, device: DeviceLike = None) -> SweepBatch:
+    """The reference's host ``SweepBatch`` (int64 and bool) staged as the
+    port's int32 and bool tensors; a value outside int32 raises."""
+    return stage_sweep_batch(SweepBatch(**d), device)

@@ -1,6 +1,7 @@
-"""Time the cluster placement kernel of one checkout of this repository.
+"""Time the cluster placement kernel, or the balance sweep kernel, of one
+checkout of this repository.
 
-    python3 koordinator_tpu_torch/kernel_times.py [--tree DIR]
+    python3 koordinator_tpu_torch/kernel_times.py [--tree DIR] [--sweep]
 
 Imports ``koordinator_tpu_torch`` from ``DIR`` (default: the checkout that
 holds this file), builds its kernel library, and times the cluster
@@ -16,12 +17,18 @@ launches after one warm-up):
 - ``testing.quota_gang_problem(40000, 600, 50, 20, 20)`` (``chip_smoke.py``
   phase 8) at k = 16.
 
-It calls only entry points that every checkout since the cluster kernel
+With ``--sweep`` it times the balance sweep kernel instead,
+``ops/rebalance.balance_sweep`` with nothing blocked, on the batch that
+``LowNodeLoad``'s "device" backend stages (``chip_smoke.py`` phase 12):
+bench config #5 (``testing.rebalance_world_spec(5000, 30000)``) and
+config #22 (``testing.rebalance_storm_spec``) at 400 and 5,000 nodes.
+
+It calls only entry points that every checkout since the kernel it times
 was added has, so two trees can be compared on one card: unpack the
 other one (``git archive``) into a directory git ignores and run the
 script for each tree in turns (a, b, b, a) on one machine. Prints one
-JSON line: the tree, the card, and for each input and k the kernel's ms
-per solve and the pods it placed.
+JSON line: the tree, the card, and for each input (and k) the kernel's
+ms per launch and what it placed or proposed.
 """
 
 from __future__ import annotations
@@ -48,8 +55,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve()
                                               .parents[1]))
+    parser.add_argument("--sweep", action="store_true",
+                        help="time the balance sweep kernel")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
+    if args.sweep:
+        return _sweep_times(args.tree)
 
     import torch
 
@@ -122,6 +133,83 @@ def main(argv=None) -> int:
     times["quota_40000x1000_k16"] = timed(inputs(
         lambda: shard_kernel_solver(16)(state, pods, params, quota, gang)), 16)
     print(json.dumps({"tree": args.tree, "card": _card(), "reps": REPS,
+                      "times": times}), flush=True)
+    return 0
+
+
+def _sweep_times(tree) -> int:
+    import torch
+
+    from koordinator_tpu_torch import testing
+    from koordinator_tpu_torch.apis import types
+    from koordinator_tpu_torch.apis.extension import ResourceName
+    from koordinator_tpu_torch.descheduler import (
+        LowNodeLoad,
+        LowNodeLoadArgs,
+        NodePool,
+        loadaware,
+    )
+    from koordinator_tpu_torch.descheduler.framework import Evictor
+    from koordinator_tpu_torch.ops import binpack_kernel as bk
+    from koordinator_tpu_torch.ops import rebalance as rb
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    bk.build_library()
+
+    class Sink(Evictor):
+        def _do_evict(self, snapshot, pod, reason):
+            return True
+
+    def staged(spec, low, high):
+        """The DeviceSweep one device pass stages for ``spec`` with a pool
+        of ``low``/``high`` (CPU, memory) percent."""
+        cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+        pool = NodePool(low_thresholds={cpu: low[0], mem: low[1]},
+                        high_thresholds={cpu: high[0], mem: high[1]})
+        made = []
+        base = loadaware.DeviceSweep
+
+        class Recorded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        loadaware.DeviceSweep = Recorded
+        try:
+            LowNodeLoad(LowNodeLoadArgs(node_pools=[pool], backend="device")
+                        ).balance(testing.build_snapshot(
+                            spec, types, ResourceName), Sink())
+        finally:
+            loadaware.DeviceSweep = base
+        assert len(made) == 1, len(made)
+        return made[0]
+
+    def timed(sweep):
+        blocked = torch.zeros(sweep.k, dtype=torch.bool, device=sweep.device)
+        args = (sweep.batch, blocked, sweep.available, sweep.res_mask)
+        streams, _ = rb.balance_sweep(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(REPS):
+            rb.balance_sweep(*args)
+        end.record()
+        torch.cuda.synchronize()
+        return dict(ms=start.elapsed_time(end) / REPS, k=sweep.k,
+                    proposed=int(streams[0].sum()))
+
+    times = {
+        "config5": timed(staged(testing.rebalance_world_spec(
+            5000, 30000, seed=5), (45, 60), (65, 80))),
+        "config22": timed(staged(testing.rebalance_storm_spec(
+            400, 10, seed=22), (30, 30), (60, 60))),
+        "config22_5000_nodes": timed(staged(testing.rebalance_storm_spec(
+            5000, 10, seed=22), (30, 30), (60, 60))),
+    }
+    print(json.dumps({"tree": tree, "card": _card(), "reps": REPS,
                       "times": times}), flush=True)
     return 0
 

@@ -1,0 +1,15 @@
+"""Prometheus-style metrics (counterpart of ``koordinator_tpu/metrics``,
+cut to the series the ported modules emit): the registry primitives and
+the scheduler's and descheduler's registries."""
+
+from koordinator_tpu_torch.metrics.registry import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    MergedGatherer,
+    Registry,
+)
+from koordinator_tpu_torch.metrics.components import (  # noqa: F401
+    DESCHEDULER_METRICS,
+    SCHEDULER_METRICS,
+)

@@ -35,7 +35,9 @@ kernel's plain twin (:func:`binpack_plain`, :func:`binpack_sharded_plain`)
 for CPU tensors; nothing else selects between them. The library is built
 with ``nvcc`` at first use, from ``csrc/`` only (one ``nvcc`` per source,
 started together, then one link), into ``koordinator_tpu_torch/_build/``
-(git ignores it), and bound with ``ctypes``. A build or launch failure
+(git ignores it), and bound with ``ctypes``; it also holds the balance
+sweep's kernel (``csrc/rebalance_sweep.cu``, wrapped in
+``ops/rebalance.py``). A build or launch failure
 raises; it never falls back to a twin, another kernel or fewer CTAs.
 """
 
@@ -88,7 +90,8 @@ R = 8
 _PACKAGE = Path(__file__).resolve().parents[1]
 _CSRC = _PACKAGE / "csrc"
 #: the compiled sources; the library's name hashes these and the header
-SOURCES = (_CSRC / "binpack.cu", _CSRC / "binpack_cluster.cu")
+SOURCES = (_CSRC / "binpack.cu", _CSRC / "binpack_cluster.cu",
+           _CSRC / "rebalance_sweep.cu")
 HEADERS = (_CSRC / "binpack_common.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -759,6 +762,10 @@ def _library():
             lib.binpack_cluster_occupancy.argtypes = [
                 i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
             lib.binpack_cluster_occupancy.restype = i32
+            # the balance sweep (ops/rebalance.py): nine inputs, K, four
+            # outputs, stream
+            lib.rebalance_sweep_launch.argtypes = [ptr] * 9 + [i32] + [ptr] * 5
+            lib.rebalance_sweep_launch.restype = i32
             lib.binpack_error_string.argtypes = [i32]
             lib.binpack_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -30,13 +30,19 @@ plans (and applies) the cheapest drain that restores a hole of a given
 shape on the same backends. Evictions go to ``evict_pod_fn`` when set,
 else to :meth:`Scheduler.remove_pod`.
 
+With a ``migration_arbiter`` (``control/migration.MigrationArbiter``)
+every eviction source passes through it first: preemption victim sets
+(all or nothing), defrag drains and the LowNodeLoad sweep of
+:meth:`Scheduler.rebalance_sweep`; deferred victims stay placed, and a
+preemptor whose whole set is deferred gets no nomination. Each round
+starts a new per-round budget. Without one, evictions are unthrottled.
+
 Not in this slice of the port, and queued in ROADMAP.md:
 - the plugin chain: ``schedule_one`` and ``batched_placement=False``
   raise ``NotImplementedError``;
-- the trace, metrics (the preemption counters among them), pod timelines
-  and device observatory, the bus wiring's publish sink and the migration
-  arbiter: the round runs without them, and evictions are not
-  arbitrated.
+- the trace, the scheduler's own metrics (the preemption counters among
+  them), pod timelines and device observatory, and the bus wiring's
+  publish sink: the round runs without them.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from koordinator_tpu_torch.apis.types import (
     resources_to_vector,
     vector_to_resources,
 )
+from koordinator_tpu_torch.descheduler.framework import Evictor
 from koordinator_tpu_torch.device.cache import NodeDeviceCache
 from koordinator_tpu_torch.gang.manager import GangManager
 from koordinator_tpu_torch.models.finegrained import FineGrained
@@ -66,6 +73,7 @@ from koordinator_tpu_torch.models.placement import (
     ScheduleResult,
 )
 from koordinator_tpu_torch.numa.manager import ResourceManager, TopologyOptions
+from koordinator_tpu_torch.obs.timeline import lane_of
 from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
 from koordinator_tpu_torch.scheduler.cache import SchedulerCache
 from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
@@ -121,6 +129,11 @@ class Scheduler:
         #: whose watch event re-enters ``remove_pod``); None removes the
         #: victim from this scheduler's cache directly
         self.evict_pod_fn = None
+        #: the migration arbiter every eviction source passes through;
+        #: None evicts unthrottled
+        self.migration_arbiter = None
+        #: monotone round key feeding the arbiter's per-round budget
+        self._migration_round = 0
         self.cache = SchedulerCache()
         self.quota_registry = QuotaTreeRegistry(cluster_total=cluster_total
                                                 or {})
@@ -345,6 +358,9 @@ class Scheduler:
         # the previous round's binds have published (or were forgotten):
         # their rollback window is over
         self._resv_inflight = {}
+        if self.migration_arbiter is not None:
+            self._migration_round += 1
+            self.migration_arbiter.begin_round(self._migration_round)
         self.expire_waiting(at0)
         self.reservation_controller.sync(at0)
         if not self.batched_placement:
@@ -433,7 +449,14 @@ class Scheduler:
                 if want is None:
                     continue
                 node_name, victim_uids = want
-                self._evict_victims(sorted(victim_uids))
+                victim_uids = sorted(victim_uids)
+                admitted = self._evict_victims(
+                    victim_uids, source="preemption", node=node_name,
+                    now=now, all_or_nothing=True)
+                if victim_uids and not admitted:
+                    # the arbiter deferred the whole set: nothing evicted,
+                    # no nomination; the preemptor retries later
+                    continue
                 # later preemptors see the eviction: a full re-lower
                 wanted = set(victim_uids)
                 snapshot.pods = [p for p in snapshot.pods
@@ -456,16 +479,48 @@ class Scheduler:
             if got is None:
                 continue
             node_name, ordered_uids = got
-            self._evict_victims(sorted(ordered_uids))
+            admitted = self._evict_victims(
+                sorted(ordered_uids), source="preemption", node=node_name,
+                now=now, all_or_nothing=True)
+            if ordered_uids and not admitted:
+                # deferred whole: the resident world keeps its rows, the
+                # hole stays unfree, no nomination
+                continue
             evict_resident_rows(snapshot, arrays, resident, node_name,
                                 ordered_uids, **lowering)
             result.nominations[uid] = node_name
 
-    def _evict_victims(self, uids: List[str]) -> List[str]:
+    def _evict_victims(self, uids: List[str], source: str = "preemption",
+                       node: Optional[str] = None,
+                       now: Optional[float] = None,
+                       all_or_nothing: bool = False) -> List[str]:
         """Evict ``uids`` through ``evict_pod_fn`` (its deletion event
         re-enters :meth:`remove_pod`) or, without one, through
         :meth:`remove_pod` directly, which marks each victim's node.
-        Returns the uids (no arbiter defers any)."""
+        With a migration arbiter the batch is arbitrated first (per
+        victim its QoS lane, gang and the gang's headroom: live bound
+        members above ``min_member``); deferred victims stay placed, and
+        ``all_or_nothing`` (a preemption victim set) defers the whole
+        batch when any member would be. Returns the evicted uids."""
+        if self.migration_arbiter is not None and uids:
+            victims = [self.cache.pods.get(uid) for uid in uids]
+            lanes = [None if v is None else lane_of(v) for v in victims]
+            gangs = [None if v is None else v.gang for v in victims]
+            headroom: Dict[str, int] = {}
+            for gang in set(g for g in gangs if g):
+                spec = self.cache.gangs.get(gang)
+                if spec is None:
+                    continue
+                live = sum(1 for p in self.cache.pods.values()
+                           if p.gang == gang and p.node_name)
+                headroom[gang] = max(live - spec.min_member, 0)
+            verdict = self.migration_arbiter.request(
+                source, node, uids, lanes=lanes, gangs=gangs,
+                gang_headroom=headroom, now=now,
+                all_or_nothing=all_or_nothing)
+            if not verdict.apply:
+                return []
+            uids = list(verdict.admitted)
         for uid in uids:
             victim = self.cache.pods.get(uid)
             if victim is None:
@@ -506,8 +561,34 @@ class Scheduler:
                 f"defrag parity violation: device {got!r} != oracle "
                 f"{want!r}")
         if got is not None and apply:
-            got = (got[0], self._evict_victims(got[1]))
+            # arbitrated like the preemption victims, but a partial
+            # admission is kept: each drain shrinks the hole's deficit
+            got = (got[0], self._evict_victims(got[1], source="defrag",
+                                               node=got[0], now=now))
         return got
+
+    def rebalance_sweep(self, plugin, now: Optional[float] = None
+                        ) -> List[str]:
+        """One LowNodeLoad Balance pass (``descheduler/loadaware.py``)
+        against this scheduler's cache, each eviction through
+        :meth:`_evict_victims` (source "rebalance", arbitrated when an
+        arbiter is wired; a deferral is the evictor's refusal). The
+        plugin's backend picks the walk's host or device form. Evictions
+        land through ``remove_pod``/``evict_pod_fn``, which marks the
+        victim's node for the next round's delta staging. Returns the
+        evicted uids in sweep order."""
+        scheduler = self
+
+        class _ArbitratedSink(Evictor):
+            def _do_evict(self, snapshot, pod, reason) -> bool:
+                return bool(scheduler._evict_victims(
+                    [pod.uid], source="rebalance", node=pod.node_name,
+                    now=now))
+
+        snapshot = self.cache.snapshot(now=now)
+        sink = _ArbitratedSink()
+        plugin.balance(snapshot, sink)
+        return [p.uid for p in sink.evicted]
 
     def schedule_one(self, pod_uid: str, now: Optional[float] = None):
         raise NotImplementedError(

@@ -749,9 +749,12 @@ def _mixed_reservations(spec, rng):
 
 
 def build_snapshot(spec, types, resource_name):
-    """A ``types.ClusterSnapshot`` from :func:`mixed_snapshot_spec` data;
-    ``types`` is either package's ``apis.types`` module and
-    ``resource_name`` its ``ResourceName``."""
+    """A ``types.ClusterSnapshot`` from :func:`mixed_snapshot_spec` data
+    (or a rebalance world's: :func:`rebalance_world_spec`,
+    :func:`rebalance_storm_spec`, :func:`random_cluster_spec`); ``types``
+    is either package's ``apis.types`` module and ``resource_name`` its
+    ``ResourceName``. Pods carry every field the spec gives (QoS as an
+    int, owner, restart count, creation time among them)."""
     def res(d):
         return {resource_name(k): v for k, v in d.items()}
 
@@ -759,6 +762,9 @@ def build_snapshot(spec, types, resource_name):
         d = dict(d)
         d["requests"], d["limits"] = res(d["requests"]), res(d["limits"])
         d["labels"] = dict(d.get("labels", {}))
+        d["annotations"] = dict(d.get("annotations", {}))
+        if "qos" in d:
+            d["qos"] = types.QoSClass(d["qos"])
         return types.PodSpec(**d)
 
     return types.ClusterSnapshot(
@@ -849,3 +855,188 @@ def preemption_storm(seed: int, n_nodes: int = 24,
             quota=quota,
         ))
     return nodes, residents, arrivals
+
+
+def _rebalance_spec(nodes, pods, metrics, now=120.0):
+    return dict(now=now, nodes=nodes, assigned=pods, pending=[],
+                metrics=metrics, quotas=[], gangs=[])
+
+
+def rebalance_world_spec(n_nodes: int = 5000, n_pods: int = 30000,
+                         seed: int = 5):
+    """The reference's rebalance world, bench config #5 (``bench.py``
+    ``bench_rebalance``, draw for draw): ``n_pods`` running pods placed on
+    ``n_nodes`` nodes of 64 CPUs / 128 GiB by a squared uniform, so a
+    tail of nodes crosses the high threshold; a node's usage is the sum
+    of its pods' usage (= requests) plus a system share, capped at
+    allocatable. Plain data for :func:`build_snapshot`; the pool of
+    config #5 is low ``{CPU: 45, MEM: 60}``, high ``{CPU: 65, MEM: 80}``."""
+    rng = np.random.default_rng(seed)
+    pod_node = (rng.random(n_pods) ** 2 * n_nodes).astype(np.int64)
+    pod_cpu = rng.integers(200, 4000, n_pods)
+    pod_mem = rng.integers(128, 4096, n_pods)
+    qos_pool = [int(QoSClass.NONE), int(QoSClass.LS), int(QoSClass.BE)]
+    pods = []
+    usages = [{} for _ in range(n_nodes)]
+    for j in range(n_pods):
+        cpu, mem, i = int(pod_cpu[j]), int(pod_mem[j]), int(pod_node[j])
+        pods.append(dict(name=f"p{j}", node_name=f"n{i}",
+                         requests={int(CPU): cpu, int(MEM): mem}, limits={},
+                         qos=qos_pool[j % 3], priority=int((j % 4) * 1000),
+                         creation_time=float(j % 977)))
+        usages[i][f"default/p{j}"] = {int(CPU): cpu, int(MEM): mem}
+    cpu_sum = np.bincount(pod_node, weights=pod_cpu, minlength=n_nodes)
+    mem_sum = np.bincount(pod_node, weights=pod_mem, minlength=n_nodes)
+    nodes, metrics = [], []
+    for i in range(n_nodes):
+        nodes.append(dict(name=f"n{i}",
+                          alloc={int(CPU): 64000, int(MEM): 131072},
+                          labels={}, unschedulable=False))
+        metrics.append(dict(
+            node_name=f"n{i}",
+            node_usage={int(CPU): min(int(cpu_sum[i]) + 500, 64000),
+                        int(MEM): min(int(mem_sum[i]) + 1024, 131072)},
+            pod_usages=usages[i], update_time=100.0, report_interval=60.0))
+    return _rebalance_spec(nodes, pods, metrics)
+
+
+def rebalance_storm_spec(n_nodes: int = 400, ppn: int = 10, seed: int = 22):
+    """The reference's rebalance storm, bench config #22 (``bench.py``
+    ``bench_rebalance_storm``, draw for draw): every other node of 32
+    CPUs / 64 GiB runs hot (27-31 CPUs, 56-64 GiB used) with ``ppn`` BE
+    pods that each use 1.5-3.2 CPUs, the rest idle. Plain data for
+    :func:`build_snapshot`; the pool of config #22 is low ``{CPU: 30,
+    MEM: 30}``, high ``{CPU: 60, MEM: 60}``."""
+    rng = np.random.default_rng(seed)
+    nodes, pods, metrics = [], [], []
+    for i in range(n_nodes):
+        hot = i % 2 == 0
+        name = f"rb-n{i}"
+        nodes.append(dict(name=name, alloc={int(CPU): 32000, int(MEM): 65536},
+                          labels={}, unschedulable=False))
+        pod_usages = {}
+        if hot:
+            for j in range(ppn):
+                pod = dict(name=f"rb-p{i}-{j}", node_name=name,
+                           requests={int(CPU): 200, int(MEM): 256},
+                           limits={}, qos=int(QoSClass.BE),
+                           priority=int(rng.integers(0, 3) * 1000),
+                           creation_time=float(rng.integers(0, 50)))
+                pods.append(pod)
+                pod_usages[f"default/{pod['name']}"] = {
+                    int(CPU): int(rng.integers(1500, 3200)),
+                    int(MEM): int(rng.integers(2048, 6000))}
+        usage = ({int(CPU): int(rng.integers(27000, 31000)),
+                  int(MEM): int(rng.integers(56000, 64000))}
+                 if hot else
+                 {int(CPU): int(rng.integers(500, 3000)),
+                  int(MEM): int(rng.integers(1024, 6000))})
+        metrics.append(dict(node_name=name, node_usage=usage,
+                            pod_usages=pod_usages, update_time=100.0,
+                            report_interval=60.0))
+    return _rebalance_spec(nodes, pods, metrics)
+
+
+#: the Koordinator QoS classes a random cluster's pods draw from
+RANDOM_CLUSTER_QOS = (QoSClass.NONE, QoSClass.LS, QoSClass.LSR, QoSClass.BE)
+
+
+def random_cluster_spec(rng, n_nodes=24, n_pods=120, metric_gap=0.2,
+                        stale_frac=0.1, unsched_frac=0.1):
+    """A small random cluster for the rebalance differentials, draw for
+    draw the reference's ``tests/test_rebalance_oracle.py::
+    random_cluster`` from the same ``rng``: priority, QoS (Kubernetes and
+    Koordinator) and cost-annotation diversity, pods missing from the
+    metric, stale metrics, unschedulable nodes and DaemonSet pods."""
+    nodes, pods, metrics = [], [], []
+    for i in range(n_nodes):
+        nodes.append(dict(
+            name=f"n{i}",
+            alloc={int(CPU): int(rng.integers(8000, 64000)),
+                   int(MEM): int(rng.integers(16384, 131072))},
+            labels={}, unschedulable=bool(rng.random() < unsched_frac)))
+    for j in range(n_pods):
+        node = nodes[int(rng.integers(n_nodes))]
+        annotations = {}
+        if rng.random() < 0.3:
+            annotations["controller.kubernetes.io/pod-deletion-cost"] = str(
+                int(rng.integers(-5, 5)))
+        if rng.random() < 0.3:
+            annotations["koordinator.sh/eviction-cost"] = str(
+                int(rng.integers(-5, 5)))
+        req_cpu = int(rng.integers(100, 3000))
+        shape = rng.random()
+        if shape < 0.3:
+            requests = {int(CPU): req_cpu, int(MEM): 512}
+            limits = dict(requests)            # guaranteed
+        elif shape < 0.45:
+            requests = {int(CPU): req_cpu}
+            limits = {int(CPU): req_cpu}       # cpu only: burstable
+        elif shape < 0.7:
+            requests = {int(CPU): req_cpu, int(MEM): 512}
+            limits = {int(CPU): req_cpu * 2}   # burstable
+        else:
+            requests = {int(CPU): req_cpu, int(MEM): 512}
+            limits = {}                        # burstable (has requests)
+        qos = int(RANDOM_CLUSTER_QOS[int(rng.integers(len(RANDOM_CLUSTER_QOS)))])
+        pods.append(dict(
+            name=f"p{j}", node_name=node["name"], requests=requests,
+            limits=limits, qos=qos,
+            priority=int(rng.integers(0, 3) * 1000),
+            is_daemonset=bool(rng.random() < 0.1),
+            creation_time=float(rng.integers(0, 50)),
+            annotations=annotations))
+    for node in nodes:
+        pod_usages = {}
+        for pod in pods:
+            if pod["node_name"] == node["name"] and rng.random() > metric_gap:
+                pod_usages[f"default/{pod['name']}"] = {
+                    int(CPU): int(rng.integers(50, 4000)),
+                    int(MEM): int(rng.integers(64, 2048))}
+        cap = node["alloc"]
+        metrics.append(dict(
+            node_name=node["name"],
+            node_usage={int(CPU): int(rng.integers(0, int(cap[int(CPU)] * 1.1))),
+                        int(MEM): int(rng.integers(0, int(cap[int(MEM)] * 1.1)))},
+            pod_usages=pod_usages,
+            update_time=-1000.0 if rng.random() < stale_frac else 100.0,
+            report_interval=60.0))
+    return _rebalance_spec(nodes, pods, metrics)
+
+
+def sweep_batch_arrays(seed, k, *, headroom=None, blocked_frac=0.1,
+                       metric_gap=0.15, invalid_frac=0.05, exhausted=True):
+    """A seeded balance-sweep batch for the sweep's tests, ``(arrays,
+    available, res_mask, blocked)`` with ``arrays`` the fields of
+    ``ops/rebalance.SweepBatch`` (int64, bool): ``k`` candidates on nodes
+    of 1-12 candidates each, nodes over their high quantities by a few
+    pods' usage, some candidates blocked, metric-less or invalid. With
+    ``headroom`` the pool's headroom is that many pods' usage, so it runs
+    out part way through; with ``exhausted`` a column may start at 0."""
+    rng = np.random.default_rng(seed)
+    starts = np.zeros(k, bool)
+    i = 0
+    while i < k:
+        starts[i] = True
+        i += int(rng.integers(1, 13))
+    n_nodes = int(starts.sum())
+    node = np.cumsum(starts) - 1
+    hq_node = rng.integers(10_000, 60_000, (n_nodes, NUM_RESOURCES))
+    u0_node = hq_node + rng.integers(-2_000, 8_000, (n_nodes, NUM_RESOURCES))
+    metric = rng.integers(0, 3_000, (k, NUM_RESOURCES))
+    has_metric = rng.random(k) >= metric_gap
+    metric[~has_metric] = 0
+    res_mask = rng.random(NUM_RESOURCES) < 0.5
+    res_mask[int(MEM)] = True
+    if headroom is None:
+        available = rng.integers(5_000, 200_000, NUM_RESOURCES)
+    else:
+        available = np.full(NUM_RESOURCES, 1_500 * headroom)
+    if exhausted:
+        available[rng.random(NUM_RESOURCES) < 0.2] = 0  # exhausted column
+    arrays = dict(
+        node_start=starts, usage0=u0_node[node].astype(np.int64),
+        high_q=hq_node[node].astype(np.int64), metric=metric.astype(np.int64),
+        has_metric=has_metric, valid=rng.random(k) >= invalid_frac)
+    blocked = rng.random(k) < blocked_frac
+    return arrays, available.astype(np.int64), res_mask, blocked

@@ -37,7 +37,15 @@ def test_every_module_imports_without_jax():
     for m in ("models.finegrained", "numa.accumulator", "numa.manager",
               "device.allocator", "scheduler.framework",
               "scheduler.plugins.nodenumaresource",
-              "scheduler.plugins.deviceshare", "scheduler.plugins.nodeports"):
+              "scheduler.plugins.deviceshare", "scheduler.plugins.nodeports",
+              # the descheduling slice: the descheduler package, the
+              # balance sweep, its oracle, the eviction control plane and
+              # the copies of the metrics registry and the QoS lanes
+              "descheduler.anomaly", "descheduler.sorter",
+              "descheduler.framework", "descheduler.loadaware",
+              "descheduler.migration", "descheduler.kubernetes",
+              "ops.rebalance", "oracle.rebalance", "control.migration",
+              "metrics.registry", "metrics.components", "obs.timeline"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -77,7 +85,9 @@ def _entry_points():
     )
     from koordinator_tpu_torch.models.placement import PlacementModel
     from koordinator_tpu_torch.state.cluster import lower_nodes
+    from koordinator_tpu_torch.ops import rebalance
     from koordinator_tpu_torch.ops.gang import GangState
+    from koordinator_tpu_torch.ops.rebalance import DeviceSweep
     from koordinator_tpu_torch.ops.quota import QuotaState
     from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 
@@ -110,6 +120,7 @@ def _entry_points():
 
     nodes, pods, params, quota, gang = testing.quota_gang_arrays(
         6, 5, 2, 2, 3, seed=0)
+    sweep, sweep_avail, sweep_mask, _ = testing.sweep_batch_arrays(0, 5)
 
     def as_numpy(state):
         return {k: None if v is None else v.numpy()
@@ -154,6 +165,12 @@ def _entry_points():
         ("convert.numa_aux",
          lambda **kw: convert.numa_aux(
              dict(node_policy=np.ones(6, bool)), **kw).node_policy),
+        ("convert.sweep_batch",
+         lambda **kw: convert.sweep_batch(sweep, **kw).usage0),
+        ("ops.rebalance.DeviceSweep (run_balance_sweep, the LowNodeLoad "
+         "device backend)",
+         lambda **kw: DeviceSweep(rebalance.SweepBatch(**sweep),
+                                  sweep_avail, sweep_mask, **kw).available),
     ]
 
 
