@@ -122,8 +122,10 @@ the microseconds per pod and the bound (see :func:`bound`).
    requests, residents below priority 5,000) with ``preemption_backend=
    "verify"``: the device plan must equal the host plan.
 12. Descheduling on the card: ``LowNodeLoad`` (``descheduler/
-   loadaware.py``) whose "device" backend runs the balance sweep's kernel
-   (``csrc/rebalance_sweep.cu``). (a) The reference's bench config #5
+   loadaware.py``) whose "device" backend runs the balance sweep's scan
+   kernel (``csrc/rebalance_sweep.cu``; every batch LowNodeLoad builds
+   takes the "scan" route, and a pass must launch no serial kernel).
+   (a) The reference's bench config #5
    (``testing.rebalance_world_spec``: 5,000 nodes, 30,000 running pods,
    seed 5; pool low CPU 45 / memory 60, high 65 / 80): "host", "device"
    and "verify" give the same ordered evictions as the port's
@@ -133,12 +135,19 @@ the microseconds per pod and the bound (see :func:`bound`).
    30 / 30, high 60 / 60): device == host, then the budgeted arm
    (``MigrationArbiter(MigrationBudget(max_per_node=1))`` asked by the
    sink) must hold the reference's ``budget_bounded``, with its sweep
-   launches (one per refusal); then the same world and arbiter through
-   ``Scheduler.rebalance_sweep`` must evict the same pods, and the next
-   round's delta staging must equal a fresh staging. (c) Config #22
-   widened to 5,000 nodes (25,000 candidates), device == host. For each
-   of the three, the kernel is held against its plain version on the
-   pass's batch (every stream and the final headroom, exact) and timed.
+   launches (one per refusal), the wall of each re-scan (``DeviceSweep.
+   refuse``: one launch, one read-back of the suffix) and, in a second
+   run of the arm, the kernel's time per re-scan (CUDA events); then the
+   same world and arbiter through ``Scheduler.rebalance_sweep`` must
+   evict the same pods, and the next round's delta staging must equal a
+   fresh staging. (c) Config #22 widened to 5,000 nodes (25,000
+   candidates), device == host. For each of the three, both kernels (scan
+   and serial) are held against the plain version on the pass's batch
+   (every stream and the final headroom, exact) and timed in turns. (d)
+   The serial route: a batch of 4,991 candidates whose ``high_q`` varies
+   inside its nodes through ``run_balance_sweep`` (it must launch the
+   serial kernel and no scan kernel), held and timed the same way; an
+   empty kernel at the scan kernel's launch shape is timed beside it.
    Each pass is driven with the launch counts zeroed just before and read
    just after.
 Then one JSON line of kernels, and the result line ``{"ok": true,
@@ -266,6 +275,14 @@ STORM22_NODES, STORM22_PPN, STORM22_SEED = 400, 10, 22
 STORM22_WIDE_NODES = 5000
 STORM22_LOW, STORM22_HIGH = (30, 30), (60, 60)
 BALANCE_REPEATS = 5
+# the serial route's batch (candidates, seed); empty launches timed;
+# the budgeted arm's re-scans replayed per queue of launches
+VARIED_K, VARIED_SEED = 4991, 23
+EMPTY_REPS = 200
+REPLAY_CHUNK = 200
+#: cycles the card sleeps per queued call in :func:`device_ms` (~115 us
+#: at 1.7 GHz, above the host's time to launch one sweep)
+SLEEP_CYCLES_PER_CALL = 200_000
 #: integer operations per candidate of the balance sweep: per resource
 #: the start select, the over test and its mask, the headroom test and its
 #: mask, the two subtractions (48); the two votes, the propose logic and
@@ -291,6 +308,23 @@ def cuda_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """ms per call of ``fn`` (which must not synchronise) on the card,
+    the calls queued behind a sleeping kernel so that the card runs them
+    back to back (a kernel of a few microseconds is otherwise timed at
+    the host's launch rate)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -1217,12 +1251,18 @@ def rebalance_snapshot(spec):
     return testing.build_snapshot(spec, ttypes, ResourceName)
 
 
+def zero_launches() -> None:
+    rb.LAUNCHES.update({name: 0 for name in rb.LAUNCHES})
+    for kind in bk.LAUNCHES:
+        bk.LAUNCHES[kind] = 0
+
+
 def balance_pass(snapshot, pool, backend, arbiter=None):
     """One ``LowNodeLoad.balance`` on ``backend`` ("device": the sweep
     kernel on the card), every launch count zeroed just before and read
-    just after (a device synchronise ends the timed span). Returns
-    ``(ordered evictions, wall_s, sweep launches, the DeviceSweeps the
-    pass staged, the sink)``."""
+    just after (a device synchronise ends the timed span); a device pass
+    must take the scan route only. Returns ``(ordered evictions, wall_s,
+    scan kernel launches, the DeviceSweeps the pass staged, the sink)``."""
     made = []
     base = loadaware.DeviceSweep
 
@@ -1236,23 +1276,24 @@ def balance_pass(snapshot, pool, backend, arbiter=None):
         plugin = LowNodeLoad(LowNodeLoadArgs(node_pools=[pool],
                                              backend=backend))
         sink = RecordingSink(arbiter=arbiter)
-        rb.LAUNCHES["rebalance_sweep"] = 0
-        for kind in bk.LAUNCHES:
-            bk.LAUNCHES[kind] = 0
+        zero_launches()
         t0 = time.perf_counter()
         plugin.balance(snapshot, sink)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = rb.LAUNCHES["rebalance_sweep"]
+        launches = dict(rb.LAUNCHES)
     finally:
         loadaware.DeviceSweep = base
     assert not any(bk.LAUNCHES.values()), bk.LAUNCHES
+    assert launches["rebalance_sweep"] == 0, launches
     if backend == "host":
-        assert launches == 0 and not made, (launches, len(made))
+        assert not any(launches.values()) and not made, (launches, len(made))
     else:
-        assert launches >= 1 and len(made) == 1, (launches, len(made))
-    return ([(p.node_name, p.uid) for p in sink.evicted], wall, launches,
-            made, sink)
+        assert launches["rebalance_scan"] >= 1 and len(made) == 1, (
+            launches, len(made))
+        assert made[0].route == "scan", made[0].route
+    return ([(p.node_name, p.uid) for p in sink.evicted], wall,
+            launches["rebalance_scan"], made, sink)
 
 
 def sweep_bound(sweep):
@@ -1270,35 +1311,50 @@ def sweep_bound(sweep):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sweep_entry(name, sweep, launches, label, card, reps=5) -> dict:
-    """The sweep kernel on a pass's staged batch (nothing blocked) held
-    against its plain version on the card (tolerance: exact, the three
-    streams and the final headroom) and timed: the kernel over ``reps``
-    launches after the comparison's launch as warm-up, the plain version
-    over its one comparison run. Returns the ``kernels`` line entry."""
+def sweep_entry(name, sweep, launches, label, card, reps=5,
+                route="scan") -> dict:
+    """Both sweep kernels on a pass's staged batch (nothing blocked) held
+    against the plain version on the card (tolerance: exact, the three
+    streams and the final headroom) and timed in turns (route, other,
+    other, route; ``reps`` launches each after the comparison's launch as
+    warm-up), the plain version over its one comparison run. Returns the
+    ``kernels`` line entry of ``route``'s kernel (``route`` must be the
+    batch's own)."""
+    assert sweep.route == route, (sweep.route, route)
     blocked = torch.zeros(sweep.k, dtype=torch.bool, device=sweep.device)
     args = (sweep.batch, blocked, sweep.available, sweep.res_mask)
-    got = rb.balance_sweep(*args)
-    torch.cuda.synchronize()
     want = []
     plain_ms = cuda_ms(lambda: want.append(rb._balance_sweep(
-        *sweep.batch, blocked, sweep.available, sweep.res_mask)), 1)
+        *sweep.batch, *args[1:])), 1)
     streams, avail = want[0]
+    other = "serial" if route == "scan" else "scan"
+    routes = (route, other) if route == "scan" else (route,)
     err = 0
-    for g, w, what in ((got[0][0], streams[0], "propose"),
-                       (got[0][1], streams[1], "over"),
-                       (got[0][2], streams[2], "avail_ok"),
-                       (got[1], avail, "available")):
-        if not torch.equal(g, w):
-            raise AssertionError(f"sweep kernel != plain version on {what}")
-        if g.numel():
-            err = max(err, int((g.long() - w.long()).abs().max()))
-    ms = cuda_ms(lambda: rb.balance_sweep(*args), reps)
+    for r in routes:
+        got = rb._launch(*args, r)
+        torch.cuda.synchronize()
+        for g, w, what in ((got[0][0], streams[0], "propose"),
+                           (got[0][1], streams[1], "over"),
+                           (got[0][2], streams[2], "avail_ok"),
+                           (got[1], avail, "available")):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"sweep kernel ({r}) != plain version on {what}")
+            if g.numel() and r == route:
+                err = max(err, int((g.long() - w.long()).abs().max()))
+    times = {r: [] for r in routes}
+    for r in routes + routes[::-1]:
+        times[r].append(device_ms(
+            lambda: rb._launch(*args, r), reps))
+    ms = min(times[route])
     bound_ms, bound_by = sweep_bound(sweep)
-    proposed = int(got[0][0].sum())
-    print(f"{label}: sweep kernel == plain version ({proposed}/{sweep.k} "
+    proposed = int(streams[0].sum())
+    beside = "".join(f", the {r} kernel {min(t):.4f} ms" for r, t in
+                     times.items() if r != route)
+    print(f"{label}: {route} kernel == plain version ({proposed}/{sweep.k} "
           f"proposed, max_abs_err {err}) [{card}]: kernel {ms:.4f} ms "
-          f"({ms / max(sweep.k, 1) * 1e6:.1f} ns per candidate), plain "
+          f"({ms / max(sweep.k, 1) * 1e6:.1f} ns per candidate; in turns "
+          f"{', '.join(f'{t:.4f}' for t in times[route])}){beside}, plain "
           f"version on the card {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
           f"({bound_by}); launches on the path {launches}", flush=True)
     return dict(name=name, source=SWEEP_SOURCE, replaces=SWEEP_REPLACES,
@@ -1336,7 +1392,7 @@ def rebalance_config5(card) -> dict:
                       for b, v in walls.items())
           + f"; first device pass {wall:.4f} s, {launches} sweep launch",
           flush=True)
-    return sweep_entry("rebalance_sweep_config5", sweeps[0], launches,
+    return sweep_entry("rebalance_scan_config5", sweeps[0], launches,
                        "rebalance config #5's sweep", card)
 
 
@@ -1372,8 +1428,29 @@ def rebalance_storm(card) -> dict:
     host_seq, host_wall, *_ = balance_pass(snap, pool, "host")
     assert dev_seq == host_seq and host_seq, "config #22: device != host"
     arbiter = MigrationArbiter(MigrationBudget(max_per_node=1))
-    _, budget_wall, rescans, budgeted, sink = balance_pass(
-        snap, pool, "device", arbiter=arbiter)
+    refuse = rb.DeviceSweep.refuse
+    refused, walls = [], []
+
+    def timed_refuse(self, j):
+        t0 = time.perf_counter()
+        try:
+            return refuse(self, j)
+        finally:
+            walls.append(time.perf_counter() - t0)
+            refused.append(j)
+
+    rb.DeviceSweep.refuse = timed_refuse
+    try:
+        budget_seq, budget_wall, rescans, budgeted, sink = balance_pass(
+            snap, pool, "device", arbiter=arbiter)
+    finally:
+        rb.DeviceSweep.refuse = refuse
+    host_budget_seq, host_budget_wall, *_ = balance_pass(
+        snap, pool, "host",
+        arbiter=MigrationArbiter(MigrationBudget(max_per_node=1)))
+    assert budget_seq == host_budget_seq, "budgeted arm: device != host"
+    assert rescans == len(refused) + 1, (rescans, len(refused))
+    kernel_ms = replay_refusals(budgeted[0], refused)
     status = arbiter.status()
     hot = {n for n, _ in host_seq}
     budget_bounded = (
@@ -1389,19 +1466,27 @@ def rebalance_storm(card) -> dict:
           f"(max_per_node=1): {len(sink.evicted)} evicted, "
           f"{status['deferred_total']} deferred "
           f"{status['deferred_by_reason']}, budget_bounded true, "
-          f"{rescans} sweep launches (one per refusal, and the first), wall "
-          f"{budget_wall:.4f} s", flush=True)
+          f"{rescans} sweep launches (one per refusal, and the first), "
+          f"== the host backend's arm ({host_budget_wall:.4f} s); wall "
+          f"{budget_wall:.4f} s, {budget_wall / rescans * 1e3:.4f} ms per "
+          f"launch; a re-scan (DeviceSweep.refuse: launch, suffix read-back,"
+          f" splice) median {statistics.median(walls) * 1e3:.4f} ms (min "
+          f"{min(walls) * 1e3:.4f}, max {max(walls) * 1e3:.4f}), the scan "
+          f"kernel per re-scan {kernel_ms:.4f} ms (CUDA events, the "
+          f"re-scans replayed back to back)", flush=True)
     sched = storm22_scheduler(spec, MigrationBudget(max_per_node=1))
     _, launched, _, _ = drive(lambda: sched.schedule_pending(now=110.0))
     assert sum(launched.values()) == 1, launched
     plugin = LowNodeLoad(LowNodeLoadArgs(node_pools=[pool],
                                          backend="device"))
-    rb.LAUNCHES["rebalance_sweep"] = 0
+    zero_launches()
     t0 = time.perf_counter()
     evicted = sched.rebalance_sweep(plugin, now=120.0)
     torch.cuda.synchronize()
     sweep_wall = time.perf_counter() - t0
-    sched_launches = rb.LAUNCHES["rebalance_sweep"]
+    sched_launches = rb.LAUNCHES["rebalance_scan"]
+    assert rb.LAUNCHES["rebalance_sweep"] == 0, rb.LAUNCHES
+    assert sched_launches == rescans, (sched_launches, rescans)
     assert evicted == [p.uid for p in sink.evicted], "Scheduler != sink arm"
     assert not set(evicted) & set(sched.cache.pods)
     fresh = []
@@ -1420,10 +1505,62 @@ def rebalance_storm(card) -> dict:
         assert torch.equal(getattr(state, f), getattr(fresh[-1], f)), f
     print(f"Scheduler.rebalance_sweep with the arbiter [{card}]: "
           f"{len(evicted)} evicted == the budgeted arm's, "
-          f"{sched_launches} sweep launches, wall {sweep_wall:.4f} s; the "
+          f"{sched_launches} scan kernel launches, wall {sweep_wall:.4f} s; the "
           f"next round's delta staging == a fresh staging", flush=True)
-    return sweep_entry("rebalance_sweep_config22_budgeted", budgeted[0],
+    return sweep_entry("rebalance_scan_config22_budgeted", budgeted[0],
                        rescans, "rebalance config #22's sweep", card)
+
+
+def replay_refusals(sweep, refused) -> float:
+    """The scan kernel's ms per re-scan of the budgeted arm: its
+    refusals replayed in order on the arm's staged batch (the mask
+    cleared, each launch blocking its candidate on the device), queued
+    back to back in runs of REPLAY_CHUNK (CUDA events); the replay's
+    final mask must equal the arm's."""
+    sweep.blocked.zero_()
+    streams = torch.empty((3, sweep.k), dtype=torch.bool,
+                          device=sweep.device)
+    total = 0.0
+    for at in range(0, len(refused), REPLAY_CHUNK):
+        chunk = refused[at:at + REPLAY_CHUNK]
+        it = iter(chunk)
+        total += device_ms(lambda: rb._launch(
+            sweep.batch, sweep.blocked, sweep.available, sweep.res_mask,
+            "scan", next(it), streams), len(chunk)) * len(chunk)
+    want = np.zeros(sweep.k, bool)
+    want[refused] = True
+    assert np.array_equal(sweep.blocked.cpu().numpy(), want)
+    return total / max(len(refused), 1)
+
+
+def rebalance_serial(card) -> dict:
+    """Phase 12 (d): a batch whose high_q varies inside its nodes goes
+    through ``run_balance_sweep`` on the serial route; the serial kernel
+    held against the plain version and timed; an empty launch timed."""
+    arrays, available, res_mask, blocked = testing.sweep_batch_arrays(
+        VARIED_SEED, VARIED_K)
+    rng = np.random.default_rng(VARIED_SEED)
+    arrays["high_q"] = arrays["high_q"] + rng.integers(
+        -3_000, 3_000, arrays["high_q"].shape)
+    batch = rb.SweepBatch(**arrays)
+    assert rb.sweep_route(batch.node_start, batch.high_q) == "serial"
+    zero_launches()
+    got = rb.run_balance_sweep(batch, available, res_mask, blocked)
+    torch.cuda.synchronize()
+    launches = dict(rb.LAUNCHES)
+    assert launches == {"rebalance_scan": 0, "rebalance_sweep": 1}, launches
+    want = rb.replay_sweep_host(batch, available, res_mask, blocked)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    empty_ms = device_ms(lambda: rb.launch_empty("cuda"), EMPTY_REPS)
+    print(f"serial route [{card}]: {VARIED_K} candidates, high_q varied "
+          f"inside nodes: run_balance_sweep launched the serial kernel "
+          f"once, == the host replica; an empty kernel at the scan "
+          f"kernel's launch shape {empty_ms:.4f} ms per launch (CUDA "
+          f"events, {EMPTY_REPS} back to back)", flush=True)
+    sweep = rb.DeviceSweep(batch, available, res_mask)
+    return sweep_entry("rebalance_sweep_serial_varied_high_q", sweep,
+                       launches["rebalance_sweep"],
+                       "the serial route's batch", card, route="serial")
 
 
 def rebalance_wide(card) -> dict:
@@ -1440,7 +1577,7 @@ def rebalance_wide(card) -> dict:
           f"[{card}]: device == host: {len(host_seq)} evictions "
           f"({sweeps[0].k} candidates); balance() device {dev_wall:.4f} s "
           f"({launches} launch), host {host_wall:.4f} s", flush=True)
-    return sweep_entry("rebalance_sweep_config22_wide", sweeps[0], launches,
+    return sweep_entry("rebalance_scan_config22_wide", sweeps[0], launches,
                        f"config #22 at {STORM22_WIDE_NODES} nodes' sweep",
                        card)
 
@@ -1459,6 +1596,8 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "smem" in line):
             print(f"ptxas: {line.strip()}", flush=True)
+    print(f"rebalance_scan_kernel: {bk._library().rebalance_scan_shared_bytes()}"
+          " B of dynamic shared memory per CTA", flush=True)
 
     # -- 2. the routed kernel vs its plain twin on the card -------------------
     state, pods, params = testing.example_problem(NODES, PENDING, seed=1)
@@ -1615,6 +1754,7 @@ def main() -> int:
     kernels.append(rebalance_config5(card))
     kernels.append(rebalance_storm(card))
     kernels.append(rebalance_wide(card))
+    kernels.append(rebalance_serial(card))
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

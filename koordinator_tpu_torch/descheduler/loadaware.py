@@ -406,7 +406,9 @@ class LowNodeLoad(BalancePlugin):
         and the sweep re-runs: a refusal can only change decisions at or
         after its own index, so the applied prefix stays valid and the
         walk resumes in place — worst case one re-scan per refusal. The
-        batch is staged once; a re-scan copies only the blocked mask."""
+        batch is staged once; a re-scan (``DeviceSweep.refuse``) is one
+        launch that blocks the candidate on the device and one read-back
+        of the streams from it on."""
         cand_pods: List[PodSpec] = []
         cand_nodes: List[NodeSpec] = []
         rows = {"start": [], "u0": [], "hq": [], "m": [], "hm": []}
@@ -447,8 +449,7 @@ class LowNodeLoad(BalancePlugin):
         blocked = np.zeros(k, bool)
         sweep = DeviceSweep(batch, available, res_mask, self.args.device)
 
-        def run_sweep():
-            got = sweep.run(blocked)
+        def checked(got):
             if verify:
                 want = replay_sweep_host(batch, available, res_mask, blocked)
                 for name, a, b in zip(("propose", "over", "avail_ok"),
@@ -462,7 +463,7 @@ class LowNodeLoad(BalancePlugin):
                         )
             return got
 
-        propose, over, avail_ok = run_sweep()
+        propose, over, avail_ok = checked(sweep.run(blocked))
         applied = np.zeros(k, bool)
         idx = 0
         while idx < k:
@@ -481,7 +482,7 @@ class LowNodeLoad(BalancePlugin):
                 idx += 1
             else:
                 blocked[idx] = True
-                propose, over, avail_ok = run_sweep()
+                propose, over, avail_ok = checked(sweep.refuse(idx))
         # detector resets, replayed from the decision streams: the host
         # walk resets a node's detector iff the first candidate that
         # stops the walk on that node stops it via the under-threshold

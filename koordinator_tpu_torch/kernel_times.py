@@ -17,11 +17,19 @@ launches after one warm-up):
 - ``testing.quota_gang_problem(40000, 600, 50, 20, 20)`` (``chip_smoke.py``
   phase 8) at k = 16.
 
-With ``--sweep`` it times the balance sweep kernel instead,
-``ops/rebalance.balance_sweep`` with nothing blocked, on the batch that
-``LowNodeLoad``'s "device" backend stages (``chip_smoke.py`` phase 12):
-bench config #5 (``testing.rebalance_world_spec(5000, 30000)``) and
-config #22 (``testing.rebalance_storm_spec``) at 400 and 5,000 nodes.
+With ``--sweep`` it times the balance sweep's kernels instead, with
+nothing blocked, on the batch that ``LowNodeLoad``'s "device" backend
+stages (``chip_smoke.py`` phase 12): bench config #5
+(``testing.rebalance_world_spec(5000, 30000)``) and config #22
+(``testing.rebalance_storm_spec``) at 400 and 5,000 nodes; each kernel
+the tree has ("scan" and "serial", each through ``ops/rebalance._launch``,
+where the tree has ``sweep_route``, else its one kernel, "serial",
+through ``balance_sweep``) on the same batch,
+queued back to back behind a sleeping kernel (CUDA events). Then the
+budgeted arm of config #22 at 400 nodes (``MigrationArbiter(
+MigrationBudget(max_per_node=1))``, one re-scan per refusal): the
+``balance()`` wall and the sweep launches of each of ``ARM_REPEATS``
+passes.
 
 It calls only entry points that every checkout since the kernel it times
 was added has, so two trees can be compared on one card: unpack the
@@ -41,6 +49,9 @@ from pathlib import Path
 
 SHARDS = (2, 4, 8, 16)
 REPS = 5
+ARM_REPEATS = 3
+#: cycles the card sleeps per queued sweep launch (~115 us at 1.7 GHz)
+SLEEP_CYCLES_PER_CALL = 200_000
 
 
 def _card() -> str:
@@ -138,11 +149,18 @@ def main(argv=None) -> int:
 
 
 def _sweep_times(tree) -> int:
+    import statistics
+    import time
+
     import torch
 
     from koordinator_tpu_torch import testing
     from koordinator_tpu_torch.apis import types
     from koordinator_tpu_torch.apis.extension import ResourceName
+    from koordinator_tpu_torch.control.migration import (
+        MigrationArbiter,
+        MigrationBudget,
+    )
     from koordinator_tpu_torch.descheduler import (
         LowNodeLoad,
         LowNodeLoadArgs,
@@ -162,12 +180,15 @@ def _sweep_times(tree) -> int:
         def _do_evict(self, snapshot, pod, reason):
             return True
 
+    def pool_of(low, high):
+        cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+        return NodePool(low_thresholds={cpu: low[0], mem: low[1]},
+                        high_thresholds={cpu: high[0], mem: high[1]})
+
     def staged(spec, low, high):
         """The DeviceSweep one device pass stages for ``spec`` with a pool
         of ``low``/``high`` (CPU, memory) percent."""
-        cpu, mem = ResourceName.CPU, ResourceName.MEMORY
-        pool = NodePool(low_thresholds={cpu: low[0], mem: low[1]},
-                        high_thresholds={cpu: high[0], mem: high[1]})
+        pool = pool_of(low, high)
         made = []
         base = loadaware.DeviceSweep
 
@@ -186,20 +207,52 @@ def _sweep_times(tree) -> int:
         assert len(made) == 1, len(made)
         return made[0]
 
+    # a tree with routes has both kernels, each launched by rb._launch;
+    # a tree from before the scan kernel has only the serial one, behind
+    # balance_sweep
+    routed = hasattr(rb, "sweep_route")
+
     def timed(sweep):
         blocked = torch.zeros(sweep.k, dtype=torch.bool, device=sweep.device)
         args = (sweep.batch, blocked, sweep.available, sweep.res_mask)
-        streams, _ = rb.balance_sweep(*args)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(REPS):
-            rb.balance_sweep(*args)
-        end.record()
-        torch.cuda.synchronize()
-        return dict(ms=start.elapsed_time(end) / REPS, k=sweep.k,
-                    proposed=int(streams[0].sum()))
+        out = dict(k=sweep.k)
+        for route in ("scan", "serial") if routed else ("serial",):
+            def sweep_once(route=route):
+                if routed:
+                    return rb._launch(*args, route)
+                return rb.balance_sweep(*args)
+
+            streams, _ = sweep_once()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * REPS)
+            start.record()
+            for _ in range(REPS):
+                sweep_once()
+            end.record()
+            torch.cuda.synchronize()
+            out[f"{route}_ms"] = start.elapsed_time(end) / REPS
+            out["proposed"] = int(streams[0].sum())
+        return out
+
+    def budgeted_arm():
+        snap = testing.build_snapshot(testing.rebalance_storm_spec(
+            400, 10, seed=22), types, ResourceName)
+        plugin = LowNodeLoad(LowNodeLoadArgs(node_pools=[pool_of(
+            (30, 30), (60, 60))], backend="device"))
+        walls, launches = [], []
+        for _ in range(ARM_REPEATS):
+            sink = Sink(arbiter=MigrationArbiter(MigrationBudget(
+                max_per_node=1)))
+            before = sum(rb.LAUNCHES.values())
+            t0 = time.perf_counter()
+            plugin.balance(snap, sink)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(sum(rb.LAUNCHES.values()) - before)
+        return dict(walls=walls, median_s=statistics.median(walls),
+                    launches=launches, evicted=len(sink.evicted))
 
     times = {
         "config5": timed(staged(testing.rebalance_world_spec(
@@ -208,6 +261,7 @@ def _sweep_times(tree) -> int:
             400, 10, seed=22), (30, 30), (60, 60))),
         "config22_5000_nodes": timed(staged(testing.rebalance_storm_spec(
             5000, 10, seed=22), (30, 30), (60, 60))),
+        "config22_budgeted_arm": budgeted_arm(),
     }
     print(json.dumps({"tree": tree, "card": _card(), "reps": REPS,
                       "times": times}), flush=True)

@@ -766,6 +766,15 @@ def _library():
             # outputs, stream
             lib.rebalance_sweep_launch.argtypes = [ptr] * 9 + [i32] + [ptr] * 5
             lib.rebalance_sweep_launch.restype = i32
+            # its scan form: nine inputs, K, the refused index, four
+            # outputs, stream
+            lib.rebalance_scan_launch.argtypes = (
+                [ptr] * 9 + [i32, i32] + [ptr] * 5)
+            lib.rebalance_scan_launch.restype = i32
+            lib.rebalance_scan_shared_bytes.argtypes = []
+            lib.rebalance_scan_shared_bytes.restype = i32
+            lib.rebalance_empty_launch.argtypes = [ptr]
+            lib.rebalance_empty_launch.restype = i32
             lib.binpack_error_string.argtypes = [i32]
             lib.binpack_error_string.restype = ctypes.c_char_p
             _LIB = lib

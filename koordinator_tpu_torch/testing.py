@@ -1040,3 +1040,44 @@ def sweep_batch_arrays(seed, k, *, headroom=None, blocked_frac=0.1,
         has_metric=has_metric, valid=rng.random(k) >= invalid_frac)
     blocked = rng.random(k) < blocked_frac
     return arrays, available.astype(np.int64), res_mask, blocked
+
+
+def sweep_rows(nodes, columns=(int(MEM),)):
+    """A balance-sweep batch from ``nodes``, each ``(usage, high,
+    [metric of each candidate])``, those values on each of ``columns``
+    and 0 on the others, every candidate valid and with a metric:
+    ``(arrays, res_mask)`` with ``res_mask`` true on ``columns``."""
+    cols = np.zeros(NUM_RESOURCES, np.int64)
+    cols[list(columns)] = 1
+    start, u0, hq, metric = [], [], [], []
+    for usage, high, pods in nodes:
+        for j, m in enumerate(pods):
+            start.append(j == 0)
+            u0.append(cols * usage)
+            hq.append(cols * high)
+            metric.append(cols * m)
+    k = len(start)
+    arrays = dict(node_start=np.array(start, bool),
+                  usage0=np.array(u0, np.int64).reshape(k, NUM_RESOURCES),
+                  high_q=np.array(hq, np.int64).reshape(k, NUM_RESOURCES),
+                  metric=np.array(metric, np.int64).reshape(k,
+                                                            NUM_RESOURCES),
+                  has_metric=np.ones(k, bool), valid=np.ones(k, bool))
+    return arrays, cols.astype(bool)
+
+
+def sweep_cut_across_tile(edge, columns=(int(MEM),), before=6):
+    """A sweep batch whose node A is cut ``before`` candidates short of
+    candidate ``edge`` (a tile edge of the scan kernel), holds a negative
+    metric after its cut (eligible, never proposed) and runs on past the
+    edge, where node B then exhausts the headroom: the case in which a
+    tile must carry A's usage as it stood at the cut, not the running
+    sum of every eligible metric. ``(arrays, available, res_mask,
+    blocked)``; the headroom runs out at B's second candidate, after the
+    edge. Nodes before A are at their high quantities (never over)."""
+    a_pods = [60, -1000] + [1] * (before + 2)
+    filler = [(0, 100, [7])] * (edge - before + 1 - 2)
+    arrays, res_mask = sweep_rows(
+        filler + [(100, 50, a_pods), (200, 50, [5, 5, 5])], columns)
+    available = np.where(res_mask, 65, 10**6).astype(np.int64)
+    return arrays, available, res_mask, np.zeros(len(arrays["valid"]), bool)
