@@ -160,15 +160,19 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from koordinator_tpu_torch import testing
+from koordinator_tpu_torch import resolve_device, testing
 from koordinator_tpu_torch.apis import types as ttypes
 from koordinator_tpu_torch.apis.extension import ResourceName
 from koordinator_tpu_torch.apis.types import (
@@ -202,6 +206,16 @@ from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
 from koordinator_tpu_torch.scheduler.preemption import find_preemption
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+from koordinator_tpu_torch.service import server as srv
+from koordinator_tpu_torch.service import tenancy
+from koordinator_tpu_torch.service.client import PlacementClient, RemoteSolver
+from koordinator_tpu_torch.service.codec import (
+    SolveRequest,
+    decode_response,
+    encode_request,
+    read_frame,
+    write_frame,
+)
 from koordinator_tpu_torch.state.cluster import (
     evict_resident_rows,
     lower_nodes,
@@ -289,6 +303,26 @@ SLEEP_CYCLES_PER_CALL = 200_000
 #: the store (6)
 SWEEP_OPS_PER_CANDIDATE = 8 * 6 + 6
 
+# phase 13: bench config #10 (clients, nodes x pods, timed and warm-up
+# rounds) and #16 cut to 5 timed rounds (tenants, nodes x pods a tenant,
+# timed and warm-up rounds); the lane kernel's K and shapes
+CONC_CLIENTS, CONC_NODES, CONC_PODS, CONC_ROUNDS, CONC_WARMUP = (
+    8, 500, 32, 30, 2)
+POOL_TENANTS, POOL_NODES, POOL_PODS, POOL_ROUNDS, POOL_WARMUP = (
+    16, 1024, 64, 5, 3)
+LANE_KS = (1, 2, 8, 16)
+#: cycles the card sleeps per queued lane launch (~2.3 ms at 1.7 GHz,
+#: above the host's ~0.5 ms to issue one: records, checks, the launch)
+LANE_SLEEP_CYCLES = 4_000_000
+LANE_SHAPES = ((500, 32), (1024, 64))
+#: pod counts of config #10's lanes held at unequal counts on its base
+CONC_UNEQUAL_PODS = (32, 1, 17, 32, 5, 9, 31, 24)
+SOCKET_TIMEOUT_S = 600.0
+#: the reference's lane batches: the jax.vmap of the scan over K plain
+#: solves (admission.py: one shared base; tenancy.py: a base per lane)
+LANES_REPLACES = ("koordinator_tpu/service/admission.py:238",
+                  "koordinator_tpu/service/tenancy.py:409")
+
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
@@ -316,15 +350,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, cycles_per_call=None):
     """ms per call of ``fn`` (which must not synchronise) on the card,
-    the calls queued behind a sleeping kernel so that the card runs them
-    back to back (a kernel of a few microseconds is otherwise timed at
-    the host's launch rate)."""
+    the calls queued behind a sleeping kernel of ``cycles_per_call``
+    cycles a call (default ``SLEEP_CYCLES_PER_CALL``; it must outlast the
+    host's time to issue a call) so that the card runs them back to back
+    (a kernel of a few microseconds is otherwise timed at the host's
+    launch rate)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
+    torch.cuda._sleep((cycles_per_call or SLEEP_CYCLES_PER_CALL) * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -352,6 +388,17 @@ def bound(inp):
     reservation) pair and the credit's subtractions per matched pair,
     and the extras rows' mask test and score add per (pod with a row,
     schedulable node) pair."""
+    return bound_of(*bound_parts(inp))
+
+
+def bound_of(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_parts(inp):
+    """(bytes, operations) of :func:`bound`."""
     tensors = [t for x in inp if isinstance(x, (torch.Tensor, tuple))
                for t in (x if isinstance(x, tuple) else (x,))]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -376,9 +423,7 @@ def bound(inp):
         ops += (EXTRAS_OPS_PER_PAIR * int((inp.extras[0] >= 0).sum())
                 * int(inp.sched.sum()))
     nbytes += 4 * out_words
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, ops
 
 
 def variant(inp) -> str:
@@ -1582,6 +1627,404 @@ def rebalance_wide(card) -> dict:
                        card)
 
 
+# -- 13. serving ----------------------------------------------------------------
+
+class Sockets:
+    """Unix socket paths in a temporary directory (or, where the temporary
+    directory's path is too long for a unix socket, one in the working
+    directory), removed by :meth:`close`."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="ks")
+        if len(self.dir) > 80:
+            shutil.rmtree(self.dir)
+            self.dir = tempfile.mkdtemp(prefix=".ks", dir=".")
+
+    def path(self, tag):
+        return os.path.join(self.dir, f"{tag}.sock")
+
+    def close(self):
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def sidecar_world():
+    snap, tracker = testing.churn_world(
+        NODES, assigned_per_node=ASSIGNED_PER_NODE, seed=42,
+        with_tracker=True)
+    snap = testing.add_pending_wave(snap, PENDING, n_quota=QUOTAS,
+                                    n_gangs=GANGS, gang_size=GANG_SIZE,
+                                    seed=7)
+    return snap, tracker
+
+
+def sidecar_main_path(sockets, card) -> None:
+    """Phase 13 (a): phase 3's world through ``PlacementModel(backend=
+    RemoteSolver)`` and an in-process ``PlacementService`` on the card
+    (the admission gate at its defaults), two rounds: the full burst, then
+    a churn tick (config #9's: 50 metric refreshes, a 64-pod wave, the
+    burst's binds folded in) on the delta protocol. Each round must equal
+    an in-process ``PlacementModel()`` on the card fed the same world, and
+    the server's solve must be one batch of the gate that launches the
+    routed kernel once; its time is the gate's ``solve_seconds_total``
+    over the round."""
+    addr = sockets.path("main")
+    service = srv.PlacementService(addr)
+    service.start()
+    remote = RemoteSolver(addr, timeout=SOCKET_TIMEOUT_S)
+    try:
+        models = (PlacementModel(backend=remote), PlacementModel())
+        worlds = [sidecar_world() for _ in models]
+        rngs = [np.random.default_rng(13) for _ in models]
+        by_uid = [{p.uid: p for p in w[0].pending_pods} for w in worlds]
+        prev = [None, None]
+        walls = [0.0, 0.0]
+        for rnd, label in enumerate(("full burst", "churn tick (delta)")):
+            results = []
+            for i, model in enumerate(models):
+                snap, tracker = worlds[i]
+                if rnd:
+                    testing.fold_churn_binds(snap, tracker, prev[i],
+                                             by_uid[i], 30.0)
+                    by_uid[i] = testing.churn_tick_events(
+                        snap, tracker, rngs[i], dirty=CHURN_DIRTY,
+                        pending=CHURN_PENDING, t=1, now=30.0)
+                if i == 0:
+                    for kind in bk.LAUNCHES:
+                        bk.LAUNCHES[kind] = 0
+                    solved = service.status()["admission"]
+                t0 = time.perf_counter()
+                results.append(model.schedule(snap))
+                torch.cuda.synchronize()
+                walls[i] = time.perf_counter() - t0
+                if i == 0:
+                    launches = dict(bk.LAUNCHES)
+                    stats = service.status()["admission"]
+                    solve_s = (stats["solve_seconds_total"]
+                               - solved["solve_seconds_total"])
+                    assert stats["batches_total"] == (
+                        solved["batches_total"] + 1), (solved, stats)
+            prev = results
+            got, want = results
+            assert dict(got) == dict(want), f"{label}: sidecar != in-process"
+            assert got.waiting == want.waiting, label
+            assert models[0].last_solver == "remote"
+            assert remote.last_request == ("establish", "delta")[rnd], (
+                remote.last_request)
+            assert models[1].last_staging == ("full", "delta")[rnd]
+            assert launches == {"block": 0, "cluster": 1, "l2": 0,
+                                "lanes": 0}, launches
+            committed = sum(n is not None for n in got.values())
+            print(f"sidecar main path, {label} [{card}]: "
+                  f"{len(snap.nodes)} nodes, {len(snap.pending_pods)} "
+                  f"pending: {committed} committed, {len(got.waiting)} "
+                  f"waiting == in-process on the card; request "
+                  f"{remote.last_request} {remote.last_request_bytes} B "
+                  f"({len(models[1].staging_delta[1].idx if rnd else [])} "
+                  f"dirty rows); wall {walls[0]:.4f} s (in-process "
+                  f"{walls[1]:.4f} s), server solve {solve_s:.4f} s; "
+                  f"launches {launches}", flush=True)
+    finally:
+        remote.close()
+        service.stop()
+
+
+def concurrent_clients(sockets, card) -> dict:
+    """Phase 13 (b): bench config #10, ``CONC_CLIENTS`` clients sending
+    one base's plain request in barrier-synced rounds, inline
+    (``admission=False``) against the gate. Every response must equal a
+    solo ``solve_from_request`` of the request, and each batch of the
+    gate must be one launch (a coalesced batch one lane launch). Returns
+    the gated arm's launch counts."""
+    groups = testing.concurrent_solve_groups(CONC_NODES, CONC_PODS)
+    payload = encode_request(SolveRequest(**groups))
+    solo = srv.solve_from_request(SolveRequest(**groups))
+    assert not solo.error and (solo.assignments >= 0).any()
+    rounds = CONC_WARMUP + CONC_ROUNDS
+    out = {}
+    for arm, admission in (("inline", False), ("gated", True)):
+        addr = sockets.path(arm)
+        service = srv.PlacementService(addr, admission=admission)
+        service.start()
+        lats = [[] for _ in range(CONC_CLIENTS)]
+        failures = []
+        barrier = threading.Barrier(CONC_CLIENTS)
+
+        def client(i):
+            try:
+                with PlacementClient(addr, timeout=SOCKET_TIMEOUT_S) as c:
+                    for r in range(rounds):
+                        barrier.wait(timeout=SOCKET_TIMEOUT_S)
+                        t0 = time.perf_counter()
+                        write_frame(c._stream, payload)
+                        c._stream.flush()
+                        resp = decode_response(read_frame(c._stream))
+                        wall = time.perf_counter() - t0
+                        assert resp.error == "", resp.error
+                        assert np.array_equal(resp.assignments,
+                                              solo.assignments)
+                        if r >= CONC_WARMUP:
+                            lats[i].append(wall)
+            except Exception as e:  # reported below; frees the barrier
+                failures.append(f"{type(e).__name__}: {e}")
+                barrier.abort()
+
+        for kind in bk.LAUNCHES:
+            bk.LAUNCHES[kind] = 0
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(CONC_CLIENTS)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=SOCKET_TIMEOUT_S)
+            torch.cuda.synchronize()
+            launches = dict(bk.LAUNCHES)
+            stats = service.status()["admission"]
+        finally:
+            service.stop()
+        assert not any(t.is_alive() for t in threads), "a client hung"
+        assert not failures, failures[0]
+        flat = np.asarray([w for per in lats for w in per])
+        p50, p99 = np.percentile(flat, 50), np.percentile(flat, 99)
+        line = (f"config #10, {arm} [{card}]: {CONC_CLIENTS} clients x "
+                f"{CONC_ROUNDS} rounds, {CONC_NODES} nodes x {CONC_PODS} "
+                f"pods: p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms; "
+                f"every response == solo; launches {launches}")
+        if admission:
+            lane_batches = stats["batches_total"] - launches["block"]
+            assert lane_batches > 0, "no batch coalesced"
+            assert launches["lanes"] == lane_batches, (launches, stats)
+            assert stats["requests_total"] == CONC_CLIENTS * rounds
+            line += (f"; coalesce ratio {stats['coalesce_ratio']:.3f}, "
+                     f"{lane_batches} coalesced batches, lane launches per "
+                     f"batch {launches['lanes'] / lane_batches:.3f}")
+            out = launches
+        else:
+            assert launches["block"] == CONC_CLIENTS * rounds, launches
+        print(line, flush=True)
+    return out
+
+
+def pool_arm(addresses, payloads):
+    """Drive each tenant's round stream against its address (one address
+    for every tenant: the pool; one each: solo services): warm-up rounds
+    barrier-synced, timed rounds free-running. Returns ``(wall of the
+    timed rounds, assignments [tenant][round])``."""
+    n = len(payloads)
+    stamps = []
+    barrier = threading.Barrier(
+        n, action=lambda: stamps.append(time.perf_counter()))
+    logs = [[None] * len(p) for p in payloads]
+    ends = [0.0] * n
+    failures = []
+
+    def client(i):
+        try:
+            with PlacementClient(addresses[i], timeout=SOCKET_TIMEOUT_S) as c:
+                for r, payload in enumerate(payloads[i]):
+                    if r <= POOL_WARMUP:
+                        barrier.wait(timeout=SOCKET_TIMEOUT_S)
+                    write_frame(c._stream, payload)
+                    c._stream.flush()
+                    resp = decode_response(read_frame(c._stream))
+                    assert resp.error == "", resp.error
+                    logs[i][r] = resp.assignments
+                ends[i] = time.perf_counter()
+        except Exception as e:  # reported below; frees the barrier
+            failures.append(f"{type(e).__name__}: {e}")
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SOCKET_TIMEOUT_S)
+    assert not any(t.is_alive() for t in threads), "a tenant hung"
+    assert not failures, failures[0]
+    return max(ends) - stamps[-1], logs
+
+
+def tenant_pool(sockets, card) -> dict:
+    """Phase 13 (c): bench config #16 cut to ``POOL_ROUNDS`` timed rounds:
+    ``POOL_TENANTS`` tenants, each delta-churning its own world, through
+    one shared sidecar (tenant lanes: one lane launch per batch) and
+    through a sidecar each. Every tenant's placements must equal its solo
+    run. Returns the pool arm's launch counts."""
+    rounds = POOL_WARMUP + POOL_ROUNDS
+    payloads = [[encode_request(SolveRequest(**g, admission={
+        "tenant": tenancy.tenant_wire_value(f"tenant-{i}")}))
+        for g in testing.tenant_stream(i, rounds, POOL_NODES, POOL_PODS)]
+        for i in range(POOL_TENANTS)]
+    pods = POOL_TENANTS * POOL_ROUNDS * POOL_PODS
+    addr = sockets.path("pool")
+    service = srv.PlacementService(addr)
+    service.start()
+    for kind in bk.LAUNCHES:
+        bk.LAUNCHES[kind] = 0
+    try:
+        pool_wall, pool_logs = pool_arm([addr] * POOL_TENANTS, payloads)
+        torch.cuda.synchronize()
+        launches = dict(bk.LAUNCHES)
+        stats = service.status()["admission"]
+    finally:
+        service.stop()
+    assert stats["lane_batches_total"] > 0, "no tenant batch"
+    assert launches["lanes"] == stats["lane_batches_total"], (launches,
+                                                             stats)
+    assert (launches["lanes"] + launches["block"] + launches["cluster"]
+            == stats["batches_total"]), (launches, stats)
+    addrs = [sockets.path(f"solo{i}") for i in range(POOL_TENANTS)]
+    solos = [srv.PlacementService(a) for a in addrs]
+    try:
+        for s in solos:
+            s.start()
+        solo_wall, solo_logs = pool_arm(addrs, payloads)
+    finally:
+        for s in solos:
+            s.stop()
+    for i in range(POOL_TENANTS):
+        for r in range(rounds):
+            assert np.array_equal(pool_logs[i][r], solo_logs[i][r]), (i, r)
+    print(f"config #16 cut to {POOL_ROUNDS} timed rounds [{card}]: "
+          f"{POOL_TENANTS} tenants x {POOL_NODES} nodes, {POOL_PODS}-pod "
+          f"delta ticks: pool {pods / pool_wall:.1f} pods/s (wall "
+          f"{pool_wall:.4f} s; {stats['lane_batches_total']} lane batches, "
+          f"{stats['lane_requests_total']} lane requests, "
+          f"{launches['lanes']} lane launches, launches {launches}), "
+          f"solo services {pods / solo_wall:.1f} pods/s (wall "
+          f"{solo_wall:.4f} s); every tenant == its solo run", flush=True)
+    return launches
+
+
+def lane_bound_parts(inp):
+    """(bytes, operations) of a lane batch: every input read once (a
+    shared base once), every lane's outputs written once, and per lane
+    the (unblocked pod, schedulable node) pairs of its base."""
+    k, p = inp.req.shape[:2]
+    n = inp.alloc.shape[1]
+    nbytes = (sum(t.numel() * t.element_size() for t in inp)
+              + 4 * k * (p + 3 * n * 8))               # assign, carries
+    pods = (inp.req[..., 0] != bk.BLOCKED_REQ).sum(dim=1)     # [K]
+    nodes = inp.sched.sum(dim=1)                              # [B]
+    return nbytes, int((pods * nodes).sum()) * OPS_PER_PAIR
+
+
+def hold_lanes(inp, label, card) -> dict:
+    """One lane batch on the card: held against its plain version (exact,
+    every output) and against a single launch of the routed kernel on
+    each lane (exact), timed (CUDA events, queued) against those single
+    launches back to back. Returns its stats."""
+    k, p = inp.req.shape[:2]
+    route = bk.lane_route(inp)
+    singles = [bk.lane(inp, i) for i in range(k)]
+    got = bk.binpack_lanes(inp)
+    torch.cuda.synchronize()
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(bk.binpack_lanes_plain(inp)), 1)
+    err = max_abs_err(got, want[0])
+    for i, one in enumerate(singles):
+        solo = bk.binpack(one)
+        for f in bk.LaneOutputs._fields:
+            assert torch.equal(getattr(got, f)[i], getattr(solo, f)), (
+                label, i, f)
+    ms = device_ms(lambda: bk.binpack_lanes(inp), 5, LANE_SLEEP_CYCLES)
+    singles_ms = device_ms(lambda: [bk.binpack(x) for x in singles], 5,
+                           LANE_SLEEP_CYCLES * k)
+    call_ms = cuda_ms(lambda: bk.binpack_lanes(inp), 5)
+    bound_ms, bound_by = bound_of(*lane_bound_parts(inp))
+    placed = int((got.assign >= 0).sum())
+    print(f"lane kernel, {label} [{card}]: {route_name(route)} == plain "
+          f"version and == {k} single launches ({placed}/{k * p} placed, "
+          f"max_abs_err {err}); on the card, queued: lane launch "
+          f"{ms:.4f} ms, {k} single launches {singles_ms:.4f} ms "
+          f"({singles_ms / ms:.2f}x); a call's wall {call_ms:.4f} ms; plain "
+          f"version {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, route=route,
+                singles_ms=singles_ms, call_ms=call_ms)
+
+
+def lane_kernel(card) -> dict:
+    """Phase 13 (d): the lane kernel alone, each batch held by
+    :func:`hold_lanes`. K tenant worlds (a base per lane, as the pool
+    stacks them) at each of ``LANE_SHAPES`` and ``LANE_KS``; and
+    ``CONC_CLIENTS`` lanes of different pods on config #10's one base
+    (stride 0, as ``solve_coalesced`` stacks them), at its pod count and
+    at ``CONC_UNEQUAL_PODS``. Returns the stats by (nodes, pods, K) for
+    the tenant worlds and under "coalesced" for config #10's shape."""
+    dev = resolve_device()
+    out = {}
+    for n, p in LANE_SHAPES:
+        for k in LANE_KS:
+            groups = [testing.tenant_stream(i, 1, n, p)[0] for i in range(k)]
+            inp = tenancy.stage_lanes(
+                [tenancy.wire_state(g["node"], dev) for g in groups],
+                [g["pods"] for g in groups], [g["params"] for g in groups],
+                dev)
+            out[(n, p, k)] = hold_lanes(
+                inp, f"K = {k} tenant worlds at {n} nodes x {p} pods", card)
+    base = testing.concurrent_solve_groups(CONC_NODES, CONC_PODS)
+    for counts in ((CONC_PODS,) * CONC_CLIENTS, CONC_UNEQUAL_PODS):
+        inp = tenancy.stage_lanes(
+            [tenancy.wire_state(base["node"], dev)],
+            testing.concurrent_pod_sets(counts),
+            [base["params"]] * len(counts), dev)
+        assert inp.alloc.shape[0] == 1, "not the one-base form"
+        stats = hold_lanes(
+            inp, f"K = {len(counts)} requests of {list(counts)} pods on "
+            f"config #10's one base of {CONC_NODES} nodes", card)
+        out.setdefault("coalesced", stats)
+    return out
+
+
+def lane_entry(name, launches, stats, replaces) -> dict:
+    route = stats["route"]
+    return dict(name=f"{name}_{route_name(route)}_plain", replaces=replaces,
+                source=SOURCE if route.kind == "block" else CLUSTER_SOURCE,
+                launches=launches, **{k: stats[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")})
+
+
+def solver_binary(sockets, card) -> None:
+    """Phase 13 (e): ``python -m koordinator_tpu_torch.cmd.solver --once``
+    starts the sidecar on the card, writes its ready file and exits 0."""
+    ready = os.path.join(sockets.dir, "ready")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "koordinator_tpu_torch.cmd.solver",
+         "--listen", sockets.path("binary"), "--once", "--ready-file",
+         ready], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    with open(ready) as f:
+        assert f.read().strip().isdigit()
+    print(f"solver binary --once [{card}]: rc 0, ready file written, "
+          f"{proc.stdout.strip()} ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+
+def serving(card) -> list:
+    """Phase 13. Returns its ``kernels`` entries."""
+    sockets = Sockets()
+    try:
+        sidecar_main_path(sockets, card)
+        coalesced = concurrent_clients(sockets, card)
+        pooled = tenant_pool(sockets, card)
+        stats = lane_kernel(card)
+        solver_binary(sockets, card)
+    finally:
+        sockets.close()
+    return [
+        lane_entry("binpack_lanes_coalesced", coalesced["lanes"],
+                   stats["coalesced"], LANES_REPLACES[0]),
+        lane_entry("binpack_lanes_tenants", pooled["lanes"],
+                   stats[(POOL_NODES, POOL_PODS, POOL_TENANTS)],
+                   LANES_REPLACES[1]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -1755,6 +2198,9 @@ def main() -> int:
     kernels.append(rebalance_storm(card))
     kernels.append(rebalance_wide(card))
     kernels.append(rebalance_serial(card))
+
+    # -- 13. serving: the solver sidecar on the card -----------------------------
+    kernels += serving(card)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

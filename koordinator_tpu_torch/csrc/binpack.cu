@@ -39,6 +39,14 @@ struct OneBlock {
   static auto get() { return binpack_kernel<RESV, NUMA, MOST>; }
 };
 
+// the lane axis (binpack_common.cuh's LaneArgs): one block per lane, the
+// plain instance only
+__global__ void __launch_bounds__(NT, 1)
+    binpack_lanes_kernel(const __grid_constant__ LaneArgs l) {
+  const Args a = lane_args(l);
+  solve<false, true, false, false, false>(a);
+}
+
 }  // namespace
 
 // qshared: the quota tables in shared memory; smem: dynamic shared memory
@@ -55,6 +63,18 @@ extern "C" int binpack_launch(BINPACK_C_PARAMS, int qshared, int smem,
     return cudaGetLastError();
   });
   return static_cast<int>(e);
+}
+
+// K = lanes plain solves of N nodes x P pods in one grid of (1, K) blocks
+extern "C" int binpack_lanes_launch(BINPACK_LANE_C_PARAMS, int smem,
+                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const LaneArgs args = BINPACK_LANE_ARGS_INIT(N, nullptr, 0);
+  const cudaError_t a = cudaFuncSetAttribute(
+      binpack_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (a != cudaSuccess) return static_cast<int>(a);
+  binpack_lanes_kernel<<<dim3(1, lanes, 1), NT, smem, s>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* binpack_error_string(int code) {

@@ -50,6 +50,15 @@ __global__ void __launch_bounds__(NT, 1)
   solve<true, RESIDENT, RESV, NUMA, MOST>(a);
 }
 
+// the lane axis (binpack_common.cuh's LaneArgs): one cluster per lane
+// along y, the plain instance only
+template <bool RESIDENT>
+__global__ void __launch_bounds__(NT, 1)
+    binpack_cluster_lanes_kernel(const __grid_constant__ LaneArgs l) {
+  const Args a = lane_args(l);
+  solve<true, RESIDENT, false, false, false>(a);
+}
+
 template <bool RESIDENT>
 struct Cluster {
   template <bool RESV, bool NUMA, bool MOST>
@@ -58,10 +67,11 @@ struct Cluster {
   }
 };
 
+// `lanes` clusters of `shards` CTAs: the cluster along x, the lane along y
 cudaLaunchConfig_t cluster_config(int shards, int smem, cudaStream_t s,
-                                  cudaLaunchAttribute* attr) {
+                                  cudaLaunchAttribute* attr, int lanes = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(shards, 1, 1);
+  cfg.gridDim = dim3(shards, lanes, 1);
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -110,6 +120,30 @@ extern "C" int binpack_cluster_launch(BINPACK_C_PARAMS, int shards,
     const cudaError_t l = cudaLaunchKernelEx(&cfg, kern, args);
     return l != cudaSuccess ? l : cudaGetLastError();
   });
+  return static_cast<int>(e);
+}
+
+// K = lanes plain solves, each on a cluster of `shards` CTAs; in the L2
+// form (resident = 0) lane l's slices start at work + l * work_stride
+extern "C" int binpack_cluster_lanes_launch(BINPACK_LANE_C_PARAMS, int shards,
+                                            int n_loc, int resident,
+                                            void* work,
+                                            unsigned long long work_stride,
+                                            int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const LaneArgs args =
+      BINPACK_LANE_ARGS_INIT(n_loc, static_cast<char*>(work), work_stride);
+  auto go = [&](auto kern) {
+    const cudaError_t a = allow(kern, shards, smem);
+    if (a != cudaSuccess) return a;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(shards, smem, s, &attr, lanes);
+    const cudaError_t l = cudaLaunchKernelEx(&cfg, kern, args);
+    return l != cudaSuccess ? l : cudaGetLastError();
+  };
+  const cudaError_t e = resident ? go(binpack_cluster_lanes_kernel<true>)
+                                 : go(binpack_cluster_lanes_kernel<false>);
   return static_cast<int>(e);
 }
 

@@ -765,4 +765,64 @@ cudaError_t with_instance(int resv, int numa, int most, F&& f) {
        estx, prod, qused, qnp, nfree, consumed, vstar, delta, rem, rfree,  \
        n_loc, work, qshared}
 
+// The lane axis: K independent plain solves (no quota, reservations, NUMA
+// or extras) in one launch, lane blockIdx.y, each lane the solve above on
+// its own pointers. It replaces the reference's jax.vmap of the scan over
+// lanes (koordinator_tpu/service/admission.py::_vmapped_plain_assign, one
+// shared base; service/tenancy.py::_vmapped_tenant_solve, a base per
+// lane). Every lane has its own pod records (P of them, the short lanes
+// padded with blocked pods), LoadAware verdicts, weights, weight sum and
+// outputs; the seven node arrays are one base shared by every lane
+// (base_stride 0) or a base per lane (base_stride 1, the shorter worlds
+// padded with unschedulable zero rows). In the L2 form each lane has
+// work_stride bytes of workspace. Lanes share nothing, so the grid's lanes
+// run on whatever SMs are free, and a batch costs one launch.
+struct LaneArgs {
+  Args a;                        // lane 0's pointers
+  const int* wsum;               // [K] each lane's weight sum
+  int base_stride;               // 0: one base; 1: [K, N, ...] bases
+  unsigned long long work_stride;
+};
+
+__device__ __forceinline__ Args lane_args(const LaneArgs& l) {
+  const size_t lane = blockIdx.y;
+  const size_t P = l.a.P, N = l.a.N;
+  const size_t b = l.base_stride ? lane * N : 0;
+  Args a = l.a;
+  a.rec += lane * P * a.rw;
+  a.alloc += b * R;
+  a.usage += b * R;
+  a.sched += b;
+  a.fresh += b;
+  a.used0 += b * R;
+  a.est0 += b * R;
+  a.prod0 += b * R;
+  a.la_ok += lane * N;
+  a.weight += lane * R;
+  a.wsum = l.wsum[lane];
+  a.assign += lane * P;
+  a.used += lane * N * R;
+  a.estx += lane * N * R;
+  a.prod += lane * N * R;
+  if (a.work != nullptr) a.work += lane * l.work_stride;
+  return a;
+}
+
+// the lane launches' C parameters: the plain solve's, wsum per lane
+#define BINPACK_LANE_C_PARAMS                                              \
+  const int *rec, int P, int rw, int chunk, const int *alloc,              \
+      const int *usage, const int *sched, const int *fresh,                \
+      const int *la_ok, int N, const int *weight, const int *wsum,         \
+      const int *used0, const int *est0, const int *prod0, int *assign,    \
+      int *used, int *estx, int *prod, int lanes, int base_stride
+
+#define BINPACK_LANE_ARGS_INIT(n_loc, work, work_stride)                   \
+  LaneArgs{Args{rec, P, rw, chunk, alloc, usage, sched, fresh, la_ok, N,   \
+                weight, 0, used0, est0, prod0, nullptr, nullptr, nullptr,  \
+                nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr,   \
+                nullptr, nullptr, 0, nullptr, nullptr, assign, used, estx, \
+                prod, nullptr, nullptr, nullptr, nullptr, nullptr,         \
+                nullptr, nullptr, nullptr, n_loc, work, 1},                \
+           wsum, base_stride, work_stride}
+
 }  // namespace

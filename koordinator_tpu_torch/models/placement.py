@@ -31,7 +31,8 @@ and sharded staging (no mesh on one card), the host path for tiny
 solves, pod-shape, reservation-axis and victim-axis bucketing (they share
 XLA compiles, which eager PyTorch does not have; results are identical
 without them), the kernel's cached reservation one-hot (the CUDA kernel
-has none), the remote backend and the observability hooks.
+has none) and the observability hooks. With ``backend`` (``service/
+client.RemoteSolver``) every solve goes to the solver sidecar.
 
 The joint place+evict (``select_victims_device``, ``preempt_scan_device``,
 ``plan_defrag_device``) runs ``ops/preempt.py`` on the model's device
@@ -562,8 +563,12 @@ class PlacementModel:
         scaling_factors=None,
         device: DeviceLike = None,
         fine=None,
+        backend=None,
     ):
         self.device = resolve_device(device)
+        #: a remote solve backend (``service/client.RemoteSolver``, the
+        #: sidecar boundary), or None: solve in-process
+        self.backend = backend
         #: the fine-grained manager (``models/finegrained.FineGrained``),
         #: or None; a Scheduler binds its own
         self.fine = fine
@@ -587,7 +592,8 @@ class PlacementModel:
         #: and config are fixed)
         self._kernel_eligible = kernel_supported(self.params, self.config)
         self._wsum = weight_sum(self.params)
-        #: which path the last solve took: "kernel" or "loop"
+        #: which path the last solve took: "kernel", "loop", or with a
+        #: backend "remote" (or the backend's own ``last_mode``)
         self.last_solver: Optional[str] = None
         #: wall-time breakdown of the last schedule(): lower_s, stage_s,
         #: solve_s (solve_s is filled at read-back)
@@ -848,6 +854,7 @@ class PlacementModel:
         staged_state = None
         cache_stage_s = 0.0
         self.last_staging = None
+        self.staging_delta = None
         if snapshot.delta_tracker is not None:
             node_arrays, staged_state, cache_times, _ = (
                 self.staged_cache.ensure(
@@ -896,9 +903,11 @@ class PlacementModel:
         if self._numa_staging:
             # NUMA inventories ride the NodeState but live outside the
             # staging cache: restage in full (the host arrays stay
-            # delta-maintained), as the reference does
+            # delta-maintained), as the reference does; a remote backend
+            # is never sent a delta against a base without them
             staged_state = None
             self.last_staging = "full"
+            self.staging_delta = None
 
         # a gang pod whose GangSpec has not been observed must not bind solo
         blocked = np.array(
@@ -1026,7 +1035,21 @@ class PlacementModel:
         key's score budget (``resv_kernel_safe``) and extras tables with
         a score outside [0, 100] or past that budget (``extras_safe``),
         both checked on the host where they are built, and solves past
-        65,536 nodes run the per-pod loop on the same device."""
+        65,536 nodes run the per-pod loop on the same device. A remote
+        backend takes the whole solve instead (the same arrays over the
+        wire, the same epilogue), with the staging cache's delta when it
+        takes one, so that only the dirty node rows cross the wire."""
+        if self.backend is not None:
+            kwargs = {}
+            if (self.staging_delta is not None and getattr(
+                    self.backend, "supports_staging_delta", False)):
+                kwargs["staging"] = self.staging_delta
+            result = self.backend.solve_result(
+                state, batch, self.params, self.config, quota_state,
+                gang_state, extras, resv, numa_aux, **kwargs)
+            self.last_solver = getattr(self.backend, "last_mode",
+                                       None) or "remote"
+            return result
         if self._kernel_eligible and kernel_routing_ok(
                 state, batch, extras, resv, resv_kernel_safe, numa_aux,
                 extras_safe):

@@ -71,9 +71,10 @@ from koordinator_tpu_torch.parallel.mesh import shard_tile_bucket
 
 #: kernel launches since import by :attr:`Route.kind`: the one-block
 #: kernel (binpack.cu), the cluster kernel with its slices in shared
-#: memory, and its L2 form; one per launch on CUDA tensors, the counts
-#: that show a run went through a kernel
-LAUNCHES = {"block": 0, "cluster": 0, "l2": 0}
+#: memory, and its L2 form; "lanes" counts the lane-batched launches of
+#: any route (:func:`binpack_lanes`); one per launch on CUDA tensors, the
+#: counts that show a run went through a kernel
+LAUNCHES = {"block": 0, "cluster": 0, "l2": 0, "lanes": 0}
 
 #: the packed argmax key carries the node index in 16 bits
 MAX_NODES = 65536
@@ -128,6 +129,13 @@ ROWS_PER_CTA = 1024
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+#: guards LAUNCHES: a sidecar's handler threads launch concurrently
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(kind: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[kind] += 1
 
 
 def _round16(n: int) -> int:
@@ -759,6 +767,17 @@ def _library():
             lib.binpack_cluster_launch.argtypes = args + [
                 i32, i32, i32, i32, ptr, i32, ptr]
             lib.binpack_cluster_launch.restype = i32
+            # the lane launches: the plain solve's arguments with wsum
+            # per lane, then lanes, base_stride
+            lane_args = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32,
+                         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                         i32]
+            lib.binpack_lanes_launch.argtypes = lane_args + [i32, ptr]
+            lib.binpack_lanes_launch.restype = i32
+            # shards, n_loc, resident, work, work_stride, smem, stream
+            lib.binpack_cluster_lanes_launch.argtypes = lane_args + [
+                i32, i32, i32, ptr, ctypes.c_ulonglong, i32, ptr]
+            lib.binpack_cluster_lanes_launch.restype = i32
             lib.binpack_cluster_occupancy.argtypes = [
                 i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
             lib.binpack_cluster_occupancy.restype = i32
@@ -944,7 +963,7 @@ def _launch(inp: KernelInputs, route: Route) -> KernelOutputs:
         if rc != 0:
             raise _cuda_error(lib, f"binpack cluster kernel launch "
                               f"({route.shards} CTAs, {route.kind})", rc)
-    LAUNCHES[route.kind] += 1
+    _count(route.kind)
     return out
 
 
@@ -976,6 +995,175 @@ def binpack_sharded(inp: KernelInputs, shards: int) -> KernelOutputs:
     if not 2 <= shards <= MAX_SHARDS:
         raise ValueError(f"shards must be 2..{MAX_SHARDS}, got {shards}")
     return _run(inp, route_of(inp, shards))
+
+
+class LaneInputs(NamedTuple):
+    """K plain solves laid out for one lane-batched launch
+    (:func:`binpack_lanes`): pod fields ``[K, P, ...]`` (a lane with
+    fewer pods is padded with blocked pods), the node fields ``[B, N,
+    ...]`` with ``B`` 1 (one base every lane reads) or K (a base per
+    lane, a smaller world padded with unschedulable zero rows), and each
+    lane's LoadAware verdicts, weights and weight sum."""
+
+    req: torch.Tensor     # [K,P,8] int32, column 0 = BLOCKED_REQ for blocked pods
+    est: torch.Tensor     # [K,P,8]
+    flags: torch.Tensor   # [K,P,4]
+    alloc: torch.Tensor   # [B,N,8]
+    usage: torch.Tensor   # [B,N,8]
+    sched: torch.Tensor   # [B,N]
+    fresh: torch.Tensor   # [B,N]
+    la_ok: torch.Tensor   # [K,N]
+    weight: torch.Tensor  # [K,8]
+    wsum: torch.Tensor    # [K] int32, Σ weight or 1 when that is 0
+    used0: torch.Tensor   # [B,N,8]
+    est0: torch.Tensor
+    prod0: torch.Tensor
+
+
+class LaneOutputs(NamedTuple):
+    assign: torch.Tensor  # [K,P] int32, -1 = not placed
+    used: torch.Tensor    # [K,N,8] carries after each lane's solve
+    est: torch.Tensor
+    prod: torch.Tensor
+
+
+def lane_inputs(state: NodeState, pods: PodBatch,
+                params: ScoreParams) -> LaneInputs:
+    """Lay K plain solves out for :func:`binpack_lanes`: ``state``'s
+    fields carry a leading base axis of 1 or K, ``pods``' and ``params``'
+    a lane axis of K (:func:`kernel_inputs` per lane, stacked)."""
+    k = pods.req.shape[0]
+    upct = percent_rounded(state.usage, state.alloc)
+    thr = params.thresholds[:, None, :]
+    over = (state.alloc > 0) & (thr > 0) & (upct >= thr)
+    req = pods.req.to(I32).clone()
+    req[..., 0] = torch.where(pods.blocked, BLOCKED_REQ, req[..., 0])
+    flags = torch.stack([
+        (pods.is_daemonset & ~pods.blocked).to(I32),
+        pods.is_prod.to(I32),
+        pods.quota_id.to(I32),
+        pods.non_preemptible.to(I32),
+    ], dim=-1)
+    weight = params.weights.to(I32)
+    wsum = weight.sum(dim=1, dtype=I32)
+    return LaneInputs(
+        req=req, est=pods.est.to(I32).contiguous(), flags=flags.contiguous(),
+        alloc=state.alloc.to(I32).contiguous(),
+        usage=state.usage.to(I32).contiguous(),
+        sched=state.schedulable.to(I32).contiguous(),
+        fresh=state.metric_fresh.to(I32).contiguous(),
+        la_ok=(~over.any(dim=-1)).to(I32).expand(k, -1).contiguous(),
+        weight=weight.contiguous(),
+        wsum=torch.where(wsum == 0, 1, wsum).to(I32).contiguous(),
+        used0=state.used_req.to(I32).contiguous(),
+        est0=state.est_extra.to(I32).contiguous(),
+        prod0=state.prod_base.to(I32).contiguous())
+
+
+def lane_route(inp: LaneInputs) -> Optional[Route]:
+    """The route of a lane batch, one for every lane: :func:`kernel_route`
+    of the plain solve at the lanes' node count."""
+    return kernel_route(int(inp.alloc.shape[1]))
+
+
+def lane(inp: LaneInputs, i: int) -> KernelInputs:
+    """Lane ``i`` of a lane batch as the inputs of one solve."""
+    b = i if inp.alloc.shape[0] > 1 else 0
+    return KernelInputs(
+        req=inp.req[i], est=inp.est[i], flags=inp.flags[i],
+        alloc=inp.alloc[b], usage=inp.usage[b], sched=inp.sched[b],
+        fresh=inp.fresh[b], la_ok=inp.la_ok[i], weight=inp.weight[i],
+        wsum=int(inp.wsum[i]), used0=inp.used0[b], est0=inp.est0[b],
+        prod0=inp.prod0[b])
+
+
+def binpack_lanes_plain(inp: LaneInputs,
+                        route: Optional[Route] = None) -> LaneOutputs:
+    """The lane launch's plain version: the plain version of the kernel
+    ``route`` names (:func:`lane_route` unless given) run lane by lane."""
+    route = lane_route(inp) if route is None else route
+    shards = 1 if route.kind == "block" else route.shards
+    outs = [_plain(lane(inp, i), shards) for i in range(inp.req.shape[0])]
+    return LaneOutputs(*(torch.stack([getattr(o, f) for o in outs])
+                         for f in LaneOutputs._fields))
+
+
+def _launch_lanes(inp: LaneInputs, route: Route) -> LaneOutputs:
+    """One launch of the kernel ``route`` names with the lanes along the
+    grid's y axis, on the inputs' device and current stream."""
+    dev = inp.alloc.device
+    k, p = inp.req.shape[:2]
+    b, n = inp.alloc.shape[:2]
+    if not (0 < n <= MAX_NODES and p > 0 and 0 < k <= 65535):
+        raise ValueError(f"the lane kernel needs 1..{MAX_NODES} nodes, pods "
+                         f"and 1..65,535 lanes, got {n} nodes, {p} pods, "
+                         f"{k} lanes")
+    if b not in (1, k):
+        raise ValueError(f"{b} bases for {k} lanes: one, or one per lane")
+    for name, shape in (("req", (k, p, R)), ("est", (k, p, R)),
+                        ("flags", (k, p, 4)), ("alloc", (b, n, R)),
+                        ("usage", (b, n, R)), ("sched", (b, n)),
+                        ("fresh", (b, n)), ("la_ok", (k, n)),
+                        ("weight", (k, R)), ("wsum", (k,)),
+                        ("used0", (b, n, R)), ("est0", (b, n, R)),
+                        ("prod0", (b, n, R))):
+        _check(name, getattr(inp, name), shape, dev)
+    lib = _library()
+    flat = KernelInputs(req=inp.req.reshape(k * p, R),
+                        est=inp.est.reshape(k * p, R),
+                        flags=inp.flags.reshape(k * p, 4), alloc=None,
+                        usage=None, sched=None, fresh=None, la_ok=None,
+                        weight=None, wsum=0, used0=None, est0=None,
+                        prod0=None)
+    rec = pod_records(flat)
+    assign = torch.empty((k, p), dtype=I32, device=dev)
+    used, est, prod = (torch.empty((k, n, R), dtype=I32, device=dev)
+                       for _ in range(3))
+    args = (rec.data_ptr(), p, rec.shape[1], route.chunk,
+            inp.alloc.data_ptr(), inp.usage.data_ptr(), inp.sched.data_ptr(),
+            inp.fresh.data_ptr(), inp.la_ok.data_ptr(), n,
+            inp.weight.data_ptr(), inp.wsum.data_ptr(),
+            inp.used0.data_ptr(), inp.est0.data_ptr(), inp.prod0.data_ptr(),
+            assign.data_ptr(), used.data_ptr(), est.data_ptr(),
+            prod.data_ptr(), k, int(b > 1))
+    if route.kind == "block":
+        rc = _on_device(dev, lambda stream: lib.binpack_lanes_launch(
+            *args, route.smem, stream))
+    else:
+        work = (torch.empty(k * route.work, dtype=torch.uint8, device=dev)
+                if route.kind == "l2" else None)
+        rc = _on_device(dev, lambda stream: lib.binpack_cluster_lanes_launch(
+            *args, route.shards, route.n_loc, int(route.kind == "cluster"),
+            _ptr(work), route.work, route.smem, stream))
+    if rc != 0:
+        raise _cuda_error(lib, f"binpack lane kernel launch ({k} lanes, "
+                          f"{route.kind}, {route.shards} CTAs a lane)", rc)
+    _count("lanes")
+    return LaneOutputs(assign, used, est, prod)
+
+
+def binpack_lanes(inp: LaneInputs) -> LaneOutputs:
+    """K plain solves as one launch of the kernel :func:`lane_route`
+    names, lane ``i`` on ``blockIdx.y == i``, for CUDA tensors; the plain
+    version lane by lane for CPU tensors. Lane ``i``'s outputs equal
+    :func:`binpack` of :func:`lane` ``(inp, i)``. A batch whose lanes all
+    have no pods launches nothing: each lane's carries are its base's."""
+    route = lane_route(inp)
+    if route is None:
+        raise ValueError("no kernel takes this solve (kernel_route): "
+                         "use the loop solver")
+    k, p = inp.req.shape[:2]
+    if p == 0:
+        def carry(t):
+            return t.expand(k, -1, -1).clone()
+
+        return LaneOutputs(inp.req.new_zeros((k, 0)), carry(inp.used0),
+                           carry(inp.est0), carry(inp.prod0))
+    if inp.alloc.device.type == "cuda":
+        return _launch_lanes(inp, route)
+    if inp.alloc.device.type != "cpu":
+        raise ValueError(f"unsupported device {inp.alloc.device}")
+    return binpack_lanes_plain(inp, route)
 
 
 def cluster_occupancy(shards: int, device) -> int:

@@ -1,0 +1,471 @@
+"""The solver sidecar (counterpart of ``koordinator_tpu/service/server.py``):
+the batched placement solve behind the wire boundary, on one device
+(``cuda`` unless ``device`` says otherwise).
+
+One thread per connection reads request frames; every solve passes
+through the admission gate (``service/admission.py``), a bounded,
+QoS-laned queue drained by one executor thread that batches same-base
+and same-shape plain requests into one lane-batched kernel launch
+(``PlacementService(admission=False)`` solves inline on the handler
+thread instead). A solve routes as the in-process model does: the
+hand-written kernel ``ops/binpack_kernel.kernel_route`` names when
+``kernel_supported`` and ``kernel_routing_ok`` accept it, else the loop
+``solve_batch``. A kernel build or launch failure is answered with the
+boundary's typed error response; it never runs the loop or a plain
+version in its place (the reference's ``KernelBreaker`` and its scan
+fallback are not ported, on purpose).
+
+The wire ``extras`` group is the dense ``[P,N]`` ``Extras``; the server
+compacts it into ``ExtrasRows`` (pods with equal rows share one) before
+the kernel. The wire ``config`` is read by ``tenancy.decode_config`` (the
+reference's ``_decode_config``). The delta protocol (``node_delta``)
+patches a per-tenant, per-connection base (:class:`NodeStateCache`) with
+``scatter_node_rows``; the reference's ``bucket_row_update`` and its
+donated/copied scatters exist to share XLA compiles and are not needed.
+
+Security: a UDS inherits filesystem permissions; TCP is for trusted
+networks unless ``secret=`` is set, in which case the first frame of
+every connection must carry the shared secret or the connection is
+dropped before any solve runs.
+
+Not ported yet (ROADMAP): the working-set registration and demotion of
+staged bases (``state/workingset.py``), the AOT warm pool, the trace,
+flight-recorder and device-observatory hooks.
+"""
+
+from __future__ import annotations
+
+import functools
+import hmac
+import os
+import socket
+import socketserver
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from koordinator_tpu_torch import DeviceLike, resolve_device
+from koordinator_tpu_torch.ops.binpack import (
+    STAGED_NODE_FIELDS,
+    ExtrasRows,
+    NodeState,
+    NumaAux,
+    PodBatch,
+    ResvArrays,
+    ScoreParams,
+    SolverConfig,
+    scatter_node_rows,
+    solve_batch,
+)
+from koordinator_tpu_torch.ops.binpack_kernel import (
+    BASE_SCORE_WORST,
+    LAUNCHES,
+    kernel_extras_score_safe,
+    kernel_resv_score_safe,
+    kernel_routing_ok,
+    kernel_solve_batch,
+    resv_score_worst,
+)
+from koordinator_tpu_torch.ops.gang import GangState
+from koordinator_tpu_torch.ops.quota import QuotaState
+from koordinator_tpu_torch.service.admission import (
+    AdmissionConfig,
+    AdmissionGate,
+)
+from koordinator_tpu_torch.service.codec import (
+    SolveRequest,
+    SolveResponse,
+    decode_request,
+    encode_response,
+    read_frame,
+    write_frame,
+)
+from koordinator_tpu_torch.service.tenancy import (
+    decode_config,
+    request_tenant,
+    wire_kernel_supported,
+)
+
+#: the wire NodeState columns: exactly the staged columns the delta
+#: protocol patches
+NODE_FIELDS = STAGED_NODE_FIELDS
+POD_FIELDS = (
+    "req", "est", "is_prod", "is_daemonset", "quota_id", "non_preemptible",
+    "gang_id", "blocked", "has_numa_policy",
+)
+
+#: per-connection delta bases are LRU-bounded: a connection cycling
+#: tenant ids cannot grow the sidecar's memory without bound (an evicted
+#: tenant's next delta gets the typed mismatch and re-establishes)
+MAX_CONNECTION_TENANTS = 32
+
+
+def _put(a, device) -> torch.Tensor:
+    """A wire array on ``device``, always a copy (a CPU tensor must never
+    share memory with a host array the cache patches)."""
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    """A result tensor as a host array of its own."""
+    return None if t is None else np.array(t.cpu())
+
+
+class NodeStateCache:
+    """Per-(connection, tenant) staged node state for the delta protocol.
+
+    A full request carrying ``node_delta["epoch"]`` establishes the base:
+    the host arrays (the eligibility checks read them) and the staged
+    ``NodeState`` on ``device``. A delta request patches both: the host
+    rows by assignment, the staged ones by ``scatter_node_rows``. The
+    generation rule is the staging cache's (``StagedStateCache.pin``):
+    while a solve holds the staged state (:meth:`pin`), the scatter
+    writes a new generation beside it; otherwise in place."""
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.host: Optional[Dict[str, np.ndarray]] = None
+        self.state: Optional[NodeState] = None
+        self.epoch: Optional[int] = None
+        self._pinned: Optional[NodeState] = None
+        self._lock = threading.Lock()
+
+    def establish(self, node_group, state: NodeState, epoch: int) -> None:
+        with self._lock:
+            self.host = {f: np.array(node_group[f], copy=True)
+                         for f in STAGED_NODE_FIELDS}
+            self.state = state
+            self.epoch = epoch
+
+    def apply(self, delta) -> NodeState:
+        """Patch the base with the delta's rows; returns the staged state
+        of the new epoch."""
+        with self._lock:
+            if self.state is None:
+                self.state = NodeState(**{f: _put(self.host[f], self.device)
+                                          for f in STAGED_NODE_FIELDS})
+            idx = np.asarray(delta["idx"], np.int64)
+            if idx.size:
+                rows = {f: np.asarray(delta[f]) for f in STAGED_NODE_FIELDS}
+                for f in STAGED_NODE_FIELDS:
+                    self.host[f][idx] = rows[f]
+                self.state = scatter_node_rows(
+                    self.state, torch.as_tensor(idx, device=self.device),
+                    {f: _put(rows[f], self.device) for f in rows},
+                    in_place=self.state is not self._pinned)
+            self.epoch = int(np.asarray(delta["epoch"]).item())
+            return self.state
+
+    def pin(self, state: Optional[NodeState]) -> None:
+        """``state`` is read by a solve that has not been read back."""
+        with self._lock:
+            self._pinned = state
+
+    def unpin(self, state: Optional[NodeState]) -> None:
+        with self._lock:
+            if self._pinned is state:
+                self._pinned = None
+
+    def close(self) -> None:
+        """Drop the base (the connection is gone)."""
+        with self._lock:
+            self.host = self.state = self._pinned = None
+
+
+def _state_group(cls, group, device):
+    """A NamedTuple-of-tensors feature state from its wire group (fields
+    absent on the wire stay None)."""
+    if group is None:
+        return None
+    return cls(**{f: (_put(group[f], device) if f in group else None)
+                  for f in cls._fields})
+
+
+def compact_extras(mask: np.ndarray, score: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dense ``[P,N]`` extras as compact rows ``(row_of_pod [P], mask
+    [X,N], score [X,N])``: pods with equal (mask, score) rows share one,
+    and a pod whose row is all feasible with score 0 has none (-1)."""
+    mask = np.ascontiguousarray(mask, bool)
+    score = np.ascontiguousarray(score, np.int32)
+    p = mask.shape[0]
+    if p == 0:
+        return (np.zeros(0, np.int32), np.zeros((0,) + mask.shape[1:], bool),
+                np.zeros((0,) + score.shape[1:], np.int32))
+    trivial = mask.all(axis=1) & (score == 0).all(axis=1)
+    keyed = np.concatenate([mask.view(np.uint8),
+                            score.view(np.uint8).reshape(p, -1)], axis=1)
+    row_of_pod = np.full(p, -1, np.int32)
+    keep = np.flatnonzero(~trivial)
+    if keep.size == 0:
+        return row_of_pod, mask[:0], score[:0]
+    _, first, inverse = np.unique(keyed[keep], axis=0, return_index=True,
+                                  return_inverse=True)
+    row_of_pod[keep] = inverse.reshape(-1)
+    return row_of_pod, mask[keep[first]], score[keep[first]]
+
+
+def _dispatch_solve(state, pods, params, config, quota, gang, extras, resv,
+                    numa, resv_score_safe: bool, extras_score_safe: bool,
+                    params_ok: bool):
+    """Eligible solves go to the kernel ``kernel_route`` names (the same
+    routing as the in-process model); the rest take the loop
+    ``solve_batch``. A kernel failure raises to the caller, which answers
+    with a typed error. Returns ``(result, "kernel" | "loop")``."""
+    if params_ok and kernel_routing_ok(state, pods, extras, resv,
+                                       resv_score_safe, numa,
+                                       extras_score_safe):
+        return kernel_solve_batch(
+            state, pods, params, quota, gang, numa_aux=numa, resv=resv,
+            most_allocated=config.numa_most_allocated,
+            resv_score_checked=True, extras=extras,
+            extras_score_checked=True), "kernel"
+    return solve_batch(state, pods, params, config, quota, gang, extras,
+                       resv, numa), "loop"
+
+
+def solve_from_request(req: SolveRequest,
+                       config: SolverConfig = SolverConfig(),
+                       node_cache: Optional[NodeStateCache] = None,
+                       device: DeviceLike = None) -> SolveResponse:
+    """Run one batched solve from wire arrays (the handler's body) on
+    ``device`` (the node cache's when one is given, else ``cuda`` unless
+    named). The optional groups map onto ``solve_batch``'s feature
+    states; a wire config overrides ``config``. ``node_cache`` serves
+    the delta protocol. Any failure, a kernel's included, is answered
+    with ``SolveResponse.error``."""
+    try:
+        device = (node_cache.device if node_cache is not None
+                  else resolve_device(device))
+        delta = req.node_delta
+        node_host = req.node
+        pinned = None
+        if delta is not None and "idx" in delta:
+            base = int(np.asarray(delta["base_epoch"]).item())
+            if (node_cache is None or node_cache.host is None
+                    or node_cache.epoch != base):
+                have = None if node_cache is None else node_cache.epoch
+                return SolveResponse(
+                    assignments=np.empty(0, np.int32),
+                    error=(f"delta-base-mismatch: server holds epoch "
+                           f"{have}, request expects {base}"))
+            state = pinned = node_cache.apply(delta)
+            node_host = node_cache.host
+        else:
+            state = NodeState(
+                **{f: _put(req.node[f], device) for f in NODE_FIELDS},
+                **{f: _put(req.node[f], device)
+                   for f in ("numa_cap", "numa_free") if f in req.node})
+            if (delta is not None and "epoch" in delta
+                    and node_cache is not None
+                    and "numa_cap" not in req.node):  # numa restages in full
+                node_cache.establish(
+                    req.node, state, int(np.asarray(delta["epoch"]).item()))
+                pinned = state
+        pods = PodBatch.build(**{f: _put(req.pods[f], device)
+                                 for f in POD_FIELDS if f in req.pods})
+        params = ScoreParams(**{f: _put(req.params[f], device)
+                                for f in ScoreParams._fields})
+        if req.config is not None:
+            config = decode_config(req.config)
+        resv = _state_group(ResvArrays, req.resv, device)
+        resv_safe = True
+        worst = BASE_SCORE_WORST
+        if req.resv is not None:
+            alloc = np.asarray(node_host["alloc"])
+            resv_safe = kernel_resv_score_safe(req.resv["node"],
+                                               req.resv["free"], alloc)
+            worst = resv_score_worst(req.resv["node"], req.resv["free"],
+                                     alloc)
+        extras = None
+        extras_safe = True
+        if req.extras is not None:
+            row_of_pod, xmask, xscore = compact_extras(req.extras["mask"],
+                                                       req.extras["score"])
+            extras = ExtrasRows(row_of_pod=_put(row_of_pod, device),
+                                mask=_put(xmask, device),
+                                score=_put(xscore, device))
+            extras_safe = kernel_extras_score_safe(xscore, worst)
+        if pinned is not None:
+            node_cache.pin(pinned)
+        try:
+            result, _ = _dispatch_solve(
+                state, pods, params, config,
+                _state_group(QuotaState, req.quota, device),
+                _state_group(GangState, req.gang, device),
+                extras, resv, _state_group(NumaAux, req.numa, device),
+                resv_safe, extras_safe,
+                wire_kernel_supported(req.params, config))
+            return SolveResponse(
+                assignments=_host(result.assign),
+                node_used_req=_host(result.node_state.used_req),
+                commit=_host(result.commit),
+                waiting=_host(result.waiting),
+                rejected=_host(result.rejected),
+                raw_assign=_host(result.raw_assign),
+                resv_vstar=_host(result.resv_vstar),
+                resv_delta=_host(result.resv_delta),
+            )
+        finally:
+            if pinned is not None:
+                node_cache.unpin(pinned)
+    except Exception as e:  # the boundary returns errors, never crashes
+        return SolveResponse(assignments=np.empty(0, np.int32),
+                             error=f"{type(e).__name__}: {e}")
+
+
+class _Handler(socketserver.BaseRequestHandler):
+    def handle(self):
+        stream = self.request.makefile("rwb")
+        server = self.server
+        server.active_connections.add(self.request)
+        #: per-connection delta bases, one per tenant, LRU by dict order
+        node_caches: Dict[str, NodeStateCache] = {}
+        try:
+            secret = server.shared_secret
+            if secret is not None:
+                # cap the pre-auth frame: an unauthenticated peer cannot
+                # make the server buffer a large frame
+                try:
+                    hello = read_frame(stream, max_frame=4096)
+                except (ValueError, EOFError, OSError):
+                    return
+                if hello is None or not hmac.compare_digest(hello, secret):
+                    return  # unauthenticated peer: dropped before any solve
+            while True:
+                try:
+                    payload = read_frame(stream)
+                except (EOFError, ValueError, OSError):
+                    return  # a dead or hostile peer, not a server fault
+                if payload is None:
+                    return
+                entry = None
+                try:
+                    request = decode_request(payload)
+                except Exception as e:
+                    response = SolveResponse(
+                        assignments=np.empty(0, np.int32),
+                        error=f"decode failed: {type(e).__name__}: {e}")
+                else:
+                    tenant = request_tenant(request)
+                    node_cache = node_caches.pop(tenant, None)
+                    if node_cache is None:
+                        node_cache = NodeStateCache(server.device)
+                        while len(node_caches) >= MAX_CONNECTION_TENANTS:
+                            node_caches.pop(next(iter(node_caches))).close()
+                    node_caches[tenant] = node_cache
+                    gate = server.admission_gate
+                    if gate is None:
+                        response = solve_from_request(
+                            request, server.solver_config, node_cache)
+                    else:
+                        entry = gate.submit(request, server.solver_config,
+                                            node_cache)
+                        response = entry.wait()
+                try:
+                    try:
+                        write_frame(stream, encode_response(response))
+                        stream.flush()
+                    except OSError:
+                        return  # the peer left before the reply landed
+                finally:
+                    if entry is not None:
+                        entry.delivered()
+        finally:
+            for cache in node_caches.values():
+                cache.close()
+            server.active_connections.discard(self.request)
+            stream.close()
+
+
+class PlacementService:
+    """The sidecar server on ``device`` (``cuda`` unless given): a UDS
+    path, or a ``(host, port)`` for TCP (trusted networks only unless
+    ``secret`` is set).
+
+    ``admission`` is True (the gate at its defaults), an
+    :class:`AdmissionConfig`, or False (inline solves on the handler
+    threads). ``tenants`` is the pool's ``TenantRegistry``."""
+
+    def __init__(self, address, config: SolverConfig = SolverConfig(),
+                 secret: Optional[bytes] = None, admission=True,
+                 tenants=None, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.address = address
+        if isinstance(address, str):
+            # a dead predecessor leaves its socket file behind: unlink it
+            # iff nothing is accepting there
+            if os.path.exists(address):
+                probe = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                try:
+                    probe.connect(address)
+                except OSError:
+                    os.unlink(address)
+                else:
+                    probe.close()
+                    raise OSError(f"address in use: {address}")
+            server_cls = type(
+                "_UnixServer", (socketserver.ThreadingUnixStreamServer,),
+                {"daemon_threads": True, "request_queue_size": 64})
+        else:
+            server_cls = type(
+                "_TCPServer", (socketserver.ThreadingTCPServer,),
+                {"daemon_threads": True, "allow_reuse_address": True,
+                 "request_queue_size": 64})
+        self._server = server_cls(address, _Handler)
+        self._server.solver_config = config
+        self._server.shared_secret = secret
+        self._server.device = self.device
+        self._server.active_connections = set()
+        if admission:
+            gate_cfg = (admission if isinstance(admission, AdmissionConfig)
+                        else AdmissionConfig())
+            self.gate: Optional[AdmissionGate] = AdmissionGate(
+                functools.partial(solve_from_request, device=self.device),
+                gate_cfg,
+                peer_count=self._server.active_connections.__len__,
+                tenants=tenants, device=self.device)
+        else:
+            self.gate = None
+        self._server.admission_gate = self.gate
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def status(self) -> dict:
+        """The address served, live connections, the device and the
+        kernel launches so far, the admission gate's stats, and what of
+        the reference's status is not ported."""
+        return {
+            "address": self.address,
+            "active_connections": len(self._server.active_connections),
+            "device": str(self.device),
+            "kernel_launches": dict(LAUNCHES),
+            "admission": None if self.gate is None else self.gate.stats(),
+            "not_ported": ["kernel_breaker (a kernel failure is a typed "
+                           "error response)", "device", "warm_pool",
+                           "preemption", "workingset"],
+        }
+
+    def stop(self) -> None:
+        # drain the gate first: queued requests get a typed shutting-down
+        # frame before the connections are severed
+        if self.gate is not None:
+            self.gate.shutdown()
+            self.gate.wait_delivered(timeout=2.0)
+        if self._thread is not None:
+            # waits for serve_forever to return: only once it was started
+            self._server.shutdown()
+        for conn in list(self._server.active_connections):
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self._server.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import copy
 import random
+from typing import Sequence
 
 import numpy as np
 
@@ -1081,3 +1082,154 @@ def sweep_cut_across_tile(edge, columns=(int(MEM),), before=6):
         filler + [(100, 50, a_pods), (200, 50, [5, 5, 5])], columns)
     available = np.where(res_mask, 65, 10**6).astype(np.int64)
     return arrays, available, res_mask, np.zeros(len(arrays["valid"]), bool)
+
+
+# -- solver-sidecar requests -------------------------------------------------
+
+#: the request cases :func:`service_request_groups` builds
+SERVICE_CASES = ("plain", "quota_gang", "resv", "numa_least", "numa_most",
+                 "extras", "weights")
+
+
+def service_request_groups(case: str, n_nodes: int = 32, n_pods: int = 24,
+                           seed: int = 0) -> dict:
+    """The wire groups (numpy) of one seeded solve request, as either
+    package's ``SolveRequest(**groups)`` takes them: ``node``, ``pods``,
+    ``params`` and, by ``case`` (:data:`SERVICE_CASES`), ``quota`` and
+    ``gang`` (built states, the wire form), ``resv`` (8 reservations),
+    ``numa`` (with the node group's inventories; ``config`` names the
+    scorer), dense ``extras``, or non-unit plugin weights (``config``:
+    the loop route)."""
+    nodes, pods, params, quota, gang = quota_gang_arrays(
+        n_nodes, n_pods - 2 * 4, 3, 2, 4, seed=seed)
+    groups = dict(node={k: nodes[k] for k in (
+        "alloc", "used_req", "usage", "prod_usage", "est_extra",
+        "prod_base", "metric_fresh", "schedulable")},
+        pods=dict(pods), params=params)
+    if case == "plain":
+        for k in ("quota_id", "non_preemptible", "gang_id", "blocked"):
+            del groups["pods"][k]
+    elif case == "quota_gang":
+        def wire(state):
+            return {k: v.numpy() for k, v in state._asdict().items()
+                    if v is not None}
+
+        groups["quota"] = wire(QuotaState.build(**quota, device="cpu"))
+        groups["gang"] = wire(GangState.build(**gang, device="cpu"))
+    elif case == "resv":
+        groups["resv"] = resv_table_arrays(n_nodes, n_pods, 8, seed=seed + 8)
+    elif case in ("numa_least", "numa_most"):
+        cap, free, has_policy, node_policy = numa_arrays(
+            nodes["alloc"], n_pods, seed=seed + 7)
+        groups["node"].update(numa_cap=cap, numa_free=free)
+        groups["pods"]["has_numa_policy"] = has_policy
+        groups["numa"] = dict(node_policy=node_policy)
+        groups["config"] = dict(numa_most_allocated=np.asarray(
+            case == "numa_most"))
+    elif case == "extras":
+        mask, score = dense_extras(*extras_arrays(
+            n_nodes, n_pods, selector_frac=0.3, scored_frac=0.2,
+            seed=seed + 13))
+        groups["extras"] = dict(mask=mask, score=score)
+    elif case == "weights":
+        groups["config"] = dict(fit_weight=np.asarray(2),
+                                loadaware_weight=np.asarray(3))
+    else:
+        raise ValueError(f"unknown case {case!r}")
+    return groups
+
+
+def concurrent_solve_groups(n_nodes: int = 500, n_pods: int = 32) -> dict:
+    """The reference's bench config #10 request (``bench.py``
+    ``bench_concurrent_solve``): one plain full-state request every
+    client sends, drawn as the bench draws it."""
+    rng = np.random.default_rng(0)
+    alloc = np.zeros((n_nodes, NUM_RESOURCES), np.int32)
+    alloc[:, CPU] = 64000
+    alloc[:, MEM] = 131072
+    used = np.zeros_like(alloc)
+    used[:, CPU] = rng.integers(0, 30000, n_nodes)
+    used[:, MEM] = rng.integers(0, 65536, n_nodes)
+    node = {"alloc": alloc, "used_req": used,
+            "usage": np.zeros_like(alloc), "prod_usage": np.zeros_like(alloc),
+            "est_extra": np.zeros_like(alloc),
+            "prod_base": np.zeros_like(alloc),
+            "metric_fresh": np.ones(n_nodes, bool),
+            "schedulable": np.ones(n_nodes, bool)}
+    return dict(node=node, pods=_concurrent_pods(rng, n_pods),
+                params=_bench_params())
+
+
+def concurrent_pod_sets(counts: Sequence[int], seed: int = 1) -> list:
+    """Pod groups for lanes on :func:`concurrent_solve_groups`' base, one
+    of each count, drawn as that request's pods are, each from its own
+    stream (``seed + i``): K different requests that coalesce."""
+    return [_concurrent_pods(np.random.default_rng(seed + i), p)
+            for i, p in enumerate(counts)]
+
+
+def _concurrent_pods(rng, n_pods: int) -> dict:
+    req = np.zeros((n_pods, NUM_RESOURCES), np.int32)
+    req[:, CPU] = rng.integers(200, 2000, n_pods)
+    req[:, MEM] = rng.integers(128, 2048, n_pods)
+    return {"req": req, "est": (req * 85) // 100,
+            "is_prod": np.zeros(n_pods, bool),
+            "is_daemonset": np.zeros(n_pods, bool)}
+
+
+def _bench_params() -> dict:
+    weights = np.zeros(NUM_RESOURCES, np.int32)
+    weights[[CPU, MEM]] = 1
+    thresholds = np.zeros(NUM_RESOURCES, np.int32)
+    thresholds[CPU], thresholds[MEM] = 65, 95
+    return {"weights": weights, "thresholds": thresholds,
+            "prod_thresholds": np.zeros(NUM_RESOURCES, np.int32)}
+
+
+def tenant_stream(tenant_i: int, rounds: int, n_nodes: int = 1024,
+                  n_pods: int = 64) -> list:
+    """The reference's bench config #16 (``bench.py``
+    ``bench_multi_tenant_pool``) round stream of one tenant on the
+    wire-delta protocol, as wire groups per round: round 0 establishes
+    the tenant's own world (full node group, ``node_delta`` epoch 0),
+    every later round patches 16 dirty rows of it (``base_epoch`` r - 1,
+    ``epoch`` r) beside that tick's pod burst. Drawn as the bench draws
+    it; the caller adds the tenant's ``admission`` group."""
+    rng = np.random.default_rng(1000 + tenant_i)
+    alloc = np.zeros((n_nodes, NUM_RESOURCES), np.int32)
+    alloc[:, CPU] = 64000
+    alloc[:, MEM] = 131072
+    used = np.zeros_like(alloc)
+    used[:, CPU] = rng.integers(0, 30000, n_nodes)
+    used[:, MEM] = rng.integers(0, 65536, n_nodes)
+    node = {"alloc": alloc, "used_req": used,
+            "usage": np.zeros_like(alloc), "prod_usage": np.zeros_like(alloc),
+            "est_extra": np.zeros_like(alloc),
+            "prod_base": np.zeros_like(alloc),
+            "metric_fresh": np.ones(n_nodes, bool),
+            "schedulable": np.ones(n_nodes, bool)}
+    params = _bench_params()
+
+    def tick_pods(r):
+        rng = np.random.default_rng(7_000_000 + tenant_i * 10_000 + r)
+        req = np.zeros((n_pods, NUM_RESOURCES), np.int32)
+        req[:, CPU] = rng.integers(200, 2000, n_pods)
+        req[:, MEM] = rng.integers(128, 2048, n_pods)
+        return {"req": req, "est": (req * 85) // 100,
+                "is_prod": np.zeros(n_pods, bool),
+                "is_daemonset": np.zeros(n_pods, bool)}
+
+    out = [dict(node={k: v.copy() for k, v in node.items()}, params=params,
+                pods=tick_pods(0),
+                node_delta={"epoch": np.asarray(0, np.int64)})]
+    for r in range(1, rounds):
+        rng = np.random.default_rng(7_000_000 + tenant_i * 10_000 + r)
+        idx = rng.choice(n_nodes, 16, replace=False)
+        node["used_req"][idx, CPU] = rng.integers(0, 40000, idx.size)
+        delta = {"idx": idx.astype(np.int32),
+                 "base_epoch": np.asarray(r - 1, np.int64),
+                 "epoch": np.asarray(r, np.int64)}
+        delta.update({f: node[f][idx] for f in node})
+        out.append(dict(node={}, params=params, pods=tick_pods(r),
+                        node_delta=delta))
+    return out

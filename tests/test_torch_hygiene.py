@@ -6,10 +6,12 @@ This file imports no JAX, so the ``cuda`` cases can run on a machine with
 a GPU and no JAX: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_hygiene.py``."""
 
+import os
 import pkgutil
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -45,7 +47,11 @@ def test_every_module_imports_without_jax():
               "descheduler.framework", "descheduler.loadaware",
               "descheduler.migration", "descheduler.kubernetes",
               "ops.rebalance", "oracle.rebalance", "control.migration",
-              "metrics.registry", "metrics.components", "obs.timeline"):
+              "metrics.registry", "metrics.components", "obs.timeline",
+              # the serving slice: the sidecar, its gate and lanes, the
+              # client and the solver binary
+              "service.codec", "service.tenancy", "service.admission",
+              "service.server", "service.client", "cmd.solver"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -126,7 +132,35 @@ def _entry_points():
         return {k: None if v is None else v.numpy()
                 for k, v in state._asdict().items()}
 
+    def sidecar(**kw):
+        # the service binds its socket only after resolving its device
+        from types import SimpleNamespace
+
+        from koordinator_tpu_torch.service.server import PlacementService
+
+        with tempfile.TemporaryDirectory() as d:
+            service = PlacementService(os.path.join(d, "s.sock"), **kw)
+            service.stop()
+        return SimpleNamespace(device=service.device)
+
+    def gate(**kw):
+        from types import SimpleNamespace
+
+        from koordinator_tpu_torch.service.admission import AdmissionGate
+
+        g = AdmissionGate(lambda *a: None, **kw)
+        g.shutdown(timeout=5.0)
+        return SimpleNamespace(device=g.device)
+
+    def node_cache(**kw):
+        from koordinator_tpu_torch.service.server import NodeStateCache
+
+        return NodeStateCache(**kw)
+
     return [
+        ("service.PlacementService", sidecar),
+        ("service.AdmissionGate", gate),
+        ("service.NodeStateCache", node_cache),
         ("PlacementModel", lambda **kw: PlacementModel(**kw).params.weights),
         ("Scheduler", lambda **kw: scheduler_model(**kw).params.weights),
         ("Scheduler() with the reference's defaults (preemption on the "
