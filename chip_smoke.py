@@ -150,6 +150,33 @@ the microseconds per pod and the bound (see :func:`bound`).
    empty kernel at the scan kernel's launch shape is timed beside it.
    Each pass is driven with the launch counts zeroed just before and read
    just after.
+13. Serving: the solver sidecar on the card (phase 3's world through
+   ``PlacementModel(backend=RemoteSolver)``, config #10's concurrent
+   clients inline and gated, config #16's tenant pool, the lane kernel
+   alone at K = 1-16, the solver binary).
+14. The colocation loop on the card, on a seeded world at the scale of
+   the overcommit calculator's own docstring (``testing.
+   colocation_world_spec``: 5,000 nodes with native CPU and memory, 10%
+   under a node-selector strategy override, 2% with a cpu-normalization
+   ratio and 2% with a node reservation; 50,000 running pods, 60% prod
+   LS, 10% LSE, 30% BE or free, 20% of the prod pods without usage;
+   2,000 dangling usage entries; a NodeMetric per node, 5% stale, 5% with
+   a BE host application; then 10,000 pending BE pods on batch CPU and
+   memory). (a) ``NodeResourceController(device="cuda").reconcile_all``
+   equals the same call on the CPU, every update field; its lowering,
+   the step (CUDA events around ``_overcommit_step``), the read-back and
+   the wall (median of 5 after a warm-up), the step's launches (torch
+   profiler) and bound. (b) One ``APIServer``, ``Scheduler()`` on the
+   card through ``wire_scheduler`` and ``wire_manager`` on the card: the
+   world and the wave applied, round 1 places no BE pod, a reconcile
+   PATCHes the batch columns, round 2 places the wave through the routed
+   kernel (its delta restage == the synced nodes), 1% of the metrics
+   change, a second reconcile syncs only nodes past the diff threshold
+   and round 3 restages only the rows those events touched. Every round's
+   placements, every published bind and every PATCHed node equal the same
+   loop on the CPU; batch capacity holds on every node a round placed
+   onto. Round 2's kernel is timed; the placement kernel is held against
+   its twin on round 3's inputs and timed (``binpack_colocation``).
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -180,6 +207,12 @@ from koordinator_tpu_torch.apis.types import (
     ReservationState,
     resources_to_vector,
 )
+from koordinator_tpu_torch.client import (
+    APIServer,
+    Kind,
+    wire_manager,
+    wire_scheduler,
+)
 from koordinator_tpu_torch.control.migration import (
     MigrationArbiter,
     MigrationBudget,
@@ -191,6 +224,9 @@ from koordinator_tpu_torch.descheduler import (
     loadaware,
 )
 from koordinator_tpu_torch.descheduler.framework import Evictor
+from koordinator_tpu_torch.manager import noderesource, sloconfig
+from koordinator_tpu_torch.manager.noderesource import NodeResourceController
+from koordinator_tpu_torch.metrics.components import POD_E2E
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
@@ -201,6 +237,7 @@ from koordinator_tpu_torch.ops.binpack import (
 )
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.ops import rebalance as rb
+from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.oracle.rebalance import RebalanceOracle
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
@@ -322,6 +359,14 @@ SOCKET_TIMEOUT_S = 600.0
 #: solves (admission.py: one shared base; tenancy.py: a base per lane)
 LANES_REPLACES = ("koordinator_tpu/service/admission.py:238",
                   "koordinator_tpu/service/tenancy.py:409")
+
+# phase 14: the overcommit docstring's scale (nodes, running pods a node,
+# dangling usage entries, pending BE pods, seed); the share of metrics
+# changed before the second reconcile; the controller's timed repeats
+COLOC_NODES, COLOC_PPN, COLOC_DANGLING, COLOC_PENDING, COLOC_SEED = (
+    5000, 10, 2000, 10000, 11)
+COLOC_CHANGED = 0.01
+COLOC_REPEATS = 5
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -2025,6 +2070,244 @@ def serving(card) -> list:
     ]
 
 
+# -- 14. the colocation loop --------------------------------------------------
+
+def update_record(updates) -> list:
+    """Every field of a reconcile's updates, package-neutral."""
+    return [(u.node_name, {int(k): v for k, v in u.allocatable.items()},
+             u.synced, u.degraded, dict(u.annotations), u.meta_synced)
+            for u in updates]
+
+
+def step_launches(args):
+    """Device-side events (kernels and memsets) of one ``_overcommit_step``
+    on ``args``, by the torch profiler; None where the profiler records
+    none on this machine."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            noderesource._overcommit_step(*args)
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("Memcpy"))
+    except Exception as exc:  # the profiler is not part of the contract
+        print(f"torch profiler: {exc!r}", flush=True)
+        return None
+    return n or None
+
+
+def step_bytes(args) -> int:
+    """Bytes the step must move: every input read once, the ``[N, R]``
+    allocatable and ``[N]`` sync mask written once."""
+    tensors = []
+    for a in args:
+        tensors += list(a) if isinstance(a, tuple) else [a]
+    n, r = args[0].capacity.shape
+    return (sum(t.numel() * t.element_size() for t in tensors)
+            + n * r * 4 + n)
+
+
+def controller_phase(spec, card) -> None:
+    """Phase 14 (a): the controller on the card against the CPU, its split
+    and wall, the step's launches and bound."""
+    config = testing.colocation_config(spec, sloconfig)
+    step = noderesource._overcommit_step
+    timed, captured = [], []
+
+    def traced(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        timed.append((start, end))
+        captured.append(args)
+        return out
+
+    def reconcile(device):
+        ctrl = NodeResourceController(config, device=device)
+        snap = testing.colocation_snapshot(spec, ttypes)
+        t0 = time.perf_counter()
+        updates = ctrl.reconcile_all(snap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return update_record(updates), ctrl.last_timings, wall, snap
+
+    noderesource._overcommit_step = traced
+    try:
+        got, _, _, gpu_snap = reconcile(None)
+        runs = [reconcile(None) for _ in range(COLOC_REPEATS)]
+    finally:
+        noderesource._overcommit_step = step
+    want, cpu_tm, cpu_wall, cpu_snap = reconcile("cpu")
+    assert got == want, "controller: cuda != cpu updates"
+    assert ([dict(n.allocatable) for n in gpu_snap.nodes]
+            == [dict(n.allocatable) for n in cpu_snap.nodes])
+    synced = sum(u[2] for u in got)
+    degraded = sum(u[3] for u in got)
+    assert 0 < synced < len(got) and degraded > 0, (synced, degraded)
+    step_ms = [s.elapsed_time(e) for s, e in timed[1:]]
+
+    def med(key):
+        return statistics.median(tm[key] for _, tm, _, _ in runs)
+
+    args = captured[0]
+    launches = step_launches(args)
+    nbytes = step_bytes(args)
+    bound_ms, bound_by = bound_of(nbytes, 0)
+    n_pods = int(args[1].req.shape[0])
+    print(f"colocation (a) NodeResourceController [{card}]: "
+          f"{len(got)} nodes, {n_pods} pod rows (dangling included): "
+          f"{synced} synced, {degraded} degraded; cuda == cpu (every "
+          f"update field and node); median of {COLOC_REPEATS} after a "
+          f"warm-up: lower_s {med('lower_s'):.4f} stage_s "
+          f"{med('stage_s'):.4f} step (CUDA events) "
+          f"{statistics.median(step_ms):.4f} ms readback_s "
+          f"{med('readback_s'):.4f} wall "
+          f"{statistics.median(w for _, _, w, _ in runs):.4f} s; cpu wall "
+          f"{cpu_wall:.4f} s (step_s {cpu_tm['step_s']:.4f}); step launches "
+          f"{'not measured' if launches is None else launches}, "
+          f"{nbytes} B, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+
+
+def colocation_loop(spec, changes, device=None, card=None):
+    """Phase 14 (b) on ``device`` (the card unless given): the wired loop.
+    Returns ``(record, kernel captures)``: the record holds every round's
+    placements, published binds and every reconcile's synced count and
+    PATCHed nodes."""
+    on_card = device is None
+    bus = APIServer()
+    sched = Scheduler(model=PlacementModel(device=device))
+    wire_scheduler(bus, sched)
+    manager = wire_manager(bus, NodeResourceController(
+        testing.colocation_config(spec, sloconfig), device=device))
+    published, patched = [], []
+    bus.watch(Kind.POD, lambda e, name, pod: published.append(
+        (name, pod.node_name)) if e.value == "MODIFIED" else None)
+    bus.watch(Kind.NODE, lambda e, name, node: patched.append(
+        (name, {int(k): v for k, v in node.allocatable.items()}))
+        if e.value == "MODIFIED" else None)
+    testing.apply_colocation(bus, Kind, spec, ttypes)
+    index = {name: i for i, name in enumerate(sched.cache.nodes)}
+    now = spec["now"]
+    record, captures, lines = [], [], []
+    e2e_before = {lane: POD_E2E.count({"lane": lane})
+                  for lane in ("system", "ls", "be")}
+
+    def round_(k, t):
+        del published[:]
+        if on_card:
+            result, launches, wall, captured = drive(
+                lambda: sched.schedule_pending(now=t))
+            inp, route = routed(f"colocation round {k}", launches, captured,
+                                "cluster")
+            captures.append((frozen(inp), route, launches[route.kind]))
+        else:
+            t0 = time.perf_counter()
+            result = sched.schedule_pending(now=t)
+            wall = time.perf_counter() - t0
+        placed = {u: n for u, n in result.items() if n is not None}
+        capacity_batch(sched, set(placed.values()))
+        delta = sched.model.staged_cache.last_delta
+        rows = None if delta.idx is None else sorted(int(i) for i in delta.idx)
+        record.append(("round", k, dict(result), sorted(published)))
+        tm = sched.model.last_timings
+        lines.append(f"round {k}: {len(placed)}/{len(result)} placed; "
+                     f"{sched.model.last_staging} staging "
+                     f"({'all' if rows is None else len(rows)} rows); wall "
+                     f"{wall:.4f} s (lower_s {tm['lower_s']:.4f} stage_s "
+                     f"{tm['stage_s']:.4f} solve_s {tm['solve_s']:.4f})")
+        return placed, rows
+
+    def reconcile(k, t):
+        del patched[:]
+        t0 = time.perf_counter()
+        synced = manager.reconcile(now=t)
+        wall = time.perf_counter() - t0
+        record.append(("reconcile", k, synced, list(patched)))
+        lines.append(f"reconcile {k}: {synced} synced, wall {wall:.4f} s")
+        return {name for name, _ in patched}
+
+    TRACER.clear()
+    placed1, _ = round_(1, now)
+    assert not placed1, "round 1 placed a BE pod before any PATCH"
+    synced1 = reconcile(1, now + 10)
+    placed2, rows2 = round_(2, now + 20)
+    assert placed2, "round 2 placed no BE pod"
+    assert sched.model.last_staging == "delta"
+    assert rows2 == sorted(index[n] for n in synced1), "round 2 restage"
+    changed = set()
+    for m in changes:
+        bus.apply(Kind.NODE_METRIC, m["node_name"],
+                  testing.colocation_metric(m, ttypes))
+        changed.add(m["node_name"])
+    synced2 = reconcile(2, now + 60)
+    assert synced2 and synced2 <= changed and len(synced2) < len(changed)
+    _, rows3 = round_(3, now + 70)
+    assert sched.model.last_staging == "delta"
+    touched = synced2 | changed | set(placed2.values())
+    assert rows3 == sorted(index[n] for n in touched), "round 3 restage"
+    spans = {}
+    for e in TRACER.events():
+        spans[e["name"]] = spans.get(e["name"], 0) + 1
+    e2e = {lane: POD_E2E.count({"lane": lane}) - e2e_before[lane]
+           for lane in e2e_before}
+    where = "card" if on_card else "cpu"
+    for line in lines:
+        print(f"colocation (b) on the {where} [{card}]: {line}", flush=True)
+    print(f"colocation (b) on the {where}: spans {spans}; POD_E2E count by "
+          f"lane {e2e}; {len(changed)} metrics changed, {len(synced2)} "
+          f"synced", flush=True)
+    return record, captures
+
+
+def capacity_batch(sched, nodes) -> None:
+    """Batch capacity holds on each of ``nodes``: the batch requests of the
+    pods the Scheduler holds there fit the node's batch allocatable."""
+    cols = (ResourceName.BATCH_CPU, ResourceName.BATCH_MEMORY)
+    load = {n: [0, 0] for n in nodes}
+    for pod in sched.cache.pods.values():
+        if pod.node_name in load:
+            for k, col in enumerate(cols):
+                load[pod.node_name][k] += pod.requests.get(col, 0)
+    for name, used in load.items():
+        alloc = sched.cache.nodes[name].allocatable
+        for k, col in enumerate(cols):
+            assert used[k] <= alloc.get(col, 0), f"{name} batch overcommitted"
+
+
+def colocation(card) -> dict:
+    """Phase 14. Returns its ``kernels`` entry."""
+    t0 = time.perf_counter()
+    spec = testing.colocation_world_spec(
+        seed=COLOC_SEED, n_nodes=COLOC_NODES, pods_per_node=COLOC_PPN,
+        n_dangling=COLOC_DANGLING, n_pending=COLOC_PENDING)
+    changes = testing.colocation_metric_changes(
+        spec, frac=COLOC_CHANGED, now=spec["now"] + 50)
+    controller_phase(spec, card)
+    got, captures = colocation_loop(spec, changes, card=card)
+    want, _ = colocation_loop(spec, changes, device="cpu", card=card)
+    for g, w in zip(got, want):
+        assert g == w, f"colocation {g[0]} {g[1]}: cuda != cpu"
+    assert len(got) == len(want)
+    wave, route, _ = captures[1]
+    launches = sum(n for _, _, n in captures)
+    wave_ms = cuda_ms(lambda: bk.binpack(wave), 5)
+    print(f"colocation (b): every round, bind and PATCH == the cpu run; "
+          f"route {route_name(route)} ({route.n_loc} rows per CTA); "
+          f"launches {launches}; round 2's kernel (the wave, "
+          f"{wave.req.shape[0]} pods) {wave_ms:.3f} ms", flush=True)
+    # the twin of round 2's 10,000 pods alone takes ~12 s on the card:
+    # round 3's launch (the wave's remainder) is held and timed instead
+    stats = compare(captures[2][0], "colocation round 3's inputs", card,
+                    reps=5)
+    print(f"colocation phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return entry("binpack_colocation", launches, stats, 317)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -2201,6 +2484,9 @@ def main() -> int:
 
     # -- 13. serving: the solver sidecar on the card -----------------------------
     kernels += serving(card)
+
+    # -- 14. the colocation loop -------------------------------------------------
+    kernels.append(colocation(card))
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

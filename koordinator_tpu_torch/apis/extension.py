@@ -9,6 +9,7 @@ MiB (int32 on the device).
 from __future__ import annotations
 
 import enum
+import json
 from typing import Mapping, Optional
 
 
@@ -98,3 +99,52 @@ ANNOTATION_DEVICE_ALLOCATED = f"{DOMAIN}/device-allocated"
 ANNOTATION_DEVICE_ALLOCATE_HINTS = f"{DOMAIN}/device-allocate-hints"
 #: a pod's joint device allocation spec (JSON)
 ANNOTATION_DEVICE_JOINT_ALLOCATE = f"{DOMAIN}/device-joint-allocate"
+
+# -- node-level colocation protocol (reference: apis/extension/node.go,
+# node_colocation.go): reserved resources, cpu normalization and
+# amplification ---------------------------------------------------------------
+
+ANNOTATION_NODE_RESERVATION = f"{DOMAIN}/node-reservation"
+ANNOTATION_CPU_NORMALIZATION_RATIO = f"{DOMAIN}/cpu-normalization-ratio"
+ANNOTATION_RESOURCE_AMPLIFICATION_RATIO = (
+    f"{DOMAIN}/node-resource-amplification-ratio"
+)
+ANNOTATION_NODE_RAW_ALLOCATABLE = f"{DOMAIN}/node-raw-allocatable"
+
+
+def parse_node_reservation(
+    annotations: Optional[Mapping[str, str]],
+) -> Optional[dict]:
+    """The node-reservation annotation, parsed once for every consumer.
+
+    Accepts the nested form ``{"resources": {"cpu": N, "memory": N},
+    "applyPolicy": "..."}`` and the flat form ``{"cpu": N, "memory":
+    N}``. Returns ``{"cpu": mcpu, "memory": mib, "apply_policy": str}``
+    (canonical units, zeros for absent dims, negatives clamped to 0) or
+    None for an absent or malformed annotation. The scheduler's node
+    transform (``client/wiring.transform_node``) trims allocatable only
+    under the Default policy; the manager's overcommit inputs subtract
+    the reservation whatever the policy.
+    """
+    raw = (annotations or {}).get(ANNOTATION_NODE_RESERVATION)
+    if not raw:
+        return None
+    try:
+        spec = json.loads(raw)
+    except (ValueError, TypeError):
+        return None
+    if not isinstance(spec, dict):
+        return None
+    res = spec.get("resources", spec)
+    if not isinstance(res, dict):
+        return None
+    try:
+        cpu = int(res.get("cpu", 0))
+        mem = int(res.get("memory", 0))
+    except (ValueError, TypeError):
+        return None
+    return {
+        "cpu": max(cpu, 0),
+        "memory": max(mem, 0),
+        "apply_policy": str(spec.get("applyPolicy", "Default") or "Default"),
+    }

@@ -1,10 +1,10 @@
 """The typed objects a placement solve consumes.
 
 Counterpart of ``koordinator_tpu/apis/types.py``, cut to the fields the
-placement path, the scheduling round and the descheduler read: pods,
-nodes, node metrics, gangs, quotas, reservations, migration jobs and the
-cluster snapshot. All quantities are canonical integer units (CPU in
-millicores, memory in MiB).
+placement path, the scheduling round, the descheduler and the manager's
+overcommit read: pods, nodes, node metrics, gangs, quotas, reservations,
+migration jobs and the cluster snapshot. All quantities are canonical
+integer units (CPU in millicores, memory in MiB).
 """
 
 from __future__ import annotations
@@ -107,7 +107,13 @@ class NodeSpec:
     name: str
     allocatable: Resources = dataclasses.field(default_factory=dict)
     labels: Dict[str, str] = dataclasses.field(default_factory=dict)
+    #: node annotations (the colocation protocol: node reservation, cpu
+    #: normalization and amplification)
+    annotations: Dict[str, str] = dataclasses.field(default_factory=dict)
     unschedulable: bool = False
+    #: allocatable before cpu normalization amplified it (None: not
+    #: amplified)
+    raw_allocatable: Optional[Resources] = None
 
 
 @dataclasses.dataclass
@@ -119,6 +125,20 @@ class NodeMetric:
     node_usage: Resources = dataclasses.field(default_factory=dict)
     #: pod uid -> usage
     pod_usages: Dict[str, Resources] = dataclasses.field(default_factory=dict)
+    #: usage of the prod pods (the prod usage mode)
+    prod_usage: Resources = dataclasses.field(default_factory=dict)
+    #: the system's own usage (the manager's batch calculator input)
+    sys_usage: Resources = dataclasses.field(default_factory=dict)
+    #: the predictor's reclaimable prod resources (the mid-tier input)
+    prod_reclaimable: Resources = dataclasses.field(default_factory=dict)
+    #: pod uid -> priority class recorded with the metric (read for pods
+    #: the metric reports but the pod list no longer holds)
+    pod_priority_class: Dict[str, PriorityClass] = dataclasses.field(
+        default_factory=dict)
+    #: host application name -> usage, and its QoS class
+    host_app_usages: Dict[str, Resources] = dataclasses.field(
+        default_factory=dict)
+    host_app_qos: Dict[str, QoSClass] = dataclasses.field(default_factory=dict)
     update_time: float = 0.0
     report_interval: float = 60.0
 

@@ -1,0 +1,255 @@
+"""Informer adapters: subscribe components to the bus (counterpart of
+``koordinator_tpu/client/wiring.py``, cut to the scheduler and the
+manager: the colocation loop).
+
+The scheduler consumes Node/Pod/NodeMetric/Quota/PodGroup/Reservation/
+Device/NRT, with a DeleteFunc for every kind, publishes its binds back
+onto the bus and evicts through it; the manager consumes NodeMetric and
+the pods through a snapshot of the bus and PATCHes Node allocatable
+back onto it. The koordlet, pod-webhook and descheduler loops are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from koordinator_tpu_torch import DeviceLike
+from koordinator_tpu_torch.apis.extension import (
+    ResourceName,
+    parse_node_reservation,
+)
+from koordinator_tpu_torch.apis.types import ClusterSnapshot
+from koordinator_tpu_torch.client.bus import APIServer, EventType, Kind
+from koordinator_tpu_torch.obs.trace import TRACER
+
+
+def transform_node(node):
+    """The scheduler-side node transform: subtract the node-reservation
+    annotation's resources from allocatable before the scheduler's cache
+    sees the node. Only the Default apply policy trims (ReservedCPUsOnly
+    reserves cores without shrinking schedulable totals); a malformed
+    annotation leaves the node untouched. Returns a COPY when trimming:
+    the in-process bus shares objects, and other watchers (the manager's
+    overcommit reads the annotation itself) keep the raw view."""
+    spec = parse_node_reservation(node.annotations)
+    if spec is None or spec["apply_policy"] not in ("", "Default"):
+        return node
+    cpu, mem = spec["cpu"], spec["memory"]
+    if cpu <= 0 and mem <= 0:
+        return node
+    alloc = dict(node.allocatable)
+    if cpu > 0:
+        alloc[ResourceName.CPU] = max(
+            alloc.get(ResourceName.CPU, 0) - cpu, 0
+        )
+    if mem > 0:
+        alloc[ResourceName.MEMORY] = max(
+            alloc.get(ResourceName.MEMORY, 0) - mem, 0
+        )
+    return dataclasses.replace(node, allocatable=alloc)
+
+
+def _updater(update_fn, delete_fn):
+    """Bus watch adapter: DELETED events dispatch by name, everything
+    else by object."""
+
+    def on_event(event, name, obj):
+        if event is EventType.DELETED:
+            delete_fn(name)
+        else:
+            update_fn(obj)
+
+    return on_event
+
+
+def wire_scheduler(bus: APIServer, scheduler, elector=None) -> None:
+    """Subscribe a Scheduler to every kind it consumes. Its
+    ``schedule_pending`` is wrapped to publish each round's binds through
+    the bus (confirming the assume and closing the pod's timeline), and
+    its eviction sink deletes victims through the bus. With ``elector``
+    (a LeaderElector) the eviction is fenced: a deposed leader's
+    in-flight eviction raises FencingError instead of double-applying."""
+
+    def on_node(event, name, node):
+        if event is EventType.DELETED:
+            scheduler.remove_node(name)
+        else:
+            # trim allocatable by the node-reservation annotation before
+            # the scheduler sees the node
+            scheduler.add_node(transform_node(node))
+
+    # bus key per pod uid: conventionally identical, but an eviction must
+    # delete the key the pod was applied under
+    pod_bus_name = {}
+
+    def on_pod(event, name, pod):
+        if event is EventType.DELETED:
+            pod_bus_name.pop(pod.uid, None)
+            scheduler.remove_pod(pod)
+        else:
+            pod_bus_name[pod.uid] = name
+            # update_pod handles first sight and refresh without re-running
+            # quota/gang registration for status-only changes
+            scheduler.update_pod(pod)
+
+    bus.watch(Kind.NODE, on_node)
+    bus.watch(Kind.POD, on_pod)
+    bus.watch(
+        Kind.NODE_METRIC,
+        _updater(scheduler.update_node_metric, scheduler.remove_node_metric),
+    )
+    bus.watch(
+        Kind.QUOTA, _updater(scheduler.update_quota, scheduler.remove_quota)
+    )
+    bus.watch(Kind.GANG, _updater(scheduler.update_gang,
+                                  scheduler.remove_gang))
+    bus.watch(
+        Kind.RESERVATION,
+        _updater(scheduler.update_reservation, scheduler.remove_reservation),
+    )
+
+    def on_nrt(event, name, topology):
+        if event is EventType.DELETED:
+            from koordinator_tpu_torch.numa.manager import TopologyOptions
+
+            scheduler.update_node_topology(name, TopologyOptions())
+        else:
+            scheduler.update_node_topology(name, topology)
+
+    def on_device(event, name, entries):
+        scheduler.update_node_devices(
+            name, [] if event is EventType.DELETED else entries
+        )
+
+    bus.watch(Kind.NODE_RESOURCE_TOPOLOGY, on_nrt)
+    bus.watch(Kind.DEVICE, on_device)
+
+    # binds are PUBLISHED through the bus so node agents and controllers
+    # observe them: each newly committed pod is re-applied after the
+    # round, and the MODIFIED event re-enters update_pod, which handles
+    # refreshes of assigned pods idempotently
+    inner_schedule = scheduler.schedule_pending
+
+    def publish_result(out):
+        t0 = TRACER.now()
+        published = 0
+        for uid, node in out.items():
+            if node is None:
+                continue
+            key = pod_bus_name.get(uid, uid)
+            pod = bus.get(Kind.POD, key)
+            if pod is not None and getattr(pod, "node_name", None) == node:
+                bus.apply(Kind.POD, key, pod)
+                # confirm ONLY what published: whatever stays assumed is
+                # the unpublished state an aborted round must forget
+                scheduler.cache.finish_binding(uid)
+                # the bind is observable: close the pod's timeline
+                scheduler.timelines.published(uid)
+                published += 1
+        TRACER.emit("publish", cat="publish", t0=t0,
+                    args={"published": published})
+
+    def schedule_and_publish(now=None, trigger=None):
+        out = inner_schedule(now=now, trigger=trigger)
+        # the watchdog mark of the inline publish: a publish wedged on the
+        # bus must leave an open mark behind
+        rid = getattr(scheduler, "last_round_id", None)
+        if rid is None:
+            rid = TRACER.round_id
+        TRACER.mark_open(f"publish:{rid}", round_id=rid)
+        try:
+            publish_result(out)
+        finally:
+            TRACER.mark_closed(f"publish:{rid}")
+        return out
+
+    scheduler.schedule_pending = schedule_and_publish
+
+    # victims are evicted THROUGH the bus so every watcher observes the
+    # eviction; the DELETED event re-enters remove_pod
+    def _evict(pod):
+        def do():
+            bus.delete(Kind.POD, pod_bus_name.get(pod.uid, pod.uid))
+
+        if elector is not None:
+            elector.fenced(do)
+        else:
+            do()
+
+    scheduler.evict_pod_fn = _evict
+
+
+def snapshot_from_bus(bus: APIServer, now: float) -> ClusterSnapshot:
+    """The assigned-pod cluster snapshot of the bus (the manager's view;
+    the reference's descheduler loop also asks for the reservations)."""
+    return ClusterSnapshot(
+        nodes=list(bus.list(Kind.NODE).values()),
+        # Permit-held gang members are assumed, not bound: the manager
+        # must not count them as running
+        pods=[
+            p for p in bus.list(Kind.POD).values()
+            if getattr(p, "node_name", None) is not None
+            and not getattr(p, "waiting_permit", False)
+        ],
+        node_metrics=bus.list(Kind.NODE_METRIC),
+        now=now,
+    )
+
+
+class ManagerLoop:
+    """The noderesource reconcile loop over the bus: NodeMetric and pods
+    in, Node allocatable PATCH out. ``nodeslo`` (the NodeSLO renderer) is
+    not ported yet and raises."""
+
+    def __init__(self, bus: APIServer, controller, elector=None,
+                 nodeslo=None):
+        if nodeslo is not None:
+            raise NotImplementedError(
+                "ManagerLoop(nodeslo=...) needs the NodeSLO renderer "
+                "(manager/nodeslo.py), a later slice of the port")
+        self.bus = bus
+        self.controller = controller
+        self.elector = elector
+
+    def reconcile(self, now: float) -> int:
+        """One pass; returns how many nodes were synced back to the bus."""
+        snapshot = snapshot_from_bus(self.bus, now)
+        # the controller mutates synced nodes' allocatable, and the host
+        # plugins their annotations, in place: reconcile over COPIES of
+        # both, so a fenced-off or failed write-back leaks nothing into
+        # the shared bus objects (the reference copies the allocatable
+        # only, and its amplification annotation lands on the bus object
+        # unPATCHed)
+        snapshot = dataclasses.replace(snapshot, nodes=[
+            dataclasses.replace(n, allocatable=dict(n.allocatable),
+                                annotations=dict(n.annotations))
+            for n in snapshot.nodes
+        ])
+        updates = self.controller.reconcile_all(snapshot)
+        synced = 0
+        for update, node in zip(updates, snapshot.nodes):
+            if update.synced:
+                # the PATCH: the mutated NodeSpec is re-applied, fanning
+                # out to watchers; a leader-elected manager fences it
+                if self.elector is not None:
+                    self.elector.fenced(
+                        lambda n=node: self.bus.apply(Kind.NODE, n.name, n)
+                    )
+                else:
+                    self.bus.apply(Kind.NODE, node.name, node)
+                synced += 1
+        return synced
+
+
+def wire_manager(bus: APIServer, controller=None, elector=None,
+                 nodeslo=None, device: DeviceLike = None) -> ManagerLoop:
+    """A ManagerLoop on the bus; without ``controller``, a
+    ``NodeResourceController`` on ``device`` (``cuda`` unless given)."""
+    from koordinator_tpu_torch.manager.noderesource import (
+        NodeResourceController,
+    )
+
+    if controller is None:
+        controller = NodeResourceController(device=device)
+    return ManagerLoop(bus, controller, elector, nodeslo)

@@ -4,7 +4,9 @@ A scheduler has no weights: what carries across is solver state. Each
 function takes one of the reference's NamedTuples (``NodeState``,
 ``PodBatch``, ``ScoreParams``, ``QuotaState``, ``GangState``,
 ``ResvArrays``, ``NumaAux``, ``ops/preempt.py``'s ``ResidentWorld``
-and ``PreemptorBatch``, and ``ops/rebalance.py``'s ``SweepBatch``) as a
+and ``PreemptorBatch``, ``ops/rebalance.py``'s ``SweepBatch``, and
+``ops/overcommit.py``'s ``NodeOvercommitInputs``,
+``PodOvercommitInputs`` and ``OvercommitParams``) as a
 dict of numpy arrays, ``{k: np.asarray(v) for k, v in
 s._asdict().items()}``, and builds the port's counterpart on ``device``
 (``cuda`` unless the caller passes one, as every entry point of the
@@ -30,6 +32,11 @@ from koordinator_tpu_torch.ops.binpack import (
     ScoreParams,
 )
 from koordinator_tpu_torch.ops.gang import GangState
+from koordinator_tpu_torch.ops.overcommit import (
+    NodeOvercommitInputs,
+    OvercommitParams,
+    PodOvercommitInputs,
+)
 from koordinator_tpu_torch.ops.preempt import PreemptorBatch, ResidentWorld
 from koordinator_tpu_torch.ops.quota import QuotaState
 from koordinator_tpu_torch.ops.rebalance import SweepBatch, stage_sweep_batch
@@ -93,3 +100,15 @@ def sweep_batch(d: Mapping, device: DeviceLike = None) -> SweepBatch:
     """The reference's host ``SweepBatch`` (int64 and bool) staged as the
     port's int32 and bool tensors; a value outside int32 raises."""
     return stage_sweep_batch(SweepBatch(**d), device)
+
+
+def overcommit_nodes(d: Mapping, device: DeviceLike = None) -> NodeOvercommitInputs:
+    return _build(NodeOvercommitInputs, d, device)
+
+
+def overcommit_pods(d: Mapping, device: DeviceLike = None) -> PodOvercommitInputs:
+    return _build(PodOvercommitInputs, d, device)
+
+
+def overcommit_params(d: Mapping, device: DeviceLike = None) -> OvercommitParams:
+    return _build(OvercommitParams, d, device)

@@ -1,7 +1,7 @@
 """Per-component metric sets (counterpart of
 ``koordinator_tpu/metrics/components.py``, cut to the series the ported
-eviction control plane and descheduler emit, with the reference's names
-and labels).
+scheduler round, its preemption and pod timelines, the eviction control
+plane and the descheduler emit, with the reference's names and labels).
 
 Reference metric names: pkg/scheduler/metrics/metrics.go,
 pkg/descheduler/metrics/metrics.go.
@@ -14,6 +14,34 @@ from koordinator_tpu_torch.metrics.registry import Registry
 # -- koord-scheduler (pkg/scheduler/metrics) --------------------------------
 
 SCHEDULER_METRICS = Registry("koord-scheduler")
+SCHEDULING_ATTEMPTS = SCHEDULER_METRICS.counter(
+    "scheduler_schedule_attempts_total",
+    "Scheduling attempts by result",
+    label_names=("result",),  # scheduled | unschedulable | error | nominated
+)
+PENDING_PODS = SCHEDULER_METRICS.gauge(
+    "scheduler_pending_pods", "Pods waiting to be scheduled",
+)
+BATCH_SOLVE_DURATION = SCHEDULER_METRICS.histogram(
+    "scheduler_batched_solve_duration_seconds",
+    "Device solve wall-clock per batched round",
+)
+PREEMPTION_ATTEMPTS = SCHEDULER_METRICS.counter(
+    "scheduler_preemption_attempts_total",
+    "PostFilter preemption attempts",
+)
+PREEMPT_VICTIMS = SCHEDULER_METRICS.counter(
+    "scheduler_preempt_victims_total",
+    "Joint place+evict victim flow per outcome: candidates the solve "
+    "chose (selected), candidates the reprieve loop spared (reprieved), "
+    "victims actually evicted (evicted)",
+    label_names=("outcome",),  # selected | reprieved | evicted
+)
+DEFRAG_DRAINS = SCHEDULER_METRICS.counter(
+    "scheduler_defrag_drains_total",
+    "Headroom-repack drains applied (pods evicted to restore a "
+    "gang-sized hole)",
+)
 MIGRATION_REQUESTS = SCHEDULER_METRICS.counter(
     "scheduler_migration_requests_total",
     "Eviction victims presented to the migration arbiter, per source",
@@ -37,6 +65,17 @@ DEFRAG_DECISIONS = SCHEDULER_METRICS.counter(
     "scheduler_defrag_decisions_total",
     "Closed-loop defrag controller decisions, per triggering signal",
     label_names=("signal",),  # frag-over
+)
+GANG_REJECTIONS = SCHEDULER_METRICS.counter(
+    "scheduler_gang_rejections_total",
+    "Gang-group rejections (strict failures + WaitTime expiry)",
+)
+POD_E2E = SCHEDULER_METRICS.histogram(
+    "scheduler_pod_e2e_seconds",
+    "Per-pod submit→bind end-to-end latency, by QoS lane "
+    "(obs/timeline.py: submit at pending intake, closed when the bind "
+    "publishes on the bus)",
+    label_names=("lane",),  # system | ls | be
 )
 
 # -- koord-descheduler (pkg/descheduler/metrics) ----------------------------

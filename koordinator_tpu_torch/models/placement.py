@@ -31,8 +31,11 @@ and sharded staging (no mesh on one card), the host path for tiny
 solves, pod-shape, reservation-axis and victim-axis bucketing (they share
 XLA compiles, which eager PyTorch does not have; results are identical
 without them), the kernel's cached reservation one-hot (the CUDA kernel
-has none) and the observability hooks. With ``backend`` (``service/
-client.RemoteSolver``) every solve goes to the solver sidecar.
+has none) and the device observatory (its compile and padding hooks).
+A solve records the reference's ``lower``, ``stage``, ``dispatch``,
+``device_solve`` and ``read_back`` spans into ``obs/trace.TRACER``. With
+``backend`` (``service/client.RemoteSolver``) every solve goes to the
+solver sidecar.
 
 The joint place+evict (``select_victims_device``, ``preempt_scan_device``,
 ``plan_defrag_device``) runs ``ops/preempt.py`` on the model's device
@@ -51,6 +54,7 @@ import torch
 
 from koordinator_tpu_torch import DeviceLike, resolve_device
 from koordinator_tpu_torch.apis.extension import NUM_RESOURCES, PriorityClass
+from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     GangMode,
@@ -257,9 +261,15 @@ class InFlightSchedule:
         if self._final is not None:
             return self._final
         result = self.result
+        t_readback = time.perf_counter()
         assignments = result.assign.cpu().numpy()
         commit = result.commit.cpu().numpy()
         waiting = result.waiting.cpu().numpy()
+        t_done = time.perf_counter()
+        # retro spans from the timestamps taken anyway: the device span
+        # covers dispatch to read-back, the read-back span the copy alone
+        TRACER.emit("device_solve", cat="device", t0=self.t_staged, t1=t_done)
+        TRACER.emit("read_back", cat="device", t0=t_readback, t1=t_done)
         # the fine-grained epilogue: gang-rejected holds roll back,
         # committed pods are annotated (PreBind), waiting pods keep their
         # holds for the scheduler to annotate when the barrier opens
@@ -946,6 +956,9 @@ class PlacementModel:
             resv = ResvArrays(**{k: torch.as_tensor(v, device=self.device)
                                  for k, v in resv_np.items()})
         t_staged = time.perf_counter()
+        # retro spans: host lowering, then host-to-device staging
+        TRACER.emit("lower", cat="stage", t0=t_start, t1=t_host_done)
+        TRACER.emit("stage", cat="stage", t0=t_host_done, t1=t_staged)
         self.last_timings = {
             # host lowering and the first host rows, less the staging the
             # cache did inside it; the refine loop counts in solve_s
@@ -998,6 +1011,8 @@ class PlacementModel:
                               node_by_name[node_name], cstate)
             applied = []
             iteration += 1
+        TRACER.emit("dispatch", cat="device", t0=t_staged,
+                    args={"solver": self.last_solver})
         return InFlightSchedule(
             result, node_arrays.names, pod_arrays.uids, t_staged,
             self.last_timings,
@@ -1040,6 +1055,9 @@ class PlacementModel:
         wire, the same epilogue), with the staging cache's delta when it
         takes one, so that only the dirty node rows cross the wire."""
         if self.backend is not None:
+            # tagged before the call: a backend that raises leaves the
+            # tag naming the solver that failed
+            self.last_solver = "remote"
             kwargs = {}
             if (self.staging_delta is not None and getattr(
                     self.backend, "supports_staging_delta", False)):

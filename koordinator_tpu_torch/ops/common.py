@@ -57,3 +57,23 @@ def weighted_mean_scores(scores: torch.Tensor, weights: torch.Tensor) -> torch.T
         (scores * weights).sum(dim=-1, dtype=I32), weight_sum,
         rounding_mode="floor",
     )
+
+
+def mul_percent_floor(x: torch.Tensor, pct) -> torch.Tensor:
+    """``floor(x * pct / 100)`` without the ``x * pct`` intermediate, by
+    the exact identity ``(x // 100) * pct + ((x % 100) * pct) // 100``
+    (floor division and a non-negative remainder, as the reference's
+    ``//`` and ``%``): safe in int32 for any non-negative ``x`` and
+    ``pct <= ~100``, where a plain ``x * pct`` wraps for memory columns
+    above ~21.4M MiB."""
+    q = torch.div(x, 100, rounding_mode="floor")
+    r = torch.remainder(x, 100)
+    return q * pct + torch.div(r * pct, 100, rounding_mode="floor")
+
+
+def percent_exceeds(diff: torch.Tensor, base: torch.Tensor,
+                    pct) -> torch.Tensor:
+    """Exact ``100 * diff > base * pct`` for non-negative int32 operands
+    without either product: for an integer ``diff`` it equals
+    ``diff > floor(base * pct / 100)``."""
+    return diff > mul_percent_floor(base, pct)

@@ -37,12 +37,20 @@ every eviction source passes through it first: preemption victim sets
 preemptor whose whole set is deferred gets no nomination. Each round
 starts a new per-round budget. Without one, evictions are unthrottled.
 
+Each round records into the port's trace (``obs/trace.TRACER``: the
+round number, the ``round:<id>`` watchdog mark, and the ``begin_tick``,
+``epilogue`` and ``round`` spans), stamps the pod timelines
+(``self.timelines``: submit at intake, staged, solved; the bus wiring's
+publish closes them into ``scheduler_pod_e2e_seconds``) and the
+scheduler's series (attempts by result, pending pods, the solve's
+duration, preemption attempts and victims, defrag drains, gang
+rejections), as the reference does.
+
 Not in this slice of the port, and queued in ROADMAP.md:
 - the plugin chain: ``schedule_one`` and ``batched_placement=False``
   raise ``NotImplementedError``;
-- the trace, the scheduler's own metrics (the preemption counters among
-  them), pod timelines and device observatory, and the bus wiring's
-  publish sink: the round runs without them.
+- the stuck-cycle monitor, the debug services registry and the device
+  observatory: the round runs without them.
 """
 
 from __future__ import annotations
@@ -66,6 +74,15 @@ from koordinator_tpu_torch.apis.types import (
 from koordinator_tpu_torch.descheduler.framework import Evictor
 from koordinator_tpu_torch.device.cache import NodeDeviceCache
 from koordinator_tpu_torch.gang.manager import GangManager
+from koordinator_tpu_torch.metrics.components import (
+    BATCH_SOLVE_DURATION,
+    DEFRAG_DRAINS,
+    GANG_REJECTIONS,
+    PENDING_PODS,
+    PREEMPT_VICTIMS,
+    PREEMPTION_ATTEMPTS,
+    SCHEDULING_ATTEMPTS,
+)
 from koordinator_tpu_torch.models.finegrained import FineGrained
 from koordinator_tpu_torch.models.placement import (
     InFlightSchedule,
@@ -73,7 +90,8 @@ from koordinator_tpu_torch.models.placement import (
     ScheduleResult,
 )
 from koordinator_tpu_torch.numa.manager import ResourceManager, TopologyOptions
-from koordinator_tpu_torch.obs.timeline import lane_of
+from koordinator_tpu_torch.obs.timeline import PodTimelines, lane_of
+from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
 from koordinator_tpu_torch.scheduler.cache import SchedulerCache
 from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
@@ -86,7 +104,7 @@ from koordinator_tpu_torch.scheduler.plugins.nodenumaresource import (
     NodeNUMAResourcePlugin,
 )
 from koordinator_tpu_torch.scheduler.plugins.nodeports import NodePortsPlugin
-from koordinator_tpu_torch.scheduler.preemption import plan_defrag
+from koordinator_tpu_torch.scheduler.preemption import can_preempt, plan_defrag
 from koordinator_tpu_torch.scheduler.reservation_controller import (
     ReservationController,
 )
@@ -98,15 +116,22 @@ from koordinator_tpu_torch.state.cluster import (
 
 class PendingTick:
     """One round between dispatch (:meth:`Scheduler.begin_tick`) and
-    retirement (:meth:`Scheduler.commit_tick`, exactly once)."""
+    retirement (:meth:`Scheduler.commit_tick`, exactly once).
+    ``round_id`` is the trace's round number, ``trigger`` why the round
+    fired (annotated onto its spans; None for a fixed cadence)."""
 
-    __slots__ = ("at", "pending", "inflight")
+    __slots__ = ("at", "pending", "inflight", "solve_started", "round_id",
+                 "trigger")
 
     def __init__(self, at: float, pending: Dict[str, PodSpec],
-                 inflight: InFlightSchedule):
+                 inflight: InFlightSchedule, solve_started: float,
+                 round_id: int, trigger: Optional[str] = None):
         self.at = at
         self.pending = pending
         self.inflight = inflight
+        self.solve_started = solve_started
+        self.round_id = round_id
+        self.trigger = trigger
 
 
 class Scheduler:
@@ -141,6 +166,12 @@ class Scheduler:
         self.gang_manager = GangManager()
         self.numa_manager = ResourceManager()
         self.device_cache = NodeDeviceCache()
+        #: per-pod submit→staged→solved→published timelines feeding the
+        #: scheduler_pod_e2e_seconds{lane} histograms
+        self.timelines = PodTimelines()
+        #: round id of the last commit_tick: this scheduler's round, not
+        #: the process-global trace counter several schedulers share
+        self.last_round_id: Optional[int] = None
         #: pods placed at the Permit barrier: uid -> held node. They hold
         #: resources (assumed) but are not bound until their gang group
         #: completes.
@@ -245,8 +276,11 @@ class Scheduler:
         )
         assigned = old.node_name is not None
         if accounted_changed and not assigned:
-            self.remove_pod(old)
-            self.add_pod(pod)
+            # the pod never left the queue: its timeline (the submit
+            # stamp above all) survives the remove/add round trip
+            with self.timelines.preserved(pod.uid):
+                self.remove_pod(old)
+                self.add_pod(pod)
             return
         # a refresh that keeps the placement
         pod.node_name = old.node_name
@@ -294,6 +328,9 @@ class Scheduler:
     def add_pod(self, pod: PodSpec) -> None:
         self.cache.add_pod(pod)
         bound = pod.node_name is not None and not pod.waiting_permit
+        if not bound:
+            # the pod entered the pending queue: its timeline opens
+            self.timelines.submit(pod.uid, lane_of(pod))
         if pod.gang:
             self.gang_manager.on_pod_add(pod.uid, pod.gang)
             if bound:
@@ -308,6 +345,8 @@ class Scheduler:
         """A binding decided elsewhere became visible: pending ->
         assigned, with the quota used and gang bound it implies."""
         self.cache.promote_assigned(pod)
+        # a bind this scheduler did not make is not its latency sample
+        self.timelines.forget(pod.uid)
         self._account_quota(pod)
         if pod.gang:
             self.gang_manager.on_pod_bound(pod.uid)
@@ -343,65 +382,122 @@ class Scheduler:
             self._account_quota(cached, release=True)
         self._waiting.pop(pod.uid, None)
         self._waiting_since.pop(pod.uid, None)
+        # a deleted or evicted pod's open timeline is not a latency sample
+        self.timelines.forget(pod.uid)
 
     # -- scheduling ---------------------------------------------------------
 
-    def schedule_pending(self, now: Optional[float] = None) -> ScheduleResult:
-        """One batched round: :meth:`begin_tick` then :meth:`commit_tick`."""
-        return self.commit_tick(self.begin_tick(now))
+    def schedule_pending(self, now: Optional[float] = None,
+                         trigger: Optional[str] = None) -> ScheduleResult:
+        """One batched round: :meth:`begin_tick` then :meth:`commit_tick`.
+        ``trigger`` annotates why the round fired onto its spans."""
+        return self.commit_tick(self.begin_tick(now, trigger=trigger))
 
-    def begin_tick(self, now: Optional[float] = None) -> PendingTick:
+    def begin_tick(self, now: Optional[float] = None,
+                   trigger: Optional[str] = None) -> PendingTick:
         """Round start through dispatch: expire stale waits and
         reservations, take the snapshot, and hand the pending queue to the
-        model without reading the result back."""
+        model without reading the result back. Opens the round's trace
+        number and its ``round:<id>`` mark, which :meth:`commit_tick`
+        closes (or this method, when the round fails here)."""
         at0 = now if now is not None else time.time()
-        # the previous round's binds have published (or were forgotten):
-        # their rollback window is over
-        self._resv_inflight = {}
-        if self.migration_arbiter is not None:
-            self._migration_round += 1
-            self.migration_arbiter.begin_round(self._migration_round)
-        self.expire_waiting(at0)
-        self.reservation_controller.sync(at0)
-        if not self.batched_placement:
-            raise NotImplementedError(
-                "per-pod rounds (batched_placement=False) need the plugin "
-                "chain, a later slice of the port (scheduler/framework.py)")
-        snapshot = self.cache.snapshot(now=now)
-        pending = {pod.uid: pod for pod in snapshot.pending_pods}
-        return PendingTick(at0, pending, self.model.schedule_async(snapshot))
+        rid = TRACER.begin_round()
+        TRACER.mark_open(f"round:{rid}", round_id=rid)
+        t_begin = TRACER.now()
+        try:
+            # the previous round's binds have published (or were
+            # forgotten): their rollback window is over
+            self._resv_inflight = {}
+            if self.migration_arbiter is not None:
+                self._migration_round += 1
+                self.migration_arbiter.begin_round(self._migration_round)
+            self.expire_waiting(at0)
+            self.reservation_controller.sync(at0)
+            if not self.batched_placement:
+                raise NotImplementedError(
+                    "per-pod rounds (batched_placement=False) need the "
+                    "plugin chain, a later slice of the port "
+                    "(scheduler/framework.py)")
+            snapshot = self.cache.snapshot(now=now)
+            pending = {pod.uid: pod for pod in snapshot.pending_pods}
+            PENDING_PODS.set(len(pending))
+            self.timelines.mark_many(pending, "staged")
+            solve_started = time.monotonic()
+            inflight = self.model.schedule_async(snapshot)
+        except BaseException:
+            # a failed round is not a stuck one: close its mark
+            TRACER.mark_closed(f"round:{rid}")
+            raise
+        TRACER.emit("begin_tick", cat="tick", t0=t_begin, round_id=rid,
+                    args={"pending": len(pending),
+                          **({"trigger": trigger} if trigger else {})})
+        return PendingTick(at0, pending, inflight, solve_started, rid,
+                           trigger)
 
     def commit_tick(self, tick: PendingTick) -> ScheduleResult:
         """Read a :meth:`begin_tick` dispatch back and assume committed
         placements (and waiting holds) into the cache, then open the
-        Permit barrier of waiting pods whose gang group is now complete."""
-        result = tick.inflight.finalize()
-        at = tick.at
-        pending = tick.pending
-        for uid, node in result.items():
-            if node is None:
-                continue
-            self.cache.assume_pod(uid, node, now=at)
-            self.gang_manager.on_pod_bound(uid)
-            # keep the host quota managers' used in step with the solve
-            self._account_quota(pending.get(uid))
-            if uid in result.resv_committed:
-                self._resv_inflight[uid] = result.resv_committed[uid]
-        for uid, node in result.waiting.items():
-            # a waiting member holds its node and quota, unbound
-            self.cache.assume_pod(uid, node, now=at)
-            held = self.cache.pods.get(uid)
-            if held is not None:
-                held.waiting_permit = True
-            self._account_quota(pending.get(uid))
-            self._waiting[uid] = node
-            self._waiting_since.setdefault(uid, at)
-            self.gang_manager.on_pod_waiting(uid)
-            if uid in result.resv_allocs:
-                self._resv_waiting[uid] = result.resv_allocs[uid]
-        self._fine_waiting.update(result.fine_states)
-        self._resolve_waiting(result)
-        self._preempt_unplaced(result, pending, at)
+        Permit barrier of waiting pods whose gang group is now complete,
+        and run the batched PostFilter."""
+        # this scheduler's round, keyed off the tick: two wired
+        # schedulers in one process never share a watchdog mark key
+        self.last_round_id = tick.round_id
+        try:
+            result = tick.inflight.finalize()
+        except BaseException:
+            TRACER.mark_closed(f"round:{tick.round_id}")
+            raise
+        try:
+            t_epilogue = TRACER.now()
+            BATCH_SOLVE_DURATION.observe(
+                time.monotonic() - tick.solve_started)
+            for uid, node in result.items():
+                SCHEDULING_ATTEMPTS.inc(
+                    {"result": "scheduled" if node is not None
+                     else "unschedulable"})
+            at = tick.at
+            pending = tick.pending
+            for uid, node in result.items():
+                if node is None:
+                    continue
+                self.cache.assume_pod(uid, node, now=at)
+                self.gang_manager.on_pod_bound(uid)
+                # keep the host quota managers' used in step with the solve
+                self._account_quota(pending.get(uid))
+                if uid in result.resv_committed:
+                    self._resv_inflight[uid] = result.resv_committed[uid]
+            for uid, node in result.waiting.items():
+                # a waiting member holds its node and quota, unbound
+                self.cache.assume_pod(uid, node, now=at)
+                held = self.cache.pods.get(uid)
+                if held is not None:
+                    held.waiting_permit = True
+                self._account_quota(pending.get(uid))
+                self._waiting[uid] = node
+                self._waiting_since.setdefault(uid, at)
+                self.gang_manager.on_pod_waiting(uid)
+                if uid in result.resv_allocs:
+                    self._resv_waiting[uid] = result.resv_allocs[uid]
+            self._fine_waiting.update(result.fine_states)
+            self._resolve_waiting(result)
+            self._preempt_unplaced(result, pending, at)
+            self.timelines.mark_many(
+                [uid for uid, node in result.items() if node is not None],
+                "solved")
+        except BaseException:
+            # a failed epilogue (a fenced eviction raising mid-takeover)
+            # closes the mark, or the watchdog would flag a retired round
+            TRACER.mark_closed(f"round:{tick.round_id}")
+            raise
+        TRACER.emit("epilogue", cat="tick", t0=t_epilogue,
+                    round_id=tick.round_id)
+        TRACER.mark_closed(
+            f"round:{tick.round_id}", name="round", cat="tick",
+            args={
+                "placed": sum(1 for v in result.values() if v is not None),
+                "total": len(result),
+                **({"trigger": tick.trigger} if tick.trigger else {}),
+            })
         return result
 
     def _preempt_unplaced(self, result: ScheduleResult, pending, now) -> None:
@@ -409,7 +505,10 @@ class Scheduler:
         same-quota lower-priority preemption (preempt.go). Victims are
         evicted now; the preemptor binds in a later round once the
         capacity has freed (the reference's nominate-then-wait)."""
-        if not self._quota_plugin.enable_preemption:
+        backend = self.preemption_backend
+        if backend != "host" and not self._quota_plugin.enable_preemption:
+            # the host post_filter applies the same gate inside, after
+            # counting the attempt
             return
         unplaced = [uid for uid, node in result.items()
                     if node is None and uid not in result.waiting]
@@ -419,7 +518,6 @@ class Scheduler:
         assigned = [p for p in snapshot.pods if p.preemptible]
         if not assigned:
             return
-        backend = self.preemption_backend
         model = self.model
         lowering = model.lowering_kwargs()
         min_priority = min(p.priority for p in assigned)
@@ -432,6 +530,7 @@ class Scheduler:
             if pod is None or pod.priority <= min_priority:
                 continue  # no strictly lower-priority victim can exist
             attempts += 1
+            PREEMPTION_ATTEMPTS.inc()
             if arrays is None:
                 arrays = lower_nodes(snapshot, **lowering)
                 if backend != "device":  # the host oracle's thresholds
@@ -479,6 +578,11 @@ class Scheduler:
             if got is None:
                 continue
             node_name, ordered_uids = got
+            n_cand = sum(1 for p in snapshot.pods
+                         if p.node_name == node_name and can_preempt(pod, p))
+            PREEMPT_VICTIMS.inc({"outcome": "selected"}, len(ordered_uids))
+            PREEMPT_VICTIMS.inc({"outcome": "reprieved"},
+                                n_cand - len(ordered_uids))
             admitted = self._evict_victims(
                 sorted(ordered_uids), source="preemption", node=node_name,
                 now=now, all_or_nothing=True)
@@ -486,6 +590,7 @@ class Scheduler:
                 # deferred whole: the resident world keeps its rows, the
                 # hole stays unfree, no nomination
                 continue
+            PREEMPT_VICTIMS.inc({"outcome": "evicted"}, len(ordered_uids))
             evict_resident_rows(snapshot, arrays, resident, node_name,
                                 ordered_uids, **lowering)
             result.nominations[uid] = node_name
@@ -563,8 +668,10 @@ class Scheduler:
         if got is not None and apply:
             # arbitrated like the preemption victims, but a partial
             # admission is kept: each drain shrinks the hole's deficit
-            got = (got[0], self._evict_victims(got[1], source="defrag",
-                                               node=got[0], now=now))
+            admitted = self._evict_victims(got[1], source="defrag",
+                                           node=got[0], now=now)
+            DEFRAG_DRAINS.inc(amount=len(admitted))
+            got = (got[0], admitted)
         return got
 
     def rebalance_sweep(self, plugin, now: Optional[float] = None
@@ -638,6 +745,7 @@ class Scheduler:
             wait_time = spec.wait_time if spec is not None else 600.0
             if not wait_time or (now - since) < wait_time:
                 continue
+            GANG_REJECTIONS.inc()
             siblings = self.gang_manager.unreserve(uid)
             for r in {uid, *siblings}:
                 if r in self._waiting:

@@ -19,6 +19,8 @@ import numpy as np
 
 from koordinator_tpu_torch import DeviceLike, convert, resolve_device
 from koordinator_tpu_torch.apis.extension import (
+    ANNOTATION_CPU_NORMALIZATION_RATIO,
+    ANNOTATION_NODE_RESERVATION,
     NUM_RESOURCES,
     PriorityClass,
     QoSClass,
@@ -1233,3 +1235,228 @@ def tenant_stream(tenant_i: int, rounds: int, n_nodes: int = 1024,
         out.append(dict(node={}, params=params, pods=tick_pods(r),
                         node_delta=delta))
     return out
+
+
+# -- the colocation loop (the manager's overcommit PATCH, then the BE wave
+# placed against the batch columns) -------------------------------------------
+
+#: the colocation world's node-selector strategy override: the nodes
+#: labelled ``pool=aggressive`` take maxUsageRequest and other reclaim
+#: percents
+COLOCATION_POOL = {"pool": "aggressive"}
+COLOCATION_OVERRIDES = {
+    "cpu_calculate_policy": "maxUsageRequest",
+    "memory_calculate_policy": "maxUsageRequest",
+    "cpu_reclaim_threshold_percent": 70,
+    "memory_reclaim_threshold_percent": 80,
+}
+#: the node-reservation annotation of the reserving nodes
+COLOCATION_RESERVATION = '{"resources": {"cpu": 2000, "memory": 4096}}'
+
+
+def colocation_world_spec(seed: int = 11, n_nodes: int = 5000,
+                          pods_per_node: int = 10, n_dangling: int = 2000,
+                          n_pending: int = 10000, now: float = 1000.0,
+                          override_frac: float = 0.1,
+                          normalized_frac: float = 0.02,
+                          reserving_frac: float = 0.02,
+                          stale_frac: float = 0.05,
+                          host_app_frac: float = 0.05) -> dict:
+    """A seeded colocation world as plain data (resource columns as int
+    keys), for :func:`colocation_objects` to build with either package's
+    types. Nodes carry native CPU and memory only; ``override_frac`` of
+    them match the node-selector override (``COLOCATION_OVERRIDES``),
+    ``normalized_frac`` carry a cpu-normalization ratio and
+    ``reserving_frac`` a node-reservation annotation. ``pods_per_node``
+    running pods a node: 60% prod LS, 10% prod LSE, 30% BE (batch
+    requests) or free (native requests); 20% of the prod pods have no
+    usage in their node's metric. ``n_dangling`` usage entries name pods
+    that are not in the pod list (a quarter of them recorded as batch).
+    Every node has a metric with system usage, prod reclaimable and pod
+    usages; ``host_app_frac`` of them a BE host application and
+    ``stale_frac`` an update older than the degrade window. Then
+    ``n_pending`` BE pods requesting batch CPU and memory."""
+    rng = np.random.default_rng(seed)
+    cpu, mem = int(CPU), int(MEM)
+    bcpu, bmem = int(ResourceName.BATCH_CPU), int(ResourceName.BATCH_MEMORY)
+    node_cpu = rng.choice([32000, 64000, 96000], n_nodes)
+    node_mem = rng.choice([131072, 262144, 393216], n_nodes)
+    draw = rng.uniform(size=(n_nodes, 5))
+    nodes, metrics, pods = [], [], []
+    for i in range(n_nodes):
+        name = f"n{i}"
+        annotations = {}
+        if draw[i, 1] < normalized_frac:
+            annotations[ANNOTATION_CPU_NORMALIZATION_RATIO] = (
+                "1.5" if i % 2 else "1.25")
+        if draw[i, 2] < reserving_frac:
+            annotations[ANNOTATION_NODE_RESERVATION] = COLOCATION_RESERVATION
+        nodes.append(dict(
+            name=name, alloc={cpu: int(node_cpu[i]), mem: int(node_mem[i])},
+            labels=dict(COLOCATION_POOL) if draw[i, 0] < override_frac else {},
+            annotations=annotations))
+        usages, sum_use = {}, np.zeros(2, np.int64)
+        kinds = rng.uniform(size=pods_per_node)
+        reqs = np.stack([rng.integers(500, 4000, pods_per_node),
+                         rng.integers(1024, 8192, pods_per_node)], axis=1)
+        use_frac = rng.uniform(0.2, 0.9, size=(pods_per_node, 2))
+        no_usage = rng.uniform(size=pods_per_node) < 0.2
+        for j in range(pods_per_node):
+            pod_name = f"r{i}-{j}"
+            req = {cpu: int(reqs[j, 0]), mem: int(reqs[j, 1])}
+            if kinds[j] < 0.6:
+                kind = dict(priority=9500, qos=int(QoSClass.LS))
+            elif kinds[j] < 0.7:
+                kind = dict(priority=9500, qos=int(QoSClass.LSE))
+            elif kinds[j] < 0.9:
+                kind = dict(priority=5500, qos=int(QoSClass.BE))
+                req = {bcpu: req[cpu], bmem: req[mem]}
+            else:
+                kind = dict(priority=3500, qos=int(QoSClass.BE))
+            pods.append(dict(name=pod_name, node_name=name, requests=req,
+                             **kind))
+            if kind["priority"] == 9500 and no_usage[j]:
+                continue
+            use = (reqs[j] * use_frac[j]).astype(np.int64)
+            usages[f"default/{pod_name}"] = {cpu: int(use[0]),
+                                             mem: int(use[1])}
+            sum_use += use
+        sys_use = np.array([rng.integers(500, 2000), rng.integers(1024, 4096)])
+        host_apps, host_qos = {}, {}
+        if draw[i, 3] < host_app_frac:
+            host_apps["miner"] = {cpu: int(rng.integers(200, 1500)),
+                                  mem: int(rng.integers(256, 2048))}
+            host_qos["miner"] = int(QoSClass.BE)
+        reclaim = (np.array([node_cpu[i], node_mem[i]])
+                   * rng.uniform(0.1, 0.3, 2)).astype(np.int64)
+        metrics.append(dict(
+            node_name=name,
+            node_usage={cpu: int(sum_use[0] + sys_use[0]),
+                        mem: int(sum_use[1] + sys_use[1])},
+            sys_usage={cpu: int(sys_use[0]), mem: int(sys_use[1])},
+            prod_reclaimable={cpu: int(reclaim[0]), mem: int(reclaim[1])},
+            pod_usages=usages, pod_priority_class={},
+            host_app_usages=host_apps, host_app_qos=host_qos,
+            update_time=now - (1200.0 if draw[i, 4] < stale_frac else 30.0)))
+    ghost_nodes = rng.integers(0, n_nodes, n_dangling)
+    ghost_use = np.stack([rng.integers(100, 1500, n_dangling),
+                          rng.integers(128, 2048, n_dangling)], axis=1)
+    ghost_batch = rng.uniform(size=n_dangling) < 0.25
+    for k in range(n_dangling):
+        m = metrics[int(ghost_nodes[k])]
+        uid = f"ghost-{k}"
+        m["pod_usages"][uid] = {cpu: int(ghost_use[k, 0]),
+                                mem: int(ghost_use[k, 1])}
+        if ghost_batch[k]:
+            m["pod_priority_class"][uid] = int(PriorityClass.BATCH)
+    pending = [
+        dict(name=f"be{k}", priority=5500, qos=int(QoSClass.BE),
+             requests={bcpu: int(c), bmem: int(m_)})
+        for k, (c, m_) in enumerate(zip(
+            rng.choice([4000, 8000, 16000, 24000], n_pending),
+            rng.choice([4096, 8192, 16384, 32768], n_pending)))
+    ]
+    return dict(nodes=nodes, pods=pods, metrics=metrics, pending=pending,
+                now=now, pool=dict(COLOCATION_POOL),
+                overrides=dict(COLOCATION_OVERRIDES))
+
+
+def colocation_metric_changes(spec: dict, frac: float = 0.01,
+                              seed: int = 12, now: float = None) -> list:
+    """Changed NodeMetric data for ``frac`` of the world's nodes, reported
+    at ``now`` (default the spec's ``now`` plus 60 s): every other one
+    with a large system-usage rise (a fifth of the node's CPU: past the
+    diff threshold where batch CPU is not already zero), the rest with a
+    rise of 1% (below it)."""
+    rng = np.random.default_rng(seed)
+    now = spec["now"] + 60.0 if now is None else now
+    n = len(spec["nodes"])
+    picked = sorted(rng.choice(n, max(int(n * frac), 1), replace=False))
+    out = []
+    for k, i in enumerate(picked):
+        m = copy.deepcopy(spec["metrics"][int(i)])
+        cap = spec["nodes"][int(i)]["alloc"][int(CPU)]
+        rise = cap // 5 if k % 2 == 0 else cap // 100
+        m["sys_usage"][int(CPU)] += rise
+        m["node_usage"][int(CPU)] += rise
+        m["update_time"] = now
+        out.append(m)
+    return out
+
+
+def colocation_metric(m: dict, types):
+    """One NodeMetric of :func:`colocation_world_spec` data, built with
+    ``types`` (either package's ``apis.types`` module)."""
+    rn = types.ResourceName
+
+    def res(d):
+        return {rn(k): v for k, v in d.items()}
+
+    return types.NodeMetric(
+        node_name=m["node_name"], node_usage=res(m["node_usage"]),
+        sys_usage=res(m["sys_usage"]),
+        prod_reclaimable=res(m["prod_reclaimable"]),
+        pod_usages={u: res(v) for u, v in m["pod_usages"].items()},
+        pod_priority_class={u: types.PriorityClass(c) for u, c
+                            in m["pod_priority_class"].items()},
+        host_app_usages={a: res(v) for a, v in m["host_app_usages"].items()},
+        host_app_qos={a: types.QoSClass(q)
+                      for a, q in m["host_app_qos"].items()},
+        update_time=m["update_time"])
+
+
+def colocation_objects(spec: dict, types) -> dict:
+    """The world's objects built with ``types``: ``{"nodes", "pods",
+    "metrics", "pending"}`` (lists; fresh objects on every call)."""
+    rn = types.ResourceName
+
+    def res(d):
+        return {rn(k): v for k, v in d.items()}
+
+    def pod(d):
+        d = dict(d)
+        d["requests"] = res(d["requests"])
+        d["qos"] = types.QoSClass(d["qos"])
+        return types.PodSpec(**d)
+
+    return dict(
+        nodes=[types.NodeSpec(name=n["name"], allocatable=res(n["alloc"]),
+                              labels=dict(n["labels"]),
+                              annotations=dict(n["annotations"]))
+               for n in spec["nodes"]],
+        pods=[pod(p) for p in spec["pods"]],
+        metrics=[colocation_metric(m, types) for m in spec["metrics"]],
+        pending=[pod(p) for p in spec["pending"]])
+
+
+def colocation_snapshot(spec: dict, types):
+    """The world as one ``types.ClusterSnapshot`` at the spec's ``now``
+    (the manager's view: assigned pods and metrics)."""
+    objs = colocation_objects(spec, types)
+    return types.ClusterSnapshot(
+        nodes=objs["nodes"], pods=objs["pods"],
+        node_metrics={m.node_name: m for m in objs["metrics"]},
+        now=spec["now"])
+
+
+def colocation_config(spec: dict, sloconfig):
+    """The world's ``ColocationConfig`` built with ``sloconfig`` (either
+    package's ``manager.sloconfig`` module): colocation enabled, with the
+    node-selector override."""
+    return sloconfig.ColocationConfig(
+        cluster_strategy=sloconfig.ColocationStrategy(enable=True),
+        node_strategies=[sloconfig.NodeStrategySelector(
+            match_labels=dict(spec["pool"]),
+            overrides=dict(spec["overrides"]))])
+
+
+def apply_colocation(bus, kind, spec: dict, types) -> None:
+    """Apply the world to an ``APIServer`` (either package's, with its
+    ``Kind``): nodes, metrics, the running pods, then the BE wave."""
+    objs = colocation_objects(spec, types)
+    for node in objs["nodes"]:
+        bus.apply(kind.NODE, node.name, node)
+    for metric in objs["metrics"]:
+        bus.apply(kind.NODE_METRIC, metric.node_name, metric)
+    for pod in objs["pods"] + objs["pending"]:
+        bus.apply(kind.POD, pod.uid, pod)

@@ -51,7 +51,12 @@ def test_every_module_imports_without_jax():
               # the serving slice: the sidecar, its gate and lanes, the
               # client and the solver binary
               "service.codec", "service.tenancy", "service.admission",
-              "service.server", "service.client", "cmd.solver"):
+              "service.server", "service.client", "cmd.solver",
+              # the colocation slice: overcommit, the manager, the bus,
+              # leader election, the wiring and the trace
+              "ops.overcommit", "manager.sloconfig", "manager.noderesource",
+              "client.bus", "client.leaderelection", "client.wiring",
+              "obs.trace"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -88,6 +93,9 @@ def _entry_points():
         ClusterSnapshot,
         NodeSpec,
         PodSpec,
+    )
+    from koordinator_tpu_torch.manager.noderesource import (
+        NodeResourceController,
     )
     from koordinator_tpu_torch.models.placement import PlacementModel
     from koordinator_tpu_torch.state.cluster import lower_nodes
@@ -157,7 +165,36 @@ def _entry_points():
 
         return NodeStateCache(**kw)
 
+    def wired_manager(**kw):
+        from koordinator_tpu_torch.client import APIServer, wire_manager
+
+        return wire_manager(APIServer(), **kw).controller
+
+    oc_nodes = dict(capacity=np.zeros((2, 8), np.int32),
+                    system_used=np.zeros((2, 8), np.int32),
+                    reserved=np.zeros((2, 8), np.int32),
+                    prod_reclaimable=np.zeros((2, 8), np.int32),
+                    metric_fresh=np.ones(2, bool))
+    oc_params = dict(reclaim_percent=np.zeros(8, np.int32),
+                     mid_threshold_percent=np.zeros(8, np.int32),
+                     cpu_policy=np.zeros((), np.int32),
+                     memory_policy=np.zeros((), np.int32))
+    oc_pods = dict(node_idx=np.zeros(3, np.int32),
+                   req=np.zeros((3, 8), np.int32),
+                   usage=np.zeros((3, 8), np.int32),
+                   has_metric=np.ones(3, bool), is_hp=np.ones(3, bool),
+                   is_lse=np.zeros(3, bool), active=np.ones(3, bool))
+
     return [
+        ("manager.NodeResourceController",
+         lambda **kw: NodeResourceController(**kw)),
+        ("client.wire_manager", wired_manager),
+        ("convert.overcommit_nodes",
+         lambda **kw: convert.overcommit_nodes(oc_nodes, **kw).capacity),
+        ("convert.overcommit_pods",
+         lambda **kw: convert.overcommit_pods(oc_pods, **kw).req),
+        ("convert.overcommit_params",
+         lambda **kw: convert.overcommit_params(oc_params, **kw).cpu_policy),
         ("service.PlacementService", sidecar),
         ("service.AdmissionGate", gate),
         ("service.NodeStateCache", node_cache),

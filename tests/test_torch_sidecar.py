@@ -209,3 +209,32 @@ def test_solver_binary_once_writes_its_ready_file(tmp_path, capsys):
     assert solver.parse_address(addr) == addr
     assert solver.parse_address("localhost:7070") == ("localhost", 7070)
     assert solver.parse_address(":7070") == ("127.0.0.1", 7070)
+
+
+class _RaisingBackend:
+    """A remote backend whose every solve fails at the connection."""
+
+    supports_staging_delta = False
+
+    def solve_result(self, *args, **kwargs):
+        raise ConnectionError("sidecar down")
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_failed_remote_solve_keeps_the_remote_tag(pkg):
+    """A backend that raises leaves ``last_solver`` naming the solver
+    that failed ("remote", set before the call), in both packages, after
+    one round through the package's Scheduler."""
+    P = PORT if pkg == "port" else REF
+    if pkg == "port":
+        model = PlacementModel(backend=_RaisingBackend(), device="cpu")
+        sched = port_scheduler(model)
+    else:
+        model = JPlacementModel(backend=_RaisingBackend())
+        sched = ref_scheduler(model)
+    sched.add_node(P.node({"name": "n0", "alloc": {0: 16000, 1: 32768}}))
+    sched.add_pod(P.pod({"name": "p", "req": {0: 1000}}))
+    assert model.last_solver is None
+    with pytest.raises(ConnectionError, match="sidecar down"):
+        sched.schedule_pending(now=10.0)
+    assert model.last_solver == "remote"
