@@ -177,6 +177,38 @@ the microseconds per pod and the bound (see :func:`bound`).
    loop on the CPU; batch capacity holds on every node a round placed
    onto. Round 2's kernel is timed; the placement kernel is held against
    its twin on round 3's inputs and timed (``binpack_colocation``).
+15. The pipelined and streaming loops on the card. (a) Bench config #13
+   (5,000 nodes of 64,000 mCPU and 131,072 MiB, a metric each and 5,000
+   assigned pods from ``default_rng(42)``; each tick 50 metric refreshes
+   and 64 pods; a 50 ms cadence, 2 warm-up, 2 settle and 12 timed ticks)
+   through ``wire_scheduler`` three ways: the serial loop on the card,
+   ``TickPipeline`` on the card (tick t+1's arrivals applied while tick t
+   is in flight) and the serial loop on the CPU. Placements are equal
+   tick for tick and the bus's node accounting at the end; the route, the
+   round critical path p50/p99 of each loop and ``TICK_STAGE_DURATION``
+   by stage are printed. Then ``DEVICE_OBS.request_profile(rounds=8)``
+   opens a ``torch.profiler`` window over 8 more pipelined ticks (closed
+   by one more tick right after the 8th retired): from its trace, the
+   device idle share (one minus the union of kernel, memcpy and memset
+   intervals over the window's wall), its kernel count and the longest
+   idle gap with the annotation it falls under. The placement kernel is
+   held against its twin on a tick's inputs (``binpack_pipelined``).
+   (c) A manual flight-recorder dump, taken while the pipelined
+   Scheduler is alive, holds its ticks' records, the card's allocator
+   numbers and its staged cache's bytes. (b) Bench config #18 (500 nodes,
+   ``heavy_tail_trace(23, 4 s, R, cpu_cap=8000)``, watermark 64, lane
+   deadlines 2/10/50 ms) at R = 200 and 800 pods/s: the adaptive
+   ``StreamingLoop`` and the fixed 50 ms cadence, both pipelined on the
+   card; every submitted pod resolves, submit->bind p50/p99 and rounds by
+   trigger are printed, and the adaptive arm's round log replayed
+   through the fixed-round loop equals it bit for bit (on the card, and
+   on the CPU at 200). The shed-point ladder (1,000-16,000 pods/s, 1.5 s
+   a rung) prints the highest rung that sheds nothing; a profiled 1 s
+   run at 800 pods/s prints its idle share. One fixed watermark round
+   (the 800 pods/s trace's first 64 arrivals on a fake clock, 500 x 64)
+   is driven and its inputs held against the twin
+   (``binpack_streaming``). A deferred
+   publish-side error or a skipped round anywhere in the phase fails it.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -186,7 +218,9 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -195,6 +229,7 @@ import sys
 import tempfile
 import threading
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -226,7 +261,14 @@ from koordinator_tpu_torch.descheduler import (
 from koordinator_tpu_torch.descheduler.framework import Evictor
 from koordinator_tpu_torch.manager import noderesource, sloconfig
 from koordinator_tpu_torch.manager.noderesource import NodeResourceController
-from koordinator_tpu_torch.metrics.components import POD_E2E
+from koordinator_tpu_torch.client.wiring import snapshot_from_bus
+from koordinator_tpu_torch.metrics.components import (
+    PIPELINE_DEFERRED_ERRORS,
+    POD_E2E,
+    ROUNDS_SKIPPED,
+    STREAM_TRIGGERS,
+    TICK_STAGE_DURATION,
+)
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
@@ -237,12 +279,19 @@ from koordinator_tpu_torch.ops.binpack import (
 )
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.ops import rebalance as rb
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
+from koordinator_tpu_torch.obs.flight import FLIGHT
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.oracle.rebalance import RebalanceOracle
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
 from koordinator_tpu_torch.scheduler.preemption import find_preemption
+from koordinator_tpu_torch.scheduler.pipeline import TickPipeline
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+from koordinator_tpu_torch.scheduler.streaming import (
+    StreamingConfig,
+    StreamingLoop,
+)
 from koordinator_tpu_torch.service import server as srv
 from koordinator_tpu_torch.service import tenancy
 from koordinator_tpu_torch.service.client import PlacementClient, RemoteSolver
@@ -257,6 +306,7 @@ from koordinator_tpu_torch.state.cluster import (
     evict_resident_rows,
     lower_nodes,
 )
+from koordinator_tpu_torch.testing.arrivals import heavy_tail_trace
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -367,6 +417,20 @@ COLOC_NODES, COLOC_PPN, COLOC_DANGLING, COLOC_PENDING, COLOC_SEED = (
     5000, 10, 2000, 10000, 11)
 COLOC_CHANGED = 0.01
 COLOC_REPEATS = 5
+# phase 15: bench config #13 (nodes, metric refreshes and pending per
+# tick, cadence, warm-up, settle and timed ticks) and the profile
+# window's rounds; bench config #18 (nodes, trace seed and seconds, the
+# rates, the fixed arm's cadence, the watermark), its shed-point ladder
+# (rates, seconds a rung, seed) and the profiled run's seconds
+PIPE_NODES, PIPE_DIRTY, PIPE_PENDING = 5000, 50, 64
+PIPE_INTERVAL_S, PIPE_WARMUP, PIPE_SETTLE, PIPE_TIMED = 0.05, 2, 2, 12
+PROFILE_ROUNDS = 8
+STREAM_NODES, STREAM_SEED, STREAM_SECONDS = 500, 23, 4.0
+STREAM_RATES = (200.0, 800.0)
+STREAM_INTERVAL_S, STREAM_WATERMARK = 0.05, 64
+LADDER_RATES, LADDER_SECONDS, LADDER_SEED = (
+    (1000.0, 2000.0, 4000.0, 8000.0, 16000.0), 1.5, 31)
+STREAM_PROFILE_SECONDS = 1.0
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -2308,6 +2372,677 @@ def colocation(card) -> dict:
     return entry("binpack_colocation", launches, stats, 317)
 
 
+# -- 15. the pipelined and streaming loops -------------------------------------
+
+def counter_total(metric) -> float:
+    """A counter's total over every label set."""
+    return sum(v for _, _, v in metric.samples())
+
+
+def p50_p99(samples):
+    """(p50, p99) of ``samples``: the p99 index rounded up, as the
+    reference bench takes it, so a short run's worst round is kept."""
+    xs = sorted(samples)
+    return xs[len(xs) // 2], xs[min(len(xs) - 1,
+                                    math.ceil(0.99 * (len(xs) - 1)))]
+
+
+def loop_faults() -> float:
+    """Deferred publish-side errors and skipped rounds so far."""
+    return (counter_total(PIPELINE_DEFERRED_ERRORS)
+            + counter_total(ROUNDS_SKIPPED))
+
+
+def accounting(bus):
+    """The bus's node accounting: every staged field of a full lowering."""
+    arrays = lower_nodes(snapshot_from_bus(bus, now=500.0))
+    return arrays.names, {f: getattr(arrays, f).tolist()
+                          for f in STAGED_NODE_FIELDS}
+
+
+def pipe_world(device=None):
+    """Bench config #13's world through ``wire_scheduler`` on ``device``
+    (the card unless given)."""
+    bus = APIServer()
+    sched = Scheduler(model=PlacementModel(device=device))
+    wire_scheduler(bus, sched)
+    testing.loop_world(bus, Kind, PIPE_NODES)
+    return bus, sched
+
+
+def pipe_tick(bus, rng, t, now) -> None:
+    testing.loop_tick(bus, Kind, rng, t, now, PIPE_NODES, dirty=PIPE_DIRTY,
+                      pending=PIPE_PENDING)
+
+
+def pipe_serial(device=None) -> dict:
+    """Config #13 through the serial loop: each tick's metrics and pods,
+    then one blocking round (the bench's serial arm)."""
+    bus, sched = pipe_world(device)
+    rng = np.random.default_rng(7)
+    for t in range(PIPE_WARMUP):
+        sched.schedule_pending(now=15.0 + 0.1 * t)
+    log, walls, stages = [], [], []
+    for t in range(PIPE_SETTLE + PIPE_TIMED):
+        now = 20.0 + t
+        pipe_tick(bus, rng, t, now)
+        t0 = time.perf_counter()
+        out = sched.schedule_pending(now=now)
+        wall = time.perf_counter() - t0
+        log.append(sorted(out.items()))
+        if t >= PIPE_SETTLE:
+            walls.append(wall)
+            stages.append(dict(sched.model.last_timings))
+    return dict(log=log, accounting=accounting(bus), walls=walls,
+                stages=stages)
+
+
+def stage_histogram():
+    return {stage: (TICK_STAGE_DURATION.count({"stage": stage}),
+                    TICK_STAGE_DURATION.sum({"stage": stage}))
+            for stage in ("lower", "stage", "solve", "publish")}
+
+
+def pipe_pipelined(profile_dir) -> dict:
+    """Config #13 through ``TickPipeline`` on the card at the bench's
+    cadence, tick t+1's metrics and pods applied while tick t is in
+    flight; then a profile window over PROFILE_ROUNDS more ticks, closed
+    by one more tick submitted right after the last one retired."""
+    bus, sched = pipe_world()
+    rng = np.random.default_rng(7)
+    log, rows = [], []
+    holder = {}
+
+    def on_result(out):
+        log.append(sorted(out.items()))
+        rows.append(holder["pipeline"].status()["last_round"])
+
+    pipeline = TickPipeline(sched, log=lambda *a: None, on_result=on_result)
+    holder["pipeline"] = pipeline
+    ticks = PIPE_SETTLE + PIPE_TIMED
+    walls = []
+
+    def cadence(next_fire):
+        lag = next_fire - time.perf_counter()
+        if lag > 0:
+            time.sleep(lag)
+
+    def timed_ticks():
+        pipe_tick(bus, rng, 0, 20.0)
+        next_fire = time.perf_counter()
+        for t in range(ticks):
+            now = 20.0 + t
+            cadence(next_fire)
+            t0 = time.perf_counter()
+            pipeline.submit_round(now=now)
+            wall = time.perf_counter() - t0
+            next_fire = t0 + PIPE_INTERVAL_S
+            if t >= PIPE_SETTLE:
+                walls.append(wall)
+            if t + 1 < ticks:
+                pipe_tick(bus, rng, t + 1, now + 1.0)
+            pipeline.prestage(now=now)
+        pipeline.drain("smoke")
+
+    try:
+        for t in range(PIPE_WARMUP):
+            pipeline.submit_round(now=15.0 + 0.1 * t)
+            pipeline.drain("warmup")
+        log.clear()
+        rows.clear()
+        before = stage_histogram()
+        _, launches, wall, captured = drive(timed_ticks)
+        after = stage_histogram()
+        book = accounting(bus)
+        DEVICE_OBS.configure(profile_dir=profile_dir,
+                             profile_min_interval_s=0.0)
+        armed = DEVICE_OBS.request_profile(rounds=PROFILE_ROUNDS)
+        assert armed.get("armed"), armed
+        pipe_tick(bus, rng, ticks, 20.0 + ticks)
+        next_fire = time.perf_counter()
+        for k in range(PROFILE_ROUNDS + 1):
+            t = ticks + k
+            if k < PROFILE_ROUNDS:
+                cadence(next_fire)
+            else:
+                pipeline.drain("profile")
+            next_fire = time.perf_counter() + PIPE_INTERVAL_S
+            with torch.profiler.record_function(ROUND_RANGE):
+                pipeline.submit_round(now=20.0 + t)
+            if k < PROFILE_ROUNDS:
+                pipe_tick(bus, rng, t + 1, 21.0 + t)
+            pipeline.prestage(now=20.0 + t)
+        pipeline.drain("smoke")
+    finally:
+        pipeline.stop()
+    profile = DEVICE_OBS.status()["profile"]
+    assert profile["last_error"] is None and profile["windows"], profile
+    stages = {stage: ((after[stage][1] - before[stage][1])
+                      / max(1, after[stage][0] - before[stage][0]))
+              for stage in after}
+    return dict(log=log[:ticks], accounting=book, walls=walls,
+                rows=rows[PIPE_SETTLE:ticks], stages=stages,
+                launches=launches, captured=captured, wall=wall,
+                window=profile["windows"][-1], threads=profile["threads"],
+                sched=sched)
+
+
+#: the trace's device activity: kernels, copies and memsets
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+#: the harness's range around each round it starts inside a window
+ROUND_RANGE = "smoke:round"
+
+
+def merged(intervals) -> list:
+    """Sorted, disjoint cover of ``[(start, end)]``."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def covered(intervals, within) -> float:
+    """Length of the union of ``intervals`` inside the union of
+    ``within``."""
+    xs, ys = merged(intervals), merged(within)
+    total, j = 0.0, 0
+    for a, b in xs:
+        while j < len(ys) and ys[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(ys) and ys[k][0] < b:
+            total += min(b, ys[k][1]) - max(a, ys[k][0])
+            k += 1
+    return total
+
+
+def critical_paths(spans, start, rounds) -> list:
+    """Each of the window's ``rounds`` rounds as ``(start, read-back
+    end)``: the first from the window's start (its ``on_round`` opened
+    the window, with no round in flight), each later one from the
+    harness's ROUND_RANGE, paired in order with the ``ktpu:read_back``
+    ranges (one a round, on the publisher; host ranges only, not their
+    ``gpu_user_annotation`` copies on the device's track). Empty when the
+    trace lacks them (the publisher's thread not profiled)."""
+    host = [e for e in spans if e.get("cat") == "user_annotation"]
+    starts = sorted(e["ts"] for e in host
+                    if e["name"] == ROUND_RANGE and e["ts"] > start)
+    ends = sorted(e["ts"] + e["dur"] for e in host
+                  if e["name"] == "ktpu:read_back")
+    if len(starts) < rounds - 1 or len(ends) < rounds:
+        return []
+    paths = list(zip([start] + starts[:rounds - 1], ends[:rounds]))
+    assert all(a < b for a, b in paths), paths
+    return paths
+
+
+def idle_share(path, rounds) -> dict:
+    """The device's idle share in one profile window: one minus the union
+    of its kernel, copy and memset intervals over the window's wall (the
+    span of every event the window recorded: the first round's start to
+    the last round's retire), its kernel count, and the longest idle gap
+    with the ``ktpu:`` annotation (or other CPU range) it falls under.
+    Beside it the same share over the union of the ``rounds`` rounds'
+    critical paths (:func:`critical_paths`), which leaves out the gaps
+    between rounds, the harness's cadence sleep among them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in spans)
+    end = max(e["ts"] + e["dur"] for e in spans)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                    if e.get("cat") in DEVICE_CATS)
+    paths = critical_paths(spans, start, rounds)
+    crit = sum(b - a for a, b in merged(paths))
+    crit_busy = covered(device, paths)
+    busy, gaps, cursor = 0.0, [], start
+    for a, b in device:
+        if a > cursor:
+            gaps.append((cursor, a))
+        if b > cursor:
+            busy += b - max(a, cursor)
+            cursor = b
+    if end > cursor:
+        gaps.append((cursor, end))
+    gap = max(gaps, key=lambda g: g[1] - g[0]) if gaps else (start, start)
+    mid = (gap[0] + gap[1]) / 2
+    covering = [e for e in spans if e.get("cat") in (
+        "user_annotation", "cpu_op", "python_function")
+        and e["ts"] <= mid <= e["ts"] + e["dur"]]
+    named = [e for e in covering if e["name"].startswith("ktpu:")]
+    under = min(named or covering, key=lambda e: e["dur"],
+                default=None)
+    kernels = [e for e in spans if e.get("cat") == "kernel"]
+    wall = end - start
+    return dict(idle=1.0 - busy / wall if wall else 0.0, wall_ms=wall / 1e3,
+                busy_ms=busy / 1e3,
+                crit_idle=1.0 - crit_busy / crit if crit else None,
+                crit_ms=crit / 1e3, crit_busy_ms=crit_busy / 1e3,
+                kernels=len(kernels),
+                placement=sum("binpack" in e["name"] for e in kernels),
+                gap_ms=(gap[1] - gap[0]) / 1e3,
+                under=under["name"] if under is not None else "none",
+                cats=sorted({e.get("cat") for e in spans}))
+
+
+def window_line(label, stats, threads, card) -> str:
+    crit = ("not measured (no read-back ranges in the trace)"
+            if stats["crit_idle"] is None else
+            f"{stats['crit_idle']:.6f} of {stats['crit_ms']:.3f} ms (busy "
+            f"{stats['crit_busy_ms']:.3f} ms)")
+    return (f"{label} [{card}]: device idle share {stats['idle']:.6f} of a "
+            f"{stats['wall_ms']:.3f} ms window (busy {stats['busy_ms']:.3f} "
+            f"ms: kernels, copies, memsets); over the rounds' critical paths "
+            f"(round start to read-back, the gaps between rounds left out) "
+            f"{crit}; {stats['kernels']} kernels "
+            f"({stats['placement']} placement); longest idle gap "
+            f"{stats['gap_ms']:.3f} ms under {stats['under']}; threads "
+            f"profiled: {threads}; trace categories {stats['cats']}")
+
+
+def pipelined_churn(card, profile_dir, dump_dir) -> dict:
+    """Phase 15 (a): config #13 through the serial loop on the card, the
+    pipelined loop on the card and the serial loop on the CPU; equal tick
+    for tick and in the bus's node accounting. (c), the flight dump, is
+    taken between the last two, while the pipelined Scheduler is alive.
+    Returns the ``binpack_pipelined`` entry."""
+    faults = loop_faults()
+    serial = pipe_serial()
+    piped = pipe_pipelined(profile_dir)
+    flight_dump(card, dump_dir, piped.pop("sched"))
+    cpu = pipe_serial("cpu")
+    assert loop_faults() == faults, "a deferred error or a skipped round"
+    ticks = PIPE_SETTLE + PIPE_TIMED
+    assert len(piped["log"]) == len(serial["log"]) == len(cpu["log"]) == ticks
+    for t in range(ticks):
+        assert piped["log"][t] == serial["log"][t], f"pipelined != serial {t}"
+        assert serial["log"][t] == cpu["log"][t], f"cuda != cpu at tick {t}"
+    assert piped["accounting"] == serial["accounting"] == cpu["accounting"]
+    inp, route = piped["captured"][-1]
+    assert all(r == route for _, r in piped["captured"]), "route changed"
+    launches = piped["launches"][route.kind]
+    assert launches == ticks, piped["launches"]
+    placed = sum(n is not None for tick in piped["log"] for _, n in tick)
+    s50, s99 = p50_p99(serial["walls"])
+    p50, p99 = p50_p99(piped["walls"])
+    c50, c99 = p50_p99(cpu["walls"])
+    med = {k: statistics.median(tm[k] for tm in serial["stages"])
+           for k in ("lower_s", "stage_s", "solve_s")}
+    rows = {k: statistics.median(r.get(f"{k}_s", 0.0) for r in piped["rows"])
+            for k in ("lower", "stage", "solve", "publish")}
+    print(f"pipelined churn (config #13) [{card}]: {PIPE_NODES} nodes, "
+          f"{PIPE_DIRTY} metrics + {PIPE_PENDING} pods a tick, "
+          f"{PIPE_INTERVAL_S * 1e3:.0f} ms cadence, {ticks} ticks "
+          f"({PIPE_SETTLE} settle): {placed} placed; serial on the card == "
+          f"pipelined on the card == serial on the cpu, tick for tick and in "
+          f"the bus's node accounting; 0 deferred errors, 0 skipped rounds; "
+          f"route {route_name(route)} ({route.shards} CTAs, {route.n_loc} "
+          f"rows per CTA); launches {launches}", flush=True)
+    print(f"pipelined churn [{card}]: round critical path over "
+          f"{PIPE_TIMED} timed ticks: serial (the round's wall) p50 "
+          f"{s50 * 1e3:.3f} ms p99 {s99 * 1e3:.3f} ms; pipelined "
+          f"(submit_round's wall) p50 {p50 * 1e3:.3f} ms p99 "
+          f"{p99 * 1e3:.3f} ms; serial on the cpu p50 {c50 * 1e3:.3f} ms "
+          f"p99 {c99 * 1e3:.3f} ms", flush=True)
+    print(f"pipelined churn [{card}]: TICK_STAGE_DURATION mean over the "
+          f"timed ticks: " + ", ".join(
+              f"{k} {v * 1e3:.3f} ms" for k, v in piped["stages"].items())
+          + "; pipelined medians " + ", ".join(
+              f"{k} {v * 1e3:.3f} ms" for k, v in rows.items())
+          + "; serial medians " + ", ".join(
+              f"{k} {v * 1e3:.3f} ms" for k, v in med.items()), flush=True)
+    print(window_line(f"pipelined churn, profile window over "
+                      f"{PROFILE_ROUNDS} ticks",
+                      idle_share(piped["window"], PROFILE_ROUNDS),
+                      piped["threads"], card), flush=True)
+    stats = compare(inp, f"a config #13 tick, {PIPE_NODES} x "
+                    f"{inp.req.shape[0]}", card, reps=5)
+    queued_line("a config #13 tick", inp, stats, card)
+    return entry("binpack_pipelined", launches, stats, 317)
+
+
+def queued_line(label, inp, stats, card) -> None:
+    """A small solve's launches queued behind a sleeping kernel (the
+    card's time for one, apart from the host's time to issue it) beside
+    :func:`compare`'s back-to-back calls."""
+    ms = device_ms(lambda: bk.binpack(inp), 5, LANE_SLEEP_CYCLES)
+    print(f"{label} [{card}]: kernel queued on the card {ms:.4f} ms a "
+          f"launch; back to back {stats['ms']:.4f} ms", flush=True)
+
+
+def flight_dump(card, dump_dir, sched) -> None:
+    """Phase 15 (c): a manual flight-recorder dump after (a)'s pipelined
+    run holds its ticks' round records and the card's allocator numbers,
+    with that run's staged cache as the ``staged_cache`` owner."""
+    model = sched.model
+    assert model.device.type == "cuda", model.device
+    path = FLIGHT.trigger("manual", detail="chip_smoke phase 15")
+    assert path is not None, FLIGHT.dumps()
+    assert os.path.dirname(path) == dump_dir, path
+    with open(path) as f:
+        payload = json.load(f)
+    rounds = payload["rounds"]
+    timed = [r for r in rounds if r.get("placed") == PIPE_PENDING]
+    assert len(timed) >= PIPE_SETTLE + PIPE_TIMED, len(timed)
+    assert all(r.get("solver") == "kernel" for r in timed)
+    live = payload["device"]["live"]
+    staged = model.staged_cache.device_bytes()
+    assert live["bytes"] > 0 and staged > 0, live
+    assert live["owners"]["staged_cache"] == staged, (live, staged)
+    print(f"flight recorder [{card}]: manual dump {os.path.getsize(path)} B, "
+          f"{len(rounds)} round records ({len(timed)} pipelined ticks of "
+          f"{PIPE_PENDING} placed), device section: {live['device']}, "
+          f"{live['bytes']} B allocated, {live['reserved_bytes']} B "
+          f"reserved, {live['max_allocated_bytes']} B peak, "
+          f"{live['alloc_retries']} allocator retries, the pipelined "
+          f"run's staged cache on {model.device} "
+          f"{live['owners']['staged_cache']} B", flush=True)
+
+
+def stream_world(device=None):
+    """Bench config #18's world through ``wire_scheduler`` on ``device``,
+    after one warm-up round on a throwaway pod (deleted, timelines
+    reset), as the reference bench warms it."""
+    bus = APIServer()
+    sched = Scheduler(model=PlacementModel(device=device))
+    wire_scheduler(bus, sched)
+    testing.loop_world(bus, Kind, STREAM_NODES, assigned=False)
+    warm = ttypes.PodSpec(name="warm0", requests={
+        ResourceName.CPU: 100, ResourceName.MEMORY: 64})
+    bus.apply(Kind.POD, warm.uid, warm)
+    sched.schedule_pending(now=15.0)
+    bus.delete(Kind.POD, warm.uid)
+    sched.timelines.reset()
+    return bus, sched
+
+
+def trace_pod(a):
+    return ttypes.PodSpec(name=a.name, qos=a.qos, requests={
+        ResourceName.CPU: a.cpu, ResourceName.MEMORY: a.memory})
+
+
+def stream_adaptive(rate, seed=None, seconds=None, profile_dir=None) -> dict:
+    """The adaptive arm on the card: an open-loop wall-clock drive of a
+    pipelined ``StreamingLoop`` (the reference bench's). With
+    ``profile_dir``, a profile window over PROFILE_ROUNDS rounds opens
+    0.3 s in and is closed by one round fired right after the last one
+    retired."""
+    seed = STREAM_SEED if seed is None else seed
+    seconds = STREAM_SECONDS if seconds is None else seconds
+    bus, sched = stream_world()
+    loop = StreamingLoop(
+        sched, apply_fn=lambda pod: bus.apply(Kind.POD, pod.uid, pod),
+        delete_fn=lambda uid: bus.delete(Kind.POD, uid),
+        config=StreamingConfig(watermark=STREAM_WATERMARK,
+                               lane_deadline_s=(0.002, 0.010, 0.050)),
+        pipelined=True, log=lambda *a: None)
+    trace = heavy_tail_trace(seed, duration_s=seconds, rate_pods_per_s=rate,
+                             cpu_cap=8000)
+    pods_by_uid = {}
+    triggers = {r: STREAM_TRIGGERS.value({"reason": r})
+                for r in ("watermark", "deadline", "idle")}
+    window = {"armed": profile_dir is None, "closed": profile_dir is None}
+
+    def run():
+        arrivals = trace.arrivals
+        t0 = time.perf_counter()
+        i = 0
+        while i < len(arrivals):
+            now = time.perf_counter() - t0
+            while i < len(arrivals) and arrivals[i].at <= now:
+                pod = trace_pod(arrivals[i])
+                pods_by_uid[pod.uid] = dataclasses.replace(pod)
+                loop.submit(pod)
+                i += 1
+            if not window["armed"] and now >= 0.3:
+                # the window's first round starts with none in flight
+                loop.pipeline.drain("profile")
+                DEVICE_OBS.configure(profile_dir=profile_dir,
+                                     profile_min_interval_s=0.0)
+                armed = DEVICE_OBS.request_profile(rounds=PROFILE_ROUNDS)
+                assert armed.get("armed"), armed
+                window["armed"] = True
+            reason = loop.due()
+            if reason is not None:
+                with (torch.profiler.record_function(ROUND_RANGE)
+                      if profile_dir is not None else nullcontext()):
+                    loop.fire_round(reason)
+                if window["armed"] and not window["closed"] and \
+                        DEVICE_OBS.status()["profile"][
+                            "active_rounds_left"] == 1:
+                    loop.pipeline.drain("profile")
+                    with torch.profiler.record_function(ROUND_RANGE):
+                        loop.fire_round("idle")
+                    window["closed"] = True
+                continue
+            nxt = (arrivals[i].at - (time.perf_counter() - t0)
+                   if i < len(arrivals) else 0.0)
+            dl = loop.gate.next_deadline()
+            wait = nxt if dl is None else min(
+                nxt, max(0.0, dl - time.monotonic()))
+            if wait > 0:
+                time.sleep(min(wait, 0.005))
+        drained = loop.drain(timeout_s=30.0)
+        return drained, time.perf_counter() - t0 - arrivals[-1].at
+
+    try:
+        (drained, drain_wall), launches, wall, captured = drive(run)
+    finally:
+        loop.stop()
+    st = loop.status()
+    gate = st["gate"]
+    return dict(bus=bus, sched=sched, gate=gate, round_log=list(
+        loop.round_log), pods_by_uid=pods_by_uid, drained=drained,
+        drain_wall=max(0.0, drain_wall), rounds=st["rounds"],
+        latency=sched.timelines.stats()["all"], launches=launches,
+        captured=captured, submitted=gate["submitted"],
+        bound=gate["bound"],
+        shed=gate["shed"]["capacity"] + gate["shed"]["deadline-exceeded"],
+        triggers={r: STREAM_TRIGGERS.value({"reason": r}) - v
+                  for r, v in triggers.items()})
+
+
+def stream_fixed(rate) -> dict:
+    """The fixed arm on the card: the same trace with a pipelined round
+    every STREAM_INTERVAL_S whatever the queue holds (``run_loop``'s
+    shape), then rounds until nothing is pending."""
+    bus, sched = stream_world()
+    pipeline = TickPipeline(sched, log=lambda *a: None)
+    arrivals = heavy_tail_trace(STREAM_SEED, duration_s=STREAM_SECONDS,
+                                rate_pods_per_s=rate, cpu_cap=8000).arrivals
+    t0 = time.perf_counter()
+    next_round = t0 + STREAM_INTERVAL_S
+    i = rounds = 0
+    try:
+        while i < len(arrivals):
+            now = time.perf_counter()
+            while i < len(arrivals) and arrivals[i].at <= now - t0:
+                pod = trace_pod(arrivals[i])
+                bus.apply(Kind.POD, pod.uid, pod)
+                i += 1
+            if now >= next_round:
+                pipeline.submit_round(now=time.time())
+                pipeline.prestage(now=time.time())
+                rounds += 1
+                next_round += STREAM_INTERVAL_S
+                continue
+            nxt = t0 + arrivals[i].at if i < len(arrivals) else next_round
+            wait = min(next_round, nxt) - time.perf_counter()
+            if wait > 0:
+                time.sleep(min(wait, 0.005))
+        deadline = time.perf_counter() + 30.0
+        while time.perf_counter() < deadline:
+            pipeline.drain("smoke")
+            if not sched.cache.pending:
+                break
+            pipeline.submit_round(now=time.time())
+            rounds += 1
+    finally:
+        pipeline.stop()
+    assert not sched.cache.pending, "the fixed arm left pods pending"
+    return dict(latency=sched.timelines.stats()["all"], rounds=rounds,
+                n=len(arrivals))
+
+
+def stream_replay(arm, device=None) -> None:
+    """The adaptive arm's recorded batches through the fixed-round loop
+    on ``device``: placements and node accounting equal, bit for bit."""
+    bus, sched = stream_world(device)
+    for _reason, at, uids in arm["round_log"]:
+        for uid in uids:
+            pod = arm["pods_by_uid"][uid]
+            bus.apply(Kind.POD, pod.uid, pod)
+        sched.schedule_pending(now=at)
+    mine = {u: p.node_name for u, p in arm["bus"].list(Kind.POD).items()}
+    theirs = {u: p.node_name for u, p in bus.list(Kind.POD).items()}
+    assert mine == theirs, f"replay on {device or 'cuda'}: placements"
+    assert accounting(arm["bus"]) == accounting(bus), "replay: accounting"
+
+
+def resolved(arm) -> None:
+    """Every submitted pod resolved: bound, shed or expired."""
+    assert arm["drained"], "the intake did not drain"
+    assert not arm["sched"].cache.pending, "pods left pending"
+    assert arm["submitted"] == arm["bound"] + arm["shed"], arm["gate"]
+
+
+def streaming_arrivals(card, profile_dir) -> dict:
+    """Phase 15 (b): config #18, both arms pipelined on the card at each
+    rate, the adaptive arm's replay, the shed-point ladder and a profiled
+    run. Returns the ``binpack_streaming`` entry."""
+    faults = loop_faults()
+    for rate in STREAM_RATES:
+        adaptive = stream_adaptive(rate)
+        fixed = stream_fixed(rate)
+        resolved(adaptive)
+        assert fixed["n"] == adaptive["submitted"]
+        stream_replay(adaptive)
+        devices = ["cuda"]
+        if rate == STREAM_RATES[0]:
+            stream_replay(adaptive, "cpu")
+            devices.append("cpu")
+        routes = {route_name(r) for _, r in adaptive["captured"]}
+        assert routes == {"block"}, routes
+        launches = adaptive["launches"]["block"]
+        a, f = adaptive["latency"], fixed["latency"]
+        print(f"streaming arrivals (config #18) at {rate:.0f} pods/s "
+              f"[{card}]: {STREAM_NODES} nodes, heavy-tail trace "
+              f"{STREAM_SEED} over {STREAM_SECONDS:.1f} s, "
+              f"{adaptive['submitted']} pods; adaptive (watermark "
+              f"{STREAM_WATERMARK}, deadlines 2/10/50 ms): submit->bind p50 "
+              f"{a['p50_s'] * 1e3:.3f} ms p99 {a['p99_s'] * 1e3:.3f} ms over "
+              f"{a['count']} binds, {adaptive['rounds']} rounds by trigger "
+              f"{adaptive['triggers']}, {adaptive['bound']} bound + "
+              f"{adaptive['shed']} shed or expired = "
+              f"{adaptive['submitted']} submitted, tail drained in "
+              f"{adaptive['drain_wall']:.3f} s; fixed "
+              f"{STREAM_INTERVAL_S * 1e3:.0f} ms cadence: p50 "
+              f"{f['p50_s'] * 1e3:.3f} ms p99 {f['p99_s'] * 1e3:.3f} ms over "
+              f"{f['count']} binds, {fixed['rounds']} rounds; route block, "
+              f"launches {launches}; the adaptive arm's replay through the "
+              f"fixed-round loop == on {' and '.join(devices)}", flush=True)
+    sustained, shed_at = None, None
+    for rate in LADDER_RATES:
+        arm = stream_adaptive(rate, seed=LADDER_SEED, seconds=LADDER_SECONDS)
+        ok = (arm["shed"] == 0 and arm["drained"]
+              and arm["bound"] == arm["submitted"]
+              and arm["drain_wall"] <= 1.0)
+        print(f"shed-point ladder [{card}]: {rate:.0f} pods/s for "
+              f"{LADDER_SECONDS} s: {arm['submitted']} submitted, "
+              f"{arm['bound']} bound, {arm['shed']} shed, tail drained in "
+              f"{arm['drain_wall']:.3f} s, p99 "
+              f"{arm['latency']['p99_s'] * 1e3:.3f} ms -> "
+              f"{'sustained' if ok else 'not sustained'}", flush=True)
+        if not ok:
+            shed_at = rate
+            break
+        sustained = rate
+    print(f"shed point [{card}]: highest rung with nothing shed "
+          f"{sustained if sustained is None else f'{sustained:.0f}'} pods/s; "
+          f"first rung past it {shed_at}", flush=True)
+    profiled = stream_adaptive(STREAM_RATES[-1],
+                               seconds=STREAM_PROFILE_SECONDS,
+                               profile_dir=profile_dir)
+    resolved(profiled)
+    profile = DEVICE_OBS.status()["profile"]
+    assert profile["last_error"] is None and profile["windows"], profile
+    print(window_line(f"streaming at {STREAM_RATES[-1]:.0f} pods/s, profile "
+                      f"window over {PROFILE_ROUNDS} rounds",
+                      idle_share(profile["windows"][-1], PROFILE_ROUNDS),
+                      profile["threads"],
+                      card), flush=True)
+    inp, launches = watermark_round(card)
+    assert loop_faults() == faults, "a deferred error or a skipped round"
+    stats = compare(inp, f"a watermark round of config #18, "
+                    f"{STREAM_NODES} x {inp.req.shape[0]}", card, reps=5)
+    queued_line("a watermark round of config #18", inp, stats, card)
+    return entry("binpack_streaming", launches, stats, 93)
+
+
+def watermark_round(card):
+    """The ``binpack_streaming`` entry's round, the same in every run:
+    the first STREAM_WATERMARK arrivals of config #18's trace at the top
+    rate, submitted on a fake clock to a pipelined ``StreamingLoop`` on
+    the card, whose watermark fires one round of exactly that many pods.
+    Returns ``(inputs, launches)`` of that driven run."""
+    bus, sched = stream_world()
+    loop = StreamingLoop(
+        sched, apply_fn=lambda pod: bus.apply(Kind.POD, pod.uid, pod),
+        delete_fn=lambda uid: bus.delete(Kind.POD, uid),
+        config=StreamingConfig(watermark=STREAM_WATERMARK,
+                               lane_deadline_s=(0.002, 0.010, 0.050)),
+        pipelined=True, log=lambda *a: None, clock=lambda: 0.0)
+    arrivals = heavy_tail_trace(
+        STREAM_SEED, duration_s=STREAM_SECONDS,
+        rate_pods_per_s=STREAM_RATES[-1],
+        cpu_cap=8000).arrivals[:STREAM_WATERMARK]
+
+    def run():
+        for a in arrivals:
+            assert loop.due(now=0.0) is None, "fired before the watermark"
+            assert loop.submit(trace_pod(a), now=0.0) == "queued"
+        return loop.pump(now=0.0)
+
+    try:
+        reason, launches, _, captured = drive(run)
+    finally:
+        loop.stop()
+    gate = loop.status()["gate"]
+    assert reason == "watermark", reason
+    assert gate["bound"] == STREAM_WATERMARK, gate
+    inp, route = routed("a watermark round of config #18", launches,
+                        captured, kind="block")
+    assert inp.req.shape[0] == STREAM_WATERMARK, inp.req.shape
+    print(f"watermark round (config #18) [{card}]: the trace's first "
+          f"{STREAM_WATERMARK} arrivals at {STREAM_RATES[-1]:.0f} pods/s on "
+          f"a fake clock, one {reason} round, {gate['bound']} bound; route "
+          f"{route_name(route)}, launches {launches['block']}", flush=True)
+    return inp, launches["block"]
+
+
+def loops(card) -> list:
+    """Phase 15. Returns its two ``kernels`` entries."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="koord-phase15-")
+    try:
+        FLIGHT.reset()
+        FLIGHT.configure(dump_dir=os.path.join(work, "flight"),
+                         min_interval_s=0.0)
+        pipelined = pipelined_churn(card, os.path.join(work, "profile"),
+                                    os.path.join(work, "flight"))
+        streaming = streaming_arrivals(card, os.path.join(work, "profile"))
+    finally:
+        DEVICE_OBS.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"loops phase wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return [pipelined, streaming]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -2487,6 +3222,9 @@ def main() -> int:
 
     # -- 14. the colocation loop -------------------------------------------------
     kernels.append(colocation(card))
+
+    # -- 15. the pipelined and streaming loops ---------------------------------
+    kernels += loops(card)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

@@ -165,6 +165,9 @@ def wire_scheduler(bus: APIServer, scheduler, elector=None) -> None:
         return out
 
     scheduler.schedule_pending = schedule_and_publish
+    # the pipelined loop (scheduler/pipeline.py) calls the halves itself
+    # and publishes from its worker through this
+    scheduler.publish_result = publish_result
 
     # victims are evicted THROUGH the bus so every watcher observes the
     # eviction; the DELETED event re-enters remove_pod

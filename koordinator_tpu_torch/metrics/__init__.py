@@ -1,6 +1,6 @@
 """Prometheus-style metrics (counterpart of ``koordinator_tpu/metrics``,
 cut to the series the ported modules emit): the registry primitives and
-the scheduler's and descheduler's registries."""
+the scheduler's, descheduler's and device observatory's registries."""
 
 from koordinator_tpu_torch.metrics.registry import (  # noqa: F401
     Counter,
@@ -11,5 +11,6 @@ from koordinator_tpu_torch.metrics.registry import (  # noqa: F401
 )
 from koordinator_tpu_torch.metrics.components import (  # noqa: F401
     DESCHEDULER_METRICS,
+    DEVICE_METRICS,
     SCHEDULER_METRICS,
 )

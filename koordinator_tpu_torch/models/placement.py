@@ -30,10 +30,13 @@ working-set registration and its demotion rungs (``state/workingset.py``)
 and sharded staging (no mesh on one card), the host path for tiny
 solves, pod-shape, reservation-axis and victim-axis bucketing (they share
 XLA compiles, which eager PyTorch does not have; results are identical
-without them), the kernel's cached reservation one-hot (the CUDA kernel
-has none) and the device observatory (its compile and padding hooks).
-A solve records the reference's ``lower``, ``stage``, ``dispatch``,
-``device_solve`` and ``read_back`` spans into ``obs/trace.TRACER``. With
+without them) and the kernel's cached reservation one-hot (the CUDA
+kernel has none). A solve records the reference's ``lower``, ``stage``,
+``dispatch``, ``device_solve`` and ``read_back`` spans into
+``obs/trace.TRACER``, and :meth:`PlacementModel.prestage` its
+``prestage`` span; the solve launch, the read-back and the prestage
+carry the device observatory's ``annotate`` ranges (``obs/device.py``),
+and the model registers its staged cache's bytes there as an owner. With
 ``backend`` (``service/client.RemoteSolver``) every solve goes to the
 solver sidecar.
 
@@ -54,6 +57,7 @@ import torch
 
 from koordinator_tpu_torch import DeviceLike, resolve_device
 from koordinator_tpu_torch.apis.extension import NUM_RESOURCES, PriorityClass
+from koordinator_tpu_torch.obs.device import DEVICE_OBS, weak_owner
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
@@ -262,9 +266,12 @@ class InFlightSchedule:
             return self._final
         result = self.result
         t_readback = time.perf_counter()
-        assignments = result.assign.cpu().numpy()
-        commit = result.commit.cpu().numpy()
-        waiting = result.waiting.cpu().numpy()
+        # names this transfer in an open profiler window with the label
+        # the span below carries
+        with DEVICE_OBS.annotate("read_back"):
+            assignments = result.assign.cpu().numpy()
+            commit = result.commit.cpu().numpy()
+            waiting = result.waiting.cpu().numpy()
         t_done = time.perf_counter()
         # retro spans from the timestamps taken anyway: the device span
         # covers dispatch to read-back, the read-back span the copy alone
@@ -611,6 +618,11 @@ class PlacementModel:
         #: the staged node state reused across solves of snapshots that
         #: carry a delta tracker
         self.staged_cache = StagedStateCache(self)
+        # live-buffer attribution: the observatory reports how much of
+        # the device memory is the staged world (through a weak
+        # reference: it must never keep a torn-down model's state alive)
+        DEVICE_OBS.register_owner("staged_cache", weak_owner(
+            self.staged_cache, StagedStateCache.device_bytes))
         #: how the last solve staged its nodes: the cache's "full" or
         #: "delta", or None (no tracker: lowered and staged in full)
         self.last_staging: Optional[str] = None
@@ -641,7 +653,14 @@ class PlacementModel:
         snapshot has no tracker."""
         if snapshot.delta_tracker is None:
             return None
-        _, _, times, _ = self.staged_cache.ensure(snapshot)
+        t0 = TRACER.now()
+        with DEVICE_OBS.annotate("prestage"):
+            _, _, times, _ = self.staged_cache.ensure(
+                snapshot, want_device=not self._numa_staging)
+        # the overlap window's span: in a pipelined run it crosses the
+        # publisher track's device_solve span
+        TRACER.emit("prestage", cat="stage", t0=t0,
+                    args={"for_round": TRACER.round_id + 1})
         return times
 
     def stage_nodes(self, arrays: NodeArrays, numa_cap=None,
@@ -972,9 +991,10 @@ class PlacementModel:
         iteration = 0
         while True:
             extras, extras_safe = self._stage_rows(rows, resv_worst)
-            result = self._dispatch_solve(
-                state, batch, quota_state, gang_state, extras, resv,
-                resv_worst <= SCORE_BUDGET, numa_aux, extras_safe)
+            with DEVICE_OBS.annotate("device_solve"):
+                result = self._dispatch_solve(
+                    state, batch, quota_state, gang_state, extras, resv,
+                    resv_worst <= SCORE_BUDGET, numa_aux, extras_safe)
             if not specials:
                 break
             raw = result.raw_assign.cpu().numpy()

@@ -49,12 +49,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
 from koordinator_tpu_torch.ops.binpack import (
     ExtrasRows,
     NodeState,
@@ -696,10 +698,12 @@ def build_library() -> Path:
     sources and header (an unchanged tree is not rebuilt): one ``nvcc``
     per source, all started together, then one link. Returns its path;
     ``ptxas``'s register and spill report for each kernel variant is
-    kept beside it (:func:`build_log`)."""
+    kept beside it (:func:`build_log`). A build (not a load of a built
+    library) is recorded in the device observatory."""
     out = BUILD_DIR / f"libbinpack-{_digest()}.so"
     if out.exists():
         return out
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     stem = f"{out.stem}.{os.getpid()}"
@@ -728,6 +732,8 @@ def build_library() -> Path:
                            + "\n".join(log))
     out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)
+    DEVICE_OBS.record_compile("binpack_library", time.perf_counter() - t0,
+                              "".join(log))
     return out
 
 

@@ -46,11 +46,17 @@ scheduler's series (attempts by result, pending pods, the solve's
 duration, preemption attempts and victims, defrag drains, gang
 rejections), as the reference does.
 
-Not in this slice of the port, and queued in ROADMAP.md:
-- the plugin chain: ``schedule_one`` and ``batched_placement=False``
-  raise ``NotImplementedError``;
-- the stuck-cycle monitor, the debug services registry and the device
-  observatory: the round runs without them.
+Each ``begin_tick`` first calls the device observatory's round hook
+(``obs/device.DEVICE_OBS.on_round``: it drives an armed profiler window
+over the next K rounds). ``self.monitor`` is the stuck-cycle watchdog
+over the trace's open marks, ``self.debug`` the debug recorder and
+``self.services`` the debug services registry (``pod-timelines``,
+``monitor``, ``Coscheduling`` and ``ElasticQuota``, as the reference
+registers them; the loops register theirs).
+
+Not in this slice of the port, and queued in ROADMAP.md: the plugin
+chain (``schedule_one`` and ``batched_placement=False`` raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -90,10 +96,16 @@ from koordinator_tpu_torch.models.placement import (
     ScheduleResult,
 )
 from koordinator_tpu_torch.numa.manager import ResourceManager, TopologyOptions
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
 from koordinator_tpu_torch.obs.timeline import PodTimelines, lane_of
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
 from koordinator_tpu_torch.scheduler.cache import SchedulerCache
+from koordinator_tpu_torch.scheduler.monitor import (
+    DebugRecorder,
+    DebugServices,
+    SchedulerMonitor,
+)
 from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
     DeviceSharePlugin,
 )
@@ -166,6 +178,9 @@ class Scheduler:
         self.gang_manager = GangManager()
         self.numa_manager = ResourceManager()
         self.device_cache = NodeDeviceCache()
+        self.monitor = SchedulerMonitor(tracer=TRACER)
+        self.debug = DebugRecorder()
+        self.services = DebugServices()
         #: per-pod submit→staged→solved→published timelines feeding the
         #: scheduler_pod_e2e_seconds{lane} histograms
         self.timelines = PodTimelines()
@@ -202,6 +217,31 @@ class Scheduler:
                                  device_plugin=self._device_plugin,
                                  ports_plugin=self._ports_plugin)
         self.model = model
+        self.services.register("pod-timelines", self.timelines.status)
+        self.services.register("monitor", self.monitor.status)
+        self.services.register(
+            "Coscheduling",
+            lambda: {
+                name: {
+                    "min_member": rec.spec.min_member,
+                    "waiting": sorted(rec.waiting),
+                    "bound": sorted(rec.bound),
+                    "once_satisfied": rec.once_satisfied,
+                }
+                for name, rec in self.gang_manager.gangs.items()
+            },
+        )
+        self.services.register(
+            "ElasticQuota",
+            lambda: {
+                name: {
+                    "request": info.request.tolist(),
+                    "used": info.used.tolist(),
+                    "runtime": info.runtime.tolist(),
+                }
+                for name, info in self.quota_manager.quotas.items()
+            },
+        )
 
     # -- informer-style intake ----------------------------------------------
 
@@ -401,6 +441,9 @@ class Scheduler:
         number and its ``round:<id>`` mark, which :meth:`commit_tick`
         closes (or this method, when the round fails here)."""
         at0 = now if now is not None else time.time()
+        # the device observatory's round boundary: drives an armed
+        # profiler window (one flag read when none is)
+        DEVICE_OBS.on_round()
         rid = TRACER.begin_round()
         TRACER.mark_open(f"round:{rid}", round_id=rid)
         t_begin = TRACER.now()

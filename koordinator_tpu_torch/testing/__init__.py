@@ -1460,3 +1460,51 @@ def apply_colocation(bus, kind, spec: dict, types) -> None:
         bus.apply(kind.NODE_METRIC, metric.node_name, metric)
     for pod in objs["pods"] + objs["pending"]:
         bus.apply(kind.POD, pod.uid, pod)
+
+
+# -- the pipelined and streaming loops' worlds (bench configs #13 and #18) ------
+
+def loop_world(bus, kind, n_nodes: int, *, assigned: bool = True,
+               seed: int = 42) -> None:
+    """Bench config #13's world (and, with ``assigned=False``, config
+    #18's) applied to an ``APIServer`` and its ``Kind``, drawn as the
+    reference bench draws it from ``default_rng(seed)``: ``n_nodes`` nodes
+    of 64,000 mCPU and 131,072 MiB, a NodeMetric each, and (``assigned``)
+    ``n_nodes`` pods already placed on random nodes."""
+    rng = np.random.default_rng(seed)
+    for i in range(n_nodes):
+        bus.apply(kind.NODE, f"n{i}", NodeSpec(
+            name=f"n{i}", allocatable={CPU: 64000, MEM: 131072}))
+        if not assigned:
+            bus.apply(kind.NODE_METRIC, f"n{i}", _loop_metric(rng, i, 10.0))
+    if not assigned:
+        return
+    for i in range(n_nodes):
+        bus.apply(kind.NODE_METRIC, f"n{i}", _loop_metric(rng, i, 10.0))
+    for j in range(n_nodes):
+        node_i = int(rng.integers(0, n_nodes))
+        pod = PodSpec(name=f"a{j}", node_name=f"n{node_i}", assign_time=5.0,
+                      requests={CPU: int(rng.integers(200, 2000)),
+                                MEM: int(rng.integers(128, 2048))})
+        bus.apply(kind.POD, pod.uid, pod)
+
+
+def _loop_metric(rng, i: int, now: float) -> NodeMetric:
+    return NodeMetric(node_name=f"n{i}",
+                      node_usage={CPU: int(rng.integers(500, 30000)),
+                                  MEM: int(rng.integers(512, 65536))},
+                      update_time=now)
+
+
+def loop_tick(bus, kind, rng, t: int, now: float, n_nodes: int, *,
+              dirty: int = 50, pending: int = 64) -> None:
+    """One tick of bench config #13's stream: ``dirty`` NodeMetric
+    refreshes on distinct random nodes, then ``pending`` new pods."""
+    for i in rng.choice(n_nodes, dirty, replace=False):
+        bus.apply(kind.NODE_METRIC, f"n{int(i)}",
+                  _loop_metric(rng, int(i), now))
+    for j in range(pending):
+        pod = PodSpec(name=f"t{t}p{j}",
+                      requests={CPU: int(rng.integers(200, 1500)),
+                                MEM: int(rng.integers(128, 1024))})
+        bus.apply(kind.POD, pod.uid, pod)

@@ -108,7 +108,8 @@ def series_values(P):
 
 
 #: the reference's device observatory records a span per XLA compile;
-#: the port has no jit and no observatory yet (ROADMAP Queue 1 item 2)
+#: the port's records one per nvcc build of its kernel library, which a
+#: CPU run never makes
 NOT_PORTED_SPANS = ("device-compile",)
 
 

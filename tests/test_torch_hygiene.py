@@ -56,7 +56,13 @@ def test_every_module_imports_without_jax():
               # leader election, the wiring and the trace
               "ops.overcommit", "manager.sloconfig", "manager.noderesource",
               "client.bus", "client.leaderelection", "client.wiring",
-              "obs.trace"):
+              "obs.trace",
+              # the loops slice: the pipelined and streaming loops, the
+              # loop half of cmd/scheduler.py, the monitor, the flight
+              # recorder, the device observatory and the arrival traces
+              "scheduler.pipeline", "scheduler.streaming",
+              "scheduler.monitor", "cmd.scheduler", "obs.flight",
+              "obs.device", "testing", "testing.arrivals"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
