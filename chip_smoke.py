@@ -209,6 +209,42 @@ the microseconds per pod and the bound (see :func:`bound`).
    is driven and its inputs held against the twin
    (``binpack_streaming``). A deferred
    publish-side error or a skipped round anywhere in the phase fails it.
+16. The serving failure domain on the card. (a) Bench config #11
+   (``testing.failure_domain.OUTAGE``: 512 nodes, 16 metric refreshes and
+   32 pods a tick, 40 ticks) through ``build_scheduler(placement_backend=
+   "sidecar", solver_failover=True)`` (threshold 2, recovery probes 2,
+   a 0.5 s deadline) over a ``SolverSupervisor``'s real ``python -m
+   koordinator_tpu_torch.cmd.solver`` child on the card (probe 0.2 s,
+   backoff 8 s), the child SIGKILLed at tick 13: every tick equals the
+   fault-free run on the card and the CPU run, no round is skipped, the
+   modes run remote, local-fallback, local-degraded, remote, and the
+   supervisor restarts once and ends running; the kill's anatomy, the
+   child's boot, and the first local solve with and without ``prewarm``
+   (each in a fresh process) are printed. The first local solve's inputs
+   (``binpack_failover_local``) and the first remote solve after the
+   flip back, a full restage the child solved (``binpack_sidecar_
+   restaged``, its answer equal to the same kernel here), are held
+   against the twin. (d) The child serves ``--debug-port`` and
+   ``--hbm-budget-bytes``: ``debug_port_probe`` sees it healthy,
+   ``/metrics`` carries the admission, device and working-set series and
+   the ``solver`` and ``workingset`` services answer. Then the same stack
+   under ``TickPipeline`` with the child killed mid-pipeline: no deferred
+   error, every tick equal to the serial loop. (b) Bench config #21 (16
+   tenants, 1,024-node worlds, 64-pod bursts) through
+   ``solve_from_request`` and ``NodeStateCache`` at the f100, f50 and f25
+   budget lines: every (tenant, round) placement and ``used_req`` equal to
+   the unbudgeted arm, a host-rung demotion lowering
+   ``torch.cuda.memory_allocated()`` by the world's bytes, and a
+   host-rung tenant's first solve after its restage held against the twin
+   (``binpack_workingset_restage``); then one real
+   ``torch.cuda.OutOfMemoryError`` (the small pool's free blocks filled,
+   the process capped with ``set_per_process_memory_fraction``) absorbed
+   by the ladder: it demotes, the retry stages, the cap is lifted and the
+   solve equals its twin. (c) Bench config #20's controller arm (16
+   nodes, a 6 s diurnal trace at 50 pods/s at three regimes, target ls
+   p99 5 ms, a 1 ms fake-clock grid) on the card and on the CPU: the
+   target attained at each regime, at most 12 decisions, the decision log
+   replayed bit for bit and equal to the CPU run's.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -223,12 +259,16 @@ import json
 import math
 import os
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
+import urllib.request
 from contextlib import nullcontext
 
 import numpy as np
@@ -248,6 +288,7 @@ from koordinator_tpu_torch.client import (
     wire_manager,
     wire_scheduler,
 )
+from koordinator_tpu_torch.control import slo
 from koordinator_tpu_torch.control.migration import (
     MigrationArbiter,
     MigrationBudget,
@@ -281,6 +322,7 @@ from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.ops import rebalance as rb
 from koordinator_tpu_torch.obs.device import DEVICE_OBS
 from koordinator_tpu_torch.obs.flight import FLIGHT
+from koordinator_tpu_torch.obs.timeline import PodTimelines
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.oracle.rebalance import RebalanceOracle
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
@@ -292,6 +334,7 @@ from koordinator_tpu_torch.scheduler.streaming import (
     StreamingConfig,
     StreamingLoop,
 )
+from koordinator_tpu_torch.service import failover
 from koordinator_tpu_torch.service import server as srv
 from koordinator_tpu_torch.service import tenancy
 from koordinator_tpu_torch.service.client import PlacementClient, RemoteSolver
@@ -302,11 +345,33 @@ from koordinator_tpu_torch.service.codec import (
     read_frame,
     write_frame,
 )
+from koordinator_tpu_torch.service.supervisor import (
+    SolverSupervisor,
+    debug_port_probe,
+)
 from koordinator_tpu_torch.state.cluster import (
+    ClusterDeltaTracker,
     evict_resident_rows,
     lower_nodes,
 )
-from koordinator_tpu_torch.testing.arrivals import heavy_tail_trace
+from koordinator_tpu_torch.state.workingset import WORKING_SET
+from koordinator_tpu_torch.testing.arrivals import (
+    REGIMES,
+    diurnal_trace,
+    heavy_tail_trace,
+    regime_scale,
+    trace_pods,
+)
+from koordinator_tpu_torch.testing.failure_domain import (
+    DENSITY,
+    OUTAGE,
+    SLO,
+    density_arm,
+    density_stream,
+    mode_runs,
+    outage_churn,
+    slo_arm,
+)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -431,6 +496,20 @@ STREAM_INTERVAL_S, STREAM_WATERMARK = 0.05, 64
 LADDER_RATES, LADDER_SECONDS, LADDER_SEED = (
     (1000.0, 2000.0, 4000.0, 8000.0, 16000.0), 1.5, 31)
 STREAM_PROFILE_SECONDS = 1.0
+# phase 16: bench config #11 (testing.failure_domain.OUTAGE) and its
+# pipelined form (ticks, the tick before which the child is killed, the
+# tick that waits for the respawn, the respawn backoff); the supervised
+# child's working-set budget in 512-node worlds; config #21's timed
+# rounds (the rest in testing.failure_domain.DENSITY; #20's in SLO)
+OUTAGE_PIPE_TICKS, OUTAGE_PIPE_KILL, OUTAGE_PIPE_WAIT = 16, 5, 9
+OUTAGE_PIPE_BACKOFF_S = 2.0
+OUTAGE_BUDGET_WORLDS = 4
+DENSITY_TIMED = 6
+#: the supervised solver's extra arguments and the device of the
+#: first-local-solve processes (a CPU rehearsal passes ("--device",
+#: "cpu") and "cpu")
+CHILD_ARGV = ()
+CHILD_DEVICE = "cuda"
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -3043,6 +3122,567 @@ def loops(card) -> list:
     return [pipelined, streaming]
 
 
+# -- 16. the serving failure domain ----------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mux_get(port, path):
+    """A GET on a child's debug mux: the body as text for ``/metrics``,
+    else as JSON."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        body = resp.read().decode()
+    return body if path == "/metrics" else json.loads(body)
+
+
+def first_local_solve_child(prewarm: bool, device: str = "cuda") -> None:
+    """Run in a fresh process by :func:`first_local_solves`: a
+    ``FailoverSolver`` over a dead sidecar built with or without
+    ``prewarm``, then its first local solve of a config #11 tick (512 x
+    32), timed alone (the inputs are staged first, so the CUDA context
+    exists in both arms). Prints one JSON line."""
+    backend = failover.FailoverSolver(
+        RemoteSolver(os.path.join(tempfile.gettempdir(), "nowhere.sock")),
+        failure_threshold=1, probe_fn=lambda: False, prewarm=prewarm,
+        device=device)
+    state, pods, params = testing.example_problem(
+        OUTAGE.n_nodes, OUTAGE.pending, seed=1, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    assert backend.wait_prewarm(300)
+    t0 = time.perf_counter()
+    failover.local_solve(state, pods, params, SolverConfig())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(json.dumps({"prewarm": prewarm,
+                      "first_local_solve_s": time.perf_counter() - t0,
+                      "prewarm_report": backend.prewarm_report}), flush=True)
+
+
+def first_local_solves() -> dict:
+    """The first local solve's wall with and without ``prewarm``, each in
+    its own fresh process (the two started together)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {p: subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as cs; "
+         f"cs.first_local_solve_child({p}, {CHILD_DEVICE!r})"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p in (True, False)}
+    out = {}
+    for p, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stderr[-2000:]
+        out[p] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def outage_pipelined(sup, backend, card) -> None:
+    """Phase 16 (a), the pipelined form: a ``TickPipeline`` over a wired
+    Scheduler whose model is the sidecar stack, the supervised child
+    SIGKILLed mid-pipeline and respawned; no deferred error, and every
+    tick equal to the serial loop on the card."""
+    def run(model, pipelined, hooks):
+        bus = APIServer()
+        sched = Scheduler(model=model, enable_preemption=False)
+        wire_scheduler(bus, sched)
+        testing.loop_world(bus, Kind, OUTAGE.n_nodes)
+        rng = np.random.default_rng(7)
+        log, modes = [], []
+        pipeline = None
+        if pipelined:
+            pipeline = TickPipeline(
+                sched, log=lambda *a: None,
+                on_result=lambda o: log.append(sorted(o.items())))
+        try:
+            for t in range(OUTAGE_PIPE_TICKS):
+                now = 20.0 + t
+                testing.loop_tick(bus, Kind, rng, t, now, OUTAGE.n_nodes,
+                                  dirty=OUTAGE.dirty, pending=OUTAGE.pending)
+                if t in hooks:
+                    hooks[t]()
+                if pipeline is None:
+                    log.append(sorted(sched.schedule_pending(
+                        now=now).items()))
+                else:
+                    pipeline.submit_round(now=now)
+                    modes.append(model.last_solver)
+                    pipeline.prestage(now=now)
+            if pipeline is None:
+                return log, modes, None
+            pipeline.drain("smoke")
+            return log, modes, pipeline.status()
+        finally:
+            if pipeline is not None:
+                pipeline.stop()
+
+    faults = loop_faults()
+    restarts = sup.restarts_total
+    # a faster respawn than (a)'s, as the reference's case has
+    sup.backoff_base_s = sup.backoff_cap_s = OUTAGE_PIPE_BACKOFF_S
+    # a new model: the sidecar's base (and the client's belief) start over
+    backend._remote.reset_base()
+    model = PlacementModel(backend=backend)
+    backend.on_flip_back = model.reset_staging
+    pid = sup.status()["child_pid"]
+    t0 = time.perf_counter()
+    piped, modes, status = run(model, True, {
+        OUTAGE_PIPE_KILL: lambda: os.kill(pid, signal.SIGKILL),
+        OUTAGE_PIPE_WAIT: lambda: wait_running(sup, restarts + 1)})
+    wall = time.perf_counter() - t0
+    serial, _, _ = run(PlacementModel(), False, {})
+    assert piped == serial, "pipelined outage != serial loop on the card"
+    assert len(piped) == OUTAGE_PIPE_TICKS
+    assert not status["inflight"] and not status["pending_error"], status
+    assert loop_faults() == faults, "a deferred error or a skipped round"
+    assert mode_runs(modes) == ["remote", "local-fallback",
+                                "local-degraded", "remote"], modes
+    assert sup.restarts_total == restarts + 1
+    print(f"outage, pipelined (config #11's world through TickPipeline) "
+          f"[{card}]: {OUTAGE_PIPE_TICKS} ticks, the child (pid {pid}) "
+          f"SIGKILLed before tick {OUTAGE_PIPE_KILL} and respawned; every "
+          f"tick == the serial loop on the card, 0 deferred errors, 0 "
+          f"skipped rounds; modes {' -> '.join(mode_runs(modes))}; wall "
+          f"{wall:.2f} s", flush=True)
+
+
+def wait_running(sup, restarts, timeout_s=120.0) -> float:
+    """Block until the supervisor has made ``restarts`` restarts and its
+    child probes healthy; returns the wait."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        st = sup.status()
+        if st["restarts_total"] >= restarts and st["state"] == "running":
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"the supervised child did not come back: "
+                         f"{sup.status()}")
+
+
+def outage_churn_card(card, sockets) -> list:
+    """Phase 16 (a) and (d): config #11 through ``build_scheduler``'s
+    sidecar stack over a supervised ``cmd.solver`` child on the card.
+    Returns the ``binpack_failover_local`` and ``binpack_sidecar_restaged``
+    entries."""
+    from koordinator_tpu_torch.cmd.scheduler import (
+        SchedulerConfig,
+        build_scheduler,
+    )
+
+    addr = sockets.path("outage")
+    port = free_port()
+    world = world_bytes(OUTAGE.n_nodes)
+    sup = SolverSupervisor(
+        addr, extra_argv=("--debug-port", str(port), "--hbm-budget-bytes",
+                          str(OUTAGE_BUDGET_WORLDS * world),
+                          *CHILD_ARGV),
+        probe_interval_s=0.2, backoff_base_s=OUTAGE.backoff_s,
+        backoff_cap_s=OUTAGE.backoff_s, ready_timeout_s=300.0)
+    t0 = time.perf_counter()
+    sup.start()
+    boot = time.perf_counter() - t0
+    try:
+        sched = build_scheduler(SchedulerConfig(
+            placement_backend="sidecar", solver_address=addr,
+            solver_failover=True,
+            solver_failover_threshold=OUTAGE.failure_threshold,
+            solver_failover_recovery_probes=OUTAGE.recovery_probes))
+        model = sched.model
+        backend = model.backend
+        remote = backend._remote
+        remote.timeout = 60.0
+        remote.backoff_base_s, remote.backoff_cap_s = 0.01, 0.05
+        assert isinstance(backend, failover.FailoverSolver)
+        assert backend.on_flip_back == model.reset_staging
+        # the background prewarm's warm-up solves are not the main path
+        assert backend.wait_prewarm(300), "prewarm did not finish"
+        assert backend.device.type != "cuda" or \
+            backend.prewarm_report["loaded"], backend.prewarm_report
+        kill_tick = OUTAGE.ticks // 3
+        wait_tick = kill_tick + max(4, (OUTAGE.ticks - kill_tick) // 2)
+        restaged = {}
+        real_solve = remote.solve_result
+
+        def remote_solve(*args, **kwargs):
+            out = real_solve(*args, **kwargs)
+            if backend.flips_to_remote and "args" not in restaged:
+                # copied: later ticks scatter the staged state in place
+                restaged.update(args=clone_args(args), result=out,
+                                request=remote.last_request)
+            return out
+
+        remote.solve_result = remote_solve
+        marks = {}
+
+        def on_tick(t):
+            if t == kill_tick:
+                marks["pid"] = sup.status()["child_pid"]
+                marks["kill"] = time.time()
+                os.kill(marks["pid"], signal.SIGKILL)
+            elif t == wait_tick:
+                marks["wait_s"] = wait_running(sup, 1)
+            elif t > kill_tick and backend.status()["degraded"]:
+                time.sleep(0.15)  # a loop cadence between degraded ticks
+
+        (log, walls, modes, done_at), launches, wall, captured = drive(
+            lambda: outage_churn(
+                model, ttypes, ClusterDeltaTracker, ResourceName,
+                on_tick=on_tick,
+                warm=lambda: setattr(remote, "deadline_s", OUTAGE.deadline_s)))
+        ref, _, _, _ = outage_churn(PlacementModel(), ttypes,
+                                    ClusterDeltaTracker, ResourceName)
+        cpu, _, _, _ = outage_churn(PlacementModel(device="cpu"), ttypes,
+                                    ClusterDeltaTracker, ResourceName)
+        assert log == ref, "outage ticks != the fault-free run on the card"
+        assert log == cpu, "outage ticks != the CPU run"
+        assert len(log) == OUTAGE.ticks  # no round skipped
+        assert mode_runs(modes) == ["remote", "local-fallback",
+                                    "local-degraded", "remote"], modes
+        local = [i for i, m in enumerate(modes)
+                 if m in ("local-fallback", "local-degraded")]
+        recovered = [i for i, m in enumerate(modes)
+                     if i > kill_tick and m == "remote"]
+        st = sup.status()
+        assert sup.restarts_total == 1 and st["state"] == "running", st
+        assert st["child_pid"] != marks["pid"]
+        assert len(captured) == len(local) == launches["block"], (
+            len(captured), len(local), launches)
+        first = captured[0]
+        assert first[1].kind == "block", first[1]
+        print(f"outage failover churn (config #11) [{card}]: "
+              f"{OUTAGE.n_nodes} nodes, {OUTAGE.dirty} dirty and "
+              f"{OUTAGE.pending} pending a tick, {OUTAGE.ticks} ticks, the "
+              f"child (pid {marks['pid']}) SIGKILLed at tick {kill_tick}; "
+              f"every tick == the fault-free run on the card == the CPU "
+              f"run, 0 skipped; modes {' -> '.join(mode_runs(modes))}; "
+              f"first local solve {local[0] - kill_tick} ticks after the "
+              f"kill; {len(local)} degraded ticks; kill -> first remote "
+              f"solve after recovery "
+              f"{done_at[recovered[0]] - marks['kill']:.3f} s (the respawn "
+              f"waited {marks['wait_s']:.3f} s at tick {wait_tick}); "
+              f"supervisor restarts {sup.restarts_total}, state "
+              f"{st['state']}; child boot to ready {boot:.3f} s; local "
+              f"launches {launches['block']}; tick wall mean "
+              f"{statistics.mean(walls) * 1e3:.3f} ms", flush=True)
+        solves = first_local_solves()
+        print(f"first local solve (config #11 tick, {OUTAGE.n_nodes} x "
+              f"{OUTAGE.pending}, a fresh process) [{card}]: with prewarm "
+              f"{solves[True]['first_local_solve_s'] * 1e3:.3f} ms (the "
+              f"prewarm itself {solves[True]['prewarm_report']}), without "
+              f"{solves[False]['first_local_solve_s'] * 1e3:.3f} ms",
+              flush=True)
+        local_stats = compare(first[0], f"the first local solve of config "
+                              f"#11, {OUTAGE.n_nodes} x "
+                              f"{first[0].req.shape[0]}", card, reps=5)
+        queued_line("the first local solve of config #11", first[0],
+                    local_stats, card)
+        # (d) the child's debug mux after the churn
+        assert debug_port_probe(port)(), "debug-port probe unhealthy"
+        status = mux_get(port, "/apis/v1/plugins/solver")
+        metrics = mux_get(port, "/metrics")
+        for series in ("solver_admission_requests_total",
+                       "solver_admission_wait_seconds",
+                       "solver_batch_solve_seconds",
+                       "solver_device_live_bytes",
+                       "scheduler_hbm_budget_bytes",
+                       "scheduler_tenant_residency"):
+            assert series in metrics, series
+        ws = mux_get(port, "/apis/v1/plugins/workingset")
+        assert ws["budget_bytes"] == OUTAGE_BUDGET_WORLDS * world, ws
+        assert ws["residents"]["device"] == 1, ws
+        # the respawned child's block launches: its boot warm-up's one,
+        # then one for each remote tick after the recovery
+        child_launches = status["kernel_launches"]["block"] - 1
+        assert child_launches == len(recovered), (status, recovered)
+        print(f"solver debug mux (--debug-port {port}, --hbm-budget-bytes "
+              f"{OUTAGE_BUDGET_WORLDS * world}) [{card}]: /healthz healthy; "
+              f"/metrics {len(metrics.splitlines())} lines with the "
+              f"admission, device and working-set series; solver: "
+              f"{status['admission']['requests_total']} requests, kernel "
+              f"launches {status['kernel_launches']} (one block and one "
+              f"cluster launch of them the boot warm-up), device "
+              f"{status['device']['live'].get('device')} "
+              f"{status['device']['live'].get('bytes')} B allocated; "
+              f"workingset: budget {ws['budget_bytes']} B, used "
+              f"{ws['used_bytes']} B, residents {ws['residents']}",
+              flush=True)
+        # the first remote solve after the flip back: a full restage,
+        # solved by the child's kernel; the same solve here on the card
+        assert restaged["request"] in ("establish", "full"), \
+            restaged["request"]
+        got, _, _, again = drive(
+            lambda: failover.local_solve(*restaged["args"]))
+        assert torch.equal(got.assign.cpu(),
+                           restaged["result"].assign.cpu()), \
+            "the child's restaged solve != the same kernel here"
+        restaged_stats = compare(again[0][0], f"the first remote solve after "
+                                 f"the flip back (a full restage), "
+                                 f"{OUTAGE.n_nodes} x "
+                                 f"{again[0][0].req.shape[0]}", card, reps=5)
+        queued_line("the first remote solve after the flip back",
+                    again[0][0], restaged_stats, card)
+        outage_pipelined(sup, backend, card)
+    finally:
+        sup.stop()
+        WORKING_SET.migration_hook = None
+    return [entry("binpack_failover_local", launches["block"], local_stats,
+                  93),
+            entry("binpack_sidecar_restaged", child_launches,
+                  restaged_stats, 93)]
+
+
+def clone_args(x):
+    """A deep copy of a solve's arguments (NamedTuples of tensors): the
+    staged state is scattered in place by later ticks."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone_args(v) for v in x))
+    if isinstance(x, tuple):
+        return tuple(clone_args(v) for v in x)
+    return x
+
+
+def world_bytes(n_nodes) -> int:
+    """Bytes of one staged ``[N]`` world: the six ``[N, 8]`` int32 columns
+    and the two ``[N]`` bool ones of ``STAGED_NODE_FIELDS``."""
+    return n_nodes * (6 * 8 * 4 + 2)
+
+
+def fill_small_pool() -> list:
+    """Fill the caching allocator's free small-pool blocks (1 MiB and
+    below) with tensors that take no new segment: after this, a small
+    allocation the caller makes needs a new 2 MiB segment. Returns the
+    fillers (the caller frees them)."""
+    fillers = []
+    size = 1 << 20
+    while size >= 512:
+        while True:
+            before = torch.cuda.memory_reserved()
+            t = torch.empty(size, dtype=torch.uint8, device="cuda")
+            if torch.cuda.memory_reserved() > before:
+                del t
+                torch.cuda.empty_cache()
+                break
+            fillers.append(t)
+        size //= 2
+    return fillers
+
+
+def oom_absorbed(card) -> None:
+    """Phase 16 (b), a real ``torch.cuda.OutOfMemoryError``: tenant A's
+    world resident, tenant B's demoted to the host rung; the free small
+    blocks filled and the process capped at what it has reserved, so B's
+    restage needs a new segment past the cap. The ladder must catch the
+    error, demote A and stage B in A's freed blocks on the retry; the cap
+    is lifted once B has staged, and B's solve equals its plain twin."""
+    (a_est, a_deltas), (b_est, b_deltas) = (
+        density_stream(i, 2, DENSITY.n_nodes, DENSITY.n_pods)
+        for i in (90, 91))
+    WORKING_SET.reset()
+    a = srv.NodeStateCache(tenant="oom-a", lane="ls")
+    b = srv.NodeStateCache(tenant="oom-b", lane="ls")
+    fillers = []
+    total = torch.cuda.get_device_properties(0).total_memory
+    real_run = WORKING_SET.run_staged
+    capped = {"on": False}
+
+    def run_staged(key, where, fn, estimate=None):
+        out = real_run(key, where, fn, estimate)
+        if capped["on"] and where == "stage":
+            # B staged: lift the cap before the scatter and the solve
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            capped["on"] = False
+        return out
+
+    try:
+        for cache, est in ((a, a_est), (b, b_est)):
+            resp = srv.solve_from_request(SolveRequest(**est),
+                                          node_cache=cache)
+            assert not resp.error, resp.error
+        assert WORKING_SET.demote(b._ws_key, "host")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        fillers = fill_small_pool()
+        reserved = torch.cuda.memory_reserved()
+        frac = (reserved + (1 << 20)) / total
+        before = WORKING_SET.status()
+        WORKING_SET.run_staged = run_staged
+        torch.cuda.set_per_process_memory_fraction(frac)
+        capped["on"] = True
+        resp, launches, _, captured = drive(
+            lambda: srv.solve_from_request(SolveRequest(**b_deltas[0]),
+                                           node_cache=b))
+    finally:
+        WORKING_SET.run_staged = real_run
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        del fillers
+        torch.cuda.empty_cache()
+    assert not resp.error, resp.error
+    after = WORKING_SET.status()
+    assert after["alloc_failures"] == {"stage": 1}, after
+    assert after["demotions"].get("alloc-failure", 0) == \
+        before["demotions"].get("alloc-failure", 0) + 1, after
+    assert a.state is None and b.state is not None
+    inp, route = routed("B's solve after the ladder", launches, captured,
+                        kind="block")
+    got = bk.binpack(inp)
+    err = max_abs_err(got, twin(inp, route))
+    a.close()
+    b.close()
+    WORKING_SET.reset()
+    print(f"a real CUDA out-of-memory absorbed [{card}]: the small pool "
+          f"filled, the process capped at {frac:.6f} of "
+          f"{total} B ({reserved} B reserved); B's restage raised "
+          f"torch.cuda.OutOfMemoryError, the ladder demoted A "
+          f"({after['demotions']}), the retry staged B in A's blocks; "
+          f"alloc failures {after['alloc_failures']}, restages "
+          f"{after['restages']}; B's solve == its plain twin "
+          f"(max_abs_err {err})", flush=True)
+
+
+def density_card(card):
+    """Phase 16 (b): config #21 on the card, every budget line against
+    the unbudgeted arm. Returns the ``binpack_workingset_restage``
+    entry."""
+    streams = [density_stream(i, DENSITY.warmup + DENSITY_TIMED + 1,
+                              DENSITY.n_nodes, DENSITY.n_pods)
+               for i in range(DENSITY.n_tenants)]
+    solve = lambda req, cache: srv.solve_from_request(req, node_cache=cache)
+    make = lambda i: srv.NodeStateCache(tenant=f"d{i}", lane="be")
+    WORKING_SET.reset()
+    probe = make("probe")
+    assert not solve(SolveRequest(**streams[0][0]), probe).error
+    world = probe.device_bytes()
+    assert world == world_bytes(DENSITY.n_nodes), world
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    assert WORKING_SET.demote(probe._ws_key, "host")
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    assert freed >= world, (freed, world)
+    probe.close()
+    ref_rate, ref_digests, _ = density_arm(
+        streams, SolveRequest, solve, make, WORKING_SET, None, world)
+    lines = {}
+    first = {}
+
+    def capturing(req, cache):
+        # the first solve whose base came back from the host rung
+        if "inp" in first:
+            return solve(req, cache)
+        before = WORKING_SET.status()["restages"].get("host", 0)
+        captured = []
+        launch = bk.binpack
+
+        def capture(inp, *args):
+            captured.append((inp, bk.route_of(inp, *args)))
+            return launch(inp, *args)
+
+        bk.binpack = capture
+        try:
+            resp = solve(req, cache)
+        finally:
+            bk.binpack = launch
+        if WORKING_SET.status()["restages"].get("host", 0) > before:
+            first["inp"] = captured[0]
+        return resp
+
+    for name, worlds in DENSITY.lines.items():
+        deepest = name == "f25"
+        for kind in bk.LAUNCHES:
+            bk.LAUNCHES[kind] = 0
+        rate, digests, ladder = density_arm(
+            streams, SolveRequest, capturing if deepest else solve, make,
+            WORKING_SET, worlds, world)
+        assert digests == ref_digests, f"{name} != the unbudgeted arm"
+        lines[name] = (rate, ladder, dict(bk.LAUNCHES))
+    print(f"tenant density (config #21) [{card}]: {DENSITY.n_tenants} "
+          f"tenants, {DENSITY.n_nodes}-node worlds of {world} B, "
+          f"{DENSITY.n_pods}-pod bursts, {DENSITY_TIMED} timed rounds; "
+          f"every (tenant, round) placement and used_req at f100, f50 and "
+          f"f25 == the unbudgeted arm; a host-rung demotion freed {freed} B "
+          f"of torch.cuda.memory_allocated(); pods/s unbudgeted "
+          f"{ref_rate:.1f}, " + ", ".join(
+              f"{n} {r:.1f} ({lad['demotions']} demotions, "
+              f"{lad['restages']} restages, {lad['resident_device']} "
+              f"resident)" for n, (r, lad, _) in lines.items()), flush=True)
+    inp, route = first["inp"]
+    assert route.kind == "block", route
+    stats = compare(inp, f"a host-rung tenant's first solve after its "
+                    f"restage (config #21), {DENSITY.n_nodes} x "
+                    f"{inp.req.shape[0]}", card, reps=5)
+    queued_line("a host-rung tenant's first solve", inp, stats, card)
+    return entry("binpack_workingset_restage", lines["f25"][2]["block"],
+                 stats, 93)
+
+
+def slo_card(card) -> None:
+    """Phase 16 (c): config #20's controller arm at each regime on the
+    card and on the CPU, fake clock."""
+    def ns(device):
+        return types.SimpleNamespace(
+            APIServer=APIServer, Kind=Kind, wire_scheduler=wire_scheduler,
+            Scheduler=Scheduler, model=lambda: PlacementModel(device=device),
+            PodTimelines=PodTimelines, StreamingLoop=StreamingLoop,
+            StreamingConfig=StreamingConfig,
+            ServingSLOController=slo.ServingSLOController,
+            SLOSpec=slo.SLOSpec, NodeSpec=ttypes.NodeSpec,
+            NodeMetric=ttypes.NodeMetric, ResourceName=ResourceName,
+            trace_pods=trace_pods)
+
+    base = diurnal_trace(seed=SLO.seed, duration_s=SLO.duration_s,
+                         rate_pods_per_s=SLO.rate)
+    for regime in sorted(REGIMES):
+        trace = regime_scale(base, regime)
+        t0 = time.perf_counter()
+        on_card = slo_arm(ns(None), trace, SLO.start_deadlines, True)
+        wall = time.perf_counter() - t0
+        on_cpu = slo_arm(ns("cpu"), trace, SLO.start_deadlines, True)
+        replayed = slo.replay_decisions(
+            slo.SLOSpec(ls=SLO.target_s), on_card["observations"],
+            base_deadlines=SLO.start_deadlines, **SLO.ctl_params)
+        assert on_card["attained"], (regime, on_card["final_ls_p99_s"])
+        assert 1 <= on_card["decisions"] <= 12, on_card["decisions"]
+        assert replayed == on_card["decisions_log"], "replay differs"
+        assert on_card["decisions_log"] == on_cpu["decisions_log"], \
+            "decision log != the CPU run's"
+        assert on_card["capacity_shed"] == 0
+        print(f"SLO convergence (config #20), {regime} [{card}]: "
+              f"{SLO.n_nodes} nodes, {len(trace)} pods over "
+              f"{trace.duration_s:.2f} s, target ls p99 "
+              f"{SLO.target_s * 1e3:.1f} ms: final ls p99 "
+              f"{on_card['final_ls_p99_s'] * 1e3:.3f} ms (attained), "
+              f"{on_card['decisions']} decisions, final deadlines "
+              f"{on_card['final_lane_deadline_s']}, {on_card['rounds']} "
+              f"rounds; replay == the log bit for bit; log == the CPU "
+              f"run's; wall {wall:.2f} s", flush=True)
+
+
+def failure_domain(card) -> list:
+    """Phase 16. Returns its three ``kernels`` entries."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="koord-phase16-")
+    sockets = Sockets()
+    try:
+        FLIGHT.reset()
+        FLIGHT.configure(dump_dir=os.path.join(work, "flight"),
+                         min_interval_s=0.0)
+        entries = outage_churn_card(card, sockets)
+        entries.append(density_card(card))
+        oom_absorbed(card)
+        slo_card(card)
+    finally:
+        sockets.close()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"failure domain phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -3225,6 +3865,9 @@ def main() -> int:
 
     # -- 15. the pipelined and streaming loops ---------------------------------
     kernels += loops(card)
+
+    # -- 16. the serving failure domain ------------------------------------------
+    kernels += failure_domain(card)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

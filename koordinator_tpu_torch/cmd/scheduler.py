@@ -1,5 +1,16 @@
-"""koord-scheduler's loop (counterpart of the loop half of
-``koordinator_tpu/cmd/scheduler.py``).
+"""koord-scheduler's wiring and loop (counterpart of
+``koordinator_tpu/cmd/scheduler.py`` without ``main()``).
+
+:func:`build_scheduler` is Setup: a wired Scheduler whose model solves in
+process or, with ``placement_backend="sidecar"``, through a
+:class:`~koordinator_tpu_torch.service.client.RemoteSolver` (wrapped in
+a :class:`~koordinator_tpu_torch.service.failover.FailoverSolver` with
+``solver_failover``, its flip-back wired to the model's
+``reset_staging``), with the HBM working-set budget and its debug
+service, the always-built migration arbiter and its working-set hook,
+the trace, flight-recorder and device-observatory settings and the
+stuck-cycle watchdog's timeout. :func:`build_slo_controller` closes the
+loop on the streaming knobs when a lane SLO is declared.
 
 :func:`run_loop` drives a wired Scheduler in one of three ways: the
 serial loop on a fixed, absolute-deadline cadence; the pipelined loop
@@ -11,12 +22,14 @@ by :func:`build_streaming_loop` fires rounds on the adaptive trigger).
 Placements are the same in all three, tick for tick.
 
 :class:`SchedulerConfig` holds the loop's fields, with the reference's
-names and defaults; ``flight_dir``, ``profile_dir`` and
-``monitor_timeout_seconds`` are applied by ``build_scheduler``, as in
-the reference. Not ported yet, and queued in
-ROADMAP.md: ``build_scheduler`` with its sidecar and failover backends,
-``main()`` and its argument parser, and the anti-entropy auditor
-(``run_loop(auditor=...)`` raises ``NotImplementedError``).
+names and defaults. Not ported yet, and queued in ROADMAP.md: ``main()``
+and its argument parser (with ``--solver-supervise``), the anti-entropy
+auditor (``run_loop(auditor=...)`` raises ``NotImplementedError``), the
+feature gates and the scan unroll (their fields are absent), the AOT
+warm pool (``warm_pool`` is accepted and has no effect), the aggregated
+LoadAware mode, the host path for tiny solves and node-sharded staging
+(``build_scheduler`` raises ``NotImplementedError`` for the last three,
+naming their ROADMAP item).
 """
 
 from __future__ import annotations
@@ -25,14 +38,43 @@ import dataclasses
 import time
 from typing import Optional
 
+from koordinator_tpu_torch import DeviceLike
+
 
 @dataclasses.dataclass
 class SchedulerConfig:
-    """The loop's slice of the KubeSchedulerConfiguration-equivalent
-    component config (the reference's field names and defaults)."""
+    """The KubeSchedulerConfiguration-equivalent component config (the
+    reference's field names and defaults)."""
 
     #: batched solve cadence (the churn loop period)
     schedule_interval_seconds: float = 1.0
+    fit_weight: int = 1
+    loadaware_weight: int = 1
+    score_according_prod: bool = False
+    #: LoadAware aggregated (percentile) mode: not ported yet (ROADMAP
+    #: Queue 1 item 6); any of these set raises in build_scheduler
+    aggregated_usage_thresholds: Optional[dict] = None
+    aggregated_usage_pct: Optional[int] = None
+    aggregated_usage_duration_seconds: Optional[float] = None
+    aggregated_score_pct: Optional[int] = None
+    aggregated_score_duration_seconds: Optional[float] = None
+    cluster_total: Optional[dict] = None
+    #: the backend selector: ``inprocess`` solves in this process;
+    #: ``sidecar`` routes every batched solve through a koord-solver
+    #: process at solver_address
+    placement_backend: str = "inprocess"
+    solver_address: str = "/tmp/koord-solver.sock"
+    solver_secret: Optional[bytes] = None
+    #: degraded-mode failover (service/failover.py): K consecutive
+    #: failures flip to the in-process solve; M consecutive healthy
+    #: probes flip back with a full-restage epoch reset
+    solver_failover: bool = False
+    solver_failover_threshold: int = 3
+    solver_failover_recovery_probes: int = 2
+    #: the host path for tiny plain solves: not ported yet (ROADMAP
+    #: Queue 1 item 8); -1 (measure) and 0 mean no host path here, and a
+    #: positive cutoff raises
+    host_fallback_cells: int = -1
     #: pipelined tick path (scheduler/pipeline.py): overlap staging for
     #: round N+1 with round N's in-flight solve and move the read-back +
     #: epilogue + bus publish onto a bounded publisher worker.
@@ -70,6 +112,133 @@ class SchedulerConfig:
     #: periodic LoadAware Balance sweep inside the fixed-cadence loop
     #: (``run_loop(rebalance=plugin)`` through scheduler.rebalance_sweep)
     rebalance_interval_s: float = 0.0
+    #: scheduling trace fabric (obs/trace.py): span recording into the
+    #: bounded ring served at /debug/trace
+    trace: bool = True
+    #: node-axis shard count: sharded staging is not ported (one card;
+    #: ROADMAP Queue 1 item 10); > 1 raises
+    node_shards: int = 1
+    #: per-lane serving SLOs (control/slo.py): ``p99=<seconds>`` (or a
+    #: bare float) per lane; any set target turns on the
+    #: ServingSLOController in streaming mode, starting from the stream_*
+    #: knobs above
+    slo_system: Optional[str] = None
+    slo_ls: Optional[str] = None
+    slo_be: Optional[str] = None
+    #: controller cadence: the rolling window the lane p99 is read over,
+    #: and the per-decision cooldown
+    slo_window_s: float = 5.0
+    slo_cooldown_s: float = 1.0
+    #: the AOT warm pool: accepted, no effect until it is ported
+    #: (ROADMAP Queue 1 item 10)
+    warm_pool: bool = True
+    #: HBM working-set budget (state/workingset.py) over every staged
+    #: world; 0 = unlimited
+    hbm_budget_bytes: int = 0
+    #: migration arbiter disruption budgets (control/migration.py); the
+    #: all-None default admits everything
+    migration_max_per_round: Optional[int] = None
+    migration_max_per_node: Optional[int] = None
+    migration_max_per_tenant: Optional[int] = None
+    migration_window_s: float = 60.0
+    migration_node_cooldown_s: float = 0.0
+    migration_dry_run: bool = False
+
+
+def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
+    """Setup: a fully wired Scheduler whose model (and failover backend)
+    solve on ``device`` (``cuda`` unless given)."""
+    from koordinator_tpu_torch.models.placement import PlacementModel
+    from koordinator_tpu_torch.ops.binpack import SolverConfig
+    from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+
+    if any(v is not None for v in (
+            config.aggregated_usage_thresholds, config.aggregated_usage_pct,
+            config.aggregated_usage_duration_seconds,
+            config.aggregated_score_pct,
+            config.aggregated_score_duration_seconds)):
+        raise NotImplementedError(
+            "aggregated_*: the aggregated LoadAware mode (AggregatedArgs) "
+            "is not ported yet (ROADMAP Queue 1 item 6)")
+    if config.host_fallback_cells > 0:
+        raise NotImplementedError(
+            "host_fallback_cells > 0: the host path for tiny solves is not "
+            "ported yet (ROADMAP Queue 1 item 8)")
+    if config.node_shards > 1:
+        raise NotImplementedError(
+            "node_shards > 1: sharded staging is not ported yet (ROADMAP "
+            "Queue 1 item 10)")
+    backend = None
+    if config.placement_backend == "sidecar":
+        from koordinator_tpu_torch.cmd.solver import parse_address
+        from koordinator_tpu_torch.service.client import RemoteSolver
+
+        backend = RemoteSolver(parse_address(config.solver_address),
+                               secret=config.solver_secret)
+        if config.solver_failover:
+            from koordinator_tpu_torch.service.failover import FailoverSolver
+
+            backend = FailoverSolver(
+                backend,
+                failure_threshold=config.solver_failover_threshold,
+                recovery_probes=config.solver_failover_recovery_probes,
+                device=device)
+    elif config.placement_backend != "inprocess":
+        raise ValueError(
+            f"unknown placement backend: {config.placement_backend!r}")
+    model = PlacementModel(
+        config=SolverConfig(
+            fit_weight=config.fit_weight,
+            loadaware_weight=config.loadaware_weight,
+            score_according_prod=config.score_according_prod),
+        backend=backend, device=device)
+    if backend is not None and hasattr(backend, "on_flip_back"):
+        # the flip-back forces a full relower and restage, so that the
+        # recovered sidecar's delta base is established from scratch
+        backend.on_flip_back = model.reset_staging
+    scheduler = Scheduler(model=model, cluster_total=config.cluster_total)
+    scheduler.monitor.timeout = config.monitor_timeout_seconds
+    # the observability settings apply at this layer: an embedder calling
+    # build_scheduler() + run_loop() gets what the config says
+    from koordinator_tpu_torch.obs.device import DEVICE_OBS
+    from koordinator_tpu_torch.obs.flight import FLIGHT
+    from koordinator_tpu_torch.obs.trace import TRACER
+
+    TRACER.set_enabled(config.trace)
+    if config.flight_dir is not None:
+        FLIGHT.configure(dump_dir=config.flight_dir)
+    if config.profile_dir is not None:
+        DEVICE_OBS.configure(profile_dir=config.profile_dir)
+    # the HBM working set: budget applied before the first staging, the
+    # residency census on the debug services
+    from koordinator_tpu_torch.state.workingset import WORKING_SET
+
+    if config.hbm_budget_bytes:
+        WORKING_SET.set_budget(config.hbm_budget_bytes)
+    scheduler.services.register("workingset", WORKING_SET.status)
+    # the migration arbiter is always built: with no caps it admits
+    # everything, and its decision ring, service and flight payload stay
+    # live
+    from koordinator_tpu_torch.control.migration import (
+        MigrationArbiter,
+        MigrationBudget,
+    )
+
+    arbiter = MigrationArbiter(MigrationBudget(
+        max_per_round=config.migration_max_per_round,
+        max_per_node=config.migration_max_per_node,
+        max_per_tenant=config.migration_max_per_tenant,
+        window_s=config.migration_window_s,
+        node_cooldown_s=config.migration_node_cooldown_s,
+        dry_run=config.migration_dry_run))
+    scheduler.migration_arbiter = arbiter
+    # working-set demotions are the fourth eviction source: recorded
+    # against the same windows, never deferred
+    WORKING_SET.migration_hook = lambda key, lane, reason: arbiter.note(
+        "workingset", None, [key], lanes=[lane])
+    scheduler.services.register("migration", arbiter.status)
+    FLIGHT.register_payload("migration", arbiter.flight_payload)
+    return scheduler
 
 
 def stream_config(config: SchedulerConfig):
@@ -128,6 +297,33 @@ def build_streaming_loop(scheduler, bus, config: SchedulerConfig,
     bus.watch(Kind.POD, on_pod)
     scheduler.services.register("streaming", loop.status)
     return loop
+
+
+def build_slo_controller(streaming, bus, config: SchedulerConfig,
+                         elector=None, log=print):
+    """Close the loop on the streaming knobs: when any ``slo_*`` lane
+    target is declared, a :class:`~koordinator_tpu_torch.control.slo.
+    ServingSLOController` rides the StreamingLoop's trigger loop and
+    walks watermark, deadlines and capacity toward the target (bounded,
+    hysteretic, one knob per reconcile, every decision on the debug
+    services and in flight dumps). None when no target is set."""
+    from koordinator_tpu_torch.control.slo import (
+        ServingSLOController,
+        SLOSpec,
+    )
+    from koordinator_tpu_torch.obs.flight import FLIGHT
+
+    spec = SLOSpec.parse(config.slo_system, config.slo_ls, config.slo_be)
+    if not spec.any():
+        return None
+    controller = ServingSLOController(
+        streaming, spec, bus=bus, elector=elector,
+        window_s=config.slo_window_s, cooldown_s=config.slo_cooldown_s,
+        log=log)
+    streaming.attach_controller(controller)
+    streaming.scheduler.services.register("slo", controller.status)
+    FLIGHT.register_payload("slo", controller.flight_payload)
+    return controller
 
 
 def run_loop(scheduler, config: SchedulerConfig, once: bool = False,

@@ -7,9 +7,25 @@ The scheduler speaks the framed npz protocol to this process
 (``service/client.RemoteSolver``, or the reference's, behind
 ``--placement-backend=sidecar``), which keeps the kernel library built
 and loaded across control-plane restarts. It runs on ``cuda``
-(``--device`` names another). The reference's flags whose subsystems
-are not ported yet (``--debug-port``, ``--profile-dir``,
-``--no-warm-pool``, ``--hbm-budget-bytes``) are refused when given.
+(``--device`` names another).
+
+``--debug-port`` serves the debug mux (``utils/debug_http.py``):
+``/healthz``, ``/metrics`` (the admission, device-observatory and
+working-set series), ``/apis/v1/plugins/{solver,trace,
+device-observatory,workingset}``, ``/debug/trace``, ``/debug/device``
+and ``/debug/profile?rounds=K`` (a ``torch.profiler`` window over the
+next K solves, written under ``--profile-dir``). ``--hbm-budget-bytes``
+sets the working set's budget for the staged tenant bases
+(``state/workingset.py``). ``--no-warm-pool`` is refused: the port has
+no AOT warm pool yet (ROADMAP Queue 1 item 10).
+
+On a CUDA device the solver loads the kernel library (building it with
+``nvcc`` only when ``koordinator_tpu_torch/_build/`` holds no build of
+these sources) and runs ``service/server.warm_up`` (one small solve on
+each kernel route: the lazily loaded kernel and torch-op modules) before
+its socket opens, as the reference restores its warm pool before
+serving: a respawned sidecar's first solve, usually a reconnecting
+scheduler's full restage under a deadline, then pays none of it.
 """
 
 from __future__ import annotations
@@ -22,10 +38,7 @@ from typing import Optional, Tuple, Union
 
 #: the reference's flags whose subsystems this package does not have yet
 NOT_PORTED = {
-    "debug_port": "--debug-port (the debug mux and metrics)",
-    "profile_dir": "--profile-dir (the device observatory)",
     "no_warm_pool": "--no-warm-pool (the AOT warm pool)",
-    "hbm_budget_bytes": "--hbm-budget-bytes (the working-set manager)",
 }
 
 
@@ -35,6 +48,47 @@ def parse_address(spec: str) -> Union[str, Tuple[str, int]]:
         host, _, port = spec.rpartition(":")
         return (host or "127.0.0.1", int(port))
     return spec
+
+
+def start_debug_server(service, port: int):
+    """The solver's debug mux on ``port`` (0 picks a free one) over
+    ``service`` (a started ``PlacementService``); returns the started
+    ``DebugHTTPServer``."""
+    from koordinator_tpu_torch.metrics.components import (
+        DEVICE_METRICS,
+        SOLVER_METRICS,
+        WORKINGSET_METRICS,
+    )
+    from koordinator_tpu_torch.metrics.registry import MergedGatherer
+    from koordinator_tpu_torch.obs.device import DEVICE_OBS
+    from koordinator_tpu_torch.obs.trace import TRACER
+    from koordinator_tpu_torch.scheduler.monitor import DebugServices
+    from koordinator_tpu_torch.state.workingset import WORKING_SET
+    from koordinator_tpu_torch.utils.debug_http import DebugHTTPServer
+
+    def profile(rounds: int) -> dict:
+        # a window on the served device; a PyTorch without CUDA
+        # profiling is a permanent incapacity (501), not a retry
+        try:
+            return DEVICE_OBS.request_profile(rounds, device=service.device)
+        except RuntimeError as e:
+            return {"unsupported": True, "error": str(e)}
+
+    services = DebugServices()
+    # the gate (lane depths, coalesce ratio, shed counts), the device
+    # and the working set in one GET; /metrics serves the same as series
+    services.register("solver", service.status)
+    services.register("trace", TRACER.status)
+    services.register("device-observatory", DEVICE_OBS.status)
+    services.register("workingset", WORKING_SET.status)
+    return DebugHTTPServer(
+        services=services,
+        metrics=MergedGatherer(
+            [SOLVER_METRICS, DEVICE_METRICS, WORKINGSET_METRICS]),
+        tracer=TRACER, port=port,
+        device=DEVICE_OBS.debug_payload,
+        profile=profile,
+    ).start()
 
 
 def main(argv=None) -> int:
@@ -55,35 +109,66 @@ def main(argv=None) -> int:
              "is accepting")
     parser.add_argument("--device", default=None,
                         help="torch device to solve on (default: cuda)")
-    parser.add_argument("--debug-port", type=int, default=None,
-                        help="not ported yet: refused")
-    parser.add_argument("--profile-dir", default=None,
-                        help="not ported yet: refused")
+    parser.add_argument(
+        "--debug-port", type=int, default=None,
+        help="serve /healthz, /metrics (admission, device-observatory and "
+             "working-set series), /apis/v1/plugins/<name>, /debug/trace, "
+             "/debug/device and /debug/profile?rounds=K on this port")
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="directory of the on-demand torch.profiler windows (default: "
+             "$KTPU_PROFILE_DIR or <tmp>/koord-profile)")
     parser.add_argument("--no-warm-pool", action="store_true",
                         help="not ported yet: refused")
-    parser.add_argument("--hbm-budget-bytes", type=int, default=0,
-                        help="not ported yet: refused unless 0")
+    parser.add_argument(
+        "--hbm-budget-bytes", type=int, default=0,
+        help="device-memory line for the staged tenant bases: staying "
+             "under it demotes the least valuable bases to the host or "
+             "cold rung instead of allocating past it; 0 = unlimited")
     args = parser.parse_args(argv)
     given = [flag for dest, flag in NOT_PORTED.items()
              if getattr(args, dest) not in (None, False, 0)]
     if given:
         parser.error("not ported yet: " + ", ".join(given))
 
-    from koordinator_tpu_torch.service.server import PlacementService
+    from koordinator_tpu_torch import resolve_device
+    from koordinator_tpu_torch.obs.device import DEVICE_OBS
+    from koordinator_tpu_torch.service.server import (
+        PlacementService,
+        warm_up,
+    )
+    from koordinator_tpu_torch.state.workingset import WORKING_SET
 
+    if args.hbm_budget_bytes:
+        WORKING_SET.set_budget(args.hbm_budget_bytes)
+    if args.profile_dir:
+        DEVICE_OBS.configure(profile_dir=args.profile_dir)
     secret: Optional[bytes] = None
     if args.secret_file:
         with open(args.secret_file, "rb") as f:
             secret = f.read().strip()
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # before the socket is bound: a probe must not find it open
+        # while the solve path warms
+        from koordinator_tpu_torch.ops import binpack_kernel
+
+        binpack_kernel._library()
+        warm_up(device)
     service = PlacementService(parse_address(args.listen), secret=secret,
-                               device=args.device)
+                               device=device)
     service.start()
+    debug_server = None
     try:
+        if args.debug_port is not None:
+            debug_server = start_debug_server(service, args.debug_port)
         if args.ready_file:
             with open(args.ready_file, "w") as f:
                 f.write(str(os.getpid()))
-        print(f"koord-solver: serving on {args.listen} ({service.device})",
-              flush=True)
+        debug = ("" if debug_server is None
+                 else f", debug port {debug_server.port}")
+        print(f"koord-solver: serving on {args.listen} ({service.device})"
+              f"{debug}", flush=True)
         if args.once:
             return 0
         while True:
@@ -92,6 +177,8 @@ def main(argv=None) -> int:
         return 0
     finally:
         service.stop()
+        if debug_server is not None:
+            debug_server.stop()
 
 
 if __name__ == "__main__":

@@ -2,13 +2,16 @@
 ``koordinator_tpu/metrics/components.py``, cut to the series the ported
 scheduler round, its preemption and pod timelines, the eviction control
 plane, the pipelined and streaming loops, the stuck-cycle monitor, the
-flight recorder, the device observatory and the descheduler emit, with
-the reference's names, labels and buckets).
+flight recorder, the device observatory, the serving failure domain
+(failover, supervisor, SLO controller, HBM working set, the solver's
+admission gate) and the descheduler emit, with the reference's names,
+labels and buckets).
 
-Deliberately absent: the XLA-compile, padding-waste and warm-pool series.
-The port compiles no XLA program (its one build is the ``nvcc`` build of
-the kernel library, counted in ``DEVICE_COMPILES``), never pads a batch
-to a bucket, and has no warm pool.
+Deliberately absent: the XLA-compile, padding-waste and warm-pool series
+(``SUPERVISOR_RESPAWN_WARM`` among them). The port compiles no XLA
+program (its one build is the ``nvcc`` build of the kernel library,
+counted in ``DEVICE_COMPILES``), never pads a batch to a bucket, and has
+no warm pool.
 
 Reference metric names: pkg/scheduler/metrics/metrics.go,
 pkg/descheduler/metrics/metrics.go.
@@ -81,6 +84,34 @@ ROUNDS_SKIPPED = SCHEDULER_METRICS.counter(
     "scheduler_rounds_skipped_total",
     "Scheduling rounds skipped outright (solver outage, no failover)",
     label_names=("reason",),  # solver-unavailable
+)
+
+SOLVER_DEGRADED = SCHEDULER_METRICS.gauge(
+    "scheduler_solver_degraded",
+    "1 while the failover backend answers solves in-process",
+)
+SOLVER_FAILOVERS = SCHEDULER_METRICS.counter(
+    "scheduler_solver_failovers_total",
+    "Failover state-machine flips",
+    label_names=("direction",),  # to-degraded | to-remote
+)
+SOLVER_LOCAL_SOLVES = SCHEDULER_METRICS.counter(
+    "scheduler_solver_local_solves_total",
+    "Solves answered by the in-process fallback instead of the sidecar",
+    label_names=("mode",),  # local-fallback | local-degraded
+)
+SUPERVISOR_RESTARTS = SCHEDULER_METRICS.counter(
+    "solver_supervisor_restarts_total",
+    "Sidecar restarts performed by the supervisor",
+    label_names=("reason",),  # crashed | hung | down
+)
+SUPERVISOR_UP = SCHEDULER_METRICS.gauge(
+    "solver_supervisor_child_up",
+    "1 while the supervised sidecar passes liveness probes",
+)
+SUPERVISOR_BREAKER_OPEN = SCHEDULER_METRICS.gauge(
+    "solver_supervisor_breaker_open",
+    "1 while the restart-storm circuit breaker refuses respawns",
 )
 
 # -- pipelined tick path (scheduler/pipeline.py) ----------------------------
@@ -170,6 +201,73 @@ STREAM_BATCH_PODS = SCHEDULER_METRICS.histogram(
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
 )
 
+# -- serving SLO controller (control/slo.py) --------------------------------
+
+SLO_DECISIONS = SCHEDULER_METRICS.counter(
+    "scheduler_slo_decisions_total",
+    "Knob adjustments the serving SLO controller applied, by knob and "
+    "trigger signal (one knob per reconcile, cooldown-gated — a high "
+    "rate here means the declared SLO fights the offered load)",
+    label_names=("knob", "signal"),
+    # knob: watermark | deadline | capacity
+    # signal: p99-over | p99-under | shed-capacity | padding-waste
+)
+SLO_LANE_P99_RATIO = SCHEDULER_METRICS.gauge(
+    "scheduler_slo_lane_p99_ratio",
+    "Rolling-window submit→bind p99 over the declared per-lane target "
+    "(<= 1.0 means the lane meets its SLO; only exported for lanes "
+    "with a declared target and enough window samples)",
+    label_names=("lane",),  # system | ls | be
+)
+
+# -- HBM working-set manager (state/workingset.py) --------------------------
+# Its own registry, as in the reference: the ledger lives in whichever
+# long-lived process stages worlds (the in-process scheduler and the
+# solver sidecar), so both muxes merge it.
+
+WORKINGSET_METRICS = Registry("hbm-workingset")
+HBM_BUDGET_BYTES = WORKINGSET_METRICS.gauge(
+    "scheduler_hbm_budget_bytes",
+    "Configured HBM budget for staged tenant worlds (0 = unlimited; "
+    "the working-set manager demotes victims instead of staging past "
+    "this line)",
+)
+HBM_USED_BYTES = WORKINGSET_METRICS.gauge(
+    "scheduler_hbm_used_bytes",
+    "Metadata-summed bytes of device-resident staged worlds currently "
+    "charged against the HBM budget",
+)
+TENANT_RESIDENCY = WORKINGSET_METRICS.gauge(
+    "scheduler_tenant_residency",
+    "Registered staged worlds per residency rung of the eviction "
+    "ladder (device-resident, host-pinned, cold)",
+    label_names=("rung",),  # device | host | cold
+)
+WORKINGSET_DEMOTIONS = WORKINGSET_METRICS.counter(
+    "scheduler_workingset_demotions_total",
+    "Residency demotions (one rung each) applied by the working-set "
+    "manager, by cause: headroom for a new/regrown world (admission), "
+    "over the budget line after a touch or squeeze (budget), or the "
+    "allocation-failure retry ladder (alloc-failure)",
+    label_names=("reason",),  # admission | budget | alloc-failure
+)
+WORKINGSET_RESTAGES = WORKINGSET_METRICS.counter(
+    "scheduler_workingset_restages_total",
+    "Demoted worlds re-staged onto the device on their next solve, by "
+    "the rung they came back from (host = re-upload of the kept host "
+    "arrays; cold = full re-lower from typed truth)",
+    label_names=("reason",),  # host | cold
+)
+WORKINGSET_ALLOC_FAILURES = WORKINGSET_METRICS.counter(
+    "scheduler_workingset_alloc_failures_total",
+    "Device allocation failures (a real torch.cuda.OutOfMemoryError or "
+    "an injected one) caught at the staging boundary, by which boundary "
+    "raised: a full world staging (stage) or a delta row scatter "
+    "(scatter); each is followed by demotion + bounded retry, never an "
+    "unhandled crash",
+    label_names=("reason",),  # stage | scatter
+)
+
 # -- device observatory (koordinator_tpu_torch/obs/device.py) ---------------
 # Its own registry, as in the reference: every long-lived process that
 # builds or launches the kernels merges it into its /metrics.
@@ -201,6 +299,43 @@ DEVICE_PROFILE_WINDOWS = DEVICE_METRICS.counter(
     "solver_device_profile_windows_total",
     "On-demand torch.profiler windows, by outcome",
     label_names=("result",),  # written | error | rate-limited | refused
+)
+
+# -- koord-solver sidecar (service/admission.py gate) -----------------------
+
+SOLVER_METRICS = Registry("koord-solver")
+# The wait/shed/depth series carry a ``tenant`` label: K front-ends share
+# one sidecar, so "which tenant is overloaded / starving / flooding" is
+# answerable from /metrics alone. Single-tenant deployments see one
+# constant label value ("default").
+SOLVER_ADMISSION_WAIT = SOLVER_METRICS.histogram(
+    "solver_admission_wait_seconds",
+    "Queue wait from enqueue to dispatch, per QoS lane and tenant",
+    label_names=("lane", "tenant"),
+)
+SOLVER_SOLVE_DURATION = SOLVER_METRICS.histogram(
+    "solver_batch_solve_seconds",
+    "Device solve wall-clock per dispatched admission batch",
+)
+SOLVER_ADMISSION_SHED = SOLVER_METRICS.counter(
+    "solver_admission_shed_total",
+    "Requests shed by the admission gate",
+    # overloaded | deadline | shutdown
+    label_names=("lane", "reason", "tenant"),
+)
+SOLVER_QUEUE_DEPTH = SOLVER_METRICS.gauge(
+    "solver_admission_queue_depth",
+    "Currently queued requests per QoS lane and tenant",
+    label_names=("lane", "tenant"),
+)
+SOLVER_ADMISSION_REQUESTS = SOLVER_METRICS.counter(
+    "solver_admission_requests_total",
+    "Requests dispatched to the device, by batch mode",
+    label_names=("mode",),  # coalesced | lanes | solo
+)
+SOLVER_ADMISSION_BATCHES = SOLVER_METRICS.counter(
+    "solver_admission_batches_total",
+    "Device dispatches (coalesce ratio = requests_total / this)",
 )
 
 # -- koord-descheduler (pkg/descheduler/metrics) ----------------------------

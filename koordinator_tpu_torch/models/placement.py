@@ -25,9 +25,11 @@ each solve re-lowers and scatters only the rows the tracker marked (and
 the rows whose metric crossed the expiration window). Without a tracker
 the snapshot is lowered and staged in full; the results are identical.
 
-Not in this port yet, each queued in ROADMAP.md: the staging cache's
-working-set registration and its demotion rungs (``state/workingset.py``)
-and sharded staging (no mesh on one card), the host path for tiny
+The staging cache is a resident of the HBM working set
+(``state/workingset.py``): its stagings and scatters run under the
+demote-and-retry ladder, and it demotes to the host or cold rung under
+budget pressure. Not in this port yet, each queued in ROADMAP.md:
+sharded staging (no mesh on one card), the host path for tiny
 solves, pod-shape, reservation-axis and victim-axis bucketing (they share
 XLA compiles, which eager PyTorch does not have; results are identical
 without them) and the kernel's cached reservation one-hot (the CUDA
@@ -117,6 +119,7 @@ from koordinator_tpu_torch.state.cluster import (
     lower_pending_pods,
     lower_resident_pods,
 )
+from koordinator_tpu_torch.state.workingset import WORKING_SET
 
 
 def _vec(mapping) -> np.ndarray:
@@ -361,6 +364,15 @@ def merge_staging_deltas(prev: Optional[NodeStagingDelta],
     return NodeStagingDelta(new.epoch, prev.base_epoch, combined[sel], rows)
 
 
+def _staged_estimate(arrays: Optional[NodeArrays]) -> int:
+    """Bytes a staging of ``arrays`` is about to put on the device (the
+    working set's admission estimate: the staged columns' host bytes)."""
+    if arrays is None:
+        return 0
+    return int(sum(getattr(arrays, f).nbytes for f in STAGED_NODE_FIELDS
+                   if getattr(arrays, f, None) is not None))
+
+
 class StagedStateCache:
     """The staged cluster state, kept across solves.
 
@@ -380,7 +392,14 @@ class StagedStateCache:
     (:meth:`pin`), the scatter writes a new generation beside it instead
     of into it; an unpinned generation is written in place. Stream order
     alone would protect the kernel's reads, but not a solve output that
-    aliases a staged tensor and is read at ``finalize``."""
+    aliases a staged tensor and is read at ``finalize``.
+
+    Every cache is a resident of the HBM working set
+    (``state/workingset.WORKING_SET``, system lane): each full staging,
+    host-rung restage and delta scatter runs under its ``run_staged``
+    demote-and-retry ladder, and :meth:`demote_device` /
+    :meth:`demote_cold` are its rungs. Placements are the same at every
+    rung."""
 
     def __init__(self, model: "PlacementModel"):
         self.model = model
@@ -400,6 +419,11 @@ class StagedStateCache:
         # ensure()'s compound update (host patch, scatter, epochs) is
         # atomic under this lock; one model is driven by one loop
         self._lock = threading.Lock()
+        #: the HBM working-set registration: the in-process staged
+        #: cluster rides the system lane, so it demotes after every
+        #: tenant world
+        self._ws_key = WORKING_SET.register_auto(
+            "staged", self, tenant="_model", lane="system")
 
     def ensure(self, snapshot: ClusterSnapshot, want_device: bool = True
                ) -> Tuple[NodeArrays, Optional[NodeState], Dict[str, float],
@@ -409,6 +433,14 @@ class StagedStateCache:
         allows. ``want_device=False`` keeps only the host half current
         (the staged state is then None, and is staged again from the host
         arrays the next time it is wanted)."""
+        out = self._ensure(snapshot, want_device)
+        # the residency touch runs after the cache lock is released: the
+        # manager reprices through device_bytes() (which takes it) and
+        # may demote other residents; this cache is the protected key
+        WORKING_SET.touch(self._ws_key)
+        return out
+
+    def _ensure(self, snapshot, want_device):
         with self._lock:
             tracker = snapshot.delta_tracker
             # sync to the epoch captured when the snapshot was taken: a
@@ -432,7 +464,14 @@ class StagedStateCache:
                 epoch_now = -1
             arrays = lower_nodes(snapshot, **self.model.lowering_kwargs())
             t1 = time.perf_counter()
-            state = self.model.stage_nodes(arrays) if want_device else None
+            state = None
+            if want_device:
+                # also the cold-rung restage: re-lowered from typed truth
+                # above, staged under the admission contract here
+                state = WORKING_SET.run_staged(
+                    self._ws_key, "stage",
+                    lambda: self.model.stage_nodes(arrays),
+                    estimate=_staged_estimate(arrays))
             self.arrays = arrays
             self.state = state
             self.tracker = tracker
@@ -460,12 +499,17 @@ class StagedStateCache:
                     for f in STAGED_NODE_FIELDS}
             if want_device and self.state is not None:
                 dev = self.model.device
-                self.state = scatter_node_rows(
-                    self.state,
-                    torch.as_tensor(idx.astype(np.int64), device=dev),
-                    {f: torch.as_tensor(a, device=dev)
-                     for f, a in rows.items()},
-                    in_place=self.state is not self._pinned)
+                cur = self.state
+                # the second allocation boundary; an in-place scatter
+                # retried after a failure writes the same rows again
+                self.state = WORKING_SET.run_staged(
+                    self._ws_key, "scatter",
+                    lambda: scatter_node_rows(
+                        cur,
+                        torch.as_tensor(idx.astype(np.int64), device=dev),
+                        {f: torch.as_tensor(a, device=dev)
+                         for f, a in rows.items()},
+                        in_place=cur is not self._pinned))
             else:
                 self.state = None  # the staged half is stale
             self.epoch += 1
@@ -474,8 +518,13 @@ class StagedStateCache:
                                                 self.last_delta)
         if want_device and self.state is None:
             # stage again from the current host arrays (content unchanged,
-            # so the epoch does not move)
-            self.state = self.model.stage_nodes(self.arrays)
+            # so the epoch does not move): also the working set's
+            # host-rung restage, headroom admitted first
+            host_arrays = self.arrays
+            self.state = WORKING_SET.run_staged(
+                self._ws_key, "stage",
+                lambda: self.model.stage_nodes(host_arrays),
+                estimate=_staged_estimate(host_arrays))
         self.last_path = "delta"
         return self.arrays, self.state, {
             "lower_s": t1 - t0,
@@ -516,9 +565,51 @@ class StagedStateCache:
             if self._pinned is state:
                 self._pinned = None
 
+    def demote_device(self) -> bool:
+        """Working-set rung 1 (device -> host): drop the staged
+        generation, keep the host arrays, tracker and epoch; the next
+        ``ensure`` stages again from them, bit-identical, without moving
+        the epoch. Refuses (False), without waiting, a cache mid-solve
+        (lock held) or one whose generation a dispatched solve holds
+        (pinned): the delta scatter writes in place, and a solve must
+        never read rows whose tensors were dropped under it."""
+        if not self._lock.acquire(blocking=False):
+            return False
+        try:
+            if self.state is None or self._pinned is not None:
+                return False
+            self.state = None
+            return True
+        finally:
+            self._lock.release()
+
+    def demote_cold(self) -> bool:
+        """Working-set rung 2 (host -> cold): drop the host half too; the
+        next ``ensure`` lowers from typed truth (the full path). The
+        epoch stays monotone, as in :meth:`invalidate`. Non-blocking and
+        pin-refusing like :meth:`demote_device`."""
+        if not self._lock.acquire(blocking=False):
+            return False
+        try:
+            if self._pinned is not None:
+                return False
+            if self.arrays is None and self.state is None:
+                return False
+            self.arrays = None
+            self.state = None
+            self.tracker = None
+            self.seen_epoch = -1
+            self.last_delta = None
+            self.last_path = None
+            self.last_now = None
+            self._wire_delta = None
+            return True
+        finally:
+            self._lock.release()
+
     def device_bytes(self) -> int:
         """Bytes of the staged generations held: the current one and a
-        pinned one beside it."""
+        pinned one beside it (the working set's price)."""
         with self._lock:
             generations = [self.state]
             if self._pinned is not None and self._pinned is not self.state:

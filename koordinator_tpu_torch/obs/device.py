@@ -17,9 +17,11 @@ critical path:
   (``torch.cuda.memory_allocated``, ``memory_reserved``,
   ``max_memory_allocated``, the allocator's ``num_alloc_retries`` and
   its current allocation count), plus registered per-owner bytes (the
-  placement model registers its staged state cache). A process that has
-  not initialised CUDA reports the owners only. Sampled on status/debug
-  reads, never on the tick path.
+  placement model registers its staged state cache) and the HBM working
+  set's pressure view (:meth:`DeviceObservatory.set_pressure_source`,
+  budget, charge and per-rung census). A process that has not
+  initialised CUDA reports the owners and the pressure view only.
+  Sampled on status/debug reads, never on the tick path.
 - **On-demand profiler windows.** :meth:`request_profile` arms a
   ``torch.profiler.profile`` window over the next K scheduling rounds
   (``on_round`` is called by ``Scheduler.begin_tick``), with CPU and CUDA
@@ -41,10 +43,12 @@ observation only — same placements, bit for bit.
 Deliberate differences from the reference: there is no counterpart of
 ``jit``, ``ObservedJit``, ``warm_manifest``, ``analyze``,
 ``note_padding``, ``padding_waste``, ``compile_ring``, the
-``jax.monitoring`` listener, ``mark``, ``fingerprint`` or
-``set_pressure_source``. They need XLA programs, bucket padding, the
-bench or the HBM working set, none of which the port has; the kernels'
-bounds are computed by ``chip_smoke.py`` and kept in PERF.md.
+``jax.monitoring`` listener, ``mark`` or ``fingerprint``. They need XLA
+programs, bucket padding or the bench, none of which the port has; the
+kernels' bounds are computed by ``chip_smoke.py`` and kept in PERF.md.
+The SLO controller's device observation reads :attr:`compiles_total`
+(the kernel-library builds) and a padding waste of 0.0: the port never
+pads.
 """
 
 from __future__ import annotations
@@ -131,6 +135,9 @@ class DeviceObservatory:
         self._ring: deque = deque(maxlen=_RING_CAPACITY)
         #: owner name -> callable() -> bytes (live-buffer attribution)
         self._owners: Dict[str, object] = {}
+        #: the working-set manager's pressure view (a zero-argument
+        #: callable returning budget/used/residency), or None
+        self._pressure_source = None
         self._seq = 0
         self._compiles_total = 0
         #: profiler window state machine
@@ -171,6 +178,20 @@ class DeviceObservatory:
         with self._lock:
             self._owners[name] = nbytes_fn
 
+    def set_pressure_source(self, fn) -> None:
+        """Register the working-set manager's pressure view (a cheap
+        zero-argument callable returning budget/used/residency), carried
+        in :meth:`live_snapshot` beside what is live. Last registration
+        wins."""
+        with self._lock:
+            self._pressure_source = fn
+
+    @property
+    def compiles_total(self) -> int:
+        """Kernel-library builds this process recorded."""
+        with self._lock:
+            return self._compiles_total
+
     # -- compile telemetry ---------------------------------------------------
 
     def record_compile(self, fn_name: str, wall: float,
@@ -204,6 +225,7 @@ class DeviceObservatory:
         owner's bytes. Reads counters only: no device sync."""
         with self._lock:
             owners = dict(self._owners)
+            pressure = self._pressure_source
         by_owner = {}
         for name, fn in owners.items():
             try:
@@ -223,6 +245,11 @@ class DeviceObservatory:
             })
             DEVICE_LIVE_BUFFERS.set(out["count"])
             DEVICE_LIVE_BYTES.set(out["bytes"])
+        if pressure is not None:
+            try:
+                out["workingset"] = pressure()
+            except Exception as e:  # a broken source never loses a read
+                out["workingset"] = {"error": f"{type(e).__name__}: {e}"}
         return out
 
     # -- profiler windows ----------------------------------------------------

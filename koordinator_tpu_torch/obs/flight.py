@@ -15,13 +15,16 @@ trace ring's tail — to a JSON file the moment a trigger fires:
 - ``pipeline-deferred-error`` (scheduler/pipeline.py: a publish-side
   failure was deferred to the next round boundary)
 - ``manual``                  (an operator or a test)
+- ``failover-flip``           (service/failover.py: the failover backend
+  flipped to degraded or back)
+- ``deadline-exceeded``       (service/client.py: a solve's client-side
+  budget ran out)
 
-The reference also fires ``auditor-detection``, ``failover-flip`` and
-``deadline-exceeded`` from its auditor, failover backend and solver
-client; the port's auditor and failover backend are not ported yet and
-its client's hook is queued with them, so those triggers are accepted
-but nothing in the port fires them. A dump's ``device`` section comes
-from the port's ``DEVICE_OBS.flight_payload()``; the reference's
+The reference also fires ``auditor-detection`` from its auditor; the
+port's auditor is not ported yet, so that trigger is accepted but
+nothing in the port fires it. A dump's ``device`` section comes from
+the port's ``DEVICE_OBS.flight_payload()``, and hooks add the
+``workingset``, ``migration`` and ``slo`` sections; the reference's
 ``warm`` section (its warm pool) has no counterpart.
 
 Dumps are rate-limited per trigger (a flapping failover must not write

@@ -26,9 +26,14 @@ executor thread:
   (``tenancy.solve_entry_lanes``). Lanes are bit-identical to solving
   each request alone.
 
-The reference's metric series, trace spans and device-observatory hooks
-are not ported yet (ROADMAP); :meth:`AdmissionGate.stats` carries the
-same counters.
+Observability: the gate publishes the reference's series
+(``SOLVER_QUEUE_DEPTH``, ``SOLVER_ADMISSION_SHED``,
+``SOLVER_ADMISSION_WAIT``, ``SOLVER_SOLVE_DURATION``,
+``SOLVER_ADMISSION_BATCHES``, ``SOLVER_ADMISSION_REQUESTS`` in
+``metrics/components.SOLVER_METRICS``, served by the solver's
+``--debug-port``) and records a ``queue_wait`` span per request and an
+``admission_dispatch`` span per batch, tagged with the wire ``trace``
+group; :meth:`AdmissionGate.stats` carries the same counters.
 """
 
 from __future__ import annotations
@@ -45,6 +50,15 @@ import numpy as np
 
 from koordinator_tpu_torch import DeviceLike, resolve_device
 from koordinator_tpu_torch.apis.extension import QoSClass
+from koordinator_tpu_torch.metrics.components import (
+    SOLVER_ADMISSION_BATCHES,
+    SOLVER_ADMISSION_REQUESTS,
+    SOLVER_ADMISSION_SHED,
+    SOLVER_ADMISSION_WAIT,
+    SOLVER_QUEUE_DEPTH,
+    SOLVER_SOLVE_DURATION,
+)
+from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.ops.binpack import (
     STAGED_NODE_FIELDS,
     SolverConfig,
@@ -188,6 +202,16 @@ def solve_coalesced(
 
 # -- the gate ---------------------------------------------------------------
 
+def _publish_depth(depths: Dict[str, List[int]]) -> None:
+    """Per-(lane, tenant) depth gauges from a snapshot taken under the
+    gate lock; tenants with nothing queued publish zeros, so a drained
+    tenant's series falls back to 0."""
+    for tenant, lanes in depths.items():
+        for i, n in enumerate(lanes):
+            SOLVER_QUEUE_DEPTH.set(n, {"lane": LANE_NAMES[i],
+                                       "tenant": tenant})
+
+
 @dataclasses.dataclass(frozen=True)
 class AdmissionConfig:
     """Gate sizing (the reference's defaults). ``capacity`` bounds the
@@ -211,7 +235,7 @@ class AdmissionEntry:
     __slots__ = (
         "request", "config", "node_cache", "lane", "deadline",
         "enqueued_at", "key", "pods_n", "response", "_done", "_gate",
-        "tenant", "shape_key",
+        "tenant", "shape_key", "trace_t0",
     )
 
     def __init__(self, request, config, node_cache, lane, deadline,
@@ -230,6 +254,9 @@ class AdmissionEntry:
         self.response: Optional[SolveResponse] = None
         self._done = threading.Event()
         self._gate = gate
+        #: tracer-clock enqueue stamp (the gate's ``clock`` may be a
+        #: test fake): the queue-wait span is emitted from it at dispatch
+        self.trace_t0 = TRACER.now()
 
     def wait(self, timeout: Optional[float] = None) -> Optional[SolveResponse]:
         """Block until the gate answers (None only on timeout)."""
@@ -308,11 +335,16 @@ class AdmissionGate:
             }
         return row
 
-    def _depth_snapshot(self) -> Dict[str, List[int]]:
-        """Per-(tenant, lane) queue depths (under the lock)."""
-        depths = {t: [0] * len(LANE_NAMES) for t in self._tenant_stats}
+    def _depth_snapshot(self, only=None) -> Dict[str, List[int]]:
+        """Per-(tenant, lane) queue depths (under the lock). ``only``
+        restricts it to the named tenants: a submit publishes just the
+        tenants it touched, the executor every tenant it has seen."""
+        depths = {t: [0] * len(LANE_NAMES)
+                  for t in (self._tenant_stats if only is None else only)}
         for i, q in enumerate(self._lanes):
             for e in q:
+                if only is not None and e.tenant not in depths:
+                    continue
                 depths.setdefault(e.tenant, [0] * len(LANE_NAMES))
                 depths[e.tenant][i] += 1
         return depths
@@ -367,13 +399,26 @@ class AdmissionGate:
             elif rejected == ERR_SHUTDOWN:
                 self._stats["shed_shutdown"] += 1
                 self._tstat(tenant)["shed_shutdown"] += 1
+            touched = {tenant}
+            if victim is not None:
+                touched.add(victim.tenant)
+            depths = self._depth_snapshot(only=touched)
+        _publish_depth(depths)
         if victim is not None:
+            SOLVER_ADMISSION_SHED.inc(
+                {"lane": LANE_NAMES[victim.lane], "reason": "overloaded",
+                 "tenant": victim.tenant})
             victim.finish(error_response(
                 ERR_OVERLOADED,
                 f"queue full ({self.cfg.capacity}); shed for a "
                 f"{LANE_NAMES[entry.lane]}-lane arrival",
             ))
         if rejected is not None:
+            SOLVER_ADMISSION_SHED.inc(
+                {"lane": LANE_NAMES[entry.lane],
+                 "reason": ("shutdown" if rejected == ERR_SHUTDOWN
+                            else "overloaded"),
+                 "tenant": tenant})
             detail = (
                 "sidecar stopping; request not solved"
                 if rejected == ERR_SHUTDOWN
@@ -463,6 +508,8 @@ class AdmissionGate:
                 self._stats["shed_deadline"] += len(expired)
                 for e in expired:
                     self._tstat(e.tenant)["shed_deadline"] += 1
+            depths = self._depth_snapshot()
+        _publish_depth(depths)
         return expired, batch
 
     def _claim_batch(self, head: AdmissionEntry,
@@ -506,6 +553,9 @@ class AdmissionGate:
                     return
                 expired, batch = polled
                 for e in expired:
+                    SOLVER_ADMISSION_SHED.inc(
+                        {"lane": LANE_NAMES[e.lane], "reason": "deadline",
+                         "tenant": e.tenant})
                     e.finish(error_response(
                         ERR_DEADLINE,
                         "request expired in the admission queue before "
@@ -521,6 +571,22 @@ class AdmissionGate:
                 )
 
     def _dispatch(self, batch: List[AdmissionEntry]) -> None:
+        # server imports this module at top level: the reverse edge is
+        # imported here
+        from koordinator_tpu_torch.service.server import trace_args
+
+        t0 = self._clock()
+        t_dispatch = TRACER.now()
+        for e in batch:
+            SOLVER_ADMISSION_WAIT.observe(
+                max(0.0, t0 - e.enqueued_at),
+                {"lane": LANE_NAMES[e.lane], "tenant": e.tenant})
+            # the queue-wait span, joined to the caller's trace through
+            # the wire trace context
+            TRACER.emit("queue_wait", cat="admission", t0=e.trace_t0,
+                        t1=t_dispatch,
+                        args={"lane": LANE_NAMES[e.lane],
+                              **(trace_args(e.request) or {})})
         # solo (one request, any feature set), coalesced (one tenant, one
         # shared base) or tenant lanes (a base per lane)
         if len(batch) == 1:
@@ -530,7 +596,6 @@ class AdmissionGate:
             mode = "coalesced"
         else:
             mode = "lanes"
-        t0 = self._clock()
         try:
             if mode == "solo":
                 e = batch[0]
@@ -548,6 +613,12 @@ class AdmissionGate:
                 error_response(ERR_INTERNAL, f"{type(exc).__name__}: {exc}")
             ] * len(batch)
         solve_s = max(0.0, self._clock() - t0)
+        SOLVER_SOLVE_DURATION.observe(solve_s)
+        TRACER.emit("admission_dispatch", cat="admission", t0=t_dispatch,
+                    args={"coalesced": len(batch), "mode": mode,
+                          **(trace_args(batch[0].request) or {})})
+        SOLVER_ADMISSION_BATCHES.inc()
+        SOLVER_ADMISSION_REQUESTS.inc({"mode": mode}, amount=len(batch))
         with self._lock:
             self._stats["batches"] += 1
             self._stats["requests"] += len(batch)
@@ -619,8 +690,13 @@ class AdmissionGate:
             self._stats["shed_shutdown"] += len(drained)
             for e in drained:
                 self._tstat(e.tenant)["shed_shutdown"] += 1
+            depths = self._depth_snapshot()
             self._lock.notify_all()
+        _publish_depth(depths)
         for e in drained:
+            SOLVER_ADMISSION_SHED.inc(
+                {"lane": LANE_NAMES[e.lane], "reason": "shutdown",
+                 "tenant": e.tenant})
             e.finish(error_response(
                 ERR_SHUTDOWN, "sidecar stopping; request not solved"
             ))

@@ -11,8 +11,10 @@ the sidecar restarts, re-sends the full state after a
 sidecar stays down. It talks to this package's ``PlacementService`` and
 to the reference's alike.
 
-Not ported yet (ROADMAP): the trace-context group and the flight
-recorder's triggers.
+A traced solve sends the wire ``trace`` group (the tracer's round and a
+span id), so the sidecar's queue-wait and solve spans join this
+process's trace, and records a ``wire_solve`` span; a spent client-side
+deadline fires the flight recorder's ``deadline-exceeded`` trigger.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from koordinator_tpu_torch.obs.flight import FLIGHT
+from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.service.codec import (
     CodecError,
     SolveRequest,
@@ -240,6 +244,13 @@ class RemoteSolver:
             config={f: np.asarray(v) for f, v in zip(config._fields,
                                                      config)},
         )
+        # the trace context rides the wire: the sidecar tags its
+        # queue-wait and solve spans with this (round, span) pair
+        span_id = TRACER.next_span_id() if TRACER.enabled else None
+        trace_group = None
+        if span_id is not None:
+            trace_group = {"round": np.asarray(TRACER.round_id, np.int64),
+                           "span": np.asarray(span_id, np.int64)}
 
         def build_request(remaining: Optional[float]) -> SolveRequest:
             admission = None
@@ -269,15 +280,18 @@ class RemoteSolver:
                 node_delta.update(delta.rows or {})
                 self.last_request = "delta"
                 return SolveRequest(node={}, node_delta=node_delta,
-                                    admission=admission, **common)
+                                    admission=admission, trace=trace_group,
+                                    **common)
             node_delta = None
             if staging is not None:
                 node_delta = {"epoch": np.asarray(staging[0], np.int64)}
             self.last_request = "establish" if node_delta else "full"
             return SolveRequest(node=_group(state), node_delta=node_delta,
-                                admission=admission, **common)
+                                admission=admission, trace=trace_group,
+                                **common)
 
         start = time.monotonic()
+        t_wire = TRACER.now()
         budget = (self.deadline_s if self.deadline_s is not None
                   else self.retry_total_s)
         last_error: Optional[Exception] = None
@@ -288,16 +302,22 @@ class RemoteSolver:
             if self.deadline_s is not None:
                 remaining = self.deadline_s - (time.monotonic() - start)
                 if remaining <= 0:
+                    last = (type(last_error).__name__ if last_error
+                            else None)
+                    FLIGHT.trigger("deadline-exceeded",
+                                   detail=f"client budget {self.deadline_s}s "
+                                          f"spent (last: {last})")
                     raise SolverDeadlineExceeded(
                         f"deadline-exceeded: {self.deadline_s}s budget "
-                        f"spent client-side (last: "
-                        f"{type(last_error).__name__ if last_error else None})")
+                        f"spent client-side (last: {last})")
             try:
                 client = self._connect(remaining)
                 response = client.solve(build_request(remaining))
                 self.last_request_bytes = client.last_bytes
                 break
-            except SolverDeadlineExceeded:
+            except SolverDeadlineExceeded as e:
+                # the budget is gone by definition: no retry
+                FLIGHT.trigger("deadline-exceeded", detail=str(e))
                 raise
             except SolverOverloaded as e:
                 last_error = e   # the connection stays in sync: back off
@@ -329,6 +349,9 @@ class RemoteSolver:
                     f"placement sidecar at {self.address!r} unreachable: "
                     f"{type(last_error).__name__}: {last_error}")
             time.sleep(delay)
+        TRACER.emit("wire_solve", cat="wire", t0=t_wire, args={
+            "span": span_id, "request": self.last_request,
+            "retries": attempt})
         if staging is not None:
             self._server_epoch = int(staging[0])
         new_state = state

@@ -28,9 +28,13 @@ networks unless ``secret=`` is set, in which case the first frame of
 every connection must carry the shared secret or the connection is
 dropped before any solve runs.
 
-Not ported yet (ROADMAP): the working-set registration and demotion of
-staged bases (``state/workingset.py``), the AOT warm pool, the trace,
-flight-recorder and device-observatory hooks.
+Every per-(connection, tenant) base is a resident of the HBM working
+set (``state/workingset.py``): its stagings and scatters run under the
+demote-and-retry ladder. A solve calls ``DEVICE_OBS.on_round()`` (an
+armed profiler window counts sidecar solves) and records a
+``sidecar_solve`` span tagged with the wire ``trace`` group, and
+:meth:`PlacementService.status` carries the ``device`` and
+``workingset`` sections. Not ported yet (ROADMAP): the AOT warm pool.
 """
 
 from __future__ import annotations
@@ -70,9 +74,13 @@ from koordinator_tpu_torch.ops.binpack_kernel import (
 )
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
+from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.service.admission import (
+    LANE_NAMES,
     AdmissionConfig,
     AdmissionGate,
+    request_lane,
 )
 from koordinator_tpu_torch.service.codec import (
     SolveRequest,
@@ -87,6 +95,7 @@ from koordinator_tpu_torch.service.tenancy import (
     request_tenant,
     wire_kernel_supported,
 )
+from koordinator_tpu_torch.state.workingset import WORKING_SET
 
 #: the wire NodeState columns: exactly the staged columns the delta
 #: protocol patches
@@ -110,7 +119,52 @@ def _put(a, device) -> torch.Tensor:
 
 def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     """A result tensor as a host array of its own."""
-    return None if t is None else np.array(t.cpu())
+    return None if t is None else t.cpu().numpy().copy()
+
+
+#: node counts of the warm-up solves: one each for the one-block and the
+#: cluster route of ``kernel_route``
+WARM_NODES = (2, 1025)
+
+
+def warm_up(device: DeviceLike = None) -> None:
+    """One small solve on each kernel route a sidecar's solves take on
+    ``device``, with a staging from host arrays and a delta scatter on
+    the way, before a solver serves: the first launch of each kernel
+    loads its module and the first call of each torch op on the solve
+    path loads its kernels, which a respawned sidecar's first request
+    would otherwise pay under its client's deadline. Launches count as
+    any other (``LAUNCHES``)."""
+    device = resolve_device(device)
+    for n in WARM_NODES:
+        alloc = np.zeros((n, 8), np.int32)
+        alloc[:, :2] = (16000, 32768)
+        zeros = np.zeros_like(alloc)
+        host = dict(alloc=alloc, used_req=zeros, usage=zeros,
+                    prod_usage=zeros, est_extra=zeros, prod_base=zeros,
+                    metric_fresh=np.ones(n, bool), schedulable=np.ones(n, bool))
+        state = NodeState(**{f: _put(host[f], device)
+                             for f in STAGED_NODE_FIELDS})
+        state = scatter_node_rows(
+            state, torch.zeros(1, dtype=torch.int64, device=device),
+            {f: _put(host[f][:1], device) for f in STAGED_NODE_FIELDS},
+            in_place=True)
+        req = np.zeros((1, 8), np.int32)
+        req[0, 0] = 100
+        pods = PodBatch.build(req=_put(req, device), est=_put(req, device),
+                              is_prod=_put(np.zeros(1, bool), device),
+                              is_daemonset=_put(np.zeros(1, bool), device))
+        weights = np.zeros(8, np.int32)
+        weights[:2] = 1
+        params = ScoreParams(weights=_put(weights, device),
+                             thresholds=_put(np.full(8, 100, np.int32),
+                                             device),
+                             prod_thresholds=_put(np.zeros(8, np.int32),
+                                                  device))
+        result, _ = _dispatch_solve(state, pods, params, SolverConfig(),
+                                    None, None, None, None, None, True, True,
+                                    True)
+        _host(result.assign)
 
 
 class NodeStateCache:
@@ -122,15 +176,69 @@ class NodeStateCache:
     rows by assignment, the staged ones by ``scatter_node_rows``. The
     generation rule is the staging cache's (``StagedStateCache.pin``):
     while a solve holds the staged state (:meth:`pin`), the scatter
-    writes a new generation beside it; otherwise in place."""
+    writes a new generation beside it; otherwise in place.
 
-    def __init__(self, device: DeviceLike = None):
+    Every cache is a resident of the HBM working set
+    (``state/workingset.WORKING_SET``), registered with its tenant's QoS
+    lane and fair-share weight and dropped on :meth:`close`. Under
+    pressure it demotes to the host rung (the staged state dropped, the
+    host rows kept: the next delta stages them again in :meth:`apply`)
+    or cold (the host rows dropped too: the next delta gets the typed
+    ``delta-base-mismatch`` and the client re-establishes). Both rungs
+    rebuild the rows the base carried, so answers are the same. A
+    demotion refuses a cache mid-patch (its lock held) or one whose
+    generation a solve holds (pinned), since the scatter writes in
+    place."""
+
+    def __init__(self, device: DeviceLike = None, tenant: str = "default",
+                 lane: str = "ls", weight: float = 1.0):
         self.device = resolve_device(device)
         self.host: Optional[Dict[str, np.ndarray]] = None
         self.state: Optional[NodeState] = None
         self.epoch: Optional[int] = None
         self._pinned: Optional[NodeState] = None
         self._lock = threading.Lock()
+        self._ws_key = WORKING_SET.register_auto(
+            "base", self, tenant=tenant, lane=lane, weight=weight)
+
+    def device_bytes(self) -> int:
+        """Bytes of the staged generations held (the working-set price):
+        the current one and a pinned one beside it."""
+        state, pinned = self.state, self._pinned
+        gens = [state] + ([pinned] if pinned is not None
+                          and pinned is not state else [])
+        return int(sum(t.nbytes for g in gens if g is not None
+                       for t in g if t is not None))
+
+    def demote_device(self) -> bool:
+        """-> host: drop the staged state, keep the host rows. False when
+        the cache is busy or pinned, or holds no staged state."""
+        if not self._lock.acquire(blocking=False):
+            return False
+        try:
+            if self.state is None or self._pinned is not None:
+                return False
+            self.state = None
+            return True
+        finally:
+            self._lock.release()
+
+    def demote_cold(self) -> bool:
+        """-> cold: drop the host rows too. The epoch survives, so the
+        client's next delta fails the base check (typed mismatch, then a
+        full re-send)."""
+        if not self._lock.acquire(blocking=False):
+            return False
+        try:
+            if self._pinned is not None:
+                return False
+            if self.host is None and self.state is None:
+                return False
+            self.host = None
+            self.state = None
+            return True
+        finally:
+            self._lock.release()
 
     def establish(self, node_group, state: NodeState, epoch: int) -> None:
         with self._lock:
@@ -138,25 +246,40 @@ class NodeStateCache:
                          for f in STAGED_NODE_FIELDS}
             self.state = state
             self.epoch = epoch
+        WORKING_SET.touch(self._ws_key)
 
     def apply(self, delta) -> NodeState:
         """Patch the base with the delta's rows; returns the staged state
-        of the new epoch."""
+        of the new epoch. A host-rung base is staged again first, under
+        the working set's admission and retry ladder."""
         with self._lock:
             if self.state is None:
-                self.state = NodeState(**{f: _put(self.host[f], self.device)
-                                          for f in STAGED_NODE_FIELDS})
+                host = self.host
+                self.state = WORKING_SET.run_staged(
+                    self._ws_key, "stage",
+                    lambda: NodeState(**{f: _put(host[f], self.device)
+                                         for f in STAGED_NODE_FIELDS}),
+                    estimate=int(sum(host[f].nbytes
+                                     for f in STAGED_NODE_FIELDS)))
             idx = np.asarray(delta["idx"], np.int64)
             if idx.size:
                 rows = {f: np.asarray(delta[f]) for f in STAGED_NODE_FIELDS}
                 for f in STAGED_NODE_FIELDS:
                     self.host[f][idx] = rows[f]
-                self.state = scatter_node_rows(
-                    self.state, torch.as_tensor(idx, device=self.device),
-                    {f: _put(rows[f], self.device) for f in rows},
-                    in_place=self.state is not self._pinned)
+                base = self.state
+                # the second allocation boundary: an injected failure
+                # raises before the scatter runs, and an in-place scatter
+                # retried after a real one writes the same rows again
+                self.state = WORKING_SET.run_staged(
+                    self._ws_key, "scatter",
+                    lambda: scatter_node_rows(
+                        base, torch.as_tensor(idx, device=self.device),
+                        {f: _put(rows[f], self.device) for f in rows},
+                        in_place=base is not self._pinned))
             self.epoch = int(np.asarray(delta["epoch"]).item())
-            return self.state
+            state = self.state
+        WORKING_SET.touch(self._ws_key)
+        return state
 
     def pin(self, state: Optional[NodeState]) -> None:
         """``state`` is read by a solve that has not been read back."""
@@ -169,9 +292,11 @@ class NodeStateCache:
                 self._pinned = None
 
     def close(self) -> None:
-        """Drop the base (the connection is gone)."""
+        """Drop the base (the connection is gone) and its working-set
+        entry."""
         with self._lock:
             self.host = self.state = self._pinned = None
+        WORKING_SET.drop(self._ws_key)
 
 
 def _state_group(cls, group, device):
@@ -226,6 +351,22 @@ def _dispatch_solve(state, pods, params, config, quota, gang, extras, resv,
                        resv, numa), "loop"
 
 
+def trace_args(req: SolveRequest) -> Optional[Dict[str, int]]:
+    """The wire trace context as span args (None when the client sent
+    none; malformed scalars are skipped)."""
+    group = req.trace
+    if not group:
+        return None
+    out: Dict[str, int] = {}
+    for key in ("round", "span"):
+        if key in group:
+            try:
+                out[key] = int(np.asarray(group[key]).item())
+            except (TypeError, ValueError):
+                pass
+    return out or None
+
+
 def solve_from_request(req: SolveRequest,
                        config: SolverConfig = SolverConfig(),
                        node_cache: Optional[NodeStateCache] = None,
@@ -236,6 +377,10 @@ def solve_from_request(req: SolveRequest,
     states; a wire config overrides ``config``. ``node_cache`` serves
     the delta protocol. Any failure, a kernel's included, is answered
     with ``SolveResponse.error``."""
+    # the sidecar's "round" is a solve: an armed profiler window wraps
+    # the next K requests (one flag read when no window is in play)
+    DEVICE_OBS.on_round()
+    t_solve = TRACER.now()
     try:
         device = (node_cache.device if node_cache is not None
                   else resolve_device(device))
@@ -254,10 +399,21 @@ def solve_from_request(req: SolveRequest,
             state = pinned = node_cache.apply(delta)
             node_host = node_cache.host
         else:
-            state = NodeState(
-                **{f: _put(req.node[f], device) for f in NODE_FIELDS},
-                **{f: _put(req.node[f], device)
-                   for f in ("numa_cap", "numa_free") if f in req.node})
+            def stage():
+                return NodeState(
+                    **{f: _put(req.node[f], device) for f in NODE_FIELDS},
+                    **{f: _put(req.node[f], device)
+                       for f in ("numa_cap", "numa_free") if f in req.node})
+
+            if node_cache is not None:
+                # a full staging is the first allocation boundary:
+                # headroom first, then the demote-and-retry ladder
+                state = WORKING_SET.run_staged(
+                    node_cache._ws_key, "stage", stage,
+                    estimate=int(sum(np.asarray(req.node[f]).nbytes
+                                     for f in NODE_FIELDS)))
+            else:
+                state = stage()
             if (delta is not None and "epoch" in delta
                     and node_cache is not None
                     and "numa_cap" not in req.node):  # numa restages in full
@@ -298,6 +454,10 @@ def solve_from_request(req: SolveRequest,
                 extras, resv, _state_group(NumaAux, req.numa, device),
                 resv_safe, extras_safe,
                 wire_kernel_supported(req.params, config))
+            # the sidecar's half of the round trip, tagged with the wire
+            # trace context so it joins the scheduler's trace
+            TRACER.emit("sidecar_solve", cat="sidecar", t0=t_solve,
+                        args=trace_args(req))
             return SolveResponse(
                 assignments=_host(result.assign),
                 node_used_req=_host(result.node_state.used_req),
@@ -352,7 +512,15 @@ class _Handler(socketserver.BaseRequestHandler):
                     tenant = request_tenant(request)
                     node_cache = node_caches.pop(tenant, None)
                     if node_cache is None:
-                        node_cache = NodeStateCache(server.device)
+                        # the working set wants the QoS lane and the
+                        # fair-share weight: best-effort tenants demote
+                        # first, heavier tenants last
+                        gate = server.admission_gate
+                        node_cache = NodeStateCache(
+                            server.device, tenant=tenant,
+                            lane=LANE_NAMES[request_lane(request)],
+                            weight=(1.0 if gate is None
+                                    else gate.tenants.weight(tenant)))
                         while len(node_caches) >= MAX_CONNECTION_TENANTS:
                             node_caches.pop(next(iter(node_caches))).close()
                     node_caches[tenant] = node_cache
@@ -438,18 +606,20 @@ class PlacementService:
         self._thread.start()
 
     def status(self) -> dict:
-        """The address served, live connections, the device and the
-        kernel launches so far, the admission gate's stats, and what of
-        the reference's status is not ported."""
+        """The address served, live connections, the solve device and the
+        kernel launches so far, the admission gate's stats, the device
+        observatory's status, the HBM working-set ledger, and what of the
+        reference's status is not ported."""
         return {
             "address": self.address,
             "active_connections": len(self._server.active_connections),
-            "device": str(self.device),
+            "solve_device": str(self.device),
             "kernel_launches": dict(LAUNCHES),
             "admission": None if self.gate is None else self.gate.stats(),
+            "device": DEVICE_OBS.status(),
+            "workingset": WORKING_SET.status(),
             "not_ported": ["kernel_breaker (a kernel failure is a typed "
-                           "error response)", "device", "warm_pool",
-                           "preemption", "workingset"],
+                           "error response)", "warm_pool", "preemption"],
         }
 
     def stop(self) -> None:

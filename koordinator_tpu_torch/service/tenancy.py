@@ -56,6 +56,7 @@ from koordinator_tpu_torch.ops.binpack_kernel import (
 )
 from koordinator_tpu_torch.parallel.mesh import pow2_quarter_bucket
 from koordinator_tpu_torch.service.codec import SolveRequest, SolveResponse
+from koordinator_tpu_torch.state.workingset import WorkingSetExhausted
 
 #: requests without a wire tenant belong to the default tenant
 DEFAULT_TENANT = "default"
@@ -506,14 +507,26 @@ def solve_entry_lanes(entries, config=None,
         req = e.request
         state = None
         if delta_request(req):
+            # an earlier entry's restage in this loop may have demoted
+            # this base under memory pressure: a cold base or an
+            # exhausted budget costs this entry a typed error, never the
+            # lanes batched with it
             cache = e.node_cache
             if cache is None or cache.host is None:
                 failed[i] = SolveResponse(
                     assignments=np.empty(0, np.int32),
-                    error="delta-base-mismatch: no base held, re-establish")
+                    error="delta-base-mismatch: no base held (or demoted "
+                          "cold under memory pressure), re-establish")
                 slots.append(None)
                 continue
-            state = cache.apply(req.node_delta)
+            try:
+                state = cache.apply(req.node_delta)
+            except WorkingSetExhausted as exc:
+                failed[i] = SolveResponse(
+                    assignments=np.empty(0, np.int32),
+                    error=f"overloaded: {exc}")
+                slots.append(None)
+                continue
         slots.append(len(pairs))
         pairs.append((req, state))
     solved = _solve_lanes(pairs, config, False, device) if pairs else []

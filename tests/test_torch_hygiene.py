@@ -62,7 +62,13 @@ def test_every_module_imports_without_jax():
               # recorder, the device observatory and the arrival traces
               "scheduler.pipeline", "scheduler.streaming",
               "scheduler.monitor", "cmd.scheduler", "obs.flight",
-              "obs.device", "testing", "testing.arrivals"):
+              "obs.device", "testing", "testing.arrivals",
+              # the failure-domain slice: the supervisor, the failover,
+              # the HBM working set, the SLO controller, the debug mux
+              # and the chaos and bench-configuration helpers
+              "service.supervisor", "service.failover", "state.workingset",
+              "control.slo", "utils.debug_http", "testing.chaos",
+              "testing.failure_domain"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -171,6 +177,24 @@ def _entry_points():
 
         return NodeStateCache(**kw)
 
+    def failover_solver(**kw):
+        from types import SimpleNamespace
+
+        from koordinator_tpu_torch.service.client import RemoteSolver
+        from koordinator_tpu_torch.service.failover import FailoverSolver
+
+        backend = FailoverSolver(RemoteSolver("/nowhere.sock"),
+                                 prewarm=False, **kw)
+        return SimpleNamespace(device=backend.device)
+
+    def built_scheduler(**kw):
+        from koordinator_tpu_torch.cmd.scheduler import (
+            SchedulerConfig,
+            build_scheduler,
+        )
+
+        return build_scheduler(SchedulerConfig(), **kw).model.params.weights
+
     def wired_manager(**kw):
         from koordinator_tpu_torch.client import APIServer, wire_manager
 
@@ -204,6 +228,8 @@ def _entry_points():
         ("service.PlacementService", sidecar),
         ("service.AdmissionGate", gate),
         ("service.NodeStateCache", node_cache),
+        ("service.FailoverSolver", failover_solver),
+        ("cmd.scheduler.build_scheduler", built_scheduler),
         ("PlacementModel", lambda **kw: PlacementModel(**kw).params.weights),
         ("Scheduler", lambda **kw: scheduler_model(**kw).params.weights),
         ("Scheduler() with the reference's defaults (preemption on the "

@@ -187,8 +187,7 @@ def test_restart_resends_the_full_state(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--debug-port", "1"], ["--profile-dir", "prof"], ["--no-warm-pool"],
-    ["--hbm-budget-bytes", "1"]])
+    pytest.param(["--no-warm-pool"], id="flag2")])
 def test_solver_binary_refuses_flags_not_ported(tmp_path, capsys, flag):
     ready = tmp_path / "ready"
     with pytest.raises(SystemExit) as exc:
@@ -197,6 +196,64 @@ def test_solver_binary_refuses_flags_not_ported(tmp_path, capsys, flag):
     assert exc.value.code == 2
     assert "not ported yet: " + flag[0] in capsys.readouterr().err
     assert not ready.exists()     # refused before anything started
+
+
+@pytest.mark.parametrize("flag", [
+    ["--debug-port", "0"], ["--profile-dir", "prof"],
+    ["--hbm-budget-bytes", "4096"]])
+def test_solver_binary_takes_lifted_flags(tmp_path, capsys, monkeypatch,
+                                          flag):
+    """The flags whose subsystems are ported start the solver, which
+    answers a solve before ``--once`` returns."""
+    from koordinator_tpu_torch.apis.extension import ResourceName
+    from koordinator_tpu_torch.apis.types import (
+        ClusterSnapshot,
+        NodeSpec,
+        PodSpec,
+    )
+    from koordinator_tpu_torch.obs.device import DEVICE_OBS
+    from koordinator_tpu_torch.state.workingset import WORKING_SET
+
+    CPU, MEM = ResourceName.CPU, ResourceName.MEMORY
+    if flag[0] == "--profile-dir":
+        flag = ["--profile-dir", str(tmp_path / "prof")]
+    ready = tmp_path / "ready"
+    addr = str(tmp_path / "solver.sock")
+    answered = []
+    real_start = server.PlacementService.start
+
+    def start_and_answer(service):
+        real_start(service)
+        model = PlacementModel(backend=client.RemoteSolver(
+            addr, timeout=TIMEOUT_S), device="cpu")
+        snap = ClusterSnapshot(
+            nodes=[NodeSpec(name=f"n{i}", allocatable={CPU: 8000,
+                                                       MEM: 16384})
+                   for i in range(3)],
+            pods=[], pending_pods=[PodSpec(name=f"p{j}",
+                                           requests={CPU: 1000})
+                                   for j in range(4)], now=20.0)
+        answered.append(model.schedule(snap))
+
+    monkeypatch.setattr(server.PlacementService, "start", start_and_answer)
+    try:
+        assert solver.main(["--listen", addr, "--device", "cpu", "--once",
+                            "--ready-file", str(ready), *flag]) == 0
+        out = capsys.readouterr().out
+        assert f"serving on {addr} (cpu)" in out
+        assert ready.read_text() == str(os.getpid())
+        assert answered and any(v is not None
+                                for v in answered[0].values())
+        if flag[0] == "--debug-port":
+            assert "debug port" in out
+        elif flag[0] == "--profile-dir":
+            assert DEVICE_OBS.status()["profile"]["dir"] == flag[1]
+        else:
+            assert WORKING_SET.budget_bytes() == 4096
+            assert WORKING_SET.status()["used_bytes"] == 0  # base closed
+    finally:
+        WORKING_SET.reset()
+        DEVICE_OBS.configure(profile_dir="")
 
 
 def test_solver_binary_once_writes_its_ready_file(tmp_path, capsys):
