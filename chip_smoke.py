@@ -245,6 +245,26 @@ the microseconds per pod and the bound (see :func:`bound`).
    p99 5 ms, a 1 ms fake-clock grid) on the card and on the CPU: the
    target attained at each regime, at most 12 decisions, the decision log
    replayed bit for bit and equal to the CPU run's.
+17. The plugin chain, the aggregated LoadAware mode and the explainer on
+   the card. (a) Phase 3's world with seeded percentiles on every
+   NodeMetric (``testing.plugin_chain.add_aggregated_usage``: p50 <= p90
+   <= p95 <= p99 around the average, a 300 s and a 1,800 s window)
+   through ``build_scheduler`` with upstream's aggregated LoadAware args
+   (thresholds CPU 65 / memory 95 at p99) and score p99, then score p50
+   (``est_extra`` goes negative): each round on the cluster kernel,
+   capacity respected, its placements different from the unaggregated
+   round's on the same world, the kernel held against its twin; then 4
+   churn ticks of config #9 in the aggregated mode, delta staging == a
+   full restage every tick (placements and every staged field). (b) The
+   chain world (``plugin_chain.chain_world_spec``: 500 nodes, 256 pending
+   in 8 quota groups, 16 reservations, no gangs): ``Scheduler()``'s
+   batched round (one block) == ``build_scheduler(BatchedPlacement=
+   false)`` through ``run_loop(once=True)`` (placements, reservations),
+   the chain's ms per pod printed, the kernel held against its twin.
+   (c) ``PlacementExplainer`` on the card for 16 pods of that world: the
+   winner is ``schedule_one``'s node (or the quota verdict refuses), the
+   feasible nodes' weighted totals are the chain's scores, the columns
+   equal the CPU run; one ``explain_scores`` at 5,000 nodes, timed.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -310,6 +330,11 @@ from koordinator_tpu_torch.metrics.components import (
     STREAM_TRIGGERS,
     TICK_STAGE_DURATION,
 )
+from koordinator_tpu_torch.cmd.scheduler import (
+    SchedulerConfig,
+    build_scheduler,
+    run_loop,
+)
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.ops import binpack_kernel as bk
@@ -321,6 +346,7 @@ from koordinator_tpu_torch.ops.binpack import (
 from koordinator_tpu_torch.ops.binpack import STAGED_NODE_FIELDS
 from koordinator_tpu_torch.ops import rebalance as rb
 from koordinator_tpu_torch.obs.device import DEVICE_OBS
+from koordinator_tpu_torch.obs.explain import PlacementExplainer, explain_scores
 from koordinator_tpu_torch.obs.flight import FLIGHT
 from koordinator_tpu_torch.obs.timeline import PodTimelines
 from koordinator_tpu_torch.obs.trace import TRACER
@@ -355,6 +381,7 @@ from koordinator_tpu_torch.state.cluster import (
     lower_nodes,
 )
 from koordinator_tpu_torch.state.workingset import WORKING_SET
+from koordinator_tpu_torch.testing import plugin_chain
 from koordinator_tpu_torch.testing.arrivals import (
     REGIMES,
     diurnal_trace,
@@ -510,6 +537,20 @@ DENSITY_TIMED = 6
 #: "cpu") and "cpu")
 CHILD_ARGV = ()
 CHILD_DEVICE = "cuda"
+# phase 17: the percentile seed of the aggregated world; the filter
+# thresholds and percentile (upstream LoadAwareSchedulingArgs.aggregated)
+# and the two score percentiles (p99, and p50, the negative-est_extra
+# arm); the aggregated churn ticks; the chain world (nodes, pending,
+# quota groups, reservations) and the pods the explainer is asked about
+AGG_SEED = 5
+AGG_THRESHOLDS = {ResourceName.CPU: 65, ResourceName.MEMORY: 95}
+AGG_USAGE_PCT, AGG_SCORE_PCTS = 99, (99, 50)
+AGG_CHURN_TICKS = 4
+CHAIN_NODES, CHAIN_PENDING, CHAIN_QUOTAS, CHAIN_RESV = 500, 256, 8, 16
+EXPLAIN_PODS = 16
+#: gates of the phase's batched rounds: its solves alone, as phase 9's
+#: ``enable_preemption=False``
+NO_PREEMPTION = "ElasticQuotaPreemption=false"
 
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
@@ -3683,6 +3724,252 @@ def failure_domain(card) -> list:
     return entries
 
 
+def aggregated_world():
+    """Phase 3's world with seeded percentiles on every metric."""
+    snap, _ = testing.churn_world(NODES, assigned_per_node=ASSIGNED_PER_NODE,
+                                  seed=42)
+    testing.add_pending_wave(snap, PENDING, n_quota=QUOTAS, n_gangs=GANGS,
+                             gang_size=GANG_SIZE, seed=7)
+    return plugin_chain.add_aggregated_usage(snap, seed=AGG_SEED)
+
+
+def aggregated_config(score_pct) -> SchedulerConfig:
+    return SchedulerConfig(
+        feature_gates=NO_PREEMPTION, aggregated_usage_thresholds=AGG_THRESHOLDS,
+        aggregated_usage_pct=AGG_USAGE_PCT, aggregated_score_pct=score_pct)
+
+
+def aggregated_rounds(card) -> list:
+    """Phase 17 (a): the aggregated round at the main path's width, for
+    each score percentile, against the unaggregated round on the same
+    world. Returns its ``kernels`` entries."""
+    world = aggregated_world()
+    plain = build_scheduler(SchedulerConfig(feature_gates=NO_PREEMPTION))
+    testing.feed_scheduler(plain, world)
+    unaggregated = plain.schedule_pending(now=20.0)
+    entries = []
+    for pct in AGG_SCORE_PCTS:
+        label = (f"aggregated round, filter p{AGG_USAGE_PCT}, score p{pct}, "
+                 f"{NODES} x {PENDING}")
+        sched = build_scheduler(aggregated_config(pct))
+        testing.feed_scheduler(sched, world)
+        result, launches, wall, captured = drive(
+            lambda: sched.schedule_pending(now=20.0))
+        inp, route = routed(label, launches, captured, "cluster")
+        capacity_ok(world, result)
+        arrays = sched.model.staged_cache.arrays
+        negative = int((arrays.est_extra < 0).any(axis=1).sum())
+        assert negative > 0 if pct < AGG_USAGE_PCT else True, negative
+        committed = sum(n is not None for n in result.values())
+        differ = sum(result.get(u) != n for u, n in unaggregated.items())
+        assert committed > 0 and differ > 0, (committed, differ)
+        print(f"{label} [{card}]: {committed} committed, "
+              f"{len(result.waiting)} waiting; wall {wall:.4f} s; "
+              f"{negative} node rows with a negative est_extra; route "
+              f"{route_name(route)}; launches {launches[route.kind]}",
+              flush=True)
+        print(f"{label}: the placements of {differ} of {len(unaggregated)} "
+              f"pods differ from the unaggregated round on the same world "
+              f"(phase 3's): the mode took effect", flush=True)
+        stats = compare(inp, label, card, reps=3)
+        entries.append(entry(f"binpack_aggregated_score_p{pct}",
+                             launches[route.kind], stats, 317))
+    return entries
+
+
+def aggregated_churn(card) -> dict:
+    """Phase 17 (a): bench config #9 in the aggregated mode (filter p99,
+    score p50), AGG_CHURN_TICKS ticks through two Schedulers fed the same
+    events, one with the staging cache, one restaging in full every tick:
+    equal placements and equal staged worlds every tick. Returns its
+    ``kernels`` entry."""
+    snap, _ = testing.churn_world(CHURN_NODES, assigned_per_node=2, seed=42)
+    plugin_chain.add_aggregated_usage(snap, seed=AGG_SEED)
+    config = aggregated_config(AGG_SCORE_PCTS[-1])
+    delta, full = build_scheduler(config), build_scheduler(config)
+    for sched in (delta, full):
+        testing.feed_scheduler(sched, snap)
+    rng, agg_rng = np.random.default_rng(7), np.random.default_rng(AGG_SEED)
+    launches_delta, last_inp, walls = 0, None, []
+    for t in range(AGG_CHURN_TICKS):
+        now = 20.0 + t
+        testing.feed_churn_tick((delta, full), snap, rng, dirty=CHURN_DIRTY,
+                                pending=CHURN_PENDING, t=t, now=now,
+                                aggregated_rng=agg_rng)
+        full.model.reset_staging()
+        results = {}
+        for name, sched in (("delta", delta), ("full", full)):
+            result, launches, wall, captured = drive(
+                lambda: sched.schedule_pending(now=now))
+            inp, route = routed(f"aggregated churn tick {t}, {name}",
+                                launches, captured, "cluster")
+            results[name] = result
+            if name == "delta":
+                launches_delta += launches[route.kind]
+                last_inp = inp
+                walls.append(wall)
+        assert delta.model.last_staging == ("full" if t == 0 else "delta")
+        assert full.model.last_staging == "full"
+        same_round(results["delta"], results["full"],
+                   f"aggregated churn tick {t}")
+        for f in STAGED_NODE_FIELDS:
+            assert torch.equal(getattr(delta.model.staged_cache.state, f),
+                               getattr(full.model.staged_cache.state, f)), \
+                f"aggregated churn tick {t}: delta != full on {f}"
+    print(f"aggregated churn ticks [{card}]: {CHURN_NODES} nodes, "
+          f"{CHURN_DIRTY} metrics with percentiles + {CHURN_PENDING} pending "
+          f"per tick, {AGG_CHURN_TICKS} ticks: delta == full restage every "
+          f"tick (placements and every staged field); delta tick walls "
+          f"{spread(walls, '{:.4f}')} s", flush=True)
+    stats = compare(last_inp, f"aggregated churn tick, {CHURN_NODES} x "
+                    f"{CHURN_PENDING}", card, reps=5)
+    return entry("binpack_aggregated_churn_tick", launches_delta, stats, 317)
+
+
+def chain_world(now):
+    return testing.build_snapshot(
+        plugin_chain.chain_world_spec(
+            n_nodes=CHAIN_NODES, n_pending=CHAIN_PENDING,
+            n_quota=CHAIN_QUOTAS, n_resv=CHAIN_RESV, now=now),
+        ttypes, ResourceName)
+
+
+def chain_parity(card) -> dict:
+    """Phase 17 (b): the batched round on the card against the plugin
+    chain (``BatchedPlacement=false`` through ``run_loop(once=True)``) on
+    the chain world. Returns its ``kernels`` entry."""
+    now = time.time()
+    batched = Scheduler(model=PlacementModel())
+    testing.feed_scheduler(batched, chain_world(now))
+    result, launches, wall, captured = drive(
+        lambda: batched.schedule_pending(now=time.time()))
+    inp, route = routed("chain parity, batched round", launches, captured,
+                        "block")
+    chain = build_scheduler(SchedulerConfig(
+        feature_gates="BatchedPlacement=false"))
+    assert not chain.batched_placement
+    testing.feed_scheduler(chain, chain_world(now))
+    lines = []
+    t0 = time.perf_counter()
+    assert run_loop(chain, SchedulerConfig(), once=True,
+                    log=lines.append) == 0
+    chain_wall = time.perf_counter() - t0
+    # the part of a chain cycle that is its one lower_nodes (node_view),
+    # timed alone on the world the round left
+    after = chain.cache.snapshot(now=time.time())
+    t0 = time.perf_counter()
+    lower_nodes(after, **chain.model.lowering_kwargs())
+    lower_wall = time.perf_counter() - t0
+    # the batched round's decisions == the chain's placements; then its
+    # PostFilter may evict pods it placed in this very round (a
+    # lower-priority pod of the preemptor's quota group), which the chain,
+    # placing in priority order, never meets: the JAX package's two
+    # paths differ the same way (tests/test_torch_framework.py)
+    got = {u: p.node_name for u, p in chain.cache.pods.items()}
+    decided = {u: n for u, n in result.items() if n is not None}
+    want = {u: p.node_name for u, p in batched.cache.pods.items()
+            if u not in result}
+    want.update(decided)
+    assert got == want, "plugin chain != batched round"
+    evicted = set(got) - set(batched.cache.pods)
+    assert evicted <= set(decided)
+    assert {got[u] for u in evicted} <= set(result.nominations.values())
+    assert set(chain.cache.pending) == set(batched.cache.pending) - evicted
+    resv = {r.name: (dict(r.allocated), list(r.allocated_pod_uids))
+            for r in chain.cache.reservations.values()}
+    consumed = sum(len(v[1]) for v in resv.values())
+    committed = len(decided)
+    assert committed > 0 and consumed > 0, (committed, consumed)
+    print(f"chain parity [{card}]: {CHAIN_NODES} nodes, {CHAIN_PENDING} "
+          f"pending ({CHAIN_QUOTAS} quota groups, {CHAIN_RESV} reservations): "
+          f"batched round == plugin chain ({committed} placed, {consumed} "
+          f"consumed a reservation); the batched round's PostFilter then "
+          f"nominated {len(result.nominations)} and evicted {len(evicted)} "
+          f"of its own placements, as the JAX package's does; batched wall "
+          f"{wall:.4f} s on route {route_name(route)}; chain wall "
+          f"{chain_wall:.4f} s = {chain_wall / CHAIN_PENDING * 1e3:.3f} ms "
+          f"per pod, of which one lower_nodes of the world after the round "
+          f"{lower_wall * 1e3:.3f} ms; {lines[-1]}", flush=True)
+    stats = compare(inp, f"chain parity, {CHAIN_NODES} x {CHAIN_PENDING}",
+                    card, reps=5)
+    return entry("binpack_chain_parity", launches[route.kind], stats, 205)
+
+
+def explainer(card) -> None:
+    """Phase 17 (c): PlacementExplainer on the card for EXPLAIN_PODS pods
+    of the chain world without a reservation owner, each against the
+    chain's cycle and the CPU columns; then one ``explain_scores`` at the
+    main path's width."""
+    now = time.time()
+    sched = build_scheduler(SchedulerConfig(
+        feature_gates="BatchedPlacement=false"))
+    sched.debug.dump_scores = True
+    testing.feed_scheduler(sched, chain_world(now))
+    cpu_model = PlacementModel(device="cpu")
+    explain = PlacementExplainer(sched)
+    uids = [p.uid for p in sched.cache.pending.values()
+            if not p.labels][:EXPLAIN_PODS]
+    bound = refused = 0
+    t0 = time.perf_counter()
+    for uid in uids:
+        at = time.time()
+        payload = explain.explain(uid, now=at)
+        snapshot = sched.cache.snapshot(now=at)
+        pod = sched.cache.pending[uid]
+        _, on_card = explain_scores(sched.model, snapshot, pod)
+        _, on_cpu = explain_scores(cpu_model, snapshot, pod)
+        for name, col in on_cpu.items():
+            assert np.array_equal(on_card[name], col), (uid, name)
+        outcome = sched.schedule_one(uid, now=at)
+        if payload["verdicts"].get("quota_admitted") is False:
+            assert outcome.status == "unschedulable", outcome
+            refused += 1
+            continue
+        assert payload["winner"] == outcome.node, (uid, payload["winner"],
+                                                   outcome.node)
+        scores = sched.debug.scores[-1]["scores"]
+        for detail in payload["top_nodes"]:
+            if detail["feasible"]:
+                assert detail["scores"]["weighted_total"] == \
+                    scores[detail["node"]], (uid, detail["node"])
+        bound += outcome.status == "bound"
+    wall = time.perf_counter() - t0
+    assert bound > 0
+    print(f"explainer [{card}]: {len(uids)} pods of the chain world: winner "
+          f"== schedule_one's node ({bound} bound, {refused} refused by "
+          f"quota, as the verdict says), weighted totals == the chain's "
+          f"scores, columns == the CPU run; {wall:.3f} s for the "
+          f"{len(uids)} explains and cycles", flush=True)
+    snapshot = aggregated_world()
+    wide = build_scheduler(aggregated_config(AGG_SCORE_PCTS[0])).model
+    pod = snapshot.pending_pods[0]
+    t0 = time.perf_counter()
+    arrays, cols = explain_scores(wide, snapshot, pod)
+    wall = time.perf_counter() - t0
+    assert len(cols["weighted_total"]) == arrays.n == NODES
+    t0 = time.perf_counter()
+    lower_nodes(snapshot, **wide.lowering_kwargs())
+    lower_wall = time.perf_counter() - t0
+    print(f"explain_scores at {NODES} nodes, aggregated [{card}]: wall "
+          f"{wall:.4f} s (lowering, staging, the breakdown, one read-back); "
+          f"its lower_nodes alone {lower_wall:.4f} s; "
+          f"{int(cols['fit_feasible'].sum())} nodes fit, "
+          f"{int(cols['loadaware_feasible'].sum())} pass LoadAware",
+          flush=True)
+
+
+def plugin_chain_phase(card) -> list:
+    """Phase 17. Returns its ``kernels`` entries."""
+    t0 = time.perf_counter()
+    entries = aggregated_rounds(card)
+    entries.append(aggregated_churn(card))
+    entries.append(chain_parity(card))
+    explainer(card)
+    print(f"plugin chain phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -3868,6 +4155,9 @@ def main() -> int:
 
     # -- 16. the serving failure domain ------------------------------------------
     kernels += failure_domain(card)
+
+    # -- 17. the plugin chain, the aggregated mode and the explainer -----------
+    kernels += plugin_chain_phase(card)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

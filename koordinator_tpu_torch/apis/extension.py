@@ -93,6 +93,8 @@ DOMAIN = "koordinator.tpu"
 ANNOTATION_RESOURCE_SPEC = f"{DOMAIN}/resource-spec"
 #: the cpuset and NUMA-node resources allocated to a pod (JSON, PreBind)
 ANNOTATION_RESOURCE_STATUS = f"{DOMAIN}/resource-status"
+#: the reservation a pod consumed (PreBind of the plugin chain)
+ANNOTATION_RESERVATION_ALLOCATED = f"{DOMAIN}/reservation-allocated"
 #: the devices allocated to a pod (JSON, PreBind)
 ANNOTATION_DEVICE_ALLOCATED = f"{DOMAIN}/device-allocated"
 #: a pod's device selection hints per device type (JSON)

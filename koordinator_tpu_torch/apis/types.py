@@ -135,6 +135,21 @@ class NodeMetric:
     #: the metric reports but the pod list no longer holds)
     pod_priority_class: Dict[str, PriorityClass] = dataclasses.field(
         default_factory=dict)
+    #: percentile -> usage, for the aggregated usage mode (p50, p90, p95,
+    #: p99)
+    aggregated_usage: Dict[int, Resources] = dataclasses.field(
+        default_factory=dict)
+    #: the window (seconds) the percentiles above were computed over
+    #: (the collect policy's primary aggregate duration)
+    aggregated_duration: Optional[float] = None
+    #: more windows: duration seconds -> percentile -> usage (the
+    #: reference's AggregatedNodeUsages, one entry a window)
+    aggregated_windows: Dict[float, Dict[int, Resources]] = (
+        dataclasses.field(default_factory=dict))
+    #: system-usage percentiles per window (AggregatedSystemUsages:
+    #: reported, read by nothing in the scheduler)
+    aggregated_system_usage: Dict[float, Dict[int, Resources]] = (
+        dataclasses.field(default_factory=dict))
     #: host application name -> usage, and its QoS class
     host_app_usages: Dict[str, Resources] = dataclasses.field(
         default_factory=dict)

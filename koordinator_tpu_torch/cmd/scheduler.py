@@ -1,8 +1,11 @@
 """koord-scheduler's wiring and loop (counterpart of
 ``koordinator_tpu/cmd/scheduler.py`` without ``main()``).
 
-:func:`build_scheduler` is Setup: a wired Scheduler whose model solves in
-process or, with ``placement_backend="sidecar"``, through a
+:func:`build_scheduler` is Setup: a wired Scheduler, configured by the
+``--feature-gates`` spec (``BatchedPlacement`` False: every round runs
+the per-pod plugin chain; ``ElasticQuotaPreemption``) and the LoadAware
+aggregated (percentile) mode (``aggregated_*``, an ``AggregatedArgs``),
+whose model solves in process or, with ``placement_backend="sidecar"``, through a
 :class:`~koordinator_tpu_torch.service.client.RemoteSolver` (wrapped in
 a :class:`~koordinator_tpu_torch.service.failover.FailoverSolver` with
 ``solver_failover``, its flip-back wired to the model's
@@ -25,11 +28,10 @@ Placements are the same in all three, tick for tick.
 names and defaults. Not ported yet, and queued in ROADMAP.md: ``main()``
 and its argument parser (with ``--solver-supervise``), the anti-entropy
 auditor (``run_loop(auditor=...)`` raises ``NotImplementedError``), the
-feature gates and the scan unroll (their fields are absent), the AOT
-warm pool (``warm_pool`` is accepted and has no effect), the aggregated
-LoadAware mode, the host path for tiny solves and node-sharded staging
-(``build_scheduler`` raises ``NotImplementedError`` for the last three,
-naming their ROADMAP item).
+scan unroll (its field is absent), the AOT warm pool (``warm_pool`` is
+accepted and has no effect), the host path for tiny solves and
+node-sharded staging (``build_scheduler`` raises ``NotImplementedError``
+for the last two, naming their ROADMAP item).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import time
 from typing import Optional
 
 from koordinator_tpu_torch import DeviceLike
+from koordinator_tpu_torch.features import SCHEDULER_GATES
 
 
 @dataclasses.dataclass
@@ -46,13 +49,17 @@ class SchedulerConfig:
     """The KubeSchedulerConfiguration-equivalent component config (the
     reference's field names and defaults)."""
 
+    #: the ``--feature-gates`` spec ("BatchedPlacement=false,...")
+    feature_gates: str = ""
     #: batched solve cadence (the churn loop period)
     schedule_interval_seconds: float = 1.0
     fit_weight: int = 1
     loadaware_weight: int = 1
     score_according_prod: bool = False
-    #: LoadAware aggregated (percentile) mode: not ported yet (ROADMAP
-    #: Queue 1 item 6); any of these set raises in build_scheduler
+    #: LoadAware aggregated (percentile) mode, the reference's
+    #: LoadAwareSchedulingAggregatedArgs: the filter substitutes the
+    #: percentile usage and these thresholds when both are set; the score
+    #: substitutes the percentile base when aggregated_score_pct is set
     aggregated_usage_thresholds: Optional[dict] = None
     aggregated_usage_pct: Optional[int] = None
     aggregated_usage_duration_seconds: Optional[float] = None
@@ -147,19 +154,15 @@ class SchedulerConfig:
 
 def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
     """Setup: a fully wired Scheduler whose model (and failover backend)
-    solve on ``device`` (``cuda`` unless given)."""
+    solve on ``device`` (``cuda`` unless given), under a copy of
+    ``SCHEDULER_GATES`` set from ``config.feature_gates``."""
     from koordinator_tpu_torch.models.placement import PlacementModel
     from koordinator_tpu_torch.ops.binpack import SolverConfig
     from koordinator_tpu_torch.scheduler.scheduler import Scheduler
+    from koordinator_tpu_torch.state.cluster import AggregatedArgs
 
-    if any(v is not None for v in (
-            config.aggregated_usage_thresholds, config.aggregated_usage_pct,
-            config.aggregated_usage_duration_seconds,
-            config.aggregated_score_pct,
-            config.aggregated_score_duration_seconds)):
-        raise NotImplementedError(
-            "aggregated_*: the aggregated LoadAware mode (AggregatedArgs) "
-            "is not ported yet (ROADMAP Queue 1 item 6)")
+    gates = SCHEDULER_GATES.copy()
+    gates.set_from_spec(config.feature_gates)
     if config.host_fallback_cells > 0:
         raise NotImplementedError(
             "host_fallback_cells > 0: the host path for tiny solves is not "
@@ -186,17 +189,30 @@ def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
     elif config.placement_backend != "inprocess":
         raise ValueError(
             f"unknown placement backend: {config.placement_backend!r}")
+    aggregated = None
+    if (config.aggregated_usage_pct is not None
+            or config.aggregated_score_pct is not None):
+        aggregated = AggregatedArgs(
+            usage_thresholds=config.aggregated_usage_thresholds,
+            usage_pct=config.aggregated_usage_pct,
+            usage_duration_seconds=config.aggregated_usage_duration_seconds,
+            score_pct=config.aggregated_score_pct,
+            score_duration_seconds=config.aggregated_score_duration_seconds)
     model = PlacementModel(
         config=SolverConfig(
             fit_weight=config.fit_weight,
             loadaware_weight=config.loadaware_weight,
             score_according_prod=config.score_according_prod),
-        backend=backend, device=device)
+        aggregated=aggregated, backend=backend, device=device)
     if backend is not None and hasattr(backend, "on_flip_back"):
         # the flip-back forces a full relower and restage, so that the
         # recovered sidecar's delta base is established from scratch
         backend.on_flip_back = model.reset_staging
-    scheduler = Scheduler(model=model, cluster_total=config.cluster_total)
+    scheduler = Scheduler(
+        model=model, cluster_total=config.cluster_total,
+        enable_preemption=gates.enabled("ElasticQuotaPreemption"))
+    # the gate off: every round runs per-pod plugin-chain cycles
+    scheduler.batched_placement = gates.enabled("BatchedPlacement")
     scheduler.monitor.timeout = config.monitor_timeout_seconds
     # the observability settings apply at this layer: an embedder calling
     # build_scheduler() + run_loop() gets what the config says

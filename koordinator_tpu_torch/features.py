@@ -1,0 +1,71 @@
+"""Feature gates (counterpart of ``koordinator_tpu/features.py``: the
+``FeatureGate`` registry and the scheduler's gates).
+
+Gates parse the k8s-style ``--feature-gates=Name=true,Other=false`` spec
+and components consult them at construction time.
+``cmd/scheduler.build_scheduler`` reads ``BatchedPlacement`` (False:
+per-pod plugin-chain rounds) and ``ElasticQuotaPreemption``; only those
+two are registered. A gate is added with the code that reads it.
+
+The reference's ``MANAGER_GATES`` and ``KOORDLET_GATES`` wait with the
+manager's webhooks and the koordlet, whose binaries are not ported yet
+(ROADMAP Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+
+class FeatureGate:
+    """A mutable gate registry (componentbase featuregate.FeatureGate)."""
+
+    def __init__(self, defaults: Mapping[str, bool]):
+        self._defaults: Dict[str, bool] = dict(defaults)
+        self._overrides: Dict[str, bool] = {}
+
+    def enabled(self, feature: str) -> bool:
+        if feature not in self._defaults:
+            raise KeyError(f"unknown feature gate {feature!r}")
+        return self._overrides.get(feature, self._defaults[feature])
+
+    def set_from_spec(self, spec: str) -> None:
+        """Parse "A=true,B=false" (the --feature-gates flag format).
+        Atomic: an invalid spec leaves the registry untouched."""
+        if not spec:
+            return
+        parsed: Dict[str, bool] = {}
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"invalid feature gate spec {part!r}")
+            name, raw = part.split("=", 1)
+            name = name.strip()
+            raw = raw.strip().lower()
+            if raw not in ("true", "false"):
+                raise ValueError(f"invalid feature gate value {part!r}")
+            if name not in self._defaults:
+                raise KeyError(f"unknown feature gate {name!r}")
+            parsed[name] = raw == "true"
+        self._overrides.update(parsed)
+
+    def copy(self) -> "FeatureGate":
+        """A fresh gate with this registry's effective values as defaults
+        (``build_scheduler`` copies the module registry, so one build's
+        overrides never leak into the next)."""
+        return FeatureGate(self.as_dict())
+
+    def as_dict(self) -> Dict[str, bool]:
+        return {name: self.enabled(name) for name in self._defaults}
+
+
+#: the scheduler gates the port reads: the batched device round (False:
+#: per-pod plugin-chain cycles) and ElasticQuota's PostFilter preemption.
+#: The reference's upstream gates (scheduler_features.go:32-59) change
+#: nothing here yet, so they are not registered and naming one raises.
+SCHEDULER_GATES = FeatureGate({
+    "BatchedPlacement": True,
+    "ElasticQuotaPreemption": True,
+})

@@ -108,6 +108,7 @@ from koordinator_tpu_torch.scheduler.plugins.reservation import (
 )
 from koordinator_tpu_torch.state.cluster import (
     DEFAULT_ESTIMATED_SCALING_FACTORS,
+    AggregatedArgs,
     DEFAULT_RESOURCE_WEIGHTS,
     DEFAULT_USAGE_THRESHOLDS,
     NodeArrays,
@@ -668,6 +669,7 @@ class PlacementModel:
         resource_weights=None,
         usage_thresholds=None,
         prod_usage_thresholds=None,
+        aggregated: Optional[AggregatedArgs] = None,
         scaling_factors=None,
         device: DeviceLike = None,
         fine=None,
@@ -685,7 +687,16 @@ class PlacementModel:
         self.scaling_factors = dict(
             scaling_factors or DEFAULT_ESTIMATED_SCALING_FACTORS
         )
-        self.usage_thresholds = dict(usage_thresholds or DEFAULT_USAGE_THRESHOLDS)
+        #: the LoadAware aggregated (percentile) mode: with its filter
+        #: side on, the filter threshold set is the aggregated one and the
+        #: lowering substitutes the percentile usage (load_aware.go:157-186)
+        self.aggregated = aggregated
+        if aggregated is not None and aggregated.filter_enabled:
+            filter_thresholds = aggregated.usage_thresholds
+        else:
+            filter_thresholds = usage_thresholds or DEFAULT_USAGE_THRESHOLDS
+        #: the dict forms, so the plugin chain is configured identically
+        self.usage_thresholds = dict(filter_thresholds)
         self.prod_usage_thresholds = dict(prod_usage_thresholds or {})
 
         def put(mapping):
@@ -732,9 +743,12 @@ class PlacementModel:
         self.staged_cache.invalidate()
 
     def lowering_kwargs(self) -> dict:
-        """The ``lower_nodes`` configuration this model schedules with."""
+        """The ``lower_nodes`` configuration this model schedules with,
+        shared with the plugin chain and the preemption path so every
+        consumer lowers identically."""
         return {"scaling_factors": self.scaling_factors,
-                "resource_weights": self.resource_weights}
+                "resource_weights": self.resource_weights,
+                "aggregated": self.aggregated}
 
     def prestage(self, snapshot: ClusterSnapshot
                  ) -> Optional[Dict[str, float]]:

@@ -1,5 +1,5 @@
 """Observability: the scheduling trace fabric (counterpart of
-``koordinator_tpu/obs``; the placement explainer is not ported yet).
+``koordinator_tpu/obs``).
 
 - ``obs.trace``    — thread-safe span tracer (bounded ring, monotonic
   clock, Chrome-trace-event export).
@@ -11,6 +11,8 @@
 - ``obs.device``   — the device observatory: kernel-library build
   telemetry, the CUDA caching allocator's live bytes, and on-demand
   ``torch.profiler`` windows over the next K rounds.
+- ``obs.explain``  — per-node, per-column score breakdowns for one pod
+  (``explain_scores``, ``PlacementExplainer``, served at ``/explain``).
 """
 
 from koordinator_tpu_torch.obs.device import DEVICE_OBS, DeviceObservatory

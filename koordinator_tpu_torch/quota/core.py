@@ -4,9 +4,12 @@
 The placement model computes each group's runtime once per solve here,
 for trees of any depth, and ships it to the device as the precomputed
 ``QuotaState.runtime``; the scheduler keeps one manager per quota tree
-for its request and used bookkeeping (``quota/trees.py``). The weighted share rounds half up exactly,
-``(2*w*T + W) // (2*W)``: the semantics of the device path
-(ops/quota.py) and of the reference manager with ``exact_rational=True``.
+for its request and used bookkeeping (``quota/trees.py``) and the plugin
+chain's PreFilter admission (:meth:`GroupQuotaManager.can_admit`). The
+weighted share rounds half up exactly, ``(2*w*T + W) // (2*W)``: the
+semantics of the device path (ops/quota.py) and of the reference manager
+with ``exact_rational=True``. (The reference scheduler's own managers run
+the float64 share, which differs only on float rounding artifacts.)
 
 Reference: pkg/scheduler/plugins/elasticquota/core/
 runtime_quota_calculator.go:111-186 and group_quota_manager.go:184-328.
@@ -286,3 +289,25 @@ class GroupQuotaManager:
             )
             for c, rt in zip(children, runtimes):
                 c.runtime[r] = rt
+
+    # -- admission ----------------------------------------------------------
+
+    def can_admit(self, name: str, pod_request: np.ndarray,
+                  non_preemptible: bool = False) -> bool:
+        """PreFilter admission: ``used + podReq <= runtime`` on the pod's
+        requested dimensions; a non-preemptible pod also against min
+        (plugin.go:210-255). The pod's own group only."""
+        info = self.quotas.get(name)
+        if info is None:
+            return True
+        req = np.asarray(pod_request, dtype=np.int64)
+        dims = req > 0
+        runtime = self.refresh_runtime(name)
+        if runtime is None:
+            return True
+        if np.any((info.used + req)[dims] > runtime[dims]):
+            return False
+        if non_preemptible and np.any(
+                (info.non_preemptible_used + req)[dims] > info.min[dims]):
+            return False
+        return True

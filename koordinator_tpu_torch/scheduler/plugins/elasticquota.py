@@ -1,18 +1,18 @@
-"""ElasticQuota plugin: its intake half and its PostFilter preemption
-(counterpart of ``koordinator_tpu/scheduler/plugins/elasticquota.py``).
+"""ElasticQuota: PreFilter admission, accounting, multi-tree routing and
+PostFilter preemption (counterpart of
+``koordinator_tpu/scheduler/plugins/elasticquota.py``; reference
+plugin.go:210-321, preempt.go).
 
-Pod requests register with the pod's quota tree at pod creation
-(:meth:`ElasticQuotaPlugin.on_pod_add`) and leave at deletion; the
-batched round then moves ``used`` itself (``Scheduler._account_quota``).
-PostFilter (:meth:`ElasticQuotaPlugin.post_filter`) selects same-quota
-lower-priority victims on the host (reference: plugin.go:302,
-preempt.go); :meth:`ElasticQuotaPlugin.quota_rows` hands the host and the
-device preemption paths the same quota rows. The reference's framework
-seeds each cycle with the lowered node arrays and the model's LoadAware
-thresholds; the port has no cycle seed, so the caller passes them.
-PreFilter admission and Reserve/Unreserve (and the parent-check switch)
-belong to the plugin chain (``scheduler/framework.py``), a later slice of
-the port.
+Wraps the per-tree host quota managers (``quota/core.py``,
+``quota/trees.py``). Pod requests register with the pod's quota tree at
+pod creation (:meth:`ElasticQuotaPlugin.on_pod_add`) and leave at
+deletion. In the plugin chain PreFilter admits against the tree and
+Reserve moves ``used``; the batched round moves ``used`` itself
+(``Scheduler._account_quota``). PostFilter selects same-quota
+lower-priority victims on the host, reading the lowered node arrays
+(``ARRAYS_STATE_KEY``) and the model's LoadAware thresholds
+(``THRESHOLDS_KEY``) from the cycle state; :meth:`quota_rows` hands the
+host and the device preemption paths the same quota rows.
 """
 
 from __future__ import annotations
@@ -20,10 +20,19 @@ from __future__ import annotations
 from koordinator_tpu_torch.apis.types import resources_to_vector
 from koordinator_tpu_torch.quota.core import GroupQuotaManager
 from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
-from koordinator_tpu_torch.scheduler.preemption import find_preemption
+from koordinator_tpu_torch.scheduler.framework import (
+    CycleState,
+    Plugin,
+    Status,
+)
+from koordinator_tpu_torch.scheduler.plugins.lowering import THRESHOLDS_KEY
+from koordinator_tpu_torch.scheduler.preemption import (
+    ARRAYS_STATE_KEY,
+    find_preemption,
+)
 
 
-class ElasticQuotaPlugin:
+class ElasticQuotaPlugin(Plugin):
     name = "ElasticQuota"
 
     def __init__(self, registry: QuotaTreeRegistry,
@@ -36,6 +45,11 @@ class ElasticQuotaPlugin:
     def _mgr(self, quota_name) -> GroupQuotaManager:
         return self.registry.manager_for_quota(quota_name)
 
+    def score_weight(self) -> int:
+        return 0
+
+    # informer events ------------------------------------------------------
+
     def on_pod_add(self, pod) -> None:
         if pod.quota:
             self._mgr(pod.quota).add_request(
@@ -45,6 +59,30 @@ class ElasticQuotaPlugin:
     def on_pod_delete(self, pod) -> None:
         if pod.quota:
             self._mgr(pod.quota).add_request(
+                pod.quota, -resources_to_vector(pod.requests),
+                non_preemptible=not pod.preemptible)
+
+    # cycle ----------------------------------------------------------------
+
+    def pre_filter(self, state: CycleState, snapshot, pod) -> Status:
+        if not pod.quota:
+            return Status.success()
+        if self._mgr(pod.quota).can_admit(
+                pod.quota, resources_to_vector(pod.requests),
+                non_preemptible=not pod.preemptible):
+            return Status.success()
+        return Status.unschedulable_(f"insufficient quota {pod.quota}")
+
+    def reserve(self, state: CycleState, snapshot, pod, node) -> Status:
+        if pod.quota:
+            self._mgr(pod.quota).add_used(
+                pod.quota, resources_to_vector(pod.requests),
+                non_preemptible=not pod.preemptible)
+        return Status.success()
+
+    def unreserve(self, state: CycleState, snapshot, pod, node) -> None:
+        if pod.quota:
+            self._mgr(pod.quota).add_used(
                 pod.quota, -resources_to_vector(pod.requests),
                 non_preemptible=not pod.preemptible)
 
@@ -65,17 +103,19 @@ class ElasticQuotaPlugin:
                       if self.enable_runtime_quota else info.max)
         return info.used, used_limit
 
-    def post_filter(self, snapshot, pod, arrays=None, thresholds=None,
-                    prod_thresholds=None):
+    def post_filter(self, state: CycleState, snapshot, pod):
         """Try preempting same-quota lower-priority pods on the host:
-        ``(node name, [victim PodSpec])`` or None. ``arrays`` are the
-        lowered nodes (lowered here when None); the thresholds are the
-        placement model's LoadAware ones (the defaults when None)."""
+        ``(node name, [victim PodSpec])`` or None. The lowered nodes and
+        the thresholds come from the cycle state (lowered here, with the
+        default thresholds, when absent)."""
         if not self.enable_preemption:
             return None
         rows = self.quota_rows(pod)
         quota_used, used_limit = rows if rows is not None else (None, None)
+        arrays = state.get(ARRAYS_STATE_KEY) if state is not None else None
+        thr = state.get(THRESHOLDS_KEY) if state is not None else None
         return find_preemption(
             snapshot, pod, quota_used=quota_used, used_limit=used_limit,
-            arrays=arrays, thresholds=thresholds,
-            prod_thresholds=prod_thresholds)
+            arrays=arrays,
+            thresholds=thr[0] if thr else None,
+            prod_thresholds=thr[1] if thr else None)

@@ -1,5 +1,5 @@
-"""The scheduler's batched round (counterpart of
-``koordinator_tpu/scheduler/scheduler.py``).
+"""The scheduler: the batched round and the per-pod plugin chain
+(counterpart of ``koordinator_tpu/scheduler/scheduler.py``).
 
 Informer-style intake keeps a :class:`SchedulerCache` (whose every
 mutation marks the delta tracker), the quota trees, the gang manager and
@@ -54,9 +54,17 @@ over the trace's open marks, ``self.debug`` the debug recorder and
 ``monitor``, ``Coscheduling`` and ``ElasticQuota``, as the reference
 registers them; the loops register theirs).
 
-Not in this slice of the port, and queued in ROADMAP.md: the plugin
-chain (``schedule_one`` and ``batched_placement=False`` raise
-``NotImplementedError``).
+``self.framework`` is the plugin chain (``scheduler/framework.py``), built
+as the reference builds it: Reservation, Coscheduling, ElasticQuota,
+NodeNUMAResource, DeviceShare, NodePorts, NodeResourcesFit and
+LoadAwareScheduling (both configured from the model) and DefaultPreBind,
+its cycles seeded with the model's lowering kwargs and numpy copies of its
+LoadAware thresholds. :meth:`Scheduler.schedule_one` runs one pending pod
+through it (a preemption nomination evicts its victims; a Permit wait
+holds the pod at the barrier); with ``batched_placement`` False (the
+``BatchedPlacement`` gate off) every round is one such cycle per pending
+pod in schedule order, and ``begin_tick`` hands ``commit_tick`` the
+already-completed round (``PendingTick.result``).
 """
 
 from __future__ import annotations
@@ -101,54 +109,77 @@ from koordinator_tpu_torch.obs.timeline import PodTimelines, lane_of
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.quota.trees import QuotaTreeRegistry
 from koordinator_tpu_torch.scheduler.cache import SchedulerCache
+from koordinator_tpu_torch.scheduler.framework import (
+    CycleState,
+    ScheduleOutcome,
+    SchedulingFramework,
+)
 from koordinator_tpu_torch.scheduler.monitor import (
     DebugRecorder,
     DebugServices,
     SchedulerMonitor,
 )
-from koordinator_tpu_torch.scheduler.plugins.deviceshare import (
+from koordinator_tpu_torch.scheduler.plugins import (
+    CoschedulingPlugin,
+    DefaultPreBind,
     DeviceSharePlugin,
-)
-from koordinator_tpu_torch.scheduler.plugins.elasticquota import (
     ElasticQuotaPlugin,
-)
-from koordinator_tpu_torch.scheduler.plugins.nodenumaresource import (
+    LoadAwareScheduling,
     NodeNUMAResourcePlugin,
+    NodeResourcesFit,
+    ReservationPlugin,
+)
+from koordinator_tpu_torch.scheduler.plugins.lowering import (
+    LOWERING_KEY,
+    THRESHOLDS_KEY,
 )
 from koordinator_tpu_torch.scheduler.plugins.nodeports import NodePortsPlugin
-from koordinator_tpu_torch.scheduler.preemption import can_preempt, plan_defrag
+from koordinator_tpu_torch.scheduler.preemption import (
+    ARRAYS_STATE_KEY,
+    can_preempt,
+    plan_defrag,
+)
 from koordinator_tpu_torch.scheduler.reservation_controller import (
     ReservationController,
 )
 from koordinator_tpu_torch.state.cluster import (
     evict_resident_rows,
     lower_nodes,
+    schedule_order,
 )
 
 
 class PendingTick:
     """One round between dispatch (:meth:`Scheduler.begin_tick`) and
-    retirement (:meth:`Scheduler.commit_tick`, exactly once).
-    ``round_id`` is the trace's round number, ``trigger`` why the round
-    fired (annotated onto its spans; None for a fixed cadence)."""
+    retirement (:meth:`Scheduler.commit_tick`, exactly once): an
+    in-flight solve (``inflight``) or an already-completed per-pod round
+    (``result``: with the ``BatchedPlacement`` gate off there is no
+    device half to overlap). ``round_id`` is the trace's round number,
+    ``trigger`` why the round fired (annotated onto its spans; None for a
+    fixed cadence)."""
 
-    __slots__ = ("at", "pending", "inflight", "solve_started", "round_id",
-                 "trigger")
+    __slots__ = ("at", "pending", "inflight", "solve_started", "result",
+                 "round_id", "trigger")
 
-    def __init__(self, at: float, pending: Dict[str, PodSpec],
-                 inflight: InFlightSchedule, solve_started: float,
-                 round_id: int, trigger: Optional[str] = None):
+    def __init__(self, at: float, pending: Optional[Dict[str, PodSpec]] = None,
+                 inflight: Optional[InFlightSchedule] = None,
+                 solve_started: Optional[float] = None,
+                 round_id: int = 0, trigger: Optional[str] = None,
+                 result: Optional[ScheduleResult] = None):
         self.at = at
-        self.pending = pending
+        self.pending = pending or {}
         self.inflight = inflight
         self.solve_started = solve_started
+        self.result = result
         self.round_id = round_id
         self.trigger = trigger
 
 
 class Scheduler:
-    """The batched scheduler: ``schedule_pending()`` solves the whole
-    queue in one solve and assumes the results into the cache."""
+    """The scheduler, on both paths: ``schedule_pending()`` solves the
+    whole queue in one batched solve and assumes the results into the
+    cache; ``schedule_one(uid)`` runs one pod through the plugin chain
+    (parity, debugging, one-off placements)."""
 
     #: at most this many preemptors per batched round
     MAX_PREEMPTIONS_PER_ROUND = 32
@@ -193,7 +224,8 @@ class Scheduler:
         self._waiting: Dict[str, str] = {}
         #: when each waiting pod entered the barrier (WaitTime expiry)
         self._waiting_since: Dict[str, float] = {}
-        #: BatchedPlacement gate; False (per-pod cycles) is not ported
+        #: the BatchedPlacement gate: False runs every round as per-pod
+        #: plugin-chain cycles (``_schedule_pending_incremental``)
         self.batched_placement = True
         #: waiting pods' reservation consumption (uid -> (reservation
         #: name, delta vector)), rolled back if the wait expires
@@ -207,6 +239,9 @@ class Scheduler:
         self.reservation_controller = ReservationController(self.cache)
         self._quota_plugin = ElasticQuotaPlugin(
             self.quota_registry, enable_preemption=enable_preemption)
+        self._coscheduling = CoschedulingPlugin(
+            self.gang_manager, on_release=self._on_gang_release,
+            on_reject=self._on_gang_reject)
         self._numa_plugin = NodeNUMAResourcePlugin(self.numa_manager)
         self._device_plugin = DeviceSharePlugin(self.device_cache)
         self._ports_plugin = NodePortsPlugin()
@@ -217,6 +252,36 @@ class Scheduler:
                                  device_plugin=self._device_plugin,
                                  ports_plugin=self._ports_plugin)
         self.model = model
+        self.framework = SchedulingFramework(
+            plugins=[
+                ReservationPlugin(),
+                self._coscheduling,
+                self._quota_plugin,
+                self._numa_plugin,
+                self._device_plugin,
+                self._ports_plugin,
+                NodeResourcesFit(weights=model.resource_weights,
+                                 weight=model.config.fit_weight),
+                # configured from the model: the chain and the batched
+                # solver apply the same thresholds and modes
+                LoadAwareScheduling(
+                    resource_weights=model.resource_weights,
+                    usage_thresholds=model.usage_thresholds,
+                    prod_usage_thresholds=model.prod_usage_thresholds,
+                    scaling_factors=model.scaling_factors,
+                    score_according_prod=model.config.score_according_prod,
+                    weight=model.config.loadaware_weight),
+                DefaultPreBind(),
+            ],
+            debug=self.debug,
+            # numpy copies of the model's (possibly device) thresholds,
+            # made once here, not per cycle
+            cycle_seed={
+                LOWERING_KEY: model.lowering_kwargs(),
+                THRESHOLDS_KEY: (model.params.thresholds.cpu().numpy(),
+                                 model.params.prod_thresholds.cpu().numpy()),
+            },
+        )
         self.services.register("pod-timelines", self.timelines.status)
         self.services.register("monitor", self.monitor.status)
         self.services.register(
@@ -457,10 +522,9 @@ class Scheduler:
             self.expire_waiting(at0)
             self.reservation_controller.sync(at0)
             if not self.batched_placement:
-                raise NotImplementedError(
-                    "per-pod rounds (batched_placement=False) need the "
-                    "plugin chain, a later slice of the port "
-                    "(scheduler/framework.py)")
+                return PendingTick(
+                    at0, round_id=rid, trigger=trigger,
+                    result=self._schedule_pending_incremental(now))
             snapshot = self.cache.snapshot(now=now)
             pending = {pod.uid: pod for pod in snapshot.pending_pods}
             PENDING_PODS.set(len(pending))
@@ -485,6 +549,11 @@ class Scheduler:
         # this scheduler's round, keyed off the tick: two wired
         # schedulers in one process never share a watchdog mark key
         self.last_round_id = tick.round_id
+        if tick.result is not None:
+            # a per-pod round: its epilogue ran inside the cycles
+            TRACER.mark_closed(f"round:{tick.round_id}", name="round",
+                               cat="tick")
+            return tick.result
         try:
             result = tick.inflight.finalize()
         except BaseException:
@@ -564,7 +633,7 @@ class Scheduler:
         model = self.model
         lowering = model.lowering_kwargs()
         min_priority = min(p.priority for p in assigned)
-        arrays = resident = world = thresholds = None
+        arrays = resident = world = None
         attempts = 0
         for uid in unplaced:
             if attempts >= self.MAX_PREEMPTIONS_PER_ROUND:
@@ -576,15 +645,15 @@ class Scheduler:
             PREEMPTION_ATTEMPTS.inc()
             if arrays is None:
                 arrays = lower_nodes(snapshot, **lowering)
-                if backend != "device":  # the host oracle's thresholds
-                    thresholds = (model.params.thresholds.cpu().numpy(),
-                                  model.params.prod_thresholds.cpu().numpy())
                 if backend != "host":
                     resident = model.lower_residents(snapshot, arrays)
                     world = model.resident_world(resident)
             if backend != "device":
-                want = self._quota_plugin.post_filter(
-                    snapshot, pod, arrays, *thresholds)
+                # seeded like a plugin-chain cycle: the oracle's filter
+                # runs with the model's thresholds
+                state = CycleState(self.framework.cycle_seed)
+                state[ARRAYS_STATE_KEY] = arrays
+                want = self._quota_plugin.post_filter(state, snapshot, pod)
                 want = None if want is None else (
                     want[0], [v.uid for v in want[1]])
             if backend == "host":
@@ -740,10 +809,98 @@ class Scheduler:
         plugin.balance(snapshot, sink)
         return [p.uid for p in sink.evicted]
 
-    def schedule_one(self, pod_uid: str, now: Optional[float] = None):
-        raise NotImplementedError(
-            "schedule_one runs the plugin chain, a later slice of the port "
-            "(scheduler/framework.py)")
+    def _schedule_pending_incremental(self, now: Optional[float]
+                                      ) -> ScheduleResult:
+        """A round with the BatchedPlacement gate off: one plugin-chain
+        cycle per pending pod, in schedule order (the reference's only
+        mode)."""
+        held_before = set(self._waiting)
+        pending = list(self.cache.pending.values())
+        assignments: Dict[str, Optional[str]] = {}
+        waiting: Dict[str, str] = {}
+        for idx in schedule_order(pending):
+            pod = pending[idx]
+            outcome = self.schedule_one(pod.uid, now=now)
+            if outcome.status == "bound":
+                assignments[pod.uid] = outcome.node
+            elif outcome.status == "waiting":
+                waiting[pod.uid] = outcome.node
+            else:
+                assignments[pod.uid] = None
+        # siblings a later member's Permit ALLOW released, of this round
+        # and earlier ones, are bound, not waiting: reported committed so
+        # the publish confirms their (still open) assumes, as the batched
+        # path's _resolve_waiting does
+        for uid, node in list(waiting.items()):
+            pod = self.cache.pods.get(uid)
+            if pod is not None and not pod.waiting_permit:
+                waiting.pop(uid)
+                assignments[uid] = node
+        for uid in held_before.difference(self._waiting, assignments):
+            pod = self.cache.pods.get(uid)
+            if (pod is not None and pod.node_name is not None
+                    and not pod.waiting_permit):
+                assignments[uid] = pod.node_name
+        return ScheduleResult(assignments, waiting=waiting)
+
+    def schedule_one(self, pod_uid: str, now: Optional[float] = None
+                     ) -> ScheduleOutcome:
+        """One pending pod through the plugin chain on a fresh snapshot.
+        A bound or waiting outcome is assumed into the cache (a waiting
+        pod holds its node at the Permit barrier, with its cycle state
+        and reservation consumption kept for the rollback); a nominated
+        one evicts its victims, and the pod binds in a later cycle."""
+        snapshot = self.cache.snapshot(now=now)
+        pod = self.cache.pending.get(pod_uid)
+        if pod is None:
+            return ScheduleOutcome(pod_uid, None, "error", "pod not pending")
+        outcome = self.framework.schedule_one(snapshot, pod)
+        if outcome.status == "nominated" and outcome.victims:
+            self._evict_victims(outcome.victims)
+            return outcome
+        if outcome.status in ("bound", "waiting") and outcome.node:
+            self.cache.assume_pod(pod_uid, outcome.node, now=now)
+            if outcome.status == "bound":
+                self.gang_manager.on_pod_bound(pod_uid)
+            else:
+                at = now if now is not None else time.time()
+                held = self.cache.pods.get(pod_uid)
+                if held is not None:
+                    held.waiting_permit = True
+                self._waiting[pod_uid] = outcome.node
+                self._waiting_since.setdefault(pod_uid, at)
+                state = outcome.cycle_state
+                if state is not None:
+                    # the cycle state for the fine-grained rollback or
+                    # deferred PreBind, the reservation delta for the
+                    # rollback on WaitTime expiry
+                    self._fine_waiting[pod_uid] = (outcome.node, state)
+                    resv_name = state.get("reservation_allocated")
+                    delta = state.get("reservation_allocated_delta")
+                    if resv_name and delta is not None:
+                        self._resv_waiting[pod_uid] = (resv_name, delta)
+        return outcome
+
+    def _on_gang_release(self, uids: List[str]) -> None:
+        """The plugin chain's Permit barrier opened: the waiting siblings
+        are bindable. As in ``_resolve_waiting``, the assume stays open
+        (and the reservation consumption rollback-able) until a publish
+        confirms the bind."""
+        for uid in uids:
+            self.cache.open_permit(uid)
+            self._waiting.pop(uid, None)
+            self._waiting_since.pop(uid, None)
+            info = self._resv_waiting.pop(uid, None)
+            if info is not None:
+                self._resv_inflight[uid] = info
+            self._fine_pre_bind(uid)
+
+    def _on_gang_reject(self, uids: List[str]) -> None:
+        """A Strict gang-group rejection released these waiting siblings:
+        their node, quota, fine-grained and reservation holds go back."""
+        for uid in uids:
+            if uid in self._waiting:
+                self._release_waiting(uid)
 
     def forget_assumed_unbound(self) -> List[str]:
         """Release every assumed-but-unbound pod back to pending, undoing

@@ -1,8 +1,9 @@
 """Lower a typed cluster snapshot onto dense int32 arrays (counterpart of
 ``koordinator_tpu/state/cluster.py``: the full lowering with reservation
 holds, the delta tracker, the delta lowering that patches only the
-rows a tracker marked, and the resident-pod world the preemption solve
-reads; node-row padding is a later slice).
+rows a tracker marked, the LoadAware aggregated (percentile) mode folded
+into the lowered rows, and the resident-pod world the preemption solve
+reads; node-row padding for sharded staging is a later slice).
 
 Lowering runs on the host in exact integer arithmetic (Python ints and
 numpy int64) and clips to int32 at the end. Reference semantics:
@@ -50,6 +51,79 @@ _MEMORY_LIKE = (ResourceName.MEMORY, ResourceName.BATCH_MEMORY,
 def go_round(x: float) -> int:
     """``math.Round`` (half away from zero) for non-negative x."""
     return int(math.floor(x + 0.5))
+
+
+@dataclasses.dataclass
+class AggregatedArgs:
+    """The LoadAware aggregated-usage (percentile) mode, the reference's
+    ``LoadAwareSchedulingAggregatedArgs`` (pkg/scheduler/apis/config/
+    types.go): the Filter substitutes a percentile usage and its own
+    threshold set when ``usage_thresholds`` and ``usage_pct`` are both
+    set (helper.go:92 filterWithAggregation); the Score substitutes the
+    percentile base when ``score_pct`` is set (helper.go:96
+    scoreWithAggregation). A duration selects the aggregation window;
+    None or 0 means the largest reported window (helper.go:65).
+    Percentiles are 50/90/95/99, keys of ``NodeMetric.aggregated_usage``.
+    """
+
+    usage_thresholds: Optional[Dict] = None  # filter thresholds (agg set)
+    usage_pct: Optional[int] = None          # filter aggregation percentile
+    usage_duration_seconds: Optional[float] = None
+    score_pct: Optional[int] = None          # score aggregation percentile
+    score_duration_seconds: Optional[float] = None
+
+    #: the percentiles the NodeMetric reporter publishes (a typo'd one
+    #: would otherwise silently disable the check on every node)
+    VALID_PCTS = (50, 90, 95, 99)
+
+    def __post_init__(self):
+        for pct in (self.usage_pct, self.score_pct):
+            if pct is not None and pct not in self.VALID_PCTS:
+                raise ValueError(
+                    f"aggregation percentile {pct} not reported; "
+                    f"valid: {self.VALID_PCTS}"
+                )
+
+    @property
+    def filter_enabled(self) -> bool:
+        return bool(self.usage_thresholds) and self.usage_pct is not None
+
+    @property
+    def score_enabled(self) -> bool:
+        return self.score_pct is not None
+
+
+def target_aggregated_usage(
+    metric: NodeMetric, duration_seconds: Optional[float], pct: Optional[int]
+):
+    """The percentile usage map for the requested window, or None
+    (loadaware/helper.go:58-90 getTargetAggregatedUsage): None when no
+    aggregated usage is reported; with no duration asked, the largest
+    reported window; an asked duration must equal a reported window
+    exactly. The windows are the primary ``aggregated_usage`` (at
+    ``aggregated_duration``, 0 when unreported) and the extra
+    ``aggregated_windows``."""
+    if pct is None:
+        return None
+    candidates = []
+    if metric.aggregated_usage:
+        candidates.append(
+            (metric.aggregated_duration or 0.0, metric.aggregated_usage)
+        )
+    candidates += [
+        (dur, by_pct)
+        for dur, by_pct in metric.aggregated_windows.items()
+        if by_pct
+    ]
+    if not candidates:
+        return None
+    if duration_seconds:
+        for dur, by_pct in candidates:
+            if dur == duration_seconds:
+                return by_pct.get(pct) or None
+        return None
+    _, by_pct = max(candidates, key=lambda t: t[0])
+    return by_pct.get(pct) or None
 
 
 def translate_resource_by_priority(
@@ -211,18 +285,42 @@ def _metric_fresh(now, update_time, metric_expiration_seconds):
 
 def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
                      metric_expiration_seconds: float, scaling_factors,
-                     resource_weights):
+                     resource_weights,
+                     aggregated: Optional[AggregatedArgs] = None):
     """One node's metric columns ``(usage, prod_usage, est_extra,
     prod_base, metric_fresh)`` as int64 vectors and a bool.
 
     ``est_extra`` = Σ max(estimate, reported) over the assigned pods that
     should be estimated (no report, assigned after the metric, or inside
-    the report interval), minus their reported usage where node usage
+    the report interval), minus their reported usage where the score base
     covers it (load_aware.go:299-327). ``assigned`` is in snapshot order,
-    which fixes the accumulation sequence."""
+    which fixes the accumulation sequence.
+
+    The aggregated (percentile) mode folds in here: the filter reads
+    ``usage``, so ``usage`` holds the filter base (the percentile when the
+    filter side is on; a missing percentile lowers to zeros, the
+    reference's per-resource skip, load_aware.go:200-209). The score base
+    is ``usage + est_extra``, so the score-side substitution rides
+    ``est_extra`` exactly (``+= score base - filter base``; it may go
+    negative, the base may not). A missing score percentile drops the
+    node usage and estimates every assigned pod (the OR clause at
+    load_aware.go:357-358)."""
+    agg_filter = aggregated is not None and aggregated.filter_enabled
+    agg_score = aggregated is not None and aggregated.score_enabled
     prod_usage = np.zeros(NUM_RESOURCES, dtype=np.int64)
     prod_base = np.zeros(NUM_RESOURCES, dtype=np.int64)
-    usage = resources_to_vector(metric.node_usage)
+    avg_vec = resources_to_vector(metric.node_usage)
+    filter_vec = avg_vec
+    score_vec = avg_vec
+    score_agg_nil = False
+    if agg_filter:
+        filter_vec = resources_to_vector(target_aggregated_usage(
+            metric, aggregated.usage_duration_seconds, aggregated.usage_pct))
+    if agg_score:
+        agg = target_aggregated_usage(
+            metric, aggregated.score_duration_seconds, aggregated.score_pct)
+        score_vec = resources_to_vector(agg)
+        score_agg_nil = agg is None
     fresh = _metric_fresh(now, metric.update_time, metric_expiration_seconds)
     est_sum = np.zeros(NUM_RESOURCES, dtype=np.int64)
     reported_sum = np.zeros(NUM_RESOURCES, dtype=np.int64)
@@ -234,6 +332,7 @@ def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
             prod_usage += rep_vec
         should_estimate = (
             not reported
+            or score_agg_nil
             or pod.assign_time >= metric.update_time
             or (metric.update_time - pod.assign_time) < metric.report_interval
         )
@@ -250,9 +349,11 @@ def _node_metric_row(metric: NodeMetric, assigned, *, now: float,
         est_sum += est_vec
         if is_prod:
             prod_base += est_vec
-    sub = np.where(usage >= reported_sum, reported_sum, 0)
-    est_extra = est_sum - sub
-    return usage, prod_usage, est_extra, prod_base, fresh
+    # the guard compares against the score base (the percentile in
+    # score-aggregated mode)
+    sub = np.where(score_vec >= reported_sum, reported_sum, 0)
+    est_extra = (score_vec - filter_vec) + est_sum - sub
+    return filter_vec, prod_usage, est_extra, prod_base, fresh
 
 
 def _node_hold_rows(snapshot: ClusterSnapshot, index: Dict[str, int]):
@@ -287,6 +388,7 @@ def lower_nodes(
     metric_expiration_seconds: float = DEFAULT_NODE_METRIC_EXPIRATION_SECONDS,
     scaling_factors: Optional[Mapping[ResourceName, int]] = None,
     resource_weights: Optional[Mapping[ResourceName, int]] = None,
+    aggregated: Optional[AggregatedArgs] = None,
 ) -> NodeArrays:
     """Lower nodes, assigned pods, reservation holds and metrics to
     :class:`NodeArrays`."""
@@ -321,6 +423,7 @@ def lower_nodes(
             metric_expiration_seconds=metric_expiration_seconds,
             scaling_factors=scaling_factors,
             resource_weights=resource_weights,
+            aggregated=aggregated,
         )
     return NodeArrays(
         names=names,
@@ -344,6 +447,7 @@ def lower_nodes_delta(
     metric_expiration_seconds: float = DEFAULT_NODE_METRIC_EXPIRATION_SECONDS,
     scaling_factors: Optional[Mapping[ResourceName, int]] = None,
     resource_weights: Optional[Mapping[ResourceName, int]] = None,
+    aggregated: Optional[AggregatedArgs] = None,
 ) -> Optional[np.ndarray]:
     """Re-lower ``prev``'s rows of ``dirty_names`` in place against
     ``snapshot``, and flip ``metric_fresh`` on every row whose metric
@@ -390,6 +494,7 @@ def lower_nodes_delta(
                 metric_expiration_seconds=metric_expiration_seconds,
                 scaling_factors=scaling_factors,
                 resource_weights=resource_weights,
+                aggregated=aggregated,
             )
             prev.usage[i] = clip_i32(u)
             prev.prod_usage[i] = clip_i32(pu)
@@ -412,6 +517,7 @@ def lower_node_rows(
     metric_expiration_seconds: float = DEFAULT_NODE_METRIC_EXPIRATION_SECONDS,
     scaling_factors: Optional[Mapping[ResourceName, int]] = None,
     resource_weights: Optional[Mapping[ResourceName, int]] = None,
+    aggregated: Optional[AggregatedArgs] = None,
 ) -> Dict[str, np.ndarray]:
     """Lower just ``names``'s rows from the snapshot into new buffers:
     ``{staged field: [K, ...] array}`` aligned to ``names`` (a subset of
@@ -447,6 +553,7 @@ def lower_node_rows(
             metric_expiration_seconds=metric_expiration_seconds,
             scaling_factors=scaling_factors,
             resource_weights=resource_weights,
+            aggregated=aggregated,
         )
     return {
         "alloc": clip_i32(alloc),

@@ -260,18 +260,24 @@ class WorkingSetManager:
             return
         with self._lock:
             r = self._residents.get(key)
+            obj = None if r is None else r.ref()
+        if nbytes is None and obj is not None:
+            # priced outside the ledger's lock: ``device_bytes`` takes the
+            # resident's own lock, which a thread inside its ``ensure``
+            # holds while it enters ``run_staged`` (and so this lock);
+            # taking them in the other order here would deadlock the two
+            try:
+                nbytes = int(obj.device_bytes())
+            except Exception:
+                nbytes = None
+        with self._lock:
+            r = self._residents.get(key)
             if r is None:
                 return
             self._clock += 1
             r.last_use = self._clock
             if lane in _LANE_DEMOTE_RANK:
                 r.lane = lane
-            obj = r.ref()
-            if nbytes is None and obj is not None:
-                try:
-                    nbytes = int(obj.device_bytes())
-                except Exception:
-                    nbytes = r.bytes
             if nbytes is not None:
                 r.bytes = int(nbytes)
             if r.bytes > 0 and r.rung != RUNG_DEVICE:

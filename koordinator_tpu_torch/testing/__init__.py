@@ -41,6 +41,10 @@ from koordinator_tpu_torch.ops.binpack import NumaAux
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
 from koordinator_tpu_torch.state.cluster import ClusterDeltaTracker
+from koordinator_tpu_torch.testing.plugin_chain import (
+    set_aggregated,
+    typed_aggregated,
+)
 
 CPU, MEM = ResourceName.CPU, ResourceName.MEMORY
 
@@ -395,16 +399,23 @@ def feed_scheduler(scheduler, snap: ClusterSnapshot) -> None:
         scheduler.add_pod(copy.deepcopy(pod))
 
 
-def feed_churn_tick(schedulers, snap, rng, *, dirty, pending, t, now):
+def feed_churn_tick(schedulers, snap, rng, *, dirty, pending, t, now,
+                    aggregated_rng=None):
     """One churn tick (:func:`churn_tick_events` on the source ``snap``),
     fed into every scheduler of ``schedulers`` as intake events: the
     fresh metrics and the pending wave, copied per scheduler. Binds are
-    not folded into ``snap``: each scheduler assumes its own."""
+    not folded into ``snap``: each scheduler assumes its own. With
+    ``aggregated_rng`` every fresh metric first gets seeded percentiles
+    from it (``plugin_chain.set_aggregated``; ``rng``'s draws stay the
+    reference's)."""
     before = dict(snap.node_metrics)
     by_uid = churn_tick_events(snap, None, rng, dirty=dirty,
                                pending=pending, t=t, now=now)
     fresh = [m for name, m in snap.node_metrics.items()
              if m is not before.get(name)]
+    if aggregated_rng is not None:
+        for metric in fresh:
+            set_aggregated(metric, aggregated_rng)
     for scheduler in schedulers:
         for metric in fresh:
             scheduler.update_node_metric(copy.deepcopy(metric))
@@ -757,7 +768,9 @@ def build_snapshot(spec, types, resource_name):
     :func:`rebalance_storm_spec`, :func:`random_cluster_spec`); ``types``
     is either package's ``apis.types`` module and ``resource_name`` its
     ``ResourceName``. Pods carry every field the spec gives (QoS as an
-    int, owner, restart count, creation time among them)."""
+    int, owner, restart count, creation time among them); metrics carry
+    the aggregated fields of ``plugin_chain.aggregated_fields`` when the
+    spec has them (``plugin_chain.chain_world_spec``)."""
     def res(d):
         return {resource_name(k): v for k, v in d.items()}
 
@@ -782,7 +795,9 @@ def build_snapshot(spec, types, resource_name):
                 node_name=m["node_name"], node_usage=res(m["node_usage"]),
                 pod_usages={u: res(v) for u, v in m["pod_usages"].items()},
                 update_time=m["update_time"],
-                report_interval=m["report_interval"])
+                report_interval=m["report_interval"],
+                **(typed_aggregated(m, resource_name)
+                   if "aggregated_usage" in m else {}))
             for m in spec["metrics"]
         },
         gangs={

@@ -329,7 +329,6 @@ def test_build_scheduler_wires_failover(tmp_path):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("aggregated_usage_pct", 95, "item 6"),
     ("host_fallback_cells", 4096, "item 8"),
     ("node_shards", 2, "item 10"),
 ])

@@ -193,7 +193,7 @@ def test_quota_post_filter_matches_reference(seed):
                                  jplugin.quota_rows(jpod)):
                 np.testing.assert_array_equal(got, want)
             want = jplugin.post_filter(None, jsnap, jpod)
-            got = tplugin.post_filter(tsnap, tpod)
+            got = tplugin.post_filter(None, tsnap, tpod)
             assert (got is None) == (want is None), uid
             if got is not None:
                 got, want = [(a[0], [v.uid for v in a[1]])

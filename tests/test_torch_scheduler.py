@@ -9,9 +9,9 @@ accounting, the reservation specs, ``expire_waiting``'s releases and the
 staged node fields must be equal (counterpart of
 ``tests/test_scheduler.py``'s batched path); each pod the fine-grained
 manager takes or passes through schedules as the reference's does; a
-bound pod's resize marks its node; and every branch this slice does not
-port raises ``NotImplementedError`` (preemption runs:
-``tests/test_torch_preempt_scheduler.py``)."""
+bound pod's resize marks its node; and the plugin-chain paths run as the
+reference's (preemption runs: ``tests/test_torch_preempt_scheduler.py``;
+the chain in full: ``tests/test_torch_framework.py``)."""
 
 import numpy as np
 import pytest
@@ -373,7 +373,7 @@ def test_removals_mark_the_node():
     assert int(state.used_req[1, 0]) == 0 and not bool(state.metric_fresh[2])
 
 
-# -- what this slice does not port ------------------------------------------------
+# -- the paths that raised while they were not ported ---------------------------
 
 def _cpu_scheduler():
     return Scheduler(model=PlacementModel(device="cpu"),
@@ -400,14 +400,26 @@ def test_preemption_raises():
 
 
 def test_plugin_chain_paths_raise():
-    sched = _cpu_scheduler()
-    sched.add_node(PORT.node(dict(name="n0", alloc={CPU: 4000})))
-    sched.add_pod(PORT.pod(dict(name="p", req={CPU: 100})))
-    with pytest.raises(NotImplementedError, match="framework"):
-        sched.schedule_one("default/p", now=1.0)
-    sched.batched_placement = False
-    with pytest.raises(NotImplementedError, match="batched_placement"):
-        sched.schedule_pending(now=1.0)
+    """The two plugin-chain paths, which raised while the chain was not
+    ported (the case keeps that name): ``schedule_one`` and a round with
+    ``batched_placement=False`` both run and equal the reference's."""
+    ref, port = _pair()
+    for sched, pkg in ((ref, REF), (port, PORT)):
+        for i in range(2):
+            sched.add_node(pkg.node(dict(name=f"n{i}",
+                                         alloc={CPU: 4000, MEM: 8192})))
+        for name, cpu in (("p", 100), ("q", 3000), ("r", 2500)):
+            sched.add_pod(pkg.pod(dict(name=name, req={CPU: cpu})))
+    got, want = port.schedule_one("default/p", now=1.0), ref.schedule_one(
+        "default/p", now=1.0)
+    assert (got.status, got.node) == (want.status, want.node) == (
+        "bound", got.node)
+    ref.batched_placement = port.batched_placement = False
+    got, want = port.schedule_pending(now=2.0), ref.schedule_pending(now=2.0)
+    assert dict(got) == dict(want) and got.waiting == want.waiting
+    assert sum(n is not None for n in got.values()) == 2
+    assert ({u: p.node_name for u, p in port.cache.pods.items()}
+            == {u: p.node_name for u, p in ref.cache.pods.items()})
 
 
 def test_fine_grained_intake_raises():

@@ -320,3 +320,28 @@ def test_staged_cache_refuses_demotion_while_pinned():
         assert not cache.demote_device()
     assert cache.demote_cold()
     assert cache.arrays is None and cache.state is None
+
+
+def test_touch_prices_outside_the_ledger_lock():
+    """``touch`` asks a resident for its ``device_bytes`` without holding
+    the manager's lock: a staged cache takes its own lock there, and a
+    thread inside that cache's ``ensure`` holds it while it enters
+    ``run_staged`` (the manager's lock), so pricing under the manager's
+    lock deadlocks the two threads (the pipelined streaming loop's
+    prestage against the publisher's)."""
+    m = ws.WorkingSetManager()
+    held = []
+
+    class Probe(World):
+        def device_bytes(self):
+            free = m._lock.acquire(blocking=False)
+            if free:
+                m._lock.release()
+            held.append(not free)
+            return super().device_bytes()
+
+    world = Probe(4096)
+    key = m.register("probe", world, tenant="t0", lane="ls")
+    m.touch(key)
+    assert held == [False]
+    assert m.status()["rows"][0]["bytes"] == m.device_bytes() == 4096
