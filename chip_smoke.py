@@ -265,6 +265,30 @@ the microseconds per pod and the bound (see :func:`bound`).
    winner is ``schedule_one``'s node (or the quota verdict refuses), the
    feasible nodes' weighted totals are the chain's scores, the columns
    equal the CPU run; one ``explain_scores`` at 5,000 nodes, timed.
+18. The binaries on the card, on a seeded cluster-spec JSON at the main
+   path's width (5,000 nodes, 2 running pods a node, 10,000 pending).
+   (a) ``python -m koordinator_tpu_torch.cmd.scheduler --once
+   --cluster-json`` as a child: exit 0, its round line equal to the same
+   round in this process (``build_scheduler`` + ``wire_scheduler`` +
+   ``seed_bus_from_json`` + ``run_loop(once=True)``, the cluster kernel at
+   5 CTAs, held against its twin); the child's wall split into start-up
+   and imports, the kernel library's load, the bus seeding and the round.
+   (b) ``run_loop(auditor=StateAuditor(interval_rounds=1, probe_rows=64))``
+   on that scheduler: a clean sweep after the kernel round, its probe read
+   back from the card; one staged CUDA row drifted (its host row
+   untouched), reported as ``<node>:device:usage`` and restaged, the next
+   round equal to a clean run's; a sweep at 5,000 nodes timed with its
+   read-back's share. (c) ``cmd/descheduler.main(["--once",
+   "--cluster-json", ...])`` (no usage: nothing migrates), then
+   ``build_descheduler``'s ``Descheduler`` through
+   ``DeschedulerLoop.run_once`` with 10 nodes over LowNodeLoad's high
+   threshold, as many cycles as the anomaly debounce needs: equal to the
+   same loop on the CPU (migrated uids, reservations' nodes, jobs' phases,
+   the bus's pods after the scheduler's next round, which places every
+   evicted pod on its reserved node); every probe's kernel == its twin,
+   launches counted by route. (d) ``run_loop`` with
+   ``build_rebalance_plugin`` at ``rebalance_backend="verify"`` over 3
+   rounds, 100 nodes hot: the sweep kernel's decisions == the host walk.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -275,6 +299,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import os
@@ -289,7 +314,8 @@ import threading
 import time
 import types
 import urllib.request
-from contextlib import nullcontext
+from collections import Counter
+from contextlib import nullcontext, redirect_stdout
 
 import numpy as np
 import torch
@@ -322,7 +348,10 @@ from koordinator_tpu_torch.descheduler import (
 from koordinator_tpu_torch.descheduler.framework import Evictor
 from koordinator_tpu_torch.manager import noderesource, sloconfig
 from koordinator_tpu_torch.manager.noderesource import NodeResourceController
-from koordinator_tpu_torch.client.wiring import snapshot_from_bus
+from koordinator_tpu_torch.client.wiring import (
+    snapshot_from_bus,
+    wire_descheduler,
+)
 from koordinator_tpu_torch.metrics.components import (
     PIPELINE_DEFERRED_ERRORS,
     POD_E2E,
@@ -330,10 +359,13 @@ from koordinator_tpu_torch.metrics.components import (
     STREAM_TRIGGERS,
     TICK_STAGE_DURATION,
 )
+from koordinator_tpu_torch.cmd import descheduler as desched_cmd
 from koordinator_tpu_torch.cmd.scheduler import (
     SchedulerConfig,
+    build_rebalance_plugin,
     build_scheduler,
     run_loop,
+    seed_bus_from_json,
 )
 from koordinator_tpu_torch.models import placement
 from koordinator_tpu_torch.models.placement import PlacementModel
@@ -352,6 +384,7 @@ from koordinator_tpu_torch.obs.timeline import PodTimelines
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.oracle.rebalance import RebalanceOracle
 from koordinator_tpu_torch.parallel.mesh import shard_kernel_solver
+from koordinator_tpu_torch.scheduler.auditor import StateAuditor
 from koordinator_tpu_torch.scheduler.plugins.reservation import reservation_free
 from koordinator_tpu_torch.scheduler.preemption import find_preemption
 from koordinator_tpu_torch.scheduler.pipeline import TickPipeline
@@ -552,6 +585,17 @@ EXPLAIN_PODS = 16
 #: ``enable_preemption=False``
 NO_PREEMPTION = "ElasticQuotaPreemption=false"
 
+# phase 18: the binaries' world (the main path's width; its seed and the
+# running pods a node), the auditor's probe rows and arrivals a round, the
+# descheduler's hot nodes and the in-loop rebalance's hot nodes and rounds
+BIN_SEED = 18
+BIN_ASSIGNED = 2
+AUDIT_PROBE = 64
+AUDIT_ARRIVALS = 64
+DESCHED_HOT = 10
+REBAL_LOOP_HOT = 100
+REBAL_LOOP_ROUNDS = 3
+BINARY_TIMEOUT_S = 300
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
@@ -3970,7 +4014,365 @@ def plugin_chain_phase(card) -> list:
     return entries
 
 
+def binaries_world(path, pending=True) -> dict:
+    """Phase 18's cluster-spec JSON at ``path`` (the main path's width):
+    NODES nodes of 32-64 cores and 64-256 GiB, BIN_ASSIGNED running pods a
+    node and, with ``pending``, PENDING pending pods, seeded. Returns the
+    spec."""
+    rng = np.random.default_rng(BIN_SEED)
+    cpu = rng.integers(32, 65, NODES) * 1000
+    mem = rng.integers(64, 257, NODES) * 1024
+    spec = {"nodes": [{"name": f"n{i}", "cpu": int(cpu[i]),
+                       "memory": int(mem[i])} for i in range(NODES)],
+            "pods": []}
+    a_cpu = rng.integers(500, 4000, (NODES, BIN_ASSIGNED))
+    a_mem = rng.integers(512, 8192, (NODES, BIN_ASSIGNED))
+    for i in range(NODES):
+        for k in range(BIN_ASSIGNED):
+            spec["pods"].append({"name": f"a{i}-{k}", "cpu": int(a_cpu[i, k]),
+                                 "memory": int(a_mem[i, k]),
+                                 "node": f"n{i}"})
+    p_cpu = rng.integers(100, 4000, PENDING)
+    p_mem = rng.integers(128, 8192, PENDING)
+    if pending:
+        spec["pods"] += [{"name": f"p{j}", "cpu": int(p_cpu[j]),
+                          "memory": int(p_mem[j])} for j in range(PENDING)]
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return spec
+
+
+def wired_binary(path, device=None, config=None):
+    """What ``cmd.scheduler.main`` wires, in this process: ``(bus,
+    scheduler)`` with the bus seeded from ``path``."""
+    bus = APIServer()
+    sched = build_scheduler(config or SchedulerConfig(), device=device)
+    wire_scheduler(bus, sched)
+    seed_bus_from_json(bus, path)
+    return bus, sched
+
+
+def seconds_after(line, key) -> float:
+    return float(line.split(key, 1)[1].split(" s", 1)[0])
+
+
+def scheduler_binary(card, path):
+    """Phase 18 (a): ``python -m koordinator_tpu_torch.cmd.scheduler
+    --once --cluster-json`` as a child on the card, then the same round in
+    this process, its kernel held against the twin. Returns ``(kernels
+    entry, bus, scheduler)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "koordinator_tpu_torch.cmd.scheduler",
+         "--once", "--cluster-json", path, "--device", CHILD_DEVICE],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # each line stamped as it arrives (main flushes its own two)
+    stamped = [(time.perf_counter(), line.rstrip("\n"))
+               for line in proc.stdout]
+    rc = proc.wait(timeout=BINARY_TIMEOUT_S)
+    child_wall = time.perf_counter() - t0
+    lines = [line for _, line in stamped]
+    assert rc == 0, lines[-40:]
+    child_round = next(x for x in lines if x.startswith("round:"))
+    wired_at, wired = next((t, x) for t, x in stamped
+                           if x.startswith("koord-scheduler: wired"))
+    ended_at, ended = next((t, x) for t, x in stamped
+                           if x.startswith("koord-scheduler: loop returned"))
+    wired_s, library_s = (seconds_after(wired, " in "),
+                          seconds_after(wired, "kernel library "))
+    seeding_s = seconds_after(wired, "bus seeding ")
+    round_s = seconds_after(ended, " after ")
+    start_s = wired_at - t0 - wired_s
+    exit_s = t0 + child_wall - ended_at
+    bus, sched = wired_binary(path)
+    logs = []
+    rc, launches, wall, captured = drive(lambda: run_loop(
+        sched, SchedulerConfig(), once=True, log=logs.append))
+    assert rc == 0, rc
+    inp, route = routed("the scheduler binary's round", launches, captured,
+                        "cluster")
+    assert route.shards == 5, route
+    assert logs[-1] == child_round, (logs[-1], child_round)
+    placed = int(child_round.split()[1].split("/")[0])
+    assert placed > 0
+    print(f"scheduler binary --once [{card}]: {NODES} nodes, {PENDING} "
+          f"pending, {NODES * BIN_ASSIGNED} running: '{child_round}' == the "
+          f"in-process round (build_scheduler + wire_scheduler + "
+          f"seed_bus_from_json + run_loop(once=True)); child wall "
+          f"{child_wall:.3f} s = interpreter start and imports "
+          f"{start_s:.3f} s + wiring {wired_s:.3f} s (kernel library load "
+          f"{library_s:.3f} s, bus seeding {seeding_s:.3f} s; the rest is "
+          f"the scheduler's build, the bus, the elector and the auditor) + "
+          f"the round {round_s:.3f} s + the rest, process exit included "
+          f"{child_wall - start_s - wired_s - round_s:.3f} s (exit alone "
+          f"{exit_s:.3f} s); in-process round "
+          f"wall {wall:.4f} s, route {route_name(route)}, launches "
+          f"{launches[route.kind]}", flush=True)
+    stats = compare(inp, "the scheduler binary's round", card, reps=3)
+    return (entry("binpack_scheduler_main", launches[route.kind], stats,
+                  317), bus, sched)
+
+
+def pods_on_bus(bus, prefix):
+    return {p.uid: p.node_name for p in bus.list(Kind.POD).values()
+            if p.name.startswith(prefix)}
+
+
+def audit_arrivals(bus, tag) -> None:
+    """AUDIT_ARRIVALS pending pods named ``<tag>-<j>``, seeded by the
+    tag."""
+    rng = np.random.default_rng([BIN_SEED, *tag.encode()])
+    for j in range(AUDIT_ARRIVALS):
+        pod = ttypes.PodSpec(name=f"{tag}-{j}", requests={
+            ResourceName.CPU: int(rng.integers(100, 4000)),
+            ResourceName.MEMORY: int(rng.integers(128, 8192))})
+        bus.apply(Kind.POD, pod.uid, pod)
+
+
+def audit_rounds(sched, bus, rounds, auditor=None):
+    """``rounds`` of ``run_loop`` (no sleeps) after AUDIT_ARRIVALS new
+    pods; returns the loop's log."""
+    logs = []
+    assert run_loop(sched, SchedulerConfig(schedule_interval_seconds=0.0),
+                    max_rounds=rounds, auditor=auditor, log=logs.append,
+                    sleep_fn=lambda s: None) == 0
+    return logs
+
+
+def auditor_phase(card, path, sched, bus) -> None:
+    """Phase 18 (b): the auditor in ``run_loop`` on (a)'s scheduler: a
+    clean sweep after the kernel round (its probe read back from the
+    card), then one staged CUDA row drifted, detected, restaged, and the
+    next round equal to a clean run's; a sweep timed at NODES nodes."""
+    aud = StateAuditor(sched, bus, interval_rounds=1, probe_rows=AUDIT_PROBE)
+    reports = []
+    on_round = aud.on_round
+
+    def recorded(now=None):
+        reports.append(on_round(now=now))
+        return reports[-1]
+
+    aud.on_round = recorded
+    audit_arrivals(bus, "b1")
+    audit_rounds(sched, bus, 3, aud)
+    state = sched.model.staged_cache.audit_view()[1]
+    assert state.usage.is_cuda or CHILD_DEVICE == "cpu"
+    first = reports[0]
+    # the round's binds left their rows dirty (skipped until restaged)
+    assert first["probe_rows"], first
+    assert len(first["probe_rows"]) + first["probe_skipped"] == AUDIT_PROBE
+    assert all(r["detections"] == {} for r in reports), reports
+    # one staged CUDA row drifts, its host row untouched
+    cache = sched.model.staged_cache
+    arrays, state, _, _, _ = cache.audit_view()
+    j = aud._probe_cursor
+    name = arrays.names[j]
+    host_before = arrays.usage[j].copy()
+    state.usage[j, 0] += 777
+    torch.cuda.synchronize()
+    assert (arrays.usage[j] == host_before).all()
+    audit_arrivals(bus, "b2")
+    audit_rounds(sched, bus, 1, aud)
+    drift = reports[-1]
+    assert drift["detections"] == {"device-parity/staged-device-drift": 1}, \
+        drift["detections"]
+    assert drift["probe_mismatches"] == [f"{name}:device:usage"], drift
+    assert drift["repairs"] == {"full-restage": 1}, drift["repairs"]
+    assert sched.model.last_staging == "full", sched.model.last_staging
+    clean_bus, clean = wired_binary(path)
+    assert run_loop(clean, SchedulerConfig(), once=True,
+                    log=lambda *a: None) == 0
+    for tag, rounds in (("b1", 3), ("b2", 1)):
+        audit_arrivals(clean_bus, tag)
+        audit_rounds(clean, clean_bus, rounds)
+        assert pods_on_bus(clean_bus, tag) == pods_on_bus(bus, tag), tag
+    placed = sum(n is not None for n in pods_on_bus(bus, "b2").values())
+    assert placed > 0
+    timed = aud.sweep("manual")
+    full = StateAuditor(sched, bus, interval_rounds=0,
+                        probe_rows=NODES).sweep("manual")
+    assert timed["detections"] == {} and full["detections"] == {}
+    print(f"auditor [{card}]: run_loop(auditor=StateAuditor(interval_rounds"
+          f"=1, probe_rows={AUDIT_PROBE})): the sweep after the kernel round "
+          f"clean, {len(first['probe_rows'])} staged rows read back from the "
+          f"card in {first['readback_s'] * 1e3:.3f} ms "
+          f"({first['probe_skipped']} bind-dirty rows skipped); {name}'s "
+          f"staged CUDA "
+          f"usage row drifted (host row untouched): detected as "
+          f"{drift['probe_mismatches'][0]}, full restage, the next round "
+          f"({placed}/{AUDIT_ARRIVALS} placed) == a clean run's; a sweep at "
+          f"{NODES} nodes: {AUDIT_PROBE} probe rows {timed['duration_s'] * 1e3:.3f}"
+          f" ms, the read-back {timed['readback_s'] * 1e3:.3f} ms "
+          f"({timed['readback_s'] / timed['duration_s'] * 100:.1f}%); all "
+          f"{NODES} rows {full['duration_s'] * 1e3:.3f} ms, the read-back "
+          f"{full['readback_s'] * 1e3:.3f} ms "
+          f"({full['readback_s'] / full['duration_s'] * 100:.1f}%)",
+          flush=True)
+
+
+def hot_metrics(bus, spec, hot, now, cpu_share=0.8):
+    """A NodeMetric on every node of ``spec``: the first ``hot`` nodes at
+    ``cpu_share`` of their CPU (their pods' usage their requests), the
+    rest at 20%."""
+    pods_of = {}
+    for p in spec["pods"]:
+        if "node" in p:
+            pods_of.setdefault(p["node"], []).append(p)
+    cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+    for i, n in enumerate(spec["nodes"]):
+        share = cpu_share if i < hot else 0.2
+        usages = {}
+        if i < hot:
+            usages = {f"default/{p['name']}": {cpu: p["cpu"],
+                                               mem: p["memory"]}
+                      for p in pods_of.get(n["name"], ())}
+        bus.apply(Kind.NODE_METRIC, n["name"], ttypes.NodeMetric(
+            node_name=n["name"], node_usage={
+                cpu: int(n["cpu"] * share), mem: int(n["memory"] * 0.2)},
+            update_time=now, pod_usages=usages))
+
+
+def desched_arm(spec, path, device):
+    """Phase 18 (c)'s migrations on ``device``: a scheduler and a
+    ``DeschedulerLoop`` (``build_descheduler``'s default config) on one
+    bus, DESCHED_HOT nodes over the high threshold, as many cycles as the
+    anomaly debounce needs (a node is anomalous after strictly more than
+    ``anomaly_condition_count`` abnormal observations), then the
+    scheduler's round. Returns ``(record, probe
+    kernel inputs, launches, cycles' wall)``."""
+    t0 = 1000.0
+    bus, sched = wired_binary(path, device,
+                              SchedulerConfig(feature_gates=NO_PREEMPTION))
+    hot_metrics(bus, spec, DESCHED_HOT, t0)
+    config = desched_cmd.DeschedulerConfig()
+    loop = wire_descheduler(bus, desched_cmd.build_descheduler(config),
+                            device=device)
+    migrated = []
+
+    def cycles():
+        for c in range(config.anomaly_condition_count + 1):
+            migrated.append(loop.run_once(now=t0 + 1.0 + c))
+
+    _, launches, wall, captured = drive(cycles)
+    resv = {r.name: (r.node_name, r.state.name, list(r.owner_pod_uids))
+            for r in bus.list(Kind.RESERVATION).values()}
+    jobs = {j.name: (j.pod_uid, j.phase.name)
+            for j in bus.list(Kind.MIGRATION_JOB).values()}
+    out = sched.schedule_pending(now=t0 + 10.0)
+    record = dict(migrated=migrated, reservations=resv, jobs=jobs,
+                  round=dict(out),
+                  pods={p.uid: p.node_name
+                        for p in bus.list(Kind.POD).values()})
+    return record, captured, launches, wall
+
+
+def descheduler_phase(card, path, desched_path, spec) -> dict:
+    """Phase 18 (c): ``cmd/descheduler.main --once`` on (a)'s file, then
+    the migrations on the card against the CPU, each probe's kernel ==
+    its twin. Returns the probes' ``kernels`` entry."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        assert desched_cmd.main(["--once", "--cluster-json", path]) == 0
+    main_wall = time.perf_counter() - t0
+    cycle_line = out.getvalue().splitlines()[-1]
+    assert cycle_line == "descheduling cycle: migrated 0 pods", cycle_line
+    card_rec, captured, launches, wall = desched_arm(spec, desched_path, None)
+    cpu_rec, _, _, cpu_wall = desched_arm(spec, desched_path, "cpu")
+    assert card_rec == cpu_rec, "descheduler: cuda != cpu"
+    migrated = [u for cycle in card_rec["migrated"] for u in cycle]
+    assert 0 < len(migrated) <= 2 * DESCHED_HOT, migrated
+    by_owner = {owners[0]: node for node, _, owners
+                in card_rec["reservations"].values() if owners}
+    for uid in migrated:
+        assert card_rec["round"][uid] == by_owner[uid], uid
+    err = 0
+    for inp, route in captured:
+        err = max(err, max_abs_err(bk.binpack(inp), twin(inp, route)))
+    routes = Counter(route_name(route) for _, route in captured)
+    assert sum(launches.values()) == len(captured) == len(migrated)
+    print(f"descheduler binary --once [{card}]: '{cycle_line}' (empty usage "
+          f"metrics), wall {main_wall:.3f} s; descheduler loop, {NODES} nodes, "
+          f"{DESCHED_HOT} over LowNodeLoad's high threshold, "
+          f"{len(card_rec['migrated'])} cycles: {len(migrated)} migrated "
+          f"(cycle by cycle {[len(c) for c in card_rec['migrated']]}), cuda == "
+          f"cpu (migrated uids, reservations' nodes, jobs' phases, the bus's "
+          f"pods after the scheduler's round); every evicted pod placed on its "
+          f"reserved node; {len(captured)} probe solves, each kernel == twin "
+          f"(max_abs_err {err}), routes {dict(routes)}; cycles wall "
+          f"{wall:.3f} s on the card, {cpu_wall:.3f} s on the CPU", flush=True)
+    inp, _ = captured[-1]
+    stats = compare(inp, "a descheduler probe", card, reps=5)
+    queued_line("a descheduler probe", inp, stats, card)
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    line = 205 if "resv" in stats["variant"] else 317
+    return entry("binpack_descheduler_probe", len(captured), stats, line)
+
+
+def rebalance_in_loop(card, spec, sched, bus) -> dict:
+    """Phase 18 (d): ``run_loop`` with ``build_rebalance_plugin`` at
+    ``rebalance_backend="verify"`` over REBAL_LOOP_ROUNDS rounds of (a)'s
+    world (REBAL_LOOP_HOT nodes hot): every sweep's kernel decision stream
+    == the host walk (the backend asserts it). Returns its ``kernels``
+    entry."""
+    hot_metrics(bus, spec, REBAL_LOOP_HOT, time.time(), cpu_share=0.85)
+    config = SchedulerConfig(schedule_interval_seconds=0.0,
+                             rebalance_interval_s=1e-6,
+                             rebalance_backend="verify")
+    plugin = build_rebalance_plugin(config)
+    made = []
+    base = loadaware.DeviceSweep
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    loadaware.DeviceSweep = Recorded
+    logs = []
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        assert run_loop(sched, config, max_rounds=REBAL_LOOP_ROUNDS,
+                        rebalance=plugin, log=logs.append,
+                        sleep_fn=lambda s: None) == 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(rb.LAUNCHES)
+    finally:
+        loadaware.DeviceSweep = base
+    evicted = [int(x.split()[2]) for x in logs if x.startswith("rebalance:")]
+    assert evicted and evicted[0] > 0, logs
+    assert launches["rebalance_scan"] >= len(made) >= 1, (launches, len(made))
+    print(f"in-loop rebalance, verify backend [{card}]: {REBAL_LOOP_ROUNDS} "
+          f"rounds of {NODES} nodes ({REBAL_LOOP_HOT} hot): the sweep kernel "
+          f"== the host walk every pass; evicted {evicted} pods; "
+          f"{len(made)} sweeps staged, launches {launches}; loop wall "
+          f"{wall:.3f} s", flush=True)
+    return sweep_entry("rebalance_scan_in_loop", made[0],
+                       launches["rebalance_scan"],
+                       "the in-loop rebalance's first sweep", card)
+
+
+def binaries(card) -> list:
+    """Phase 18. Returns its ``kernels`` entries."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cluster.json")
+        spec = binaries_world(path)
+        desched_path = os.path.join(d, "running.json")
+        binaries_world(desched_path, pending=False)
+        main_entry, bus, sched = scheduler_binary(card, path)
+        auditor_phase(card, path, sched, bus)
+        probe_entry = descheduler_phase(card, path, desched_path, spec)
+        sweep = rebalance_in_loop(card, spec, sched, bus)
+    print(f"binaries phase wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return [main_entry, probe_entry, sweep]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -4158,6 +4560,12 @@ def main() -> int:
 
     # -- 17. the plugin chain, the aggregated mode and the explainer -----------
     kernels += plugin_chain_phase(card)
+
+    # -- 18. the binaries: scheduler main(), the auditor, the descheduler ----
+    kernels += binaries(card)
+
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "
+          "kernel library's build included)", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],

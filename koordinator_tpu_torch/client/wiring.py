@@ -1,13 +1,17 @@
 """Informer adapters: subscribe components to the bus (counterpart of
-``koordinator_tpu/client/wiring.py``, cut to the scheduler and the
-manager: the colocation loop).
+``koordinator_tpu/client/wiring.py``, cut to the scheduler, the manager
+and the descheduler).
 
 The scheduler consumes Node/Pod/NodeMetric/Quota/PodGroup/Reservation/
 Device/NRT, with a DeleteFunc for every kind, publishes its binds back
 onto the bus and evicts through it; the manager consumes NodeMetric and
-the pods through a snapshot of the bus and PATCHes Node allocatable
-back onto it. The koordlet, pod-webhook and descheduler loops are not
-ported yet.
+the pods through a snapshot of the bus, PATCHes Node allocatable back
+onto it and, with a NodeSLO renderer, publishes each node's NodeSLO;
+the descheduler classifies the bus's snapshot, reserves each migration's
+destination through the placement solver and evicts through the bus.
+``KoordletLoop``, ``koordlet_report_sinks``, ``wire_koordlet`` and
+``wire_pod_webhook`` need the koordlet and the pod webhook, which are
+not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -183,37 +187,41 @@ def wire_scheduler(bus: APIServer, scheduler, elector=None) -> None:
     scheduler.evict_pod_fn = _evict
 
 
-def snapshot_from_bus(bus: APIServer, now: float) -> ClusterSnapshot:
-    """The assigned-pod cluster snapshot of the bus (the manager's view;
-    the reference's descheduler loop also asks for the reservations)."""
+def snapshot_from_bus(bus: APIServer, now: float,
+                      with_reservations: bool = False) -> ClusterSnapshot:
+    """The assigned-pod cluster snapshot of the bus (shared by the
+    manager and the descheduler loops; the descheduler's also holds the
+    reservations)."""
     return ClusterSnapshot(
         nodes=list(bus.list(Kind.NODE).values()),
         # Permit-held gang members are assumed, not bound: the manager
-        # must not count them as running
+        # must not count them as running, and the descheduler must never
+        # pick one as a migration victim
         pods=[
             p for p in bus.list(Kind.POD).values()
             if getattr(p, "node_name", None) is not None
             and not getattr(p, "waiting_permit", False)
         ],
         node_metrics=bus.list(Kind.NODE_METRIC),
+        reservations=(list(bus.list(Kind.RESERVATION).values())
+                      if with_reservations else []),
         now=now,
     )
 
 
 class ManagerLoop:
     """The noderesource reconcile loop over the bus: NodeMetric and pods
-    in, Node allocatable PATCH out. ``nodeslo`` (the NodeSLO renderer) is
-    not ported yet and raises."""
+    in, Node allocatable PATCH out."""
 
     def __init__(self, bus: APIServer, controller, elector=None,
                  nodeslo=None):
-        if nodeslo is not None:
-            raise NotImplementedError(
-                "ManagerLoop(nodeslo=...) needs the NodeSLO renderer "
-                "(manager/nodeslo.py), a later slice of the port")
         self.bus = bus
         self.controller = controller
         self.elector = elector
+        #: the NodeSLO renderer (``manager/nodeslo.NodeSLOController``):
+        #: when set, reconcile also publishes each node's rendered NodeSLO
+        #: on the bus for the koordlets
+        self.nodeslo = nodeslo
 
     def reconcile(self, now: float) -> int:
         """One pass; returns how many nodes were synced back to the bus."""
@@ -242,6 +250,18 @@ class ManagerLoop:
                 else:
                     self.bus.apply(Kind.NODE, node.name, node)
                 synced += 1
+        if self.nodeslo is not None:
+            for node in snapshot.nodes:
+                spec = self.nodeslo.render(node.name, node.labels)
+                if spec != self.bus.get(Kind.NODE_SLO, node.name):
+                    # fenced like the Node PATCH: a deposed manager must
+                    # not overwrite the leader's render
+                    if self.elector is not None:
+                        self.elector.fenced(
+                            lambda n=node.name, s=spec:
+                            self.bus.apply(Kind.NODE_SLO, n, s))
+                    else:
+                        self.bus.apply(Kind.NODE_SLO, node.name, spec)
         return synced
 
 
@@ -256,3 +276,158 @@ def wire_manager(bus: APIServer, controller=None, elector=None,
     if controller is None:
         controller = NodeResourceController(device=device)
     return ManagerLoop(bus, controller, elector, nodeslo)
+
+
+class DeschedulerLoop:
+    """The descheduling cycle over the bus: classify and emit
+    PodMigrationJobs, reconcile them reservation-first (the destination
+    is found by the batched placement solver the scheduler runs, on
+    ``device``: ``cuda`` unless given), then evict through the bus as a
+    Pod delete and re-apply, so every wired component observes the
+    move."""
+
+    def __init__(self, bus: APIServer, descheduler, place_model=None,
+                 elector=None, device: DeviceLike = None):
+        from koordinator_tpu_torch.descheduler.migration import (
+            MigrationController,
+        )
+        from koordinator_tpu_torch.models.placement import PlacementModel
+
+        if not hasattr(descheduler.evictor, "jobs"):
+            # a direct evictor would mutate shared pod objects without
+            # any bus event: only the migration evictor is coherent here
+            raise TypeError(
+                "DeschedulerLoop requires a MigrationEvictor (jobs-based) "
+                "evictor; direct eviction bypasses the bus"
+            )
+        self.bus = bus
+        self.descheduler = descheduler
+        self._model = place_model or PlacementModel(device=device)
+        self.controller = MigrationController(self._place)
+        #: a leader-elected deployment holds the lease through the
+        #: mutation phase (evictions and reservations must not apply
+        #: twice)
+        self.elector = elector
+
+    def _place(self, snapshot, reservation):
+        """The reservation's node, through the batched solver: the probe
+        has the VICTIM pod's shape (requests, devices, selector, QoS), so
+        the reserved node can host it after the eviction."""
+        from koordinator_tpu_torch.apis.types import PodSpec
+
+        victim = None
+        if reservation.owner_pod_uids:
+            victim = next(
+                (p for p in snapshot.pods
+                 if p.uid == reservation.owner_pod_uids[0]), None,
+            )
+        if victim is not None:
+            probe = dataclasses.replace(
+                victim,
+                name=f"__resv__{reservation.name}",
+                uid=f"__resv__{reservation.name}",
+                node_name=None,
+                gang=None,
+                quota=None,  # reservation capacity is not quota-gated
+            )
+        else:
+            probe = PodSpec(
+                name=f"__resv__{reservation.name}",
+                uid=f"__resv__{reservation.name}",  # a reserve pod
+                requests=dict(reservation.requests),
+            )
+        # the __resv__ uid marks the probe a reserve pod: it never matches
+        # a reservation, while the existing reservations stay in the
+        # snapshot so their holds count against their nodes. Nodes go
+        # through the scheduler informer's node-reservation trim: a probe
+        # that over-estimated a reserved node would create a Reservation
+        # the scheduler can never bind, looping the migration
+        out = self._model.schedule(ClusterSnapshot(
+            nodes=[transform_node(n) for n in snapshot.nodes],
+            pods=snapshot.pods,
+            pending_pods=[probe],
+            node_metrics=snapshot.node_metrics,
+            reservations=snapshot.reservations,
+            now=snapshot.now,
+        ))
+        return out.get(probe.uid)
+
+    def run_once(self, now: float):
+        """One cycle; returns the uids of the pods migrated."""
+        from koordinator_tpu_torch.apis.types import MigrationPhase
+
+        snapshot = snapshot_from_bus(self.bus, now, with_reservations=True)
+        pre_assign = {p.uid: p.node_name for p in snapshot.pods}
+        pre_resv = {r.name for r in snapshot.reservations}
+        # bus key per pod uid (conventionally identical): deletes and
+        # re-applies address the key the pod was applied under
+        key_of = {p.uid: k for k, p in self.bus.list(Kind.POD).items()}
+        self.descheduler.run_once(snapshot)
+        evictor = self.descheduler.evictor
+        jobs = list(evictor.jobs)
+        migrated = []
+        if jobs:
+            # the reconcile (state machine and placement probes, the slow
+            # part) runs outside any lock; every bus write runs in one
+            # fenced transaction, so a leader deposed between the two
+            # raises FencingError with nothing half-applied
+            self.controller.reconcile(snapshot, jobs)
+
+            def apply_mutations():
+                # reservation deltas only (blanket re-applies would grow
+                # the bus traffic and resurrect collected reservations)
+                post = {r.name: r for r in snapshot.reservations}
+                for name in pre_resv - set(post):
+                    self.bus.delete(Kind.RESERVATION, name)
+                for name, resv in post.items():
+                    if name not in pre_resv:
+                        self.bus.apply(Kind.RESERVATION, name, resv)
+                for job in jobs:
+                    self.bus.apply(Kind.MIGRATION_JOB, job.name, job)
+                for pod in snapshot.pending_pods:
+                    # an eviction deletes the pod and the workload
+                    # recreates it. The controller cleared node_name on
+                    # the shared object, so it is restored for the DELETE:
+                    # the scheduler's release path (quota used, NUMA and
+                    # device holds) keys off the assigned state
+                    pod.node_name = pre_assign.get(pod.uid)
+                    self.bus.delete(Kind.POD, key_of.get(pod.uid, pod.uid))
+                    pod.node_name = None
+                    self.bus.apply(Kind.POD, key_of.get(pod.uid, pod.uid),
+                                   pod)
+                    migrated.append(pod.uid)
+
+            if self.elector is not None:
+                try:
+                    self.elector.fenced(apply_mutations)
+                except Exception:
+                    # undo the controller's in-place victim mutation, so
+                    # the shared bus objects stay consistent with the
+                    # eviction that never applied, and discard the
+                    # advanced jobs: a re-elected leader re-detects, it
+                    # does not publish phantom SUCCEEDED migrations
+                    for pod in snapshot.pending_pods:
+                        pod.node_name = pre_assign.get(pod.uid)
+                    evictor.jobs = [
+                        j for j in evictor.jobs
+                        if j.phase in (MigrationPhase.PENDING,
+                                       MigrationPhase.RUNNING)
+                    ]
+                    raise
+            else:
+                apply_mutations()
+            # completed jobs leave the dedup window
+            evictor.jobs = [
+                j for j in evictor.jobs
+                if j.phase in (MigrationPhase.PENDING, MigrationPhase.RUNNING)
+            ]
+        return migrated
+
+
+def wire_descheduler(bus: APIServer, descheduler, place_model=None,
+                     elector=None, device: DeviceLike = None
+                     ) -> DeschedulerLoop:
+    """A DeschedulerLoop on the bus; without ``place_model``, its probes
+    solve on a ``PlacementModel`` on ``device`` (``cuda`` unless
+    given)."""
+    return DeschedulerLoop(bus, descheduler, place_model, elector, device)

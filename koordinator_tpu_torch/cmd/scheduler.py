@@ -1,5 +1,21 @@
-"""koord-scheduler's wiring and loop (counterpart of
-``koordinator_tpu/cmd/scheduler.py`` without ``main()``).
+"""koord-scheduler: the scheduler binary, its wiring and its loop
+(counterpart of ``koordinator_tpu/cmd/scheduler.py``).
+
+    python -m koordinator_tpu_torch.cmd.scheduler --once --cluster-json c.json
+
+:func:`main` parses the reference's flags (and ``--device``: ``cuda``
+unless given), loads the kernel library on a CUDA device, builds the
+scheduler (:func:`build_scheduler`), the bus, the leader elector, the
+anti-entropy auditor (``scheduler/auditor.StateAuditor``; its promotion
+sweep chained onto ``on_started_leading``), the streaming loop and SLO
+controller, the defrag controller and the in-loop rebalance plugin, a
+supervised solver sidecar (``--solver-supervise``) and the debug mux
+(``--debug-port``: the state-auditor, solver-supervisor,
+solver-failover, flight-recorder, trace and device-observatory services,
+``/explain`` through ``obs/explain.PlacementExplainer``), seeds the bus
+from ``--cluster-json`` (:func:`seed_bus_from_json`) and runs
+:func:`run_loop`. Flags whose subsystem is not ported are refused
+(:data:`NOT_PORTED`).
 
 :func:`build_scheduler` is Setup: a wired Scheduler, configured by the
 ``--feature-gates`` spec (``BatchedPlacement`` False: every round runs
@@ -22,20 +38,21 @@ pipeline.TickPipeline` overlaps round N+1's staging with round N's
 solve, read-back and publish); or the streaming loop (``streaming``: a
 :class:`~koordinator_tpu_torch.scheduler.streaming.StreamingLoop` built
 by :func:`build_streaming_loop` fires rounds on the adaptive trigger).
-Placements are the same in all three, tick for tick.
+Placements are the same in all three, tick for tick. With ``auditor``,
+a sweep runs before the round every ``audit_interval_rounds`` rounds.
 
-:class:`SchedulerConfig` holds the loop's fields, with the reference's
-names and defaults. Not ported yet, and queued in ROADMAP.md: ``main()``
-and its argument parser (with ``--solver-supervise``), the anti-entropy
-auditor (``run_loop(auditor=...)`` raises ``NotImplementedError``), the
-scan unroll (its field is absent), the AOT warm pool (``warm_pool`` is
-accepted and has no effect), the host path for tiny solves and
+:class:`SchedulerConfig` has the reference's names and defaults. Not
+ported, and queued in ROADMAP.md: the scan unroll (its field is absent),
+the AOT warm pool (``warm_pool`` is accepted and has no effect;
+``--no-warm-pool`` is refused), the host path for tiny solves and
 node-sharded staging (``build_scheduler`` raises ``NotImplementedError``
-for the last two, naming their ROADMAP item).
+for the last two, naming their ROADMAP item; ``--node-shards`` above 1
+is refused).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
 from typing import Optional
@@ -82,6 +99,14 @@ class SchedulerConfig:
     #: Queue 1 item 8); -1 (measure) and 0 mean no host path here, and a
     #: positive cutoff raises
     host_fallback_cells: int = -1
+    #: anti-entropy auditor (scheduler/auditor.py): a sweep every N
+    #: scheduling rounds. 0 disables the auditor entirely, the promotion
+    #: sweep on lease acquisition included (main() wires none at 0)
+    audit_interval_rounds: int = 16
+    #: staged rows the device <-> host parity probe re-lowers and
+    #: compares per sweep (round-robin: every row within
+    #: ceil(n / probe_rows) sweeps)
+    audit_probe_rows: int = 64
     #: pipelined tick path (scheduler/pipeline.py): overlap staging for
     #: round N+1 with round N's in-flight solve and move the read-back +
     #: epilogue + bus publish onto a bounded publisher worker.
@@ -150,6 +175,19 @@ class SchedulerConfig:
     migration_window_s: float = 60.0
     migration_node_cooldown_s: float = 0.0
     migration_dry_run: bool = False
+    #: closed-loop defrag controller (control/migration.py): watches the
+    #: fragmentation signal (a pending gang whose member fits no node
+    #: though the free capacity in all could hold it) and applies one
+    #: arbitrated headroom repack per cooldown. Fixed-cadence loop only
+    defrag_loop: bool = False
+    defrag_interval_s: float = 5.0
+    defrag_cooldown_s: float = 30.0
+    defrag_confirm: int = 2
+    defrag_dry_run: bool = False
+    #: the eviction walk of the in-loop Balance sweep: host (the
+    #: reference-shaped walk), device (the sweep kernel on the model's
+    #: device), verify (both, equality asserted before applying)
+    rebalance_backend: str = "host"
 
 
 def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
@@ -342,6 +380,49 @@ def build_slo_controller(streaming, bus, config: SchedulerConfig,
     return controller
 
 
+def build_defrag_controller(scheduler, config: SchedulerConfig, log=print):
+    """Close the loop on ``defrag_headroom``: with ``defrag_loop``, a
+    :class:`~koordinator_tpu_torch.control.migration.DefragController`
+    rides the fixed-cadence loop, reconciling on its pump, watching the
+    fragmentation signal and applying one arbitrated repack per
+    cooldown. None when the loop is off (the API stays
+    operator-called)."""
+    from koordinator_tpu_torch.control.migration import (
+        DefragController,
+        DefragPolicy,
+    )
+    from koordinator_tpu_torch.obs.flight import FLIGHT
+
+    if not config.defrag_loop:
+        return None
+    controller = DefragController(scheduler, DefragPolicy(
+        interval_s=config.defrag_interval_s,
+        cooldown_s=config.defrag_cooldown_s,
+        confirm=config.defrag_confirm,
+        dry_run=config.defrag_dry_run))
+    scheduler.services.register("defrag", controller.status)
+    FLIGHT.register_payload("defrag", controller.flight_payload)
+    return controller
+
+
+def build_rebalance_plugin(config: SchedulerConfig,
+                           device: DeviceLike = None):
+    """The in-loop LoadAware Balance sweep's plugin when
+    ``rebalance_interval_s`` is set (run by the loop through
+    ``scheduler.rebalance_sweep``: the arbitrated sink, delta-path
+    evictions), else None. Its ``device`` and ``verify`` backends sweep
+    on ``device`` (``cuda`` unless given)."""
+    from koordinator_tpu_torch.descheduler.loadaware import (
+        LowNodeLoad,
+        LowNodeLoadArgs,
+    )
+
+    if config.rebalance_interval_s <= 0:
+        return None
+    return LowNodeLoad(LowNodeLoadArgs(backend=config.rebalance_backend,
+                                       device=device))
+
+
 def run_loop(scheduler, config: SchedulerConfig, once: bool = False,
              log=print, elector=None, now_fn=time.time,
              max_rounds: Optional[int] = None, auditor=None,
@@ -358,9 +439,14 @@ def run_loop(scheduler, config: SchedulerConfig, once: bool = False,
     FencingError, demotes to standby, and immediately FORGETS the
     aborted round's assumed-but-unbound pods — they were never
     published, and left in place they would linger until assume expiry
-    and poison a later re-election's first snapshot. ``max_rounds`` bounds the loop for regression tests: after that
-    many attempted rounds the loop returns the number of skipped rounds
-    (0 = every round placed).
+    and poison a later re-election's first snapshot. With ``auditor`` (a
+    :class:`~koordinator_tpu_torch.scheduler.auditor.StateAuditor`), an
+    anti-entropy sweep runs before the round every
+    ``audit_interval_rounds`` rounds, plus the promotion sweep right
+    after this instance acquires the lease (wired through the elector's
+    ``on_started_leading``). ``max_rounds`` bounds the loop for
+    regression tests: after that many attempted rounds the loop returns
+    the number of skipped rounds (0 = every round placed).
 
     Cadence: rounds fire on an ABSOLUTE deadline grid — the sleep is
     computed from round start, not from end-of-work — so a slow round
@@ -373,11 +459,10 @@ def run_loop(scheduler, config: SchedulerConfig, once: bool = False,
     the read-back, epilogue, and bus publish retire on the publisher
     worker during the cadence gap. A publish-side failure surfaces at
     the next round boundary and is handled by the SAME handlers below
-    (a deferred FencingError still triggers the fencing forget), and
-    failover mode flips quiesce it through the flip hooks wired here.
-
-    ``auditor`` raises ``NotImplementedError``: the anti-entropy auditor
-    (whose sweeps would drain the pipeline first) is not ported yet."""
+    (a deferred FencingError still triggers the fencing forget); an
+    auditor's sweep drains the pipeline first, so it never reads a
+    half-retired round, and failover mode flips quiesce it through the
+    flip hooks wired here."""
     from koordinator_tpu_torch.client.leaderelection import FencingError
     from koordinator_tpu_torch.metrics.components import ROUNDS_SKIPPED
     from koordinator_tpu_torch.obs.flight import FLIGHT
@@ -387,14 +472,10 @@ def run_loop(scheduler, config: SchedulerConfig, once: bool = False,
         SolverUnavailable,
     )
 
-    if auditor is not None:
-        raise NotImplementedError(
-            "run_loop(auditor=...): the anti-entropy auditor "
-            "(scheduler/auditor.py) is not ported yet")
     if config.streaming or streaming is not None:
         # streaming serving mode: the adaptive trigger
         # replaces the fixed cadence entirely — the StreamingLoop owns
-        # its own pipeline and watchdog polls
+        # its own pipeline, auditor cadence and watchdog polls
         if streaming is None:
             raise ValueError(
                 "streaming mode needs a bus-wired StreamingLoop — "
@@ -519,6 +600,23 @@ def run_loop(scheduler, config: SchedulerConfig, once: bool = False,
             rounds += 1
             last = max_rounds is not None and rounds >= max_rounds
             try:
+                if auditor is not None:
+                    if pipeline is not None and auditor.sweep_due():
+                        # quiesce before the sweep: an unretired tick's
+                        # assumed-but-unpublished decisions would read as
+                        # drift (deferred errors surface here too, into
+                        # the handlers below)
+                        pipeline.drain("auditor-sweep")
+                    # repairs land before the solve, so a drifted cache
+                    # never feeds a round (the promotion sweep audits
+                    # the deposed leader's leavings before the first
+                    # decision)
+                    report = auditor.on_round(now=now_fn())
+                    if report is not None and report["detections"]:
+                        log(f"audit[{report['kind']}]: "
+                            f"{sum(report['detections'].values())} "
+                            f"drift(s) detected, "
+                            f"repairs: {report['repairs']}")
                 if pipeline is not None:
                     pipeline.submit_round(now=now_fn())
                     # the overlap window: warm next round's staging
@@ -589,3 +687,397 @@ def run_loop(scheduler, config: SchedulerConfig, once: bool = False,
                 hooked_backend.on_flip_degraded = prev_degraded
         if pipeline is not None:
             pipeline.stop()
+
+
+def seed_bus_from_json(bus, path: str) -> None:
+    """Populate the bus from a cluster-spec JSON file:
+    ``{"nodes": [{"name", "cpu", "memory"}],
+    "pods": [{"name", "cpu", "memory", "node"?}]}`` (cpu in millicores,
+    memory in MiB), each node with an empty usage metric: the in-process
+    stand-in for a kubeconfig."""
+    import json
+
+    from koordinator_tpu_torch.apis.extension import ResourceName
+    from koordinator_tpu_torch.apis.types import NodeMetric, NodeSpec, PodSpec
+    from koordinator_tpu_torch.client.bus import Kind
+
+    with open(path) as f:
+        spec = json.load(f)
+    now = time.time()
+    for n in spec.get("nodes", ()):
+        bus.apply(Kind.NODE, n["name"], NodeSpec(
+            name=n["name"],
+            allocatable={
+                ResourceName.CPU: int(n.get("cpu", 0)),
+                ResourceName.MEMORY: int(n.get("memory", 0)),
+            },
+        ))
+        bus.apply(Kind.NODE_METRIC, n["name"], NodeMetric(
+            node_name=n["name"], node_usage={}, update_time=now,
+        ))
+    for p in spec.get("pods", ()):
+        pod = PodSpec(
+            name=p["name"],
+            requests={
+                ResourceName.CPU: int(p.get("cpu", 0)),
+                ResourceName.MEMORY: int(p.get("memory", 0)),
+            },
+            node_name=p.get("node"),
+        )
+        bus.apply(Kind.POD, pod.uid, pod)
+
+
+#: the reference's flags whose subsystems this package does not have yet:
+#: flag -> (refused when, what it needs)
+NOT_PORTED = {
+    "no_warm_pool": (lambda v: bool(v),
+                     "--no-warm-pool (the AOT warm pool, ROADMAP Queue 1 "
+                     "item 10)"),
+    "node_shards": (lambda v: v > 1,
+                    "--node-shards above 1 (sharded staging, ROADMAP "
+                    "Queue 1 item 10)"),
+}
+
+
+def _parser() -> argparse.ArgumentParser:
+    """The binary's flags: the reference's, and ``--device``."""
+    p = argparse.ArgumentParser("koord-scheduler")
+    add = p.add_argument
+    add("--feature-gates", default="", help="A=true,B=false gate overrides")
+    add("--schedule-interval", type=float, default=1.0)
+    add("--once", action="store_true",
+        help="run a single scheduling round and exit")
+    add("--device", default=None,
+        help="torch device the in-process solves (and a supervised "
+             "sidecar's) run on (default: cuda)")
+    add("--placement-backend", choices=("inprocess", "sidecar"),
+        default="inprocess", help="where batched solves run")
+    add("--solver-address", default="/tmp/koord-solver.sock")
+    add("--solver-secret-file", default=None)
+    add("--solver-failover", action="store_true",
+        help="degraded-mode failover: a sidecar outage is answered by the "
+             "in-process solve instead of a skipped round; flips back with "
+             "hysteresis")
+    add("--solver-supervise", action="store_true",
+        help="spawn the koord-solver sidecar at --solver-address and "
+             "supervise it (liveness probes, backoff restarts, a "
+             "restart-storm circuit breaker)")
+    add("--pipelined-ticks", action="store_true",
+        help="overlapped tick path: stage round N+1 while round N's solve "
+             "is in flight and publish off the critical path (the same "
+             "placements)")
+    add("--streaming", action="store_true",
+        help="continuous-arrival serving mode: rounds fire adaptively "
+             "(batch-size watermark or oldest-pod lane deadline) instead "
+             "of on the fixed --schedule-interval cadence")
+    add("--stream-watermark", type=int, default=64,
+        help="streaming batch-size trigger: fire a round once this many "
+             "arrivals are queued")
+    add("--stream-deadline-system", type=float, default=0.002,
+        help="system-lane queue-wait target in seconds")
+    add("--stream-deadline-ls", type=float, default=0.010,
+        help="latency-sensitive-lane queue-wait target in seconds")
+    add("--stream-deadline-be", type=float, default=0.050,
+        help="best-effort-lane queue-wait target in seconds")
+    add("--stream-capacity", type=int, default=4096,
+        help="streaming intake bound: arrivals past this shed (BE first, "
+             "typed and counted)")
+    add("--stream-min-interval", type=float, default=0.0,
+        help="floor between adaptively fired rounds in seconds (0 = none)")
+    add("--slo-system", default=None,
+        help="system-lane serving SLO, e.g. 'p99=0.002' (seconds; a bare "
+             "float also parses). Any --slo-* target turns on the SLO "
+             "controller in --streaming mode, starting from the "
+             "--stream-* knobs")
+    add("--slo-ls", default=None,
+        help="latency-sensitive-lane serving SLO (see --slo-system)")
+    add("--slo-be", default=None,
+        help="best-effort-lane serving SLO (see --slo-system)")
+    add("--slo-window", type=float, default=5.0,
+        help="SLO controller rolling window in seconds")
+    add("--slo-cooldown", type=float, default=1.0,
+        help="SLO controller per-decision cooldown in seconds")
+    add("--hbm-budget-bytes", type=int, default=0,
+        help="device-memory line for staged worlds: under pressure the "
+             "least valuable demote to the host or cold rung; 0 = "
+             "unlimited")
+    add("--migration-max-per-round", type=int, default=None,
+        help="disruption budget: admitted evictions per scheduling round, "
+             "all sources combined; unset = unlimited")
+    add("--migration-max-per-node", type=int, default=None,
+        help="disruption budget: admitted evictions per node within "
+             "--migration-window; unset = unlimited")
+    add("--migration-max-per-tenant", type=int, default=None,
+        help="disruption budget: admitted evictions per QoS lane within "
+             "--migration-window; unset = unlimited")
+    add("--migration-window", type=float, default=60.0,
+        help="rolling window in seconds of the per-node and per-tenant "
+             "budgets")
+    add("--migration-node-cooldown", type=float, default=0.0,
+        help="per-node quiet period in seconds after an admitted eviction")
+    add("--migration-dry-run", action="store_true",
+        help="classify-only arbitration: every request is judged and "
+             "recorded, nothing is evicted")
+    add("--defrag-loop", action="store_true",
+        help="closed-loop defrag: one arbitrated headroom repack per "
+             "cooldown when a pending gang fits nowhere though the free "
+             "capacity could hold it; fixed-cadence loop only")
+    add("--defrag-interval", type=float, default=5.0,
+        help="defrag controller reconcile cadence in seconds")
+    add("--defrag-cooldown", type=float, default=30.0,
+        help="quiet period in seconds between applied repacks")
+    add("--defrag-confirm", type=int, default=2,
+        help="consecutive fragmented observations before the controller "
+             "acts")
+    add("--defrag-dry-run", action="store_true",
+        help="defrag decisions are recorded but never applied")
+    add("--rebalance-interval", type=float, default=0.0,
+        help="run the LoadAware Balance sweep inside the scheduling loop "
+             "every this many seconds, evictions through the migration "
+             "arbiter (0 = no in-loop sweep)")
+    add("--rebalance-backend", choices=("host", "device", "verify"),
+        default="host",
+        help="the Balance sweep's eviction walk: host, device (the sweep "
+             "kernel) or verify (both, equality asserted before applying)")
+    add("--cluster-json", default=None,
+        help="seed the bus from a cluster-spec JSON file")
+    add("--audit-interval-rounds", type=int, default=16,
+        help="anti-entropy sweep cadence in scheduling rounds (0 disables "
+             "the auditor); a promotion sweep also runs whenever this "
+             "instance acquires the lease")
+    add("--audit-probe-rows", type=int, default=64,
+        help="staged rows the device <-> host parity probe re-lowers and "
+             "compares per sweep (round-robin)")
+    add("--no-trace", action="store_true",
+        help="disable span recording; the stuck-cycle watchdog keeps "
+             "working, /debug/trace serves an empty ring")
+    add("--flight-dir", default=None,
+        help="flight-recorder dump directory (default: $KTPU_FLIGHT_DIR "
+             "or <tmp>/koord-flight)")
+    add("--profile-dir", default=None,
+        help="directory of the on-demand torch.profiler windows "
+             "(/debug/profile?rounds=K; default: $KTPU_PROFILE_DIR or "
+             "<tmp>/koord-profile)")
+    add("--node-shards", type=int, default=1,
+        help="not ported above 1: refused")
+    add("--no-warm-pool", action="store_true",
+        help="not ported yet: refused")
+    add("--monitor-timeout", type=float, default=10.0,
+        help="stuck-cycle watchdog threshold in seconds")
+    add("--leader-elect", action="store_true",
+        help="gate scheduling rounds on holding the koord-scheduler lease")
+    add("--leader-elect-identity", default=None)
+    add("--debug-port", type=int, default=None,
+        help="serve /healthz /metrics /apis/v1/plugins /debug /explain on "
+             "this port")
+    return p
+
+
+def main(argv=None) -> int:
+    t_main = time.perf_counter()
+    cli = _parser()
+    args = cli.parse_args(argv)
+    given = [flag for dest, (refused, flag) in NOT_PORTED.items()
+             if refused(getattr(args, dest))]
+    if given:
+        cli.error("not ported yet: " + ", ".join(given))
+    from koordinator_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        # the kernel library (built by nvcc only when this tree's build
+        # is missing) before the wiring: the reference restores its warm
+        # pool here, so the first round pays no compile
+        from koordinator_tpu_torch.ops import binpack_kernel
+
+        binpack_kernel._library()
+    library_s = time.perf_counter() - t0
+    secret = None
+    if args.solver_secret_file:
+        with open(args.solver_secret_file, "rb") as f:
+            secret = f.read().strip()
+    config = SchedulerConfig(
+        feature_gates=args.feature_gates,
+        schedule_interval_seconds=args.schedule_interval,
+        placement_backend=args.placement_backend,
+        solver_address=args.solver_address,
+        solver_secret=secret,
+        solver_failover=args.solver_failover,
+        audit_interval_rounds=args.audit_interval_rounds,
+        audit_probe_rows=args.audit_probe_rows,
+        pipelined_ticks=args.pipelined_ticks,
+        trace=not args.no_trace,
+        flight_dir=args.flight_dir,
+        profile_dir=args.profile_dir,
+        monitor_timeout_seconds=args.monitor_timeout,
+        node_shards=args.node_shards,
+        warm_pool=not args.no_warm_pool,
+        streaming=args.streaming,
+        stream_watermark=args.stream_watermark,
+        stream_deadline_system_s=args.stream_deadline_system,
+        stream_deadline_ls_s=args.stream_deadline_ls,
+        stream_deadline_be_s=args.stream_deadline_be,
+        stream_capacity=args.stream_capacity,
+        stream_min_interval_s=args.stream_min_interval,
+        slo_system=args.slo_system,
+        slo_ls=args.slo_ls,
+        slo_be=args.slo_be,
+        slo_window_s=args.slo_window,
+        slo_cooldown_s=args.slo_cooldown,
+        hbm_budget_bytes=args.hbm_budget_bytes,
+        migration_max_per_round=args.migration_max_per_round,
+        migration_max_per_node=args.migration_max_per_node,
+        migration_max_per_tenant=args.migration_max_per_tenant,
+        migration_window_s=args.migration_window,
+        migration_node_cooldown_s=args.migration_node_cooldown,
+        migration_dry_run=args.migration_dry_run,
+        defrag_loop=args.defrag_loop,
+        defrag_interval_s=args.defrag_interval,
+        defrag_cooldown_s=args.defrag_cooldown,
+        defrag_confirm=args.defrag_confirm,
+        defrag_dry_run=args.defrag_dry_run,
+        rebalance_interval_s=args.rebalance_interval,
+        rebalance_backend=args.rebalance_backend,
+    )
+    from koordinator_tpu_torch.client import bus as bus_mod
+    from koordinator_tpu_torch.client.wiring import wire_scheduler
+    from koordinator_tpu_torch.obs.flight import FLIGHT
+    from koordinator_tpu_torch.obs.trace import TRACER
+
+    supervisor = None
+    http_server = None
+    # everything after the supervisor's spawn runs under its finally: a
+    # wiring or readiness failure must never strand a solver child
+    # holding the solve socket
+    try:
+        if args.solver_supervise and args.placement_backend == "sidecar":
+            from koordinator_tpu_torch.cmd.solver import parse_address
+            from koordinator_tpu_torch.service.supervisor import (
+                SolverSupervisor,
+            )
+
+            extra = ()
+            if args.solver_secret_file:
+                extra += ("--secret-file", args.solver_secret_file)
+            if args.device is not None:
+                extra += ("--device", args.device)
+            supervisor = SolverSupervisor(
+                parse_address(args.solver_address),
+                listen_spec=args.solver_address, extra_argv=extra)
+            supervisor.start()
+        scheduler = build_scheduler(config, device=device)
+        bus = bus_mod.APIServer()
+        elector = None
+        if args.leader_elect:
+            import os
+
+            from koordinator_tpu_torch.client.leaderelection import (
+                LeaderElector,
+            )
+
+            elector = LeaderElector(
+                bus, "koord-scheduler",
+                args.leader_elect_identity
+                or f"koord-scheduler-{os.getpid()}")
+        wire_scheduler(bus, scheduler, elector=elector)
+        auditor = None
+        if config.audit_interval_rounds > 0:
+            from koordinator_tpu_torch.scheduler.auditor import StateAuditor
+
+            auditor = StateAuditor(
+                scheduler, bus,
+                interval_rounds=config.audit_interval_rounds,
+                probe_rows=config.audit_probe_rows)
+            scheduler.services.register("state-auditor", auditor.status)
+            if elector is not None:
+                # the promotion sweep: audit the deposed leader's
+                # leavings once per acquisition, before the first round
+                prev_started = elector.on_started_leading
+
+                def _on_started(prev=prev_started, aud=auditor):
+                    aud.note_promotion()
+                    if prev is not None:
+                        prev()
+
+                elector.on_started_leading = _on_started
+        streaming = None
+        if config.streaming:
+            # the continuous-arrival front end, wired over the bus: open
+            # loop submissions and informer traffic share one trigger
+            streaming = build_streaming_loop(scheduler, bus, config,
+                                             auditor=auditor)
+            build_slo_controller(streaming, bus, config, elector=elector)
+        defrag = None
+        rebalance = None
+        if not config.streaming:
+            defrag = build_defrag_controller(scheduler, config)
+            rebalance = build_rebalance_plugin(config, device=device)
+        elif config.defrag_loop or config.rebalance_interval_s > 0:
+            print("defrag loop / in-loop rebalance ride the "
+                  "fixed-cadence scheduling loop; ignored in "
+                  "--streaming mode")
+        t0 = time.perf_counter()
+        if args.cluster_json:
+            seed_bus_from_json(bus, args.cluster_json)
+        seed_s = time.perf_counter() - t0
+        if args.debug_port is not None:
+            from koordinator_tpu_torch.metrics.components import (
+                DEVICE_METRICS,
+                SCHEDULER_METRICS,
+                WORKINGSET_METRICS,
+            )
+            from koordinator_tpu_torch.metrics.registry import MergedGatherer
+            from koordinator_tpu_torch.obs.device import DEVICE_OBS
+            from koordinator_tpu_torch.obs.explain import PlacementExplainer
+            from koordinator_tpu_torch.utils.debug_http import DebugHTTPServer
+
+            if supervisor is not None:
+                # the supervisor's state machine beside the scheduler's
+                # own services: one GET answers "why is my solver down?"
+                scheduler.services.register("solver-supervisor",
+                                            supervisor.status)
+            if hasattr(scheduler.model.backend, "status"):
+                scheduler.services.register(
+                    "solver-failover", scheduler.model.backend.status)
+            scheduler.services.register("flight-recorder", FLIGHT.status)
+            scheduler.services.register("trace", TRACER.status)
+            scheduler.services.register("device-observatory",
+                                        DEVICE_OBS.status)
+
+            def profile(rounds: int) -> dict:
+                # a window on the model's device; a PyTorch without CUDA
+                # profiling is a permanent incapacity, not a retry
+                try:
+                    return DEVICE_OBS.request_profile(rounds, device=device)
+                except RuntimeError as e:
+                    return {"unsupported": True, "error": str(e)}
+
+            http_server = DebugHTTPServer(
+                services=scheduler.services, debug=scheduler.debug,
+                metrics=MergedGatherer(
+                    [SCHEDULER_METRICS, DEVICE_METRICS, WORKINGSET_METRICS]),
+                port=args.debug_port, tracer=TRACER,
+                explain=PlacementExplainer(scheduler).explain,
+                device=DEVICE_OBS.debug_payload, profile=profile,
+            ).start()
+            print(f"debug http on 127.0.0.1:{http_server.port}")
+        print(f"koord-scheduler: wired on {device} in "
+              f"{time.perf_counter() - t_main:.3f} s (kernel library "
+              f"{library_s:.3f} s, bus seeding {seed_s:.3f} s)", flush=True)
+        t0 = time.perf_counter()
+        rc = run_loop(scheduler, config, once=args.once, elector=elector,
+                      auditor=auditor, streaming=streaming, defrag=defrag,
+                      rebalance=rebalance)
+        print(f"koord-scheduler: loop returned {rc} after "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        return rc
+    finally:
+        if http_server is not None:
+            http_server.stop()
+        if supervisor is not None:
+            supervisor.stop()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,8 +1,8 @@
 """Per-component metric sets (counterpart of
 ``koordinator_tpu/metrics/components.py``, cut to the series the ported
 scheduler round, its preemption and pod timelines, the eviction control
-plane, the pipelined and streaming loops, the stuck-cycle monitor, the
-flight recorder, the device observatory, the serving failure domain
+plane, the anti-entropy auditor, the pipelined and streaming loops, the
+stuck-cycle monitor, the flight recorder, the device observatory, the serving failure domain
 (failover, supervisor, SLO controller, HBM working set, the solver's
 admission gate) and the descheduler emit, with the reference's names,
 labels and buckets).
@@ -112,6 +112,43 @@ SUPERVISOR_UP = SCHEDULER_METRICS.gauge(
 SUPERVISOR_BREAKER_OPEN = SCHEDULER_METRICS.gauge(
     "solver_supervisor_breaker_open",
     "1 while the restart-storm circuit breaker refuses respawns",
+)
+
+# -- anti-entropy auditor (scheduler/auditor.py) ----------------------------
+# every drift detection and every repair of the StateAuditor is counted:
+# the repair ladder (targeted -> cache-rebuild -> full-restage) never acts
+# silently
+
+AUDIT_SWEEPS = SCHEDULER_METRICS.counter(
+    "scheduler_audit_sweeps_total",
+    "Anti-entropy sweeps run, by trigger",
+    label_names=("kind",),  # periodic | promotion | manual
+)
+AUDIT_DETECTIONS = SCHEDULER_METRICS.counter(
+    "scheduler_audit_detections_total",
+    "Drift/invariant detections, by trust boundary and drift kind",
+    label_names=("boundary", "kind"),  # cache-bus | accounting | device-parity
+)
+AUDIT_REPAIRS = SCHEDULER_METRICS.counter(
+    "scheduler_audit_repairs_total",
+    "Repairs applied, by ladder rung",
+    label_names=("action",),  # targeted | cache-rebuild | full-restage
+)
+AUDIT_SWEEP_DURATION = SCHEDULER_METRICS.histogram(
+    "scheduler_audit_sweep_seconds",
+    "Wall-clock per anti-entropy sweep",
+)
+AUDIT_LAST_DRIFT = SCHEDULER_METRICS.gauge(
+    "scheduler_audit_last_sweep_drift",
+    "Detections in the most recent sweep (0 on a healthy tick)",
+)
+AUDIT_PROBE_ROWS = SCHEDULER_METRICS.counter(
+    "scheduler_audit_probe_rows_total",
+    "Staged rows re-lowered and compared by the device-parity probe",
+)
+AUDIT_UNREPAIRED = SCHEDULER_METRICS.gauge(
+    "scheduler_audit_unrepaired",
+    "Invariant violations that survived the repair ladder (page on >0)",
 )
 
 # -- pipelined tick path (scheduler/pipeline.py) ----------------------------

@@ -565,8 +565,22 @@ def test_fenced_patch_leaks_nothing_into_the_bus():
 
 
 def test_manager_loop_nodeslo_not_ported():
-    with pytest.raises(NotImplementedError, match="nodeslo"):
-        PORT.wiring.ManagerLoop(PORT.bus(), PORT.controller(), nodeslo=object())
+    """``ManagerLoop(nodeslo=...)`` (once refused, now ported): each
+    node's rendered NodeSLO lands on the bus, the same in both packages
+    (``tests/test_torch_descheduler_loop.py`` holds the renders field for
+    field)."""
+    def case(P):
+        nodeslo = importlib.import_module(f"{P.root}.manager.nodeslo")
+        bus = P.bus()
+        loop = P.wiring.ManagerLoop(bus, P.controller(),
+                                    nodeslo=nodeslo.NodeSLOController())
+        bus.apply(P.Kind.NODE, "n0", P.node())
+        loop.reconcile(now=100.0)
+        slo = bus.get(P.Kind.NODE_SLO, "n0")
+        return (slo.cpu_burst_strategy.policy,
+                slo.resource_used_threshold_with_be.enable)
+
+    assert both(case) == ("none", False)
 
 
 # -- the full colocation loop, round for round ----------------------------------

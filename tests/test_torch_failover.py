@@ -2,13 +2,15 @@
 #11 (the outage-failover churn) cut small, 48 nodes and 12 ticks with the
 sidecar killed at tick 4, through each package's ``FailoverSolver`` over
 its own ``InProcessSidecar`` under its own ``SolverSupervisor``. The kill
-and the supervised respawn are driven at fixed ticks, so the ``last_mode``
-sequence is deterministic and equal across the packages; every tick's
-placements equal the JAX failover run and both in-process runs (exact).
+and the supervised respawn are driven at fixed ticks, and a healthy solve
+has no deadline to miss (only the outage's refused connections spend a
+retry budget), so the ``last_mode`` sequence follows the kill and the
+respawn alone and is equal across the packages; every tick's placements
+equal the JAX failover run and both in-process runs (exact).
 Also: the state machine's flips and hysteresis step for step against the
 reference, the overloaded-past-budget fallback, a failed local kernel
 raising, and ``build_scheduler`` wiring ``on_flip_back``. Unix sockets
-under ``tmp_path``; every client has a bounded deadline."""
+under ``tmp_path``; every client has a bounded socket timeout."""
 
 import numpy as np
 import pytest
@@ -47,7 +49,13 @@ from koordinator_tpu_torch.testing.failure_domain import (
 )
 
 NODES, TICKS, KILL, RESPAWN = 48, 12, 4, 8
-DEADLINE_S = 0.5
+#: the retry budget of a failing remote solve after warm-up: a killed
+#: sidecar refuses the connection at once, so each outage tick fails
+#: after this budget. No per-solve deadline is set: on a loaded host a
+#: healthy solve (the JAX sidecar's first delta solve compiles) can take
+#: longer than any deadline that keeps the outage short, and would then
+#: flip the mode sequence on the host's load instead of on the kill
+RETRY_BUDGET_S = 0.5
 
 
 class Side:
@@ -107,7 +115,7 @@ def outage_run(side, addr):
         log, _, modes, _ = outage_churn(
             model, side.types, side.tracker, side.resource, n_nodes=NODES,
             ticks=TICKS, on_tick=on_tick,
-            warm=lambda: setattr(remote, "deadline_s", DEADLINE_S))
+            warm=lambda: setattr(remote, "retry_total_s", RETRY_BUDGET_S))
         return log, modes, restarts, sup.status(), backend.status()
     finally:
         sup.stop()

@@ -68,7 +68,10 @@ def test_every_module_imports_without_jax():
               # and the chaos and bench-configuration helpers
               "service.supervisor", "service.failover", "state.workingset",
               "control.slo", "utils.debug_http", "testing.chaos",
-              "testing.failure_domain"):
+              "testing.failure_domain",
+              # the binaries slice: the auditor, the NodeSLO renderer and
+              # the descheduler binary
+              "scheduler.auditor", "manager.nodeslo", "cmd.descheduler"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -200,6 +203,30 @@ def _entry_points():
 
         return wire_manager(APIServer(), **kw).controller
 
+    def wired_descheduler(**kw):
+        from koordinator_tpu_torch.client import APIServer, wire_descheduler
+        from koordinator_tpu_torch.cmd.descheduler import (
+            DeschedulerConfig,
+            build_descheduler,
+        )
+
+        loop = wire_descheduler(APIServer(),
+                                build_descheduler(DeschedulerConfig()), **kw)
+        return loop._model.params.weights
+
+    def rebalance_plugin(**kw):
+        from types import SimpleNamespace
+
+        from koordinator_tpu_torch.cmd.scheduler import (
+            SchedulerConfig,
+            build_rebalance_plugin,
+        )
+        from koordinator_tpu_torch import resolve_device
+
+        plugin = build_rebalance_plugin(SchedulerConfig(
+            rebalance_interval_s=1.0, rebalance_backend="device"), **kw)
+        return SimpleNamespace(device=resolve_device(plugin.args.device))
+
     oc_nodes = dict(capacity=np.zeros((2, 8), np.int32),
                     system_used=np.zeros((2, 8), np.int32),
                     reserved=np.zeros((2, 8), np.int32),
@@ -219,6 +246,9 @@ def _entry_points():
         ("manager.NodeResourceController",
          lambda **kw: NodeResourceController(**kw)),
         ("client.wire_manager", wired_manager),
+        ("client.wire_descheduler (its probes' PlacementModel)",
+         wired_descheduler),
+        ("cmd.scheduler.build_rebalance_plugin", rebalance_plugin),
         ("convert.overcommit_nodes",
          lambda **kw: convert.overcommit_nodes(oc_nodes, **kw).capacity),
         ("convert.overcommit_pods",

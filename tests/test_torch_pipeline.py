@@ -450,9 +450,29 @@ def test_stop_abandoned_worker_drops_late_retire():
 
 
 def test_run_loop_auditor_not_ported():
-    with pytest.raises(NotImplementedError, match="auditor"):
-        cmd.run_loop(PORT.scheduler(), cmd.SchedulerConfig(), once=True,
-                     auditor=object(), log=lambda *a: None)
+    """``run_loop(auditor=...)`` (once refused, now ported): a pipelined
+    loop with a sweep due every round drains before each sweep, so no
+    sweep reads a half-retired round as drift
+    (``tests/test_torch_auditor.py`` holds the auditor against the
+    reference)."""
+    auditor_mod = importlib.import_module(
+        "koordinator_tpu_torch.scheduler.auditor")
+    bus = PORT.bus()
+    sched = PORT.scheduler()
+    PORT.wiring.wire_scheduler(bus, sched)
+    _seed_bus(PORT, bus, np.random.default_rng(3))
+    for pod in _arrivals(PORT, np.random.default_rng(4), 0):
+        bus.apply(PORT.Kind.POD, pod.uid, pod)
+    aud = auditor_mod.StateAuditor(sched, bus, interval_rounds=1)
+    clock = iter(range(100))
+    assert cmd.run_loop(
+        sched, cmd.SchedulerConfig(schedule_interval_seconds=0.0,
+                                   pipelined_ticks=True),
+        auditor=aud, max_rounds=3, now_fn=lambda: 100.0 + next(clock),
+        sleep_fn=lambda s: None, log=lambda *a: None) == 0
+    assert aud.status()["sweeps"] == {"periodic": 3}
+    assert aud.status()["detections"] == {}
+    assert sched.cache.pods  # the rounds placed pods
 
 
 # -- one seeded churn: port pipelined == port serial == reference serial -------
