@@ -289,6 +289,37 @@ the microseconds per pod and the bound (see :func:`bound`).
    launches counted by route. (d) ``run_loop`` with
    ``build_rebalance_plugin`` at ``rebalance_backend="verify"`` over 3
    rounds, 100 nodes hot: the sweep kernel's decisions == the host walk.
+   The child's split also prints the host cutoff probe's wall (its
+   ``build_scheduler`` measures the cutoff), and the in-process round
+   measures too.
+19. The host route for tiny solves on the card. (a) ``models.placement.
+   measure_host_fallback_cells()`` on ``cuda``, measured afresh with the
+   launch counts zeroed (phase 18's build memoised it): the host's ns per
+   cell, the device round's best ms (the routed kernel's launch and the
+   read-back of ``assign``), the cutoff and the probe's wall; the probe's
+   kernel held against its twin. (b) Seeded ``example_problem`` worlds of
+   64, 512 and 5,000 nodes x 1, 4, 16 and 64 pods through
+   ``PlacementModel(host_fallback_cells=1<<18)`` (n x p where that is
+   more: 5,000 x 64) and ``PlacementModel(host_fallback_cells=0)`` on the
+   card: the host route's
+   result == the kernel's == the kernel's plain twin on every shape, each
+   route's solve timed (best of 5, back to back, the read-back included;
+   the kernel's staging, which a host-routed round skips, not counted);
+   for each width the largest cell count at which the host was faster,
+   beside the probe's cutoff. (c) ``churn_world(5000)`` through a default
+   ``build_scheduler(SchedulerConfig())`` and one pinned at
+   ``host_fallback_cells=0``, churn ticks of 1-64 pending pods: every
+   tick's cells and ``last_solver`` printed, the route as the cutoff says,
+   placements equal; with a cutoff under 5,000 cells the ticks are
+   repeated on config #11's 512-node world. (d) The kill-the-leader chaos
+   drive (``testing.chaos.drive_audited_cluster``: 8 nodes, 24 ticks of 4
+   pods, the leader killed at tick 10, a sweep every 4 rounds) with a
+   seeded schedule over the three ``STATE_FAULT_KINDS`` planted in the
+   standby and the cutoff at 32 cells on even ticks and 0 on odd ones, on
+   the card and on the CPU: equal saboteur logs, detections, repairs,
+   per-tick placements and buses, equal to the crash-free run; the
+   staged-row desync wrote a CUDA row and its sweep reported it. The
+   kernel-routed solves of (a)-(d) are held against their twins.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -414,7 +445,7 @@ from koordinator_tpu_torch.state.cluster import (
     lower_nodes,
 )
 from koordinator_tpu_torch.state.workingset import WORKING_SET
-from koordinator_tpu_torch.testing import plugin_chain
+from koordinator_tpu_torch.testing import chaos, plugin_chain
 from koordinator_tpu_torch.testing.arrivals import (
     REGIMES,
     diurnal_trace,
@@ -596,6 +627,15 @@ DESCHED_HOT = 10
 REBAL_LOOP_HOT = 100
 REBAL_LOOP_ROUNDS = 3
 BINARY_TIMEOUT_S = 300
+# phase 19: the crossover's widths, pod counts and timed repeats; the
+# churn ticks' pending pods at the main path's width; the chaos drive's
+# seed and its host cutoff on even ticks (8 nodes x 4 pods)
+HOST_WIDTHS = (64, 512, 5000)
+HOST_PODS = (1, 4, 16, 64)
+HOST_REPS = 5
+HOST_TICK_PODS = (1, 2, 4, 8, 16, 32, 64)
+CHAOS_SEED = 31
+CHAOS_HOST_CELLS = 32
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
@@ -3778,9 +3818,12 @@ def aggregated_world():
 
 
 def aggregated_config(score_pct) -> SchedulerConfig:
+    """Phase 17's aggregated scheduler; its rounds hold the kernel, so the
+    host cutoff is pinned at 0."""
     return SchedulerConfig(
         feature_gates=NO_PREEMPTION, aggregated_usage_thresholds=AGG_THRESHOLDS,
-        aggregated_usage_pct=AGG_USAGE_PCT, aggregated_score_pct=score_pct)
+        aggregated_usage_pct=AGG_USAGE_PCT, aggregated_score_pct=score_pct,
+        host_fallback_cells=0)
 
 
 def aggregated_rounds(card) -> list:
@@ -3788,7 +3831,8 @@ def aggregated_rounds(card) -> list:
     each score percentile, against the unaggregated round on the same
     world. Returns its ``kernels`` entries."""
     world = aggregated_world()
-    plain = build_scheduler(SchedulerConfig(feature_gates=NO_PREEMPTION))
+    plain = build_scheduler(SchedulerConfig(feature_gates=NO_PREEMPTION,
+                                            host_fallback_cells=0))
     testing.feed_scheduler(plain, world)
     unaggregated = plain.schedule_pending(now=20.0)
     entries = []
@@ -4081,6 +4125,7 @@ def scheduler_binary(card, path):
                            if x.startswith("koord-scheduler: loop returned"))
     wired_s, library_s = (seconds_after(wired, " in "),
                           seconds_after(wired, "kernel library "))
+    probe_s = seconds_after(wired, "host cutoff probe ")
     seeding_s = seconds_after(wired, "bus seeding ")
     round_s = seconds_after(ended, " after ")
     start_s = wired_at - t0 - wired_s
@@ -4102,8 +4147,9 @@ def scheduler_binary(card, path):
           f"seed_bus_from_json + run_loop(once=True)); child wall "
           f"{child_wall:.3f} s = interpreter start and imports "
           f"{start_s:.3f} s + wiring {wired_s:.3f} s (kernel library load "
-          f"{library_s:.3f} s, bus seeding {seeding_s:.3f} s; the rest is "
-          f"the scheduler's build, the bus, the elector and the auditor) + "
+          f"{library_s:.3f} s, the host cutoff probe {probe_s:.3f} s, bus "
+          f"seeding {seeding_s:.3f} s; the rest is the scheduler's build, "
+          f"the bus, the elector and the auditor) + "
           f"the round {round_s:.3f} s + the rest, process exit included "
           f"{child_wall - start_s - wired_s - round_s:.3f} s (exit alone "
           f"{exit_s:.3f} s); in-process round "
@@ -4370,6 +4416,264 @@ def binaries(card) -> list:
     print(f"binaries phase wall {time.perf_counter() - t0:.2f} s", flush=True)
     return [main_entry, probe_entry, sweep]
 
+# -- 19. the host route for tiny solves ------------------------------------------
+
+def example_snapshot(n_nodes, n_pods, seed):
+    """``testing.example_problem``'s seeded world (allocatable, usage and
+    requests) as a ClusterSnapshot without a tracker."""
+    nodes, pods, _ = testing.example_problem_arrays(n_nodes, n_pods, seed)
+    cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+
+    def res(row):
+        return {cpu: int(row[cpu]), mem: int(row[mem])}
+
+    return ClusterSnapshot(
+        nodes=[ttypes.NodeSpec(name=f"n{i}", allocatable=res(a))
+               for i, a in enumerate(nodes["alloc"])],
+        node_metrics={f"n{i}": ttypes.NodeMetric(
+            node_name=f"n{i}", node_usage=res(u), update_time=19.0)
+            for i, u in enumerate(nodes["usage"])},
+        pending_pods=[ttypes.PodSpec(name=f"p{j}", requests=res(r))
+                      for j, r in enumerate(pods["req"])],
+        now=20.0)
+
+
+def probe_phase(card):
+    """Phase 19 (a): ``measure_host_fallback_cells()`` on the card, measured
+    afresh (phase 18's build memoised it) with the launch counts zeroed:
+    the host's ns per cell, the device round's best, the cutoff and the
+    probe's wall. Returns ``(cutoff, kernels entry)``."""
+    placement.HOST_PROBES.clear()
+    cells, launches, wall, captured = drive(
+        placement.measure_host_fallback_cells)
+    rec = placement.host_probe()
+    inp, route = captured[0]
+    assert len(captured) == sum(launches.values()) == launches[route.kind]
+    print(f"host cutoff probe [{card}]: the host route "
+          f"{rec['host_ns_per_cell']:.1f} ns per cell (schedule_vectorized "
+          f"on example_problem(64, 128), "
+          f"best of 5), the device round {rec['device_best_ms']:.4f} ms "
+          f"(route {route_name(route)}, launch + read-back of assign, best of "
+          f"5): cutoff {cells} cells; probe wall {rec['wall_s']:.3f} s; "
+          f"launches {launches[route.kind]}", flush=True)
+    stats = compare(inp, "the probe's device round, 64 x 128", card, reps=5)
+    return cells, entry("binpack_host_probe_round", launches[route.kind],
+                        stats, 317)
+
+
+def best_ms(fn):
+    times = []
+    for _ in range(HOST_REPS):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return min(times) * 1e3
+
+
+def crossover(card, cutoff):
+    """Phase 19 (b): example worlds of HOST_WIDTHS nodes x HOST_PODS pods
+    through a host-routed and a kernel-routed ``PlacementModel`` on the
+    card: host == kernel == the kernel's plain twin on every shape, and
+    each route's solve (the host route's oracle; the kernel's dispatch
+    and read-back) timed, best of HOST_REPS back to back. The lowering is
+    the same for both; the kernel's staging, which a host-routed round
+    skips, is not counted. Prints, for each width, the largest cell count
+    at which the host was faster. Returns its ``kernels`` entry (the
+    widest shape timed)."""
+    err, launches, widest = 0, 0, None
+    for n in HOST_WIDTHS:
+        faster = []
+        for p in HOST_PODS:
+            calls = {}
+            out = {}
+            # the host model's cutoff covers the shape (5,000 x 64 is
+            # past 1<<18 cells)
+            for name, cells, attr in (
+                    ("host", max(1 << 18, n * p), "_host_solve"),
+                    ("kernel", 0, "_dispatch_solve")):
+                model = PlacementModel(host_fallback_cells=cells)
+                solve = getattr(model, attr)
+
+                def record(*args, _s=solve, _n=name, **kwargs):
+                    calls[_n] = (args, kwargs, _s(*args, **kwargs))
+                    return calls[_n][2]
+
+                setattr(model, attr, record)
+                result, launched, _, captured = drive(
+                    lambda: model.schedule(example_snapshot(n, p, seed=n + p)))
+                assert model.last_solver == name, model.last_solver
+                launches += sum(launched.values())
+                out[name] = (dict(result), solve, captured)
+            assert out["host"][0] == out["kernel"][0], f"{n} x {p}"
+            (inp, route), = out["kernel"][2]
+            err = max(err, max_abs_err(bk.binpack(inp), twin(inp, route)))
+            # the host route's SolveResult == the kernel's, bit for bit
+            host, kernel = calls["host"][2], calls["kernel"][2]
+            for f in ("assign", "commit", "raw_assign"):
+                assert torch.equal(getattr(host, f),
+                                   getattr(kernel, f).cpu()), f
+            for f in ("used_req", "est_extra", "prod_base"):
+                assert torch.equal(getattr(host.node_state, f), getattr(
+                    kernel.node_state, f).cpu()), f
+            times = {}
+            for name in ("host", "kernel", "host", "kernel"):
+                solve = out[name][1]
+                args, kwargs, _ = calls[name]
+                ms = best_ms(lambda: solve(*args, **kwargs).assign.cpu())
+                times[name] = min(times.get(name, ms), ms)
+            if times["host"] < times["kernel"]:
+                faster.append(n * p)
+            print(f"crossover {n} x {p} ({n * p} cells) [{card}]: host == "
+                  f"kernel == twin (route {route_name(route)}); host "
+                  f"{times['host']:.4f} ms, kernel + read-back "
+                  f"{times['kernel']:.4f} ms", flush=True)
+            widest = inp
+        print(f"crossover at {n} nodes [{card}]: the host route was faster "
+              f"up to {max(faster) if faster else 0} cells "
+              f"(at {faster or 'no'} cells); the probe's cutoff {cutoff} "
+              f"cells", flush=True)
+    stats = compare(widest, f"crossover, {HOST_WIDTHS[-1]} x {HOST_PODS[-1]}",
+                    card, reps=5)
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    return entry("binpack_host_crossover", launches, stats, 317)
+
+
+def cutoff_ticks(card, cutoff):
+    """Phase 19 (c): churn ticks of HOST_TICK_PODS pending pods at the main
+    path's width through a default ``build_scheduler`` (the measured
+    cutoff) and a scheduler pinned to the kernel, fed the same events:
+    equal placements every tick, each tick's cells and route printed.
+    When the cutoff is under the width, no tick can take the host route;
+    the ticks are then repeated on config #11's 512-node world. Returns
+    its ``kernels`` entry."""
+    def arm(label, n_nodes, feed):
+        default = build_scheduler(SchedulerConfig())
+        pinned = build_scheduler(SchedulerConfig(host_fallback_cells=0))
+        assert default.model.host_fallback_cells == cutoff
+        feed((default, pinned))
+        rng = np.random.default_rng(7)
+        routes, launches, last = [], 0, None
+        for t, k in enumerate(HOST_TICK_PODS):
+            now = 20.0 + t
+            testing.feed_churn_tick((default, pinned), snap_of[n_nodes], rng,
+                                    dirty=CHURN_DIRTY, pending=k, t=t,
+                                    now=now)
+            cells = n_nodes * len(default.cache.pending)
+            result, launched, wall, captured = drive(
+                lambda: default.schedule_pending(now=now))
+            same_round(result, pinned.schedule_pending(now=now),
+                       f"{label} tick {t}")
+            solver = default.model.last_solver
+            assert (solver == "host") == (cells <= cutoff), (cells, solver)
+            routes.append(f"{cells}:{solver}")
+            launches += sum(launched.values())
+            if captured:
+                last = captured[-1]
+        print(f"{label} [{card}]: ticks of {HOST_TICK_PODS} pending pods, "
+              f"cells:route {routes}; every tick == the kernel-pinned "
+              f"scheduler's; measured cutoff {cutoff} cells", flush=True)
+        return launches, last
+
+    snap_of = {}
+    snap_of[NODES], _ = testing.churn_world(NODES, assigned_per_node=2,
+                                            seed=42)
+    launches, last = arm(f"cutoff ticks, {NODES} nodes", NODES,
+                         lambda s: [testing.feed_scheduler(x, snap_of[NODES])
+                                    for x in s])
+    if cutoff < NODES:
+        print(f"cutoff ticks: the cutoff ({cutoff} cells) is under one pod "
+              f"at {NODES} nodes, so no tick routed to the host there; "
+              f"repeating on config #11's {OUTAGE.n_nodes}-node world",
+              flush=True)
+        snap_of[OUTAGE.n_nodes], _ = testing.churn_world(
+            OUTAGE.n_nodes, assigned_per_node=0, seed=42)
+        more, _ = arm(f"cutoff ticks, config #11's {OUTAGE.n_nodes} nodes",
+                      OUTAGE.n_nodes,
+                      lambda s: [testing.feed_scheduler(
+                          x, snap_of[OUTAGE.n_nodes]) for x in s])
+        launches += more
+    inp, route = last
+    stats = compare(inp, f"cutoff tick, {NODES} x {HOST_TICK_PODS[-1]}",
+                    card, reps=5)
+    return entry("binpack_host_cutoff_tick", launches, stats, 317)
+
+
+def chaos_drive(card):
+    """Phase 19 (d): the kill-the-leader chaos drive (8 nodes, 24 ticks of
+    4 pods, the leader killed at tick 10, a sweep every 4 rounds) with a
+    seeded schedule over the three state faults planted in the standby,
+    the host cutoff at CHAOS_HOST_CELLS on even ticks and 0 on odd ones,
+    on the card and on the CPU: equal saboteur logs, auditor detections
+    and repairs, per-tick placements and buses, and equal to the
+    crash-free run; the staged-row desync wrote a CUDA row and its sweep
+    reported it. Returns its ``kernels`` entry."""
+    sabotage = chaos.state_fault_schedule(CHAOS_SEED).events
+    desynced = []
+
+    class Recorded(chaos.StateSaboteur):
+        def _desync_staged_row(self):
+            state = self.scheduler.model.staged_cache.audit_view()[1]
+            name = super()._desync_staged_row()
+            if name is not None:
+                desynced.append((name, state.usage.device.type))
+            return name
+
+    def run(device, kill_leader=True, plan=sabotage):
+        env = chaos.port_env()
+        env.StateSaboteur = Recorded
+        return chaos.drive_audited_cluster(
+            env, CHAOS_SEED, kill_leader=kill_leader, sabotage=plan,
+            make_model=lambda: PlacementModel(device=device),
+            cutoff_of_tick=lambda t: 0 if t % 2 else CHAOS_HOST_CELLS)
+
+    def record(out):
+        log, bus, info = out
+        status = info["aud_b"].status()
+        arrays = lower_nodes(snapshot_from_bus(bus, now=200.0))
+        return dict(
+            log=log, saboteur=info["saboteur"].log,
+            detections=status["detections"], repairs=status["repairs"],
+            unrepaired=status["last"]["unrepaired"],
+            solvers=info["solvers"],
+            bus={f: getattr(arrays, f).tolist() for f in STAGED_NODE_FIELDS})
+
+    t0 = time.perf_counter()
+    out, launches, wall, captured = drive(lambda: run(None))
+    assert [d for _, d in desynced] == [CHILD_DEVICE], desynced
+    card_rec = record(out)
+    cpu_rec = record(run("cpu"))
+    free_log = run(None, kill_leader=False, plan={})[0]
+    assert card_rec == cpu_rec, "chaos drive: cuda != cpu"
+    assert card_rec["log"] == free_log, "chaos drive != crash-free run"
+    assert card_rec["detections"].get(
+        "device-parity/staged-device-drift", 0) >= 1, card_rec["detections"]
+    assert card_rec["unrepaired"] == []
+    solvers = Counter(card_rec["solvers"])
+    assert solvers["host"] > 0 and solvers["kernel"] > 0, solvers
+    assert sum(launches.values()) == len(captured) == solvers["kernel"]
+    print(f"chaos drive [{card}]: seed {CHAOS_SEED}, faults "
+          f"{sorted(sabotage.items())} into the standby, leader killed at "
+          f"tick {chaos.KILL_TICK}; routes {dict(solvers)}; the desync wrote "
+          f"{desynced[0][0]}'s staged {desynced[0][1]} row; detections "
+          f"{card_rec['detections']}, repairs {card_rec['repairs']}; cuda == "
+          f"cpu (saboteur log, detections, repairs, placements, bus) == "
+          f"the crash-free run; card run wall {wall:.3f} s, phase "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    inp, _ = captured[-1]
+    stats = compare(inp, "a chaos drive tick, 8 x 4", card, reps=5)
+    return entry("binpack_chaos_drive_tick", len(captured), stats, 317)
+
+
+def host_route(card) -> list:
+    """Phase 19. Returns its ``kernels`` entries."""
+    t0 = time.perf_counter()
+    cutoff, probe_entry = probe_phase(card)
+    entries = [probe_entry, crossover(card, cutoff),
+               cutoff_ticks(card, cutoff), chaos_drive(card)]
+    print(f"host route phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return entries
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -4563,6 +4867,9 @@ def main() -> int:
 
     # -- 18. the binaries: scheduler main(), the auditor, the descheduler ----
     kernels += binaries(card)
+
+    # -- 19. the host route for tiny solves --------------------------------------
+    kernels += host_route(card)
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "
           "kernel library's build included)", flush=True)

@@ -41,13 +41,18 @@ by :func:`build_streaming_loop` fires rounds on the adaptive trigger).
 Placements are the same in all three, tick for tick. With ``auditor``,
 a sweep runs before the round every ``audit_interval_rounds`` rounds.
 
-:class:`SchedulerConfig` has the reference's names and defaults. Not
-ported, and queued in ROADMAP.md: the scan unroll (its field is absent),
-the AOT warm pool (``warm_pool`` is accepted and has no effect;
-``--no-warm-pool`` is refused), the host path for tiny solves and
-node-sharded staging (``build_scheduler`` raises ``NotImplementedError``
-for the last two, naming their ROADMAP item; ``--node-shards`` above 1
-is refused).
+:class:`SchedulerConfig` has the reference's names and defaults. The
+host route for tiny solves follows ``host_fallback_cells``: at -1 (the
+default) ``build_scheduler`` measures the cutoff on the scheduler's
+device (``models/placement.measure_host_fallback_cells``, once per device
+and solver configuration in a process, so it is part of :func:`main`'s
+start), a positive value is
+taken as given, and 0, a sidecar backend or ``BatchedPlacement`` off
+leave it off. Not ported, and queued in ROADMAP.md: the scan unroll (its
+field is absent), the AOT warm pool (``warm_pool`` is accepted and has no
+effect; ``--no-warm-pool`` is refused) and node-sharded staging
+(``build_scheduler`` raises ``NotImplementedError`` for it, naming its
+ROADMAP item; ``--node-shards`` above 1 is refused).
 """
 
 from __future__ import annotations
@@ -95,9 +100,10 @@ class SchedulerConfig:
     solver_failover: bool = False
     solver_failover_threshold: int = 3
     solver_failover_recovery_probes: int = 2
-    #: the host path for tiny plain solves: not ported yet (ROADMAP
-    #: Queue 1 item 8); -1 (measure) and 0 mean no host path here, and a
-    #: positive cutoff raises
+    #: plain solves with pods x nodes up to this run on the host route
+    #: (the numpy oracle; a launch and a read-back cost more there).
+    #: -1 = measure at start-up on the scheduler's device
+    #: (models/placement.measure_host_fallback_cells), 0 = off
     host_fallback_cells: int = -1
     #: anti-entropy auditor (scheduler/auditor.py): a sweep every N
     #: scheduling rounds. 0 disables the auditor entirely, the promotion
@@ -201,10 +207,6 @@ def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
 
     gates = SCHEDULER_GATES.copy()
     gates.set_from_spec(config.feature_gates)
-    if config.host_fallback_cells > 0:
-        raise NotImplementedError(
-            "host_fallback_cells > 0: the host path for tiny solves is not "
-            "ported yet (ROADMAP Queue 1 item 8)")
     if config.node_shards > 1:
         raise NotImplementedError(
             "node_shards > 1: sharded staging is not ported yet (ROADMAP "
@@ -236,12 +238,26 @@ def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
             usage_duration_seconds=config.aggregated_usage_duration_seconds,
             score_pct=config.aggregated_score_pct,
             score_duration_seconds=config.aggregated_score_duration_seconds)
+    solver_config = SolverConfig(
+        fit_weight=config.fit_weight,
+        loadaware_weight=config.loadaware_weight,
+        score_according_prod=config.score_according_prod)
+    if backend is not None or not gates.enabled("BatchedPlacement"):
+        # the sidecar takes every solve; with the gate off no batched
+        # solve consults the cutoff: no probe
+        fallback_cells = 0
+    elif config.host_fallback_cells < 0:
+        from koordinator_tpu_torch.models.placement import (
+            measure_host_fallback_cells,
+        )
+
+        fallback_cells = measure_host_fallback_cells(solver_config,
+                                                     device=device)
+    else:
+        fallback_cells = config.host_fallback_cells
     model = PlacementModel(
-        config=SolverConfig(
-            fit_weight=config.fit_weight,
-            loadaware_weight=config.loadaware_weight,
-            score_according_prod=config.score_according_prod),
-        aggregated=aggregated, backend=backend, device=device)
+        config=solver_config, aggregated=aggregated, backend=backend,
+        device=device, host_fallback_cells=fallback_cells)
     if backend is not None and hasattr(backend, "on_flip_back"):
         # the flip-back forces a full relower and restage, so that the
         # recovered sidecar's delta base is established from scratch
@@ -1062,9 +1078,16 @@ def main(argv=None) -> int:
                 device=DEVICE_OBS.debug_payload, profile=profile,
             ).start()
             print(f"debug http on 127.0.0.1:{http_server.port}")
+        from koordinator_tpu_torch.models.placement import host_probe
+
+        probe = host_probe(device, scheduler.model.config)
+        probed = ("" if probe is None else
+                  f"host cutoff probe {probe['wall_s']:.3f} s -> "
+                  f"{probe['cells']} cells, ")
         print(f"koord-scheduler: wired on {device} in "
               f"{time.perf_counter() - t_main:.3f} s (kernel library "
-              f"{library_s:.3f} s, bus seeding {seed_s:.3f} s)", flush=True)
+              f"{library_s:.3f} s, {probed}bus seeding {seed_s:.3f} s)",
+              flush=True)
         t0 = time.perf_counter()
         rc = run_loop(scheduler, config, once=args.once, elector=elector,
                       auditor=auditor, streaming=streaming, defrag=defrag,

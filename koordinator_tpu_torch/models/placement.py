@@ -28,12 +28,24 @@ the snapshot is lowered and staged in full; the results are identical.
 The staging cache is a resident of the HBM working set
 (``state/workingset.py``): its stagings and scatters run under the
 demote-and-retry ladder, and it demotes to the host or cold rung under
-budget pressure. Not in this port yet, each queued in ROADMAP.md:
-sharded staging (no mesh on one card), the host path for tiny
-solves, pod-shape, reservation-axis and victim-axis bucketing (they share
-XLA compiles, which eager PyTorch does not have; results are identical
-without them) and the kernel's cached reservation one-hot (the CUDA
-kernel has none). A solve records the reference's ``lower``, ``stage``,
+budget pressure.
+
+The host route for tiny solves: with ``host_fallback_cells`` above 0, a
+plain solve (no quota, gang, extras, reservations or NUMA) of at most
+that many node x pod cells runs the numpy oracle
+``oracle/vectorized.schedule_vectorized`` on the host arrays the round
+lowered (``last_solver`` "host"), bit for bit the kernel's answer, with
+nothing staged (the round skips the staging cache's device half; the
+next kernel round stages again), no kernel launch and no read-back. The
+route is decided before staging. :func:`measure_host_fallback_cells`
+finds the cutoff on a device by timing both routes; ``cmd/scheduler.
+build_scheduler`` runs it at its default.
+
+Not in this port yet, each queued in ROADMAP.md: sharded staging (no
+mesh on one card), pod-shape, reservation-axis and victim-axis bucketing
+(they share XLA compiles, which eager PyTorch does not have; results are
+identical without them) and the kernel's cached reservation one-hot (the
+CUDA kernel has none). A solve records the reference's ``lower``, ``stage``,
 ``dispatch``, ``device_solve`` and ``read_back`` spans into
 ``obs/trace.TRACER``, and :meth:`PlacementModel.prestage` its
 ``prestage`` span; the solve launch, the read-back and the prestage
@@ -77,6 +89,7 @@ from koordinator_tpu_torch.ops.binpack import (
     PodBatch,
     ResvArrays,
     ScoreParams,
+    SolveResult,
     SolverConfig,
     scatter_node_rows,
     solve_batch,
@@ -100,6 +113,7 @@ from koordinator_tpu_torch.ops.preempt import (
     select_victims,
 )
 from koordinator_tpu_torch.ops.quota import QuotaState
+from koordinator_tpu_torch.oracle.vectorized import schedule_vectorized
 from koordinator_tpu_torch.quota.core import GroupQuotaManager
 from koordinator_tpu_torch.scheduler.plugins.nodeports import pod_host_ports
 from koordinator_tpu_torch.scheduler.plugins.reservation import (
@@ -121,6 +135,92 @@ from koordinator_tpu_torch.state.cluster import (
     lower_resident_pods,
 )
 from koordinator_tpu_torch.state.workingset import WORKING_SET
+
+
+def measure_host_fallback_cells(config: SolverConfig = SolverConfig(),
+                                rounds: int = 5, ceiling: int = 1 << 18,
+                                device: DeviceLike = None) -> int:
+    """The host/device cutoff in node x pod cells, measured on ``device``
+    (``cuda`` unless given), once per device and arguments in a process.
+
+    The host route costs about ``a`` a cell; a tiny solve on the device
+    costs a fixed ``c`` (the launch and the read-back). Solves of fewer
+    than ``c / a`` cells are faster on the host. ``a`` is the best of
+    ``rounds`` runs of ``schedule_vectorized`` on ``testing.
+    example_problem(64, 128, seed=1234)``, over its 8,192 cells, after a
+    warm run; ``c`` the best of ``rounds`` device rounds of that problem
+    (the solve ``PlacementModel._dispatch_solve`` runs on ``device``
+    under ``config``, on CUDA the routed kernel's launch, and the
+    read-back of ``assign``), after a warm round that loads the kernel
+    library. Returns ``max(0, min(int(c / a), ceiling))``; the parts are
+    kept in :data:`HOST_PROBES`, which a later call with the same
+    arguments returns from."""
+    from koordinator_tpu_torch.oracle.vectorized import oracle_args
+    from koordinator_tpu_torch.testing import example_problem
+
+    key = _probe_key(device, config, rounds, ceiling)
+    with _PROBE_LOCK:
+        cached = HOST_PROBES.get(key)
+        if cached is not None:
+            return cached["cells"]
+        t_start = time.perf_counter()
+
+        def best_of(fn):
+            times = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            return min(times)
+
+        n, p = 64, 128
+        state, pods, params = example_problem(n, p, seed=1234,
+                                              device=resolve_device(device))
+        args = oracle_args(state, pods, params)
+        schedule_vectorized(*args)  # warm
+        per_cell = best_of(lambda: schedule_vectorized(*args)) / (n * p)
+        model = PlacementModel(config=config, device=state.alloc.device)
+
+        def device_round():
+            model._dispatch_solve(state, pods, None, None, None).assign.cpu()
+
+        device_round()  # loads the library
+        device_best = best_of(device_round)
+        cells = (0 if per_cell <= 0
+                 else max(0, min(int(device_best / per_cell), ceiling)))
+        HOST_PROBES[key] = {
+            "device": state.alloc.device,
+            "host_ns_per_cell": per_cell * 1e9,
+            "device_best_ms": device_best * 1e3,
+            "cells": cells,
+            "wall_s": time.perf_counter() - t_start,
+        }
+        return cells
+
+
+def _probe_key(device: DeviceLike, config: SolverConfig, rounds: int,
+               ceiling: int) -> tuple:
+    device = resolve_device(device)
+    index = device.index
+    if device.type == "cuda" and index is None:
+        index = torch.cuda.current_device()
+    return (device.type, index, config, rounds, ceiling)
+
+
+def host_probe(device: DeviceLike = None,
+               config: SolverConfig = SolverConfig(), rounds: int = 5,
+               ceiling: int = 1 << 18) -> Optional[dict]:
+    """What :func:`measure_host_fallback_cells` measured on ``device``
+    (``cuda`` unless given) with these arguments in this process, or None
+    before it ran."""
+    return HOST_PROBES.get(_probe_key(device, config, rounds, ceiling))
+
+
+#: one probe per device (type, index), config, rounds and ceiling a
+#: process: the device its round ran on, the host's ns per cell, the
+#: device round's best ms, the cutoff and the probe's wall
+HOST_PROBES: Dict[tuple, dict] = {}
+_PROBE_LOCK = threading.Lock()
 
 
 def _vec(mapping) -> np.ndarray:
@@ -674,11 +774,18 @@ class PlacementModel:
         device: DeviceLike = None,
         fine=None,
         backend=None,
+        host_fallback_cells: int = 0,
     ):
         self.device = resolve_device(device)
         #: a remote solve backend (``service/client.RemoteSolver``, the
         #: sidecar boundary), or None: solve in-process
         self.backend = backend
+        #: plain solves of at most this many node x pod cells take the
+        #: host route (the numpy oracle on the round's host arrays): at
+        #: tiny shapes a launch and a read-back cost more than the whole
+        #: solve. 0 = off (the default; ``cmd/scheduler.build_scheduler``
+        #: measures a cutoff)
+        self.host_fallback_cells = host_fallback_cells
         #: the fine-grained manager (``models/finegrained.FineGrained``),
         #: or None; a Scheduler binds its own
         self.fine = fine
@@ -707,12 +814,16 @@ class PlacementModel:
             thresholds=put(self.usage_thresholds),
             prod_thresholds=put(self.prod_usage_thresholds),
         )
+        #: the same parameters as host arrays, for the host route
+        self._host_params = (_vec(self.resource_weights),
+                             _vec(self.usage_thresholds),
+                             _vec(self.prod_usage_thresholds))
         #: static per-model kernel eligibility and score divisor (params
         #: and config are fixed)
         self._kernel_eligible = kernel_supported(self.params, self.config)
         self._wsum = weight_sum(self.params)
-        #: which path the last solve took: "kernel", "loop", or with a
-        #: backend "remote" (or the backend's own ``last_mode``)
+        #: which path the last solve took: "kernel", "loop", "host", or
+        #: with a backend "remote" (or the backend's own ``last_mode``)
         self.last_solver: Optional[str] = None
         #: wall-time breakdown of the last schedule(): lower_s, stage_s,
         #: solve_s (solve_s is filled at read-back)
@@ -761,7 +872,8 @@ class PlacementModel:
         t0 = TRACER.now()
         with DEVICE_OBS.annotate("prestage"):
             _, _, times, _ = self.staged_cache.ensure(
-                snapshot, want_device=not self._numa_staging)
+                snapshot, want_device=not (self._numa_staging
+                                           or self._host_sized(snapshot)))
         # the overlap window's span: in a pipelined run it crosses the
         # publisher track's device_solve span
         TRACER.emit("prestage", cat="stage", t0=t0,
@@ -989,14 +1101,16 @@ class PlacementModel:
         cache_stage_s = 0.0
         self.last_staging = None
         self.staging_delta = None
+        host_sized = self._host_sized(snapshot)
         if snapshot.delta_tracker is not None:
             node_arrays, staged_state, cache_times, _ = (
                 self.staged_cache.ensure(
                     snapshot,
                     # a solve that stages NUMA inventories restages in full
-                    # below: skip the cache's device half (decided from the
-                    # last solve: one extra stage when topology appears)
-                    want_device=not self._numa_staging))
+                    # below (decided from the last solve: one extra stage
+                    # when topology appears), and a host-routed one stages
+                    # nothing: skip the cache's device half
+                    want_device=not (self._numa_staging or host_sized)))
             cache_stage_s = cache_times["stage_s"]
             self.last_staging = self.staged_cache.last_path
             self.staging_delta = self.staged_cache.take_wire_delta()
@@ -1058,24 +1172,34 @@ class PlacementModel:
             snapshot, node_arrays, pods_in_order)
         rows, affinity = self._host_rows(snapshot, pods_in_order, specials)
         t_host_done = time.perf_counter()
+        # the host route: a plain solve (no quota, gang, extras,
+        # reservations or NUMA) of at most host_fallback_cells cells
+        host_route = (host_sized and not rows and resv_np is None
+                      and not use_numa)
 
-        if staged_state is not None:
-            state = staged_state
-            # the solve about to dispatch reads this generation: later
-            # scatters write beside it until finalize() unpins it
-            self.staged_cache.pin(state)
+        state = batch = numa_aux = gang_state = quota_state = resv = None
+        if host_route:
+            # it reads the host arrays: nothing of the round goes to the
+            # device, and the cache stages again for the next kernel round
+            staged_state = None
         else:
-            state = self.stage_nodes(node_arrays, numa_cap, numa_free)
-        batch = self.stage_pods(pod_arrays, blocked if blocked.any() else None,
-                                pod_policy if use_numa else None)
-        numa_aux = (NumaAux(node_policy=torch.as_tensor(node_policy,
-                                                        device=self.device))
-                    if use_numa else None)
-        gang_state = (GangState.build(**gang_arrays, device=self.device)
-                      if gang_arrays is not None else None)
-        quota_state = (QuotaState.build(**quota_arrays, device=self.device)
-                       if quota_arrays is not None else None)
-        resv = None
+            if staged_state is not None:
+                state = staged_state
+                # the solve about to dispatch reads this generation: later
+                # scatters write beside it until finalize() unpins it
+                self.staged_cache.pin(state)
+            else:
+                state = self.stage_nodes(node_arrays, numa_cap, numa_free)
+            batch = self.stage_pods(pod_arrays,
+                                    blocked if blocked.any() else None,
+                                    pod_policy if use_numa else None)
+        if use_numa:
+            numa_aux = NumaAux(node_policy=torch.as_tensor(
+                node_policy, device=self.device))
+        if gang_arrays is not None:
+            gang_state = GangState.build(**gang_arrays, device=self.device)
+        if quota_arrays is not None:
+            quota_state = QuotaState.build(**quota_arrays, device=self.device)
         if resv_np is not None:
             resv = ResvArrays(**{k: torch.as_tensor(v, device=self.device)
                                  for k, v in resv_np.items()})
@@ -1097,9 +1221,14 @@ class PlacementModel:
         while True:
             extras, extras_safe = self._stage_rows(rows, resv_worst)
             with DEVICE_OBS.annotate("device_solve"):
-                result = self._dispatch_solve(
-                    state, batch, quota_state, gang_state, extras, resv,
-                    resv_worst <= SCORE_BUDGET, numa_aux, extras_safe)
+                if host_route:
+                    self.last_solver = "host"
+                    result = self._host_solve(node_arrays, pod_arrays,
+                                              blocked)
+                else:
+                    result = self._dispatch_solve(
+                        state, batch, quota_state, gang_state, extras, resv,
+                        resv_worst <= SCORE_BUDGET, numa_aux, extras_safe)
             if not specials:
                 break
             raw = result.raw_assign.cpu().numpy()
@@ -1178,7 +1307,10 @@ class PlacementModel:
         65,536 nodes run the per-pod loop on the same device. A remote
         backend takes the whole solve instead (the same arrays over the
         wire, the same epilogue), with the staging cache's delta when it
-        takes one, so that only the dirty node rows cross the wire."""
+        takes one, so that only the dirty node rows cross the wire. The
+        host route is decided before this, in :meth:`schedule_async`,
+        before anything is staged: a solve dispatched here runs on the
+        model's device."""
         if self.backend is not None:
             # tagged before the call: a backend that raises leaves the
             # tag naming the solver that failed
@@ -1206,6 +1338,53 @@ class PlacementModel:
         self.last_solver = "loop"
         return solve_batch(state, batch, self.params, self.config,
                            quota_state, gang_state, extras, resv, numa_aux)
+
+    def _host_sized(self, snapshot: ClusterSnapshot) -> bool:
+        """Whether ``snapshot``'s round may take the host route, known
+        before it is lowered: no remote backend, no gang or quota specs,
+        and ``0 < nodes x pending pods <= host_fallback_cells``. The rest
+        of the test (no extras, reservations or NUMA) needs the lowering.
+        Such a round skips the staging cache's device half."""
+        cells = len(snapshot.nodes) * len(snapshot.pending_pods)
+        return (self.backend is None and not snapshot.gangs
+                and not snapshot.quotas
+                and 0 < cells <= self.host_fallback_cells)
+
+    def _host_solve(self, arrays: NodeArrays, pods: PendingPodArrays,
+                    blocked: np.ndarray) -> SolveResult:
+        """A tiny plain solve on the host: ``schedule_vectorized`` over the
+        host arrays the round lowered (bit for bit the kernel's answer by
+        the oracles' contract; nothing staged, no kernel launch, no
+        read-back). Blocked pods are hard-blocked (``req[:, 0] = 2**30``);
+        the carries take the placed pods' requests as the kernel's do.
+        The result is CPU tensors, so :meth:`InFlightSchedule.finalize`
+        copies nothing."""
+        req = pods.req.copy()
+        req[blocked, 0] = 2**30
+        weights, thresholds, prod_thresholds = self._host_params
+        assign = schedule_vectorized(
+            arrays.alloc, arrays.used_req, arrays.usage, arrays.prod_usage,
+            arrays.est_extra, arrays.prod_base, arrays.metric_fresh,
+            arrays.schedulable, req, pods.est, pods.is_prod,
+            pods.is_daemonset, weights, thresholds, prod_thresholds,
+            fit_weight=self.config.fit_weight,
+            loadaware_weight=self.config.loadaware_weight,
+            score_according_prod=self.config.score_according_prod,
+        ).astype(np.int32)
+        placed = assign >= 0
+        prod = placed & pods.is_prod
+        fields = {f: getattr(arrays, f).copy() for f in STAGED_NODE_FIELDS}
+        np.add.at(fields["used_req"], assign[placed], pods.req[placed])
+        np.add.at(fields["est_extra"], assign[placed], pods.est[placed])
+        np.add.at(fields["prod_base"], assign[prod], pods.est[prod])
+        assign_t = torch.from_numpy(assign)
+        falses = torch.zeros(assign.shape[0], dtype=torch.bool)
+        return SolveResult(
+            node_state=NodeState(**{f: torch.from_numpy(a)
+                                    for f, a in fields.items()}),
+            quota_state=None, assign=assign_t,
+            commit=torch.from_numpy(placed), waiting=falses,
+            rejected=falses, raw_assign=assign_t)
 
     def _build_resv(self, snapshot, node_arrays, pods_in_order):
         """The Available reservations with a free remainder on a known

@@ -19,13 +19,13 @@ trace ring's tail — to a JSON file the moment a trigger fires:
   flipped to degraded or back)
 - ``deadline-exceeded``       (service/client.py: a solve's client-side
   budget ran out)
+- ``auditor-detection``       (scheduler/auditor.py: a sweep found
+  drift)
 
-The reference also fires ``auditor-detection`` from its auditor; the
-port's auditor is not ported yet, so that trigger is accepted but
-nothing in the port fires it. A dump's ``device`` section comes from
-the port's ``DEVICE_OBS.flight_payload()``, and hooks add the
-``workingset``, ``migration`` and ``slo`` sections; the reference's
-``warm`` section (its warm pool) has no counterpart.
+A dump's ``device`` section comes from the port's
+``DEVICE_OBS.flight_payload()``, and hooks add the ``workingset``,
+``migration`` and ``slo`` sections; the reference's ``warm`` section (its
+warm pool) has no counterpart.
 
 Dumps are rate-limited per trigger (a flapping failover must not write
 a dump storm), counted in ``scheduler_flight_dumps_total{trigger}``,

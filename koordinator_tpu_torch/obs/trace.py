@@ -20,8 +20,8 @@ Design constraints:
 Two extra facilities ride the same lock:
 
 - **Open marks** (``mark_open``/``mark_closed``): coarse round/publish
-  lifetime markers a stuck-cycle watchdog reads (the reference's
-  ``scheduler/monitor.py``, not ported yet) — a mark that stays open
+  lifetime markers the stuck-cycle watchdog reads
+  (``scheduler/monitor.SchedulerMonitor``) — a mark that stays open
   past the timeout is a stuck round/publish. Marks are tracked even when span
   recording is disabled, so the watchdog never goes blind.
 - **Round/span ids**: ``begin_round`` numbers scheduling rounds; every

@@ -13,8 +13,7 @@ own ``TRACER`` and counts into the port's ``STUCK_CYCLES``).
 - DebugRecorder: runtime-togglable score/filter dumps (reference:
   pkg/scheduler/frameworkext/debug.go and the /debug/flags HTTP
   toggles), extended with a bounded ring of placement-explain payloads
-  (the reference's obs/explain.py answers through it; the port's
-  explainer is not ported yet).
+  (``obs/explain.PlacementExplainer`` records every answer there).
 - DebugServices: per-plugin debug endpoints as plain dict payloads
   (reference: frameworkext/services/services.go — there gin HTTP, here
   an in-process registry any HTTP layer can front).

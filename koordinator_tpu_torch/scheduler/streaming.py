@@ -243,8 +243,8 @@ class ArrivalGate:
     def retune(self, watermark: Optional[int] = None,
                lane_deadline_s: Optional[Tuple[float, float, float]] = None,
                capacity: Optional[int] = None) -> StreamingConfig:
-        """Replace the trigger/intake knobs live (an SLO controller's
-        actuator; the reference's ``control/slo.py`` is not ported yet).
+        """Replace the trigger/intake knobs live (the actuator of
+        ``control/slo.ServingSLOController``).
         The config object is frozen, so a retune swaps in a
         ``dataclasses.replace`` copy under the gate lock — every reader
         already takes ``self.cfg`` under ``_lock``.

@@ -395,7 +395,8 @@ def test_build_scheduler_aggregated_args_match_reference(fields):
     ref = REF.cmd.build_scheduler(conf(REF, warm_pool=False,
                                        host_fallback_cells=0))
     for spec in ("", "BatchedPlacement=false,ElasticQuotaPreemption=false"):
-        port = build_scheduler(conf(PORT, feature_gates=spec), device="cpu")
+        port = build_scheduler(conf(PORT, feature_gates=spec,
+                                    host_fallback_cells=0), device="cpu")
         assert _args_view(port.model.aggregated) == _args_view(
             ref.model.aggregated)
         assert ({int(k): v for k, v in port.model.usage_thresholds.items()}
@@ -427,7 +428,8 @@ def test_build_scheduler_reads_the_feature_gates():
     assert SCHEDULER_GATES.enabled("BatchedPlacement")  # the copy's own
     with pytest.raises(KeyError):
         gates.enabled("NoSuchGate")
-    plain = build_scheduler(SchedulerConfig(), device="cpu")
+    plain = build_scheduler(SchedulerConfig(host_fallback_cells=0),
+                            device="cpu")
     assert plain.batched_placement and plain._quota_plugin.enable_preemption
     assert plain.model.aggregated is None
     with pytest.raises(KeyError, match="unknown feature gate"):

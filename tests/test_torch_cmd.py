@@ -24,6 +24,18 @@ from koordinator_tpu_torch.service.supervisor import connection_probe
 ROOTS = ("koordinator_tpu_torch", "koordinator_tpu")
 
 
+@pytest.fixture(autouse=True)
+def pinned_host_cutoff():
+    """``main()`` has no flag for the host cutoff: both packages' probes
+    are pinned to 0, as the reference's tests pin
+    ``host_fallback_cells=0``, so no round here takes the host route."""
+    with pytest.MonkeyPatch.context() as mp:
+        for root in ROOTS:
+            mp.setattr(mod(root, "models.placement"),
+                       "measure_host_fallback_cells", lambda *a, **k: 0)
+        yield
+
+
 def cluster_json(tmp_path, nodes=2):
     path = tmp_path / "cluster.json"
     path.write_text(json.dumps({

@@ -71,7 +71,9 @@ def test_every_module_imports_without_jax():
               "testing.failure_domain",
               # the binaries slice: the auditor, the NodeSLO renderer and
               # the descheduler binary
-              "scheduler.auditor", "manager.nodeslo", "cmd.descheduler"):
+              "scheduler.auditor", "manager.nodeslo", "cmd.descheduler",
+              # the host route: the scalar and vectorized oracles
+              "oracle.placement", "oracle.vectorized"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
@@ -196,7 +198,18 @@ def _entry_points():
             build_scheduler,
         )
 
-        return build_scheduler(SchedulerConfig(), **kw).model.params.weights
+        return build_scheduler(SchedulerConfig(host_fallback_cells=0),
+                               **kw).model.params.weights
+
+    def host_probe(**kw):
+        # the device the probe's device round staged its problem on
+        from types import SimpleNamespace
+
+        from koordinator_tpu_torch.models import placement
+
+        placement.measure_host_fallback_cells(**kw)
+        return SimpleNamespace(
+            device=placement.host_probe(kw.get("device"))["device"])
 
     def wired_manager(**kw):
         from koordinator_tpu_torch.client import APIServer, wire_manager
@@ -260,6 +273,7 @@ def _entry_points():
         ("service.NodeStateCache", node_cache),
         ("service.FailoverSolver", failover_solver),
         ("cmd.scheduler.build_scheduler", built_scheduler),
+        ("models.placement.measure_host_fallback_cells", host_probe),
         ("PlacementModel", lambda **kw: PlacementModel(**kw).params.weights),
         ("Scheduler", lambda **kw: scheduler_model(**kw).params.weights),
         ("Scheduler() with the reference's defaults (preemption on the "
