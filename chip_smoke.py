@@ -43,7 +43,9 @@ the microseconds per pod and the bound (see :func:`bound`).
    gangs, NUMA, reservations) at 5,000 nodes x 10,000 pods, with the
    NUMA least- and most-allocated scorers: ``kernel_solve_batch`` routed
    by ``kernel_routing_ok``, the kernel held against its twin on every
-   output, and the whole kernel solve held against the loop
+   output on the solve's first 1,000 pods (the full solve's first
+   assignments equal to that cut's; the kernel timed at full size), and
+   the whole kernel solve held against the loop
    ``solve_batch`` on the card at 1,000 x 2,000 (the loop runs a few
    dozen torch ops per pod). Then the one-block kernel's NUMA and
    reservation instances on config #8 cut to 800 x 2,000 (NUMA least,
@@ -56,7 +58,8 @@ the microseconds per pod and the bound (see :func:`bound`).
    kernel (every kernel output), and timed against it in the same
    process; a k whose slices do not fit shared memory runs the L2 form.
    At the fastest k the cluster kernel is held against its plain twin
-   ``binpack_sharded_plain`` at full size; the twin also checks it at
+   ``binpack_sharded_plain`` on the solve's first 1,000 pods (the full
+   solve's first assignments equal to that cut's); the twin also checks it at
    k = 8 on phase 2's quota+gang problem (1,000 nodes) and at k = 4 on
    config #8 cut to 1,000 x 2,000 with NUMA most.
 8. A solve beyond what 16 CTAs' shared memory holds (40,000 nodes x
@@ -253,7 +256,9 @@ the microseconds per pod and the bound (see :func:`bound`).
    (thresholds CPU 65 / memory 95 at p99) and score p99, then score p50
    (``est_extra`` goes negative): each round on the cluster kernel,
    capacity respected, its placements different from the unaggregated
-   round's on the same world, the kernel held against its twin; then 4
+   round's on the same world, the kernel held against its twin on the
+   round's first 1,000 pods (the full round's first assignments equal to
+   that cut's, the kernel timed at full size); then 4
    churn ticks of config #9 in the aggregated mode, delta staging == a
    full restage every tick (placements and every staged field). (b) The
    chain world (``plugin_chain.chain_world_spec``: 500 nodes, 256 pending
@@ -320,6 +325,35 @@ the microseconds per pod and the bound (see :func:`bound`).
    per-tick placements and buses, equal to the crash-free run; the
    staged-row desync wrote a CUDA row and its sweep reported it. The
    kernel-routed solves of (a)-(d) are held against their twins.
+20. The wire under faults, the eviction storm and the manager binary on
+   the card. (a) Bench config #11 (512 nodes, 16 dirty and 32 pending a
+   tick, 40 ticks) through ``RemoteSolver`` -> ``FailoverSolver`` ->
+   ``testing.chaos.ChaosProxy`` with the six wire faults of
+   ``FAULT_KINDS`` at the reference's request ordinals -> an
+   ``InProcessSidecar`` on the card, supervised by ``check_once()`` on a
+   fake clock (no backoff, no monitor thread), the stalled request alone
+   under a per-solve deadline: every tick completes, the placements and
+   staged node accounting equal the fault-free run on the card and on the
+   CPU, every fault fired once, the failover flipped degraded and back;
+   the one-block kernel held against its twin. (b) ``testing.chaos.
+   eviction_storm_world`` at 10 and 256 nodes under the reference's
+   schedule (``preemption-storm`` at tick 2, ``rebalance-wave`` at 5,
+   ``budget-squeeze-mid-wave`` at 7) through a budgeted
+   ``MigrationArbiter``, preemption on the card: no budget exceeded in
+   any window (``check_budget_compliance``), each victim evicted once,
+   typed deferrals, placements and node accounting equal to the
+   fault-free arm and the CPU run; the storm rounds' kernel held against
+   its twin. (c) ``python -m koordinator_tpu_torch.cmd.manager --once
+   --cluster-json`` (phase 18's 5,000-node world, 10,000 running pods) as
+   a child, its wall split into imports, wiring, the reconcile and the
+   exit; in process, ``build_manager`` reconciles the running cluster and
+   PATCHes the batch allocatable onto a bus (its step timed by CUDA
+   events, with its launches), the 10,000 pending pods pass
+   ``Manager.admit_pod`` (a ``ClusterColocationProfile`` makes a seeded
+   half BE pods on batch resources), and a wired ``build_scheduler``
+   runs one round (the cluster kernel at 5 CTAs); the same on the CPU,
+   every pod's node equal; the round's kernel held against the CPU
+   round's plain twin on the same inputs.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -353,7 +387,7 @@ import torch
 
 from koordinator_tpu_torch import resolve_device, testing
 from koordinator_tpu_torch.apis import types as ttypes
-from koordinator_tpu_torch.apis.extension import ResourceName
+from koordinator_tpu_torch.apis.extension import QoSClass, ResourceName
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     ReservationState,
@@ -382,6 +416,7 @@ from koordinator_tpu_torch.manager.noderesource import NodeResourceController
 from koordinator_tpu_torch.client.wiring import (
     snapshot_from_bus,
     wire_descheduler,
+    wire_pod_webhook,
 )
 from koordinator_tpu_torch.metrics.components import (
     PIPELINE_DEFERRED_ERRORS,
@@ -391,6 +426,7 @@ from koordinator_tpu_torch.metrics.components import (
     TICK_STAGE_DURATION,
 )
 from koordinator_tpu_torch.cmd import descheduler as desched_cmd
+from koordinator_tpu_torch.cmd.manager import ManagerConfig, build_manager
 from koordinator_tpu_torch.cmd.scheduler import (
     SchedulerConfig,
     build_rebalance_plugin,
@@ -453,6 +489,7 @@ from koordinator_tpu_torch.testing.arrivals import (
     regime_scale,
     trace_pods,
 )
+from koordinator_tpu_torch.webhook import ClusterColocationProfile
 from koordinator_tpu_torch.testing.failure_domain import (
     DENSITY,
     OUTAGE,
@@ -636,6 +673,28 @@ HOST_REPS = 5
 HOST_TICK_PODS = (1, 2, 4, 8, 16, 32, 64)
 CHAOS_SEED = 31
 CHAOS_HOST_CELLS = 32
+# phase 20: (a) the six wire faults at the reference's request ordinals
+# (tests/test_chaos.py), the stalled request's ordinal, the stall and the
+# per-solve deadline set for that one request, the tick of the
+# supervisor's respawn; (b) the eviction storm's seed, schedule and sizes
+# (nodes, ticks; the reference's 10 nodes and 256), its budgets' caps a
+# node count (the reference's at 10 nodes, 8x at 256); (c) the admission
+# wave's seed (a seeded half of the pending pods becomes BE)
+WIRE_FAULTS = {6: "torn-response", 10: "corrupt-response", 14: "stall",
+               18: "drop-base", 22: "reset-request", 26: "kill-server"}
+WIRE_STALL_ORDINAL = 14
+WIRE_STALL_S, WIRE_STALL_DEADLINE_S = 0.6, 0.25
+WIRE_RESPAWN_TICK = 28
+EVSTORM_SEED = 11
+EVSTORM_SCHEDULE = {2: "preemption-storm", 5: "rebalance-wave",
+                    7: "budget-squeeze-mid-wave"}
+EVSTORM_SIZES = ((10, 14), (256, 24))
+ADMIT_SEED = 20
+#: torch's intra-op threads for phase 20 (c)'s CPU round
+CPU_ROUND_THREADS = 1
+#: the pods the full-size plain twins of phases 6, 7 and 17 are cut to
+#: (their kernels still timed at full size)
+TWIN_CUT_PODS = 1000
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
@@ -795,6 +854,48 @@ def compare(inp, label, card, reps=3, shards=None) -> dict:
                 variant=variant(inp))
 
 
+def first_pods(inp, pods):
+    """The solve of ``inp``'s first ``pods`` pods alone: the same instance
+    on the same node state with its pod axis cut (the kernel places pods
+    in order, so its assignments are the full solve's first ones)."""
+    cut = dict(req=inp.req[:pods], est=inp.est[:pods],
+               flags=inp.flags[:pods])
+    if inp.numa is not None:
+        cut["numa"] = (*inp.numa[:3], inp.numa[3][:pods])
+    if inp.resv is not None:
+        cut["resv"] = (*inp.resv[:4], inp.resv[4][:pods])
+    if inp.extras is not None:
+        cut["extras"] = (inp.extras[0][:pods], *inp.extras[1:])
+    return inp._replace(**cut)
+
+
+def compare_cut(inp, label, card, reps=3, shards=None,
+                pods=TWIN_CUT_PODS) -> dict:
+    """:func:`compare` for a full-size solve whose plain twin would take
+    tens of seconds: the kernel held against its twin (every output) on
+    the solve's first ``pods`` pods, the full solve's first assignments
+    equal to that cut's, and the kernel timed at full size (``ms``; the
+    twin's ``plain_ms`` is the cut's; the bound is the full solve's)."""
+    def run(x):
+        return (bk.binpack(x) if shards is None
+                else bk.binpack_sharded(x, shards))
+
+    cut = first_pods(inp, pods)
+    stats = compare(cut, f"{label}, cut to its first {pods} pods", card,
+                    reps=reps, shards=shards)
+    assert torch.equal(run(inp).assign[:pods], run(cut).assign), (
+        f"{label}: the full solve's first {pods} assignments != the cut's")
+    ms = cuda_ms(lambda: run(inp), reps)
+    bound_ms, bound_by = bound(inp)
+    p = inp.req.shape[0]
+    print(f"{label}: the full solve's first {pods} assignments == the cut's; "
+          f"full-size kernel {ms:.3f} ms ({ms / p * 1e3:.3f} us/pod), bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    stats.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                 variant=variant(inp))
+    return stats
+
+
 def entry(name_prefix, launches, stats, replaces_line) -> dict:
     """A ``kernels`` line entry from :func:`compare`'s stats."""
     route = stats["route"]
@@ -829,18 +930,20 @@ def capacity_ok(snap, result) -> None:
         assert not over.any(), f"{node} overcommitted"
 
 
-def drive(run, wrapper="binpack"):
+def drive(run, wrapper="binpack", clone=False):
     """Run one path with every kernel input it hands ``bk.<wrapper>``
-    captured with the route it took, every launch count zeroed just
-    before and read just after (a device synchronise ends the timed
+    captured with the route it took (with ``clone``, copies: a later
+    round scatters the staged state in place), every launch count zeroed
+    just before and read just after (a device synchronise ends the timed
     span). Returns ``(result, launches by route kind, wall_s, captured
     [(inputs, route)])``."""
     captured = []
     launch = getattr(bk, wrapper)
 
     def capture(inp, *args):
+        kept = clone_args(inp) if clone else inp
         out = launch(inp, *args)
-        captured.append((inp, bk.route_of(inp, *args)))
+        captured.append((kept, bk.route_of(inp, *args)))
         return out
 
     setattr(bk, wrapper, capture)
@@ -994,7 +1097,8 @@ def cluster_path(label, name, solve_one, sharded_solver, card) -> dict:
     kernel against the routed kernel on every kernel output, and both
     kernels are timed (5 launches after a warm-up, CUDA events, in
     turns). At the fastest k the cluster kernel is held against its
-    plain twin. Returns the ``kernels`` entry."""
+    plain twin on the solve's first TWIN_CUT_PODS pods. Returns the
+    ``kernels`` entry."""
     want, _, _, captured = drive(solve_one)
     single_in, single_route = captured[0]
     single = bk.binpack(single_in)
@@ -1023,7 +1127,7 @@ def cluster_path(label, name, solve_one, sharded_solver, card) -> dict:
               f"{launches[route.kind]}", flush=True)
     k = min(runs, key=lambda x: runs[x]["ms"])
     best = runs[k]
-    twin_stats = compare(best["inp"], f"{label}, full size, {k} CTAs", card,
+    twin_stats = compare_cut(best["inp"], f"{label}, {k} CTAs", card,
                          reps=5, shards=k)
     return dict(name=f"{name}_{route_name(best['route'])}",
                 replaces=f"{REPLACES}:317", launches=best["launches"],
@@ -2597,11 +2701,16 @@ def loop_faults() -> float:
             + counter_total(ROUNDS_SKIPPED))
 
 
+def node_accounting(snap):
+    """Every staged field of a full lowering of ``snap``."""
+    arrays = lower_nodes(snap)
+    return list(arrays.names), {f: getattr(arrays, f).tolist()
+                                for f in STAGED_NODE_FIELDS}
+
+
 def accounting(bus):
     """The bus's node accounting: every staged field of a full lowering."""
-    arrays = lower_nodes(snapshot_from_bus(bus, now=500.0))
-    return arrays.names, {f: getattr(arrays, f).tolist()
-                          for f in STAGED_NODE_FIELDS}
+    return node_accounting(snapshot_from_bus(bus, now=500.0))
 
 
 def pipe_world(device=None):
@@ -3859,7 +3968,7 @@ def aggregated_rounds(card) -> list:
         print(f"{label}: the placements of {differ} of {len(unaggregated)} "
               f"pods differ from the unaggregated round on the same world "
               f"(phase 3's): the mode took effect", flush=True)
-        stats = compare(inp, label, card, reps=3)
+        stats = compare_cut(inp, label, card, reps=3)
         entries.append(entry(f"binpack_aggregated_score_p{pct}",
                              launches[route.kind], stats, 317))
     return entries
@@ -4675,6 +4784,404 @@ def host_route(card) -> list:
     return entries
 
 
+# -- 20. the wire under faults, the eviction storm, the manager binary -------
+
+def wire_outage(card) -> dict:
+    """Phase 20 (a): config #11 (512 nodes, 16 dirty and 32 pending a tick,
+    40 ticks) through ``RemoteSolver`` -> ``FailoverSolver`` on the card ->
+    a ``ChaosProxy`` with the six wire faults -> an ``InProcessSidecar``
+    on the card under a ``SolverSupervisor`` driven by ``check_once()`` on
+    a fake clock (no backoff, no monitor thread): every tick completes,
+    the placements and staged node accounting equal the fault-free run on
+    the card and on the CPU, every fault fired, the failover flipped
+    degraded and back. Returns the ``kernels`` entry of the one-block
+    kernel (the sidecar's solves and the local ones, in this process)."""
+    sockets = Sockets()
+    solver_addr, proxy_addr = sockets.path("wire"), sockets.path("proxy")
+    handles = []
+
+    def spawn():
+        handles.append(chaos.InProcessSidecar(solver_addr))
+        return handles[-1]
+
+    clock = [0.0]
+    sup = SolverSupervisor(solver_addr, spawn_fn=spawn, ready_timeout_s=120.0,
+                           backoff_base_s=0.0, backoff_cap_s=0.0,
+                           clock=lambda: clock[0])
+    sup.start(wait_ready=True, monitor=False)
+    proxy = chaos.ChaosProxy(
+        proxy_addr, solver_addr, chaos.FaultSchedule(WIRE_FAULTS),
+        kill_fn=lambda: handles[-1].kill(), stall_s=WIRE_STALL_S).start()
+    remote = RemoteSolver(proxy_addr, timeout=60.0, retries=1,
+                          retry_total_s=0.2, backoff_base_s=0.01,
+                          backoff_cap_s=0.05)
+    backend = failover.FailoverSolver(remote, failure_threshold=2,
+                                      recovery_probes=2, prewarm=False)
+    model = PlacementModel(backend=backend)
+    backend.on_flip_back = model.reset_staging
+    checks, stalled, keep = [], [], []
+
+    def on_tick(t):
+        # the deadline only on the request the proxy stalls
+        armed = proxy.requests_seen == WIRE_STALL_ORDINAL
+        remote.deadline_s = WIRE_STALL_DEADLINE_S if armed else None
+        if armed:
+            stalled.append(t)
+        if t == WIRE_RESPAWN_TICK:
+            clock[0] += 1.0
+            checks.append(sup.check_once())
+
+    try:
+        (log, walls, modes, _), launches, wall, captured = drive(
+            lambda: outage_churn(model, ttypes, ClusterDeltaTracker,
+                                 ResourceName, on_tick=on_tick, keep=keep),
+            clone=True)
+        faults = dict(proxy.faults_injected)
+        status = backend.status()
+    finally:
+        proxy.stop()
+        sup.stop()
+        backend.close()
+        sockets.close()
+    free, cpu = [], []
+    ref, _, _, _ = outage_churn(PlacementModel(), ttypes, ClusterDeltaTracker,
+                                ResourceName, keep=free)
+    t0 = time.perf_counter()
+    cpu_log, _, _, _ = outage_churn(PlacementModel(device="cpu"), ttypes,
+                                    ClusterDeltaTracker, ResourceName,
+                                    keep=cpu)
+    cpu_wall = time.perf_counter() - t0
+    assert len(log) == OUTAGE.ticks
+    assert log == ref, "wire faults: ticks != the fault-free run on the card"
+    assert log == cpu_log, "wire faults: ticks != the CPU run"
+    assert (node_accounting(keep[0]) == node_accounting(free[0])
+            == node_accounting(cpu[0])), "wire faults: node accounting"
+    assert faults == {k: 1 for k in WIRE_FAULTS.values()}, faults
+    assert checks == ["restarted"] and len(handles) == 2, (checks, handles)
+    assert status["flips_to_degraded"] >= 1, status
+    assert status["flips_to_remote"] >= 1 and not status["degraded"], status
+    assert len(stalled) == 1 and modes[stalled[0]] == "local-fallback", (
+        stalled, modes)
+    assert modes[-1] == "remote", modes
+    assert all(route.kind == "block" for _, route in captured)
+    assert launches["block"] == len(captured) == sum(launches.values()), (
+        launches, len(captured))
+    local = sum(m in ("local-fallback", "local-degraded") for m in modes)
+    print(f"wire under faults (config #11 through a ChaosProxy) [{card}]: "
+          f"{OUTAGE.n_nodes} nodes, {OUTAGE.pending} pending a tick, "
+          f"{OUTAGE.ticks} ticks, faults {sorted(faults)} each once (the "
+          f"stall {WIRE_STALL_S} s against a {WIRE_STALL_DEADLINE_S} s "
+          f"deadline at tick {stalled[0]}); every tick == the fault-free run "
+          f"on the card == the CPU run (placements and staged node "
+          f"accounting); modes {' -> '.join(mode_runs(modes))}, {local} "
+          f"local ticks; the respawn by check_once at tick "
+          f"{WIRE_RESPAWN_TICK}: {checks[0]}; flips to degraded "
+          f"{status['flips_to_degraded']}, back {status['flips_to_remote']}; "
+          f"one-block launches {launches['block']} (the sidecar's and the "
+          f"local solves); run wall {wall:.3f} s, tick wall median "
+          f"{statistics.median(walls) * 1e3:.3f} ms; the CPU run "
+          f"{cpu_wall:.3f} s", flush=True)
+    stats = compare(captured[0][0], f"the first wire tick, {OUTAGE.n_nodes} "
+                    f"x {captured[0][0].req.shape[0]}", card, reps=5)
+    return entry("binpack_wire_outage", launches["block"], stats, 93)
+
+
+def storm_arm(n, ticks, device, budgets=None):
+    """One arm of the eviction storm on ``device``: ``eviction_storm_world``
+    at ``n`` nodes through ``Scheduler(preemption_backend="device")``,
+    with (``budgets``: loose, tight) an arbiter squeezed mid-wave and the
+    schedule's rebalance wave, or (None) no arbiter and no fault. Returns
+    ``(scheduler, per-tick log, arbiter, the squeeze's seq, fired)``."""
+    nodes, residents, arrivals = chaos.eviction_storm_world(
+        seed=EVSTORM_SEED, n_nodes=n)
+    sched = Scheduler(model=PlacementModel(device=device),
+                      preemption_backend="device")
+    arb = None if budgets is None else MigrationArbiter(budgets[0])
+    sched.migration_arbiter = arb
+    for node in nodes:
+        sched.add_node(node)
+    for pod in residents + arrivals:
+        sched.add_pod(pod)
+    schedule = chaos.FaultSchedule(EVSTORM_SCHEDULE if budgets else {})
+    plugin = LowNodeLoad(LowNodeLoadArgs())
+    squeeze, fired, log = [None], [], []
+    for t in range(ticks):
+        now = 100.0 + 2.0 * t
+        kind = schedule.fault_for(t)
+        if kind is not None:
+            fired.append(kind)
+        if kind == "rebalance-wave":
+            sched.rebalance_sweep(plugin, now=now)
+        if kind == "budget-squeeze-mid-wave":
+            arb.set_budget(budgets[1])
+            squeeze[0] = (arb.decisions() or [{}])[-1].get("seq", 0)
+        out = sched.schedule_pending(now=now)
+        log.append((t, sorted(out.items()), sorted(out.nominations.items())))
+    return sched, log, arb, squeeze[0], fired
+
+
+def placed_pods(sched):
+    return sorted((p.name, p.node_name)
+                  for p in sched.cache.pods.values() if p.node_name)
+
+
+def eviction_storm(card) -> dict:
+    """Phase 20 (b): the eviction storm at the reference's 10 nodes and at
+    256, under the reference's schedule (``preemption-storm`` at tick 2,
+    ``rebalance-wave`` at 5, ``budget-squeeze-mid-wave`` at 7) through a
+    budgeted ``MigrationArbiter``, preemption on the card: no budget
+    exceeded in any window, each victim evicted once, typed deferrals, the
+    final placements and staged node accounting equal the fault-free arm
+    and the CPU run. Returns the ``kernels`` entry of the storm rounds'
+    placement kernel."""
+    total = 0
+    for n, ticks in EVSTORM_SIZES:
+        k = max(1, n // 32)
+        loose = MigrationBudget(max_per_round=4 * k, max_per_node=2,
+                                max_per_tenant=6 * k, window_s=3.0)
+        tight = MigrationBudget(max_per_round=2 * k, max_per_node=1,
+                                max_per_tenant=3 * k, window_s=3.0)
+        control, control_log, _, _, _ = storm_arm(n, ticks, None)
+        (sched, log, arb, at, fired), launches, wall, captured = drive(
+            lambda: storm_arm(n, ticks, None, (loose, tight)), clone=True)
+        t0 = time.perf_counter()
+        cpu, cpu_log, cpu_arb, _, _ = storm_arm(n, ticks, "cpu",
+                                                (loose, tight))
+        cpu_wall = time.perf_counter() - t0
+        assert fired == list(EVSTORM_SCHEDULE.values()), fired
+        assert log == cpu_log, f"storm {n}: cuda != cpu rounds"
+        assert arb.decisions() == cpu_arb.decisions()
+        want = [(f"evstorm-ls-{i}", f"evstorm-n{i}") for i in range(n)]
+        assert placed_pods(control) == sorted(want), "control arm"
+        assert placed_pods(sched) == placed_pods(control) == placed_pods(cpu)
+        now = 100.0 + 2.0 * ticks
+        assert (node_accounting(sched.cache.snapshot(now=now))
+                == node_accounting(control.cache.snapshot(now=now))
+                == node_accounting(cpu.cache.snapshot(now=now)))
+        records = arb.decisions()
+        chaos.check_budget_compliance(
+            records, lambda seq: loose if at is None or seq <= at else tight)
+        evicted = [u for rec in records if not rec.get("dry_run")
+                   for u in rec["admitted"]]
+        assert len(evicted) == len(set(evicted)) == n, len(evicted)
+        deferred = [d for rec in records for d in rec["deferred"]]
+        status = arb.status()
+        assert deferred and status["deferred_total"] == len(deferred)
+        assert all(route.kind == "block" for _, route in captured)
+        assert launches["block"] == len(captured) == sum(launches.values())
+        total += launches["block"]
+        print(f"eviction storm, {n} nodes, {ticks} ticks [{card}]: faults "
+              f"{fired}; {len(evicted)} evictions, each once, {len(deferred)} "
+              f"deferred {dict(status['deferred_by_reason'])}, within every "
+              f"budget (loose {loose.max_per_round}/round, squeezed to "
+              f"{tight.max_per_round}); placements and node accounting == "
+              f"the fault-free arm == the CPU run; one-block launches "
+              f"{launches['block']}; card wall {wall:.3f} s, CPU "
+              f"{cpu_wall:.3f} s", flush=True)
+    # the storm round that placed the most pods (the preemptors binding on
+    # the nodes their victims left)
+    inp = max((c for c, _ in captured),
+              key=lambda c: int((bk.binpack(c).assign >= 0).sum()))
+    assert int((bk.binpack(inp).assign >= 0).sum()) > 0
+    stats = compare(inp, f"the storm's fullest round, {n} x "
+                    f"{inp.req.shape[0]}", card, reps=5)
+    return entry("binpack_eviction_storm", total, stats, 317)
+
+
+def manager_child(path):
+    """``python -m koordinator_tpu_torch.cmd.manager --once --cluster-json
+    path`` on CHILD_DEVICE: ``(synced nodes, wall split)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "koordinator_tpu_torch.cmd.manager", "--once",
+         "--cluster-json", path, "--device", CHILD_DEVICE],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # each line stamped as it arrives (main flushes its own two)
+    stamped = [(time.perf_counter(), line.rstrip("\n"))
+               for line in proc.stdout]
+    rc = proc.wait(timeout=BINARY_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [line for _, line in stamped]
+    assert rc == 0, lines[-40:]
+    assert lines[0].startswith("koord-manager components: noderesource"), lines
+    synced = next(x for x in lines if x.startswith("noderesource reconcile:"))
+    wired_at, wired = next((t, x) for t, x in stamped
+                           if x.startswith("koord-manager: wired"))
+    ended_at, ended = next((t, x) for t, x in stamped
+                           if x.startswith("koord-manager: reconcile returned"))
+    assert f"wired on {CHILD_DEVICE}" in wired, wired
+    wired_s, seeding_s = (seconds_after(wired, " in "),
+                          seconds_after(wired, "bus seeding "))
+    reconcile_s = seconds_after(ended, " after ")
+    imports_s = wired_at - t0 - wired_s
+    return int(synced.split()[2]), dict(
+        wall=wall, imports=imports_s, wiring=wired_s, seeding=seeding_s,
+        reconcile=reconcile_s, exit=wall - imports_s - wired_s - reconcile_s,
+        exit_alone=t0 + wall - ended_at)
+
+
+def admitted_round(running, spec, device):
+    """Phase 20 (c) in process on ``device``: ``build_manager`` reconciles
+    the running cluster of ``running`` and PATCHes the batch allocatable
+    onto a bus that a wired ``build_scheduler`` watches; the pending pods
+    of ``spec`` pass ``Manager.admit_pod`` (a ``ClusterColocationProfile``
+    turns a seeded half into BE pods on batch resources) onto the bus; one
+    ``run_loop(once=True)`` round. Returns the record and the timings."""
+    bus = APIServer()
+    sched = build_scheduler(SchedulerConfig(host_fallback_cells=0),
+                            device=device)
+    wire_scheduler(bus, sched)
+    manager = build_manager(ManagerConfig(), device=device)
+    wire_pod_webhook(bus, manager.mutating_webhook)
+    manager.mutating_webhook.update_profile(ClusterColocationProfile(
+        name="be-half", selector={"colocation": "be"}, qos_class=QoSClass.BE,
+        priority=5500))
+    loop = wire_manager(bus, manager.noderesource)
+    seed_bus_from_json(bus, running)
+    t0 = time.perf_counter()
+    synced = loop.reconcile(now=time.time())
+    reconcile_s = time.perf_counter() - t0
+    batch = [n.allocatable.get(ResourceName.BATCH_CPU, 0)
+             for n in bus.list(Kind.NODE).values()]
+    assert min(batch) > 0, "a node without batch allocatable"
+    be = np.random.default_rng(ADMIT_SEED).random(len(spec["pods"])) < 0.5
+    pending = [(p, b) for p, b in zip(spec["pods"], be) if "node" not in p]
+    t0 = time.perf_counter()
+    for p, is_be in pending:
+        pod, violations = manager.admit_pod(ttypes.PodSpec(
+            name=p["name"], labels={"colocation": "be"} if is_be else {},
+            requests={ResourceName.CPU: p["cpu"],
+                      ResourceName.MEMORY: p["memory"]}))
+        assert not violations, violations
+        bus.apply(Kind.POD, pod.uid, pod)
+    admit_s = time.perf_counter() - t0
+    logs = []
+    rc = run_loop(sched, SchedulerConfig(), once=True, log=logs.append)
+    assert rc == 0, rc
+    pods = {p.uid: (p.node_name, p.qos.name, sorted(int(r) for r in p.requests))
+            for p in bus.list(Kind.POD).values() if p.name.startswith("p")}
+    return dict(synced=synced, batch=batch, pods=pods, round=logs[-1],
+                n_be=int(sum(b for _, b in pending)), n=len(pending)), dict(
+                    reconcile=reconcile_s, admit=admit_s)
+
+
+def manager_binary(card) -> dict:
+    """Phase 20 (c): the manager binary as a child on a 5,000-node cluster
+    spec (phase 18's world, 10,000 running pods), its wall split; the same
+    reconcile, the admission wave and a wired scheduler's round in process
+    on the card (the step timed by CUDA events, with its launches) and on
+    the CPU: equal records. The round's kernel is held against the CPU
+    round's plain twin on the same inputs. Returns its ``kernels`` entry."""
+    step = noderesource._overcommit_step
+    timed, steps = [], []
+
+    def traced(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        timed.append((start, end))
+        steps.append(args)
+        return out
+
+    solve = bk.binpack
+    cpu_solves = []
+
+    def plain_solve(inp, *args):
+        t0 = time.perf_counter()
+        out = solve(inp, *args)
+        cpu_solves.append((inp, out, time.perf_counter() - t0))
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cluster.json")
+        spec = binaries_world(path)
+        running = os.path.join(d, "running.json")
+        binaries_world(running, pending=False)
+        child_synced, split = manager_child(path)
+        noderesource._overcommit_step = traced
+        try:
+            (got, tm), launches, wall, captured = drive(
+                lambda: admitted_round(running, spec, None), clone=True)
+        finally:
+            noderesource._overcommit_step = step
+        # the CPU round's plain twin runs a few torch ops a pod on [5000,
+        # 8] tensors: on one intra-op thread it takes about half the time
+        # it takes on the machine's eight
+        threads = torch.get_num_threads()
+        bk.binpack = plain_solve
+        torch.set_num_threads(CPU_ROUND_THREADS)
+        try:
+            t0 = time.perf_counter()
+            want, cpu_tm = admitted_round(running, spec, "cpu")
+            cpu_wall = time.perf_counter() - t0
+        finally:
+            bk.binpack = solve
+            torch.set_num_threads(threads)
+    assert got == want, "admitted round: cuda != cpu"
+    assert got["synced"] == child_synced == NODES, (got["synced"],
+                                                    child_synced)
+    inp, route = routed("the admitted round", launches, captured, "cluster")
+    assert route.shards == 5, route
+    placed = [v for v in got["pods"].values() if v[0] is not None]
+    be_placed = sum(q == "BE" for _, q, _ in placed)
+    assert be_placed > 0 and len(placed) > be_placed, (be_placed, len(placed))
+    step_ms = [s.elapsed_time(e) for s, e in timed]
+    step_launches_n = step_launches(steps[0])
+    # the kernel against the CPU round's plain twin on the same inputs
+    (cpu_inp, cpu_out, plain_s), = cpu_solves
+    for f in inp._fields:
+        a, b = getattr(inp, f), getattr(cpu_inp, f)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a.cpu(), b), f"round inputs differ on {f}"
+    out = bk.binpack(inp)
+    err = max_abs_err(type(out)(*(None if x is None else x.cpu()
+                                  for x in out)), cpu_out)
+    ms = cuda_ms(lambda: bk.binpack(inp), 3)
+    bound_ms, bound_by = bound(inp)
+    p = inp.req.shape[0]
+    print(f"manager binary --once [{card}]: {NODES} nodes, "
+          f"{NODES * BIN_ASSIGNED} running pods: {child_synced} nodes synced "
+          f"== in process; child wall {split['wall']:.3f} s = interpreter "
+          f"start and imports {split['imports']:.3f} s + wiring "
+          f"{split['wiring']:.3f} s (bus seeding {split['seeding']:.3f} s) + "
+          f"the reconcile {split['reconcile']:.3f} s + the rest, process "
+          f"exit included {split['exit']:.3f} s (exit alone "
+          f"{split['exit_alone']:.3f} s)", flush=True)
+    print(f"manager in process [{card}]: reconcile {tm['reconcile']:.4f} s "
+          f"(step by CUDA events {step_ms[0]:.4f} ms, launches "
+          f"{'not measured' if step_launches_n is None else step_launches_n}"
+          f"), CPU {cpu_tm['reconcile']:.4f} s; admission wave "
+          f"{got['n']} pods ({got['n_be']} made BE on batch resources) "
+          f"{tm['admit']:.4f} s = {got['n'] / tm['admit']:.1f} pods/s "
+          f"through the webhooks; '{got['round']}' ({be_placed} BE pods "
+          f"placed) == the CPU round; route {route_name(route)}, launches "
+          f"{launches[route.kind]}; card run wall {wall:.3f} s, CPU run "
+          f"{cpu_wall:.3f} s ({CPU_ROUND_THREADS} torch thread)", flush=True)
+    print(f"the admitted round's inputs: {route_name(route)} kernel == the "
+          f"CPU round's plain twin on the same inputs ({p} pods, max_abs_err "
+          f"{err}) [{card}]: kernel {ms:.3f} ms ({ms / p * 1e3:.3f} us/pod), "
+          f"plain twin on the CPU ({CPU_ROUND_THREADS} torch thread) "
+          f"{plain_s * 1e3:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    return dict(name=f"binpack_admitted_round_{route_name(route)}_"
+                     f"{variant(inp)}",
+                replaces=f"{REPLACES}:317", source=CLUSTER_SOURCE,
+                launches=launches[route.kind], max_abs_err=err, ms=ms,
+                plain_ms=plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def faults_and_manager(card) -> list:
+    """Phase 20. Returns its ``kernels`` entries."""
+    t0 = time.perf_counter()
+    entries = [wire_outage(card), eviction_storm(card), manager_binary(card)]
+    print(f"faults and manager phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4769,7 +5276,7 @@ def main() -> int:
               f"{took_numa} took NUMA, {took_resv} consumed a reservation; "
               f"wall {wall:.4f} s; route {route_name(route)}; launches "
               f"{launches[route.kind]}", flush=True)
-        fused = compare(inp, f"config #8, NUMA {scorer}", card, reps=3)
+        fused = compare_cut(inp, f"config #8, NUMA {scorer}", card, reps=3)
         loop_check(most, card)
         kernels.append(entry("binpack", launches[route.kind], fused, 259))
     kernels.append(extras_loop_check(card))
@@ -4870,6 +5377,9 @@ def main() -> int:
 
     # -- 19. the host route for tiny solves --------------------------------------
     kernels += host_route(card)
+
+    # -- 20. the wire under faults, the eviction storm, the manager binary ---
+    kernels += faults_and_manager(card)
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "
           "kernel library's build included)", flush=True)

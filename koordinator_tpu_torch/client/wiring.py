@@ -9,9 +9,10 @@ the pods through a snapshot of the bus, PATCHes Node allocatable back
 onto it and, with a NodeSLO renderer, publishes each node's NodeSLO;
 the descheduler classifies the bus's snapshot, reserves each migration's
 destination through the placement solver and evicts through the bus.
-``KoordletLoop``, ``koordlet_report_sinks``, ``wire_koordlet`` and
-``wire_pod_webhook`` need the koordlet and the pod webhook, which are
-not ported yet (ROADMAP Queue 1 item 11).
+``wire_pod_webhook`` feeds the pod mutating webhook's quota-tree
+registries from the bus. ``KoordletLoop``, ``koordlet_report_sinks`` and
+``wire_koordlet`` need the koordlet, which is not ported yet (ROADMAP
+Queue 1 item 11(b)).
 """
 
 from __future__ import annotations
@@ -263,6 +264,19 @@ class ManagerLoop:
                     else:
                         self.bus.apply(Kind.NODE_SLO, node.name, spec)
         return synced
+
+
+def wire_pod_webhook(bus: APIServer, webhook) -> None:
+    """Feed the pod mutating webhook's quota-tree registries from the
+    bus (ElasticQuota and ElasticQuotaProfile watches, deletes included),
+    so admission can inject multi-quota-tree node affinity."""
+    bus.watch(
+        Kind.QUOTA, _updater(webhook.update_quota, webhook.remove_quota)
+    )
+    bus.watch(
+        Kind.QUOTA_PROFILE,
+        _updater(webhook.update_quota_profile, webhook.remove_quota_profile),
+    )
 
 
 def wire_manager(bus: APIServer, controller=None, elector=None,

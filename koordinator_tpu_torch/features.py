@@ -1,15 +1,16 @@
 """Feature gates (counterpart of ``koordinator_tpu/features.py``: the
-``FeatureGate`` registry and the scheduler's gates).
+``FeatureGate`` registry, the scheduler's gates and the manager's).
 
 Gates parse the k8s-style ``--feature-gates=Name=true,Other=false`` spec
 and components consult them at construction time.
 ``cmd/scheduler.build_scheduler`` reads ``BatchedPlacement`` (False:
-per-pod plugin-chain rounds) and ``ElasticQuotaPreemption``; only those
-two are registered. A gate is added with the code that reads it.
+per-pod plugin-chain rounds) and ``ElasticQuotaPreemption``;
+``cmd/manager.build_manager`` reads the six webhook gates of
+``MANAGER_GATES``. Only the names some code reads are registered: a gate
+is added with the code that reads it, and naming any other raises.
 
-The reference's ``MANAGER_GATES`` and ``KOORDLET_GATES`` wait with the
-manager's webhooks and the koordlet, whose binaries are not ported yet
-(ROADMAP Queue 1 item 11).
+The reference's ``KOORDLET_GATES`` wait with the koordlet, whose binary
+is not ported yet (ROADMAP Queue 1 item 11(b)).
 """
 
 from __future__ import annotations
@@ -68,4 +69,17 @@ class FeatureGate:
 SCHEDULER_GATES = FeatureGate({
     "BatchedPlacement": True,
     "ElasticQuotaPreemption": True,
+})
+
+#: the manager gates ``cmd/manager.build_manager`` reads, each with the
+#: reference's default (features.go:28-90): which admission webhooks the
+#: manager serves. The reference's other manager gates change nothing
+#: here, so they are not registered and naming one raises.
+MANAGER_GATES = FeatureGate({
+    "PodMutatingWebhook": True,
+    "PodValidatingWebhook": True,
+    "ElasticValidatingWebhook": True,
+    "NodeMutatingWebhook": False,
+    "NodeValidatingWebhook": False,
+    "ConfigMapValidatingWebhook": False,
 })

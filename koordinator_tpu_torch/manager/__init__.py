@@ -1,7 +1,9 @@
 """koord-manager's central controllers (counterpart of
-``koordinator_tpu/manager``, cut to the noderesource overcommit
-controller with the colocation strategy it reads, and the NodeSLO
-renderer; the nodemetric collect policy is not ported yet).
+``koordinator_tpu/manager``): the noderesource overcommit controller with
+the colocation strategy it reads, the nodemetric collect policy, the
+NodeSLO renderer and the recommendation controller. The admission
+webhooks it serves live in ``koordinator_tpu_torch.webhook``, wired by
+``cmd/manager.py``.
 
 The noderesource controller lowers the whole cluster to arrays and
 computes every node's batch and mid allocatable in one step of torch
@@ -14,6 +16,7 @@ from koordinator_tpu_torch.manager.sloconfig import (
     default_node_slo_spec,
 )
 from koordinator_tpu_torch.manager.noderesource import NodeResourceController
+from koordinator_tpu_torch.manager.nodemetric import node_metric_collect_policy
 from koordinator_tpu_torch.manager.nodeslo import NodeSLOController
 
 __all__ = [
@@ -21,5 +24,6 @@ __all__ = [
     "NodeSLOSpec",
     "default_node_slo_spec",
     "NodeResourceController",
+    "node_metric_collect_policy",
     "NodeSLOController",
 ]

@@ -1,15 +1,26 @@
-"""Deterministic fault injection for the solver boundary and the HBM
-working set: the port's copy of what its tests and ``chip_smoke.py``
-need of ``koordinator_tpu/testing/chaos.py``.
+"""Deterministic fault injection for the solver boundary, the scheduler's
+state and the HBM working set: the port's copy of
+``koordinator_tpu/testing/chaos.py``.
 
-- :class:`FaultSchedule` maps ordinals (ticks) to fault kinds, scripted
-  or generated from a seed.
+- :class:`FaultSchedule` maps ordinals (requests or ticks) to fault
+  kinds, scripted or generated from a seed.
+- :class:`ChaosProxy` sits between a
+  :class:`~koordinator_tpu_torch.service.client.PlacementClient` /
+  ``RemoteSolver`` and the sidecar, speaking the plain framed protocol
+  (``service/codec.read_frame``/``write_frame``) and forwarding frames
+  verbatim except where the schedule names one of the wire faults
+  (:data:`FAULT_KINDS`): a torn or corrupted response, a stall, a reset,
+  the sidecar killed mid-request, the delta base dropped.
 - :class:`StateSaboteur` executes the scheduled state corruptions
   (:data:`STATE_FAULT_KINDS`, the drift classes the anti-entropy auditor
   ``scheduler/auditor.StateAuditor`` detects and repairs) against a live
   scheduler's caches, its staged CUDA generation included.
 - :class:`HBMSaboteur` executes the scheduled device-memory-pressure
   faults (:data:`HBM_FAULT_KINDS`) against the working-set manager.
+- :func:`eviction_storm_world` is the unique-fit world of the
+  arbitration chaos suite (:data:`EVICTION_STORM_FAULT_KINDS`), and
+  :func:`check_budget_compliance` its check that no admitted eviction
+  went over the budget in effect.
 - :func:`drive_audited_cluster` is the reference's kill-the-leader chaos
   drive (``tests/test_chaos.py``'s ``_drive_cluster``): seeded churn over
   a bus, two leader-elected schedulers with auditors, the leader killed
@@ -22,18 +33,35 @@ need of ``koordinator_tpu/testing/chaos.py``.
   can supervise, and a test can kill and restart, a sidecar without a
   process start per respawn.
 
-The reference's wire half comes next (ROADMAP.md): the frame-level proxy
-``ChaosProxy`` and its wire fault kinds (``FAULT_KINDS``); a schedule
-here takes the state and HBM kinds.
-"""
+The determinism contract is the schedule, not the interleaving: every
+injected fault leads to a typed, recoverable outcome, so the chaos tests
+assert path-independent facts (every tick completed; final placements
+and node accounting equal to a fault-free run).
 
+The reference's warm-pool store faults (``WARM_POOL_FAULT_KINDS``,
+``sabotage_store``) wait with the warm pool (ROADMAP Queue 1 item 10).
+"""
 from __future__ import annotations
 
 import random
+import socket
+import struct
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
+
+from koordinator_tpu_torch.service.codec import read_frame, write_frame
+
+#: every wire fault kind the proxy can inject
+FAULT_KINDS = (
+    "torn-response",     # half the response frame, then a hard close
+    "corrupt-response",  # response payload bytes flipped (frame intact)
+    "stall",             # response delayed past the client's deadline
+    "reset-request",     # client connection reset after the request
+    "kill-server",       # kill_fn() fired mid-request (sidecar SIGKILL)
+    "drop-base",         # upstream connection swapped: delta base lost
+)
 
 #: state-corruption fault kinds, injected by :class:`StateSaboteur` into a
 #: live scheduler's caches: the drift classes the runtime auditor
@@ -55,19 +83,40 @@ HBM_FAULT_KINDS = (
 )
 
 
+#: eviction-storm fault kinds, driven against a live scheduler and its
+#: migration arbiter: every one must pass through the MigrationArbiter (no
+#: declared budget exceeded in any window, every over-budget request
+#: deferred with a typed and counted refusal, no eviction cascade), and
+#: final placements and node accounting equal a fault-free control arm
+EVICTION_STORM_FAULT_KINDS = (
+    "rebalance-wave",           # a LoadAware Balance sweep fired mid-run
+    "preemption-storm",         # a wave of unique-fit LS arrivals, each
+                                # placing only by evicting a BE resident
+    "budget-squeeze-mid-wave",  # arbiter budget transiently tightened
+                                # against already-admitted evictions
+)
+
+
 class FaultSchedule:
     """Ordinal (0-based) -> fault kind. ``events`` pins faults
-    explicitly; :meth:`generate` derives a schedule from a seed."""
+    explicitly; :meth:`generate` derives a schedule from a seed. The
+    proxy counts request ordinals globally across connections, in arrival
+    order; the saboteurs count ticks."""
 
     def __init__(self, events: Optional[Dict[int, str]] = None):
         self.events = dict(events or {})
         for kind in self.events.values():
-            if kind not in STATE_FAULT_KINDS and kind not in HBM_FAULT_KINDS:
+            if (
+                kind not in FAULT_KINDS
+                and kind not in STATE_FAULT_KINDS
+                and kind not in HBM_FAULT_KINDS
+                and kind not in EVICTION_STORM_FAULT_KINDS
+            ):
                 raise ValueError(f"unknown fault kind: {kind!r}")
 
     @classmethod
     def generate(cls, seed: int, n_requests: int, rate: float = 0.2,
-                 kinds=HBM_FAULT_KINDS, start: int = 0) -> "FaultSchedule":
+                 kinds=FAULT_KINDS, start: int = 0) -> "FaultSchedule":
         """A seeded schedule over ``[start, start+n_requests)``: each
         ordinal faulted with probability ``rate``, the kind drawn
         uniformly (the reference's draws: same seed, same schedule)."""
@@ -80,6 +129,295 @@ class FaultSchedule:
 
     def fault_for(self, ordinal: int) -> Optional[str]:
         return self.events.get(ordinal)
+
+
+def _connect(address):
+    family = socket.AF_UNIX if isinstance(address, str) else socket.AF_INET
+    sock = socket.socket(family, socket.SOCK_STREAM)
+    sock.connect(address)
+    return sock
+
+
+class ChaosProxy:
+    """A frame-level proxy injecting :class:`FaultSchedule` faults.
+
+    One thread per client connection; the upstream connection is opened
+    at accept (and re-opened after ``drop-base``, so the client keeps its
+    connection while the server's per-connection delta base vanishes:
+    the forced loss of the base). If the upstream is unreachable when a
+    client connects, the client connection is closed at once, so
+    ``service/supervisor.connection_probe``'s hold-open check reports the
+    backend dead even though the proxy itself still accepts.
+
+    A ``stall`` holds the response ``stall_s`` seconds on the proxy's
+    stop event, so :meth:`stop` ends it at once."""
+
+    def __init__(self, listen_address, upstream_address,
+                 schedule: Optional[FaultSchedule] = None,
+                 kill_fn: Optional[Callable[[], None]] = None,
+                 stall_s: float = 1.0, corrupt_seed: int = 0):
+        self.listen_address = listen_address
+        self.upstream_address = upstream_address
+        self.schedule = schedule or FaultSchedule()
+        self.kill_fn = kill_fn
+        self.stall_s = stall_s
+        self._corrupt_rng = random.Random(corrupt_seed)
+        self._lock = threading.Lock()
+        self.requests_seen = 0
+        self.faults_injected: Dict[str, int] = {}
+        self._stop = threading.Event()
+        family = (socket.AF_UNIX if isinstance(listen_address, str)
+                  else socket.AF_INET)
+        self._sock = socket.socket(family, socket.SOCK_STREAM)
+        self._sock.bind(listen_address)
+        self._sock.listen(16)
+        self._sock.settimeout(0.2)
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "ChaosProxy":
+        self._thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="chaos-proxy"
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        self._sock.close()
+
+    # -- internals -----------------------------------------------------------
+
+    def _next_ordinal(self) -> int:
+        with self._lock:
+            ordinal = self.requests_seen
+            self.requests_seen += 1
+            return ordinal
+
+    def _record(self, kind: str) -> None:
+        with self._lock:
+            self.faults_injected[kind] = (
+                self.faults_injected.get(kind, 0) + 1
+            )
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            # a dead backend must look dead through the proxy: close the
+            # client connection when the upstream will not accept
+            try:
+                upstream = _connect(self.upstream_address)
+            except OSError:
+                conn.close()
+                continue
+            threading.Thread(
+                target=self._serve, args=(conn, upstream), daemon=True
+            ).start()
+
+    def _serve(self, conn: socket.socket, upstream: socket.socket) -> None:
+        client_stream = conn.makefile("rwb")
+        up_stream = upstream.makefile("rwb")
+
+        def close_all():
+            for closeable in (client_stream, up_stream, conn, upstream):
+                try:
+                    closeable.close()
+                except OSError:
+                    pass
+
+        def hard_reset():
+            # RST instead of FIN where the platform allows: the client
+            # must handle an abrupt death, not a polite shutdown
+            try:
+                conn.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_LINGER,
+                    b"\x01\x00\x00\x00\x00\x00\x00\x00",
+                )
+            except OSError:
+                pass
+            close_all()
+
+        try:
+            while not self._stop.is_set():
+                try:
+                    payload = read_frame(client_stream)
+                except (EOFError, ValueError, OSError):
+                    return close_all()
+                if payload is None:
+                    return close_all()
+                fault = self.schedule.fault_for(self._next_ordinal())
+                if fault == "reset-request":
+                    self._record(fault)
+                    return hard_reset()
+                if fault == "kill-server":
+                    self._record(fault)
+                    if self.kill_fn is not None:
+                        self.kill_fn()
+                    return hard_reset()
+                if fault == "drop-base":
+                    # swap the upstream connection: the server's
+                    # per-connection node-state cache dies with it while
+                    # the client connection lives on, so the next delta
+                    # request meets delta-base-mismatch
+                    self._record(fault)
+                    try:
+                        up_stream.close()
+                        upstream.close()
+                    except OSError:
+                        pass
+                    try:
+                        upstream = _connect(self.upstream_address)
+                        up_stream = upstream.makefile("rwb")
+                    except OSError:
+                        return hard_reset()
+                try:
+                    write_frame(up_stream, payload)
+                    up_stream.flush()
+                    response = read_frame(up_stream)
+                except (EOFError, ValueError, OSError):
+                    return hard_reset()  # backend died mid-solve
+                if response is None:
+                    return hard_reset()
+                if fault == "stall":
+                    self._record(fault)
+                    if self._stop.wait(self.stall_s):
+                        return close_all()
+                elif fault == "torn-response":
+                    self._record(fault)
+                    try:
+                        # length prefix and half the payload, then RST:
+                        # the client sees TruncatedFrame
+                        client_stream.write(struct.pack(">I", len(response)))
+                        client_stream.write(response[: len(response) // 2])
+                        client_stream.flush()
+                    except OSError:
+                        pass
+                    return hard_reset()
+                elif fault == "corrupt-response":
+                    self._record(fault)
+                    corrupted = bytearray(response)
+                    for _ in range(max(1, len(corrupted) // 256)):
+                        i = self._corrupt_rng.randrange(len(corrupted))
+                        corrupted[i] ^= 0xFF
+                    response = bytes(corrupted)
+                try:
+                    write_frame(client_stream, response)
+                    client_stream.flush()
+                except OSError:
+                    return close_all()
+        finally:
+            close_all()
+
+
+def eviction_storm_world(seed: int, n_nodes: int = 12,
+                         base_cpu: int = 4000, base_mem: int = 8192,
+                         step: int = 64):
+    """The seeded unique-fit eviction-storm world of the arbitration chaos
+    suite (:data:`EVICTION_STORM_FAULT_KINDS`), draw for draw the
+    reference's.
+
+    Node ``i`` allocates ``(base_cpu + i*step, base_mem + (N-1-i)*step)``,
+    a two-resource staircase where arrival ``i`` requests exactly node
+    ``i``'s shape, so it fits node ``i`` and no other (every ``j < i`` is
+    CPU-short, every ``j > i`` memory-short). Each node starts filled by
+    one preemptible BE resident of the same shape. So every LS arrival
+    has one feasible node and one victim there, and the final placement
+    set is order-independent: deferrals and budget squeezes move when
+    evictions land, never where. An evicted resident fits nowhere else
+    while the storm runs, so any cascade is an arbitration bug.
+
+    Resident priorities are seeded jitter; arrival priorities strictly
+    dominate. Returns ``(nodes, residents, arrivals)``; residents carry
+    ``node_name``."""
+    from koordinator_tpu_torch.apis.extension import (
+        PriorityClass,
+        QoSClass,
+        ResourceName,
+    )
+    from koordinator_tpu_torch.apis.types import NodeSpec, PodSpec
+
+    CPU, MEM = ResourceName.CPU, ResourceName.MEMORY
+    rng = random.Random(seed)
+    nodes, residents, arrivals = [], [], []
+    for i in range(n_nodes):
+        cpu = base_cpu + i * step
+        mem = base_mem + (n_nodes - 1 - i) * step
+        nodes.append(NodeSpec(
+            name=f"evstorm-n{i}",
+            allocatable={CPU: cpu, MEM: mem},
+        ))
+        residents.append(PodSpec(
+            name=f"evstorm-be-{i}",
+            node_name=f"evstorm-n{i}",
+            requests={CPU: cpu, MEM: mem},
+            qos=QoSClass.BE,
+            priority=rng.randrange(100, 400),
+            assign_time=float(rng.randrange(0, 1000)),
+        ))
+        arrivals.append(PodSpec(
+            name=f"evstorm-ls-{i}",
+            requests={CPU: cpu, MEM: mem},
+            qos=QoSClass.LS,
+            priority_class=PriorityClass.PROD,
+            priority=5000 + rng.randrange(0, 4000),
+        ))
+    return nodes, residents, arrivals
+
+
+def check_budget_compliance(records, budget_at) -> None:
+    """Re-check every admitted eviction of a ``MigrationArbiter``'s
+    decision ring against the budget in effect when it was admitted
+    (``budget_at(seq)`` returns that ``MigrationBudget``): the per-round
+    cap, the per-node and per-lane sliding windows and the node cooldown.
+    Undeferrable notes commit against the windows but are exempt from the
+    caps; dry runs admit nothing. Raises ``AssertionError`` at the first
+    eviction over a budget (the reference's chaos suite's check)."""
+    node_times: Dict[str, list] = {}
+    lane_times: Dict[str, list] = {}
+    node_last: Dict[str, float] = {}
+    round_counts: Dict[object, int] = {}
+    for rec in records:
+        budget = budget_at(rec["seq"])
+        now = rec["now"]
+        horizon = now - budget.window_s
+        for times in (node_times, lane_times):
+            for key in list(times):
+                times[key] = [t for t in times[key] if t > horizon]
+        if rec.get("dry_run"):
+            assert not rec.get("undeferrable")
+            continue
+        if rec.get("undeferrable"):
+            for _ in rec["admitted"]:
+                node_times.setdefault(rec["node"], []).append(now)
+            continue
+        rnd = rec["round"]
+        for uid in rec["admitted"]:
+            lane = rec["lanes"][rec["uids"].index(uid)]
+            if budget.max_per_round is not None and rnd is not None:
+                assert round_counts.get(rnd, 0) < budget.max_per_round, (
+                    f"round {rnd} over budget at {uid}")
+                round_counts[rnd] = round_counts.get(rnd, 0) + 1
+            if budget.max_per_node is not None and rec["node"]:
+                assert len(node_times.get(rec["node"], [])) < \
+                    budget.max_per_node, f"node window over at {uid}"
+            if budget.max_per_tenant is not None and lane is not None:
+                assert len(lane_times.get(lane, [])) < \
+                    budget.max_per_tenant, f"lane window over at {uid}"
+            if budget.node_cooldown_s > 0 and rec["node"]:
+                last = node_last.get(rec["node"])
+                assert last is None or now - last >= \
+                    budget.node_cooldown_s, f"cooldown violated at {uid}"
+            if rec["node"]:
+                node_times.setdefault(rec["node"], []).append(now)
+                node_last[rec["node"]] = now
+            if lane is not None:
+                lane_times.setdefault(lane, []).append(now)
 
 
 class StateSaboteur:

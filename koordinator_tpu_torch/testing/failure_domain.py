@@ -44,7 +44,8 @@ def outage_churn(model, types, tracker_cls, resource_name, *,
                  dirty: int = OUTAGE.dirty, pending: int = OUTAGE.pending,
                  on_tick: Optional[Callable[[int], None]] = None,
                  warm: Optional[Callable[[], None]] = None,
-                 clock: Callable[[], float] = time.time):
+                 clock: Callable[[], float] = time.time,
+                 keep: Optional[list] = None):
     """One churn run of config #11 through ``model.schedule``: a warm-up
     solve of the empty queue (then ``warm()``), then ``ticks`` ticks,
     each re-reporting ``dirty`` node metrics and submitting ``pending``
@@ -53,7 +54,7 @@ def outage_churn(model, types, tracker_cls, resource_name, *,
     ``resource_name`` its ``ResourceName``; ``on_tick(t)`` runs before
     tick t's solve. Returns ``(log, walls, modes, done_at)``: each tick's
     sorted placements, solve wall, ``model.last_solver`` and completion
-    time."""
+    time; with ``keep``, the final snapshot is appended to it."""
     cpu, mem = resource_name.CPU, resource_name.MEMORY
     rng = np.random.default_rng(42)
     nodes = [types.NodeSpec(name=f"n{i}",
@@ -108,6 +109,8 @@ def outage_churn(model, types, tracker_cls, resource_name, *,
                 snap.pods.append(pod)
                 tracker.mark_node(node)
         snap.pending_pods = []
+    if keep is not None:
+        keep.append(snap)
     return log, walls, modes, done_at
 
 
