@@ -354,6 +354,37 @@ the microseconds per pod and the bound (see :func:`bound`).
    runs one round (the cluster kernel at 5 CTAs); the same on the CPU,
    every pod's node equal; the round's kernel held against the CPU
    round's plain twin on the same inputs.
+21. The node agents feed the colocation loop, at phase 18's width (5,000
+   nodes, 10,000 running pods, 10,000 pending). (a) Every node has a
+   ``StatesInformer``, a ``MetricCache`` and a ``NodeMetricReporter``
+   (collect policy 300 s / 60 s, windows 300, 900 and 1,800 s); the first
+   64 are wired through ``wire_koordlet`` and run ``MetricsAdvisor`` with
+   ``default_collectors()`` over a fake procfs and cgroupfs tree of their
+   own (seeded cumulative /proc/stat jiffies, meminfo, each running pod's
+   ``cpuacct.usage`` and ``memory.usage_in_bytes``), 11 ticks 30 s apart on
+   a fake clock; the rest get the same kinds of samples appended directly
+   at the same times. Every report goes onto the bus (the agents' through
+   ``KoordletLoop.report``) with its percentiles and windows; each agent's
+   report equals the report of a cache fed its samples directly, and
+   every report equals the same fleet run beside a CPU manager. (b)
+   ``wire_manager(bus, device=...)`` reconciles from those reports (the
+   step timed by CUDA events, with its launches): the PATCHed batch
+   allocatable equals the CPU run's. (c) A wired ``build_scheduler`` in
+   the aggregated LoadAware mode (phase 17's filter, score p99) places the
+   10,000 pending pods, a seeded half BE pods on batch resources (the
+   cluster kernel at 5 CTAs); the kernel is held against its plain twin on
+   the CPU (one torch thread) on the solve's first 1,000 pods, the full
+   solve's first assignments equal to that cut's, and timed at full size.
+   (d) On 200 nodes, each agent also wired with a ``NodeTopologyReporter``
+   (``read_cpu_infos`` over a fake sysfs of 2 NUMA nodes, 32-64 CPUs) and a
+   ``DeviceReporter`` over a seeded source of 8 GPUs, both through
+   ``koordlet_report_sinks``: the NRT and Device CRs on the bus reach the
+   NUMA manager and the device cache, and a round of 400 cpuset and GPU
+   pods runs the one-block kernel with extras rows on every solve, equal
+   to a CPU scheduler's round on copies of the same objects (placements,
+   annotations, NUMA and device holds); its final solve held against its
+   twin. Every tree lives under a temporary directory; every series keeps
+   64 points (30 minutes at 30 s).
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -396,6 +427,7 @@ from koordinator_tpu_torch.apis.types import (
 from koordinator_tpu_torch.client import (
     APIServer,
     Kind,
+    wire_koordlet,
     wire_manager,
     wire_scheduler,
 )
@@ -414,10 +446,40 @@ from koordinator_tpu_torch.descheduler.framework import Evictor
 from koordinator_tpu_torch.manager import noderesource, sloconfig
 from koordinator_tpu_torch.manager.noderesource import NodeResourceController
 from koordinator_tpu_torch.client.wiring import (
+    koordlet_report_sinks,
     snapshot_from_bus,
     wire_descheduler,
     wire_pod_webhook,
 )
+from koordinator_tpu_torch.koordlet.metriccache import MetricCache, MetricKind
+from koordinator_tpu_torch.koordlet.metricsadvisor import (
+    CollectorContext,
+    MetricsAdvisor,
+)
+from koordinator_tpu_torch.koordlet.metricsadvisor.collectors import (
+    default_collectors,
+)
+from koordinator_tpu_torch.device.cache import (
+    DeviceEntry,
+    DeviceResourceName,
+    DeviceType,
+)
+from koordinator_tpu_torch.koordlet.resourceexecutor.executor import (
+    ensure_cgroup_dir,
+)
+from koordinator_tpu_torch.koordlet.statesinformer import (
+    DeviceReporter,
+    NodeMetricReporter,
+    NodeTopologyReporter,
+    StatesInformer,
+    pod_meta_from_spec,
+)
+from koordinator_tpu_torch.koordlet.system.cgroup import (
+    CPU_ACCT_USAGE,
+    MEMORY_USAGE,
+    SystemConfig,
+)
+from koordinator_tpu_torch.manager.nodemetric import NodeMetricCollectPolicy
 from koordinator_tpu_torch.metrics.components import (
     PIPELINE_DEFERRED_ERRORS,
     POD_E2E,
@@ -692,6 +754,19 @@ EVSTORM_SIZES = ((10, 14), (256, 24))
 ADMIT_SEED = 20
 #: torch's intra-op threads for phase 20 (c)'s CPU round
 CPU_ROUND_THREADS = 1
+# phase 21: the node agents. The fleet's collect policy (primary window
+# and report interval, s), the nodes whose agent runs the collectors over
+# a fake procfs/cgroupfs tree, the collectors' ticks, their spacing (s)
+# and the fake clock's start; the seeds of the usage draw, of the BE half
+# and of the GPU inventories; round 2's GPUs a node and their memory
+# sizes (MiB); the points a series keeps (the 30-minute retention at the
+# collectors' 30 s: 60)
+KOORD_POLICY = (300, 60)
+KOORD_AGENTS = 64
+KOORD_CAPACITY = 64
+KOORD_TICKS, KOORD_STEP_S, KOORD_T0 = 11, 30.0, 1_000_000.0
+KOORD_SEED, KOORD_BE_SEED, KOORD_GPU_SEED = 21, 22, 23
+KOORD_GPUS, KOORD_GPU_MIB = 8, (16384, 40960, 81920)
 #: the pods the full-size plain twins of phases 6, 7 and 17 are cut to
 #: (their kernels still timed at full size)
 TWIN_CUT_PODS = 1000
@@ -1363,22 +1438,7 @@ class FineProbe:
 
     def state(self):
         """Placements, annotations, NUMA and device holds, plain data."""
-        s = self.sched
-        pods = {**s.cache.pending, **s.cache.pods}
-        return (
-            {u: (p.node_name, dict(p.annotations)) for u, p in pods.items()},
-            {n: {u: ([int(c) for c in a.cpuset],
-                     {k: {int(r): v for r, v in res.items()}
-                      for k, res in a.numa_resources.items()})
-                 for u, a in na.pods.items()}
-             for n, na in s.numa_manager.node_allocations.items()},
-            {n: {u: {t.value: [(a.minor, {k.value: v for k, v in
-                                         a.resources.items()})
-                               for a in allocs]
-                     for t, allocs in by_type.items()}
-                 for u, by_type in nd.allocations.items()}
-             for n, nd in s.device_cache.nodes.items()},
-            sorted(s._fine_waiting))
+        return fine_state(self.sched)
 
 
 def fine_round_line(label, probe, result, launches, wall, card, ms) -> str:
@@ -2470,6 +2530,34 @@ def step_launches(args):
     return n or None
 
 
+class StepRecorder:
+    """While installed (a ``with`` block), stands in for
+    ``noderesource._overcommit_step``: each call's arguments and the CUDA
+    events around it."""
+
+    def __enter__(self):
+        self.step, self.events, self.args = (noderesource._overcommit_step,
+                                             [], [])
+        noderesource._overcommit_step = self._traced
+        return self
+
+    def __exit__(self, *exc):
+        noderesource._overcommit_step = self.step
+
+    def _traced(self, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step(*args)
+        end.record()
+        self.events.append((start, end))
+        self.args.append(args)
+        return out
+
+    def ms(self) -> list:
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
 def step_bytes(args) -> int:
     """Bytes the step must move: every input read once, the ``[N, R]``
     allocatable and ``[N]`` sync mask written once."""
@@ -2485,18 +2573,6 @@ def controller_phase(spec, card) -> None:
     """Phase 14 (a): the controller on the card against the CPU, its split
     and wall, the step's launches and bound."""
     config = testing.colocation_config(spec, sloconfig)
-    step = noderesource._overcommit_step
-    timed, captured = [], []
-
-    def traced(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = step(*args)
-        end.record()
-        timed.append((start, end))
-        captured.append(args)
-        return out
 
     def reconcile(device):
         ctrl = NodeResourceController(config, device=device)
@@ -2507,12 +2583,9 @@ def controller_phase(spec, card) -> None:
         wall = time.perf_counter() - t0
         return update_record(updates), ctrl.last_timings, wall, snap
 
-    noderesource._overcommit_step = traced
-    try:
+    with StepRecorder() as steps:
         got, _, _, gpu_snap = reconcile(None)
         runs = [reconcile(None) for _ in range(COLOC_REPEATS)]
-    finally:
-        noderesource._overcommit_step = step
     want, cpu_tm, cpu_wall, cpu_snap = reconcile("cpu")
     assert got == want, "controller: cuda != cpu updates"
     assert ([dict(n.allocatable) for n in gpu_snap.nodes]
@@ -2520,12 +2593,12 @@ def controller_phase(spec, card) -> None:
     synced = sum(u[2] for u in got)
     degraded = sum(u[3] for u in got)
     assert 0 < synced < len(got) and degraded > 0, (synced, degraded)
-    step_ms = [s.elapsed_time(e) for s, e in timed[1:]]
+    step_ms = steps.ms()[1:]
 
     def med(key):
         return statistics.median(tm[key] for _, tm, _, _ in runs)
 
-    args = captured[0]
+    args = steps.args[0]
     launches = step_launches(args)
     nbytes = step_bytes(args)
     bound_ms, bound_by = bound_of(nbytes, 0)
@@ -3668,16 +3741,22 @@ def outage_churn_card(card, sockets) -> list:
                   restaged_stats, 93)]
 
 
-def clone_args(x):
-    """A deep copy of a solve's arguments (NamedTuples of tensors): the
-    staged state is scattered in place by later ticks."""
+def map_args(x, fn):
+    """``fn`` applied to every tensor of a solve's arguments (NamedTuples
+    of tensors)."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return fn(x)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(clone_args(v) for v in x))
+        return type(x)(*(map_args(v, fn) for v in x))
     if isinstance(x, tuple):
-        return tuple(clone_args(v) for v in x)
+        return tuple(map_args(v, fn) for v in x)
     return x
+
+
+def clone_args(x):
+    """A deep copy of a solve's arguments: the staged state is scattered
+    in place by later ticks."""
+    return map_args(x, torch.Tensor.clone)
 
 
 def world_bytes(n_nodes) -> int:
@@ -5073,19 +5152,6 @@ def manager_binary(card) -> dict:
     on the card (the step timed by CUDA events, with its launches) and on
     the CPU: equal records. The round's kernel is held against the CPU
     round's plain twin on the same inputs. Returns its ``kernels`` entry."""
-    step = noderesource._overcommit_step
-    timed, steps = [], []
-
-    def traced(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = step(*args)
-        end.record()
-        timed.append((start, end))
-        steps.append(args)
-        return out
-
     solve = bk.binpack
     cpu_solves = []
 
@@ -5101,12 +5167,9 @@ def manager_binary(card) -> dict:
         running = os.path.join(d, "running.json")
         binaries_world(running, pending=False)
         child_synced, split = manager_child(path)
-        noderesource._overcommit_step = traced
-        try:
+        with StepRecorder() as steps:
             (got, tm), launches, wall, captured = drive(
                 lambda: admitted_round(running, spec, None), clone=True)
-        finally:
-            noderesource._overcommit_step = step
         # the CPU round's plain twin runs a few torch ops a pod on [5000,
         # 8] tensors: on one intra-op thread it takes about half the time
         # it takes on the machine's eight
@@ -5128,8 +5191,8 @@ def manager_binary(card) -> dict:
     placed = [v for v in got["pods"].values() if v[0] is not None]
     be_placed = sum(q == "BE" for _, q, _ in placed)
     assert be_placed > 0 and len(placed) > be_placed, (be_placed, len(placed))
-    step_ms = [s.elapsed_time(e) for s, e in timed]
-    step_launches_n = step_launches(steps[0])
+    step_ms = steps.ms()
+    step_launches_n = step_launches(steps.args[0])
     # the kernel against the CPU round's plain twin on the same inputs
     (cpu_inp, cpu_out, plain_s), = cpu_solves
     for f in inp._fields:
@@ -5181,6 +5244,656 @@ def faults_and_manager(card) -> list:
           flush=True)
     return entries
 
+
+def koord_draw(spec):
+    """Phase 21's seeded usage of every node of ``spec`` over the
+    collectors' KOORD_TICKS ticks, as the counters a node exposes: the
+    cumulative busy jiffies of /proc/stat ``[N, T]``, MemTotal and the kB
+    in use ``[N]``, ``[N, T]``, and per running pod (BIN_ASSIGNED a node,
+    in the spec's order) the cumulative cpu ns and the memory bytes of its
+    cgroup ``[N, A, T]``. A pod uses 20-90% of its CPU request and 40-90%
+    of its memory request; the node adds a system share of 5-60% of its
+    cores (20% jitter a tick) and 1-4 GiB."""
+    rng = np.random.default_rng(KOORD_SEED)
+    n, a, t = len(spec["nodes"]), BIN_ASSIGNED, KOORD_TICKS
+    cores = np.array([x["cpu"] for x in spec["nodes"]]) / 1000.0
+    running = [p for p in spec["pods"] if "node" in p]
+    req_cpu = np.array([p["cpu"] for p in running]).reshape(n, a) / 1000.0
+    req_mem = np.array([p["memory"] for p in running]).reshape(n, a)
+    pod_cores = rng.uniform(0.2, 0.9, (n, a, t)) * req_cpu[..., None]
+    sys_cores = (rng.uniform(0.05, 0.6, (n, 1)) * cores[:, None]
+                 * rng.uniform(0.8, 1.2, (n, t)))
+    busy = pod_cores.sum(axis=1) + sys_cores
+    step = KOORD_STEP_S
+    jiffies = (rng.integers(10**6, 10**8, (n, 1))
+               + np.cumsum(np.rint(busy * 100 * step).astype(np.int64),
+                           axis=1))
+    pod_ns = (rng.integers(10**9, 10**12, (n, a, 1))
+              + np.cumsum(np.rint(pod_cores * step * 1e9).astype(np.int64),
+                          axis=2))
+    pod_bytes = np.rint(rng.uniform(0.4, 0.9, (n, a, t))
+                        * req_mem[..., None] * 2**20).astype(np.int64)
+    sys_kb = rng.integers(2**20, 2**22, (n, 1))
+    used_kb = pod_bytes.sum(axis=1) // 1024 + sys_kb
+    total_kb = np.array([x["memory"] for x in spec["nodes"]]) * 1024
+    return dict(jiffies=jiffies, pod_ns=pod_ns, pod_bytes=pod_bytes,
+                used_kb=used_kb, total_kb=total_kb)
+
+
+def koord_now(k=KOORD_TICKS - 1) -> float:
+    """The fake clock at the collectors' tick ``k`` (the reports' time at
+    the last)."""
+    return KOORD_T0 + KOORD_STEP_S * k
+
+
+def koord_samples(draw):
+    """The samples the collectors derive from :func:`koord_draw`'s
+    counters, with their arithmetic, op for op: the node's and each pod's
+    CPU rate from the second tick on, the memory from the first, the
+    system residual (node less its pods, clamped at 0). Returns nested
+    lists of floats: node cpu ``[N][T-1]``, node memory ``[N][T]``, pod
+    cpu ``[N][A][T-1]``, pod memory ``[N][A][T]``, system cpu and
+    memory."""
+    jif = draw["jiffies"].astype(np.float64)
+    node_cpu = (np.maximum(jif[:, 1:] - jif[:, :-1], 0.0) / KOORD_STEP_S
+                / 100 * 1000.0)
+    node_mem = (draw["used_kb"]) / 1024.0
+    ns = draw["pod_ns"].astype(np.float64)
+    pod_cpu = (np.maximum(ns[..., 1:] - ns[..., :-1], 0.0) / KOORD_STEP_S
+               / 1e9 * 1000.0)
+    pod_mem = draw["pod_bytes"] / (1024.0 * 1024.0)
+    pods_cpu, pods_mem = 0, 0
+    for k in range(BIN_ASSIGNED):
+        pods_cpu = pods_cpu + pod_cpu[:, k]
+        pods_mem = pods_mem + pod_mem[:, k]
+    return {k: v.tolist() for k, v in dict(
+        node_cpu=node_cpu, node_mem=node_mem, pod_cpu=pod_cpu,
+        pod_mem=pod_mem, sys_cpu=np.maximum(node_cpu - pods_cpu, 0.0),
+        sys_mem=np.maximum(node_mem - pods_mem, 0.0)).items()}
+
+
+def koord_fill(cache, samples, i, uids) -> int:
+    """Append node ``i``'s samples of :func:`koord_samples` to ``cache``
+    at the ticks' times, as the collectors would (pod ``k`` of the node is
+    ``uids[k]``). Returns the samples appended."""
+    append, kinds = cache.append, MetricKind
+    node = [(kinds.NODE_MEMORY_USAGE, None, samples["node_mem"][i], 0),
+            (kinds.SYS_MEMORY_USAGE, None, samples["sys_mem"][i], 0),
+            (kinds.NODE_CPU_USAGE, None, samples["node_cpu"][i], 1),
+            (kinds.SYS_CPU_USAGE, None, samples["sys_cpu"][i], 1)]
+    for j, u in enumerate(uids):
+        node += [(kinds.POD_MEMORY_USAGE, {"pod": u},
+                  samples["pod_mem"][i][j], 0),
+                 (kinds.POD_CPU_USAGE, {"pod": u}, samples["pod_cpu"][i][j],
+                  1)]
+    appended = 0
+    for kind, labels, values, first in node:
+        for k in range(first, KOORD_TICKS):
+            append(kind, labels, koord_now(k), values[k - first])
+        appended += KOORD_TICKS - first
+    return appended
+
+
+def koord_tree(root, i, draw, metas, k) -> SystemConfig:
+    """Agent node ``i``'s fake procfs and cgroupfs under ``root`` at tick
+    ``k``: /proc/stat and /proc/meminfo, and each running pod's
+    ``cpuacct.usage`` and ``memory.usage_in_bytes`` at its cgroup
+    (``metas``: the agent's pods, in the node's order)."""
+    cfg = SystemConfig(cgroup_root=os.path.join(root, "cg"),
+                       proc_root=os.path.join(root, "proc"),
+                       sysfs_root=os.path.join(root, "sys"))
+    if k == 0:
+        os.makedirs(cfg.proc_root, exist_ok=True)
+        for meta in metas:
+            ensure_cgroup_dir(meta.cgroup_dir, cfg,
+                              subfs=("cpuacct", "memory"))
+    with open(os.path.join(cfg.proc_root, "stat"), "w") as f:
+        f.write(f"cpu  {draw['jiffies'][i, k]} 0 0 {10**9 + 3000 * k} 0 0 "
+                "0 0 0 0\n")
+    total = draw["total_kb"][i]
+    with open(os.path.join(cfg.proc_root, "meminfo"), "w") as f:
+        f.write(f"MemTotal: {total} kB\nMemFree: 0 kB\nMemAvailable: "
+                f"{total - draw['used_kb'][i, k]} kB\n")
+    for j, meta in enumerate(metas):
+        CPU_ACCT_USAGE.write(meta.cgroup_dir, str(draw["pod_ns"][i, j, k]),
+                             cfg)
+        MEMORY_USAGE.write(meta.cgroup_dir,
+                           str(draw["pod_bytes"][i, j, k]), cfg)
+    return cfg
+
+
+def koord_policy() -> NodeMetricCollectPolicy:
+    return NodeMetricCollectPolicy(*KOORD_POLICY)
+
+
+def koord_objects(spec, n_nodes=None):
+    """The nodes of ``spec`` (the first ``n_nodes``) and their running
+    pods, as objects: ``(nodes, pods by node name)``."""
+    nodes = spec["nodes"][:n_nodes]
+    names = {x["name"] for x in nodes}
+    cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+    pods = {}
+    for p in spec["pods"]:
+        if p.get("node") in names:
+            pods.setdefault(p["node"], []).append(ttypes.PodSpec(
+                name=p["name"], requests={cpu: p["cpu"], mem: p["memory"]},
+                node_name=p["node"], creation_time=KOORD_T0))
+    return [ttypes.NodeSpec(name=x["name"], allocatable={
+        cpu: x["cpu"], mem: x["memory"]}) for x in nodes], pods
+
+
+def koord_fleet(bus, spec, draw, root, agents=KOORD_AGENTS, n_nodes=None,
+                topology=None):
+    """Phase 21's node agents on ``bus`` (whose nodes and running pods are
+    applied): the first ``agents`` nodes each wired through
+    ``wire_koordlet`` with a ``MetricsAdvisor`` of ``default_collectors()``
+    over its fake tree under ``root``, ticked KOORD_TICKS times on the fake
+    clock; every other node a ``StatesInformer`` and a ``MetricCache`` fed
+    :func:`koord_samples` directly. Every node's ``NodeMetricReporter``
+    reports at the last tick and its NodeMetric goes onto the bus (the
+    agents' through ``KoordletLoop.report``). With ``topology``, a
+    function of the node's index giving ``(topology_reporter,
+    device_reporter)``, every node is wired and its NRT and Device CRs are
+    reported too. Returns ``(metrics by node, loops, timings, shadows)``:
+    ``shadows`` the agents' reports from caches fed directly, which their
+    collectors' reports must equal."""
+    samples = koord_samples(draw)
+    nodes = spec["nodes"][:n_nodes]
+    uids = {}
+    for p in spec["pods"]:
+        if "node" in p:
+            uids.setdefault(p["node"], []).append(f"default/{p['name']}")
+    metas_of = {}
+    loops, agents_of, reporters = {}, {}, {}
+    for i, x in enumerate(nodes):
+        name = x["name"]
+        informer = StatesInformer()
+        informer.set_collect_policy(koord_policy())
+        reporter = NodeMetricReporter(
+            MetricCache(capacity_per_series=KOORD_CAPACITY), informer)
+        reporters[name] = reporter
+        if i < agents or topology is not None:
+            topo, dev = topology(i) if topology is not None else (None, None)
+            loops[name] = wire_koordlet(bus, informer, name,
+                                        reporter=reporter,
+                                        topology_reporter=topo,
+                                        device_reporter=dev)
+        else:
+            informer.set_node(bus.get(Kind.NODE, name))
+            informer.set_pods([pod_meta_from_spec(bus.get(Kind.POD, u))
+                               for u in uids[name]])
+        if i < agents:
+            metas = informer.running_pods()
+            assert [m.uid for m in metas] == uids[name], name
+            metas_of[name] = metas
+            ctx = CollectorContext(metric_cache=reporter.metric_cache,
+                                   system_config=SystemConfig(
+                                       cgroup_root=os.path.join(
+                                           root, name, "cg"),
+                                       proc_root=os.path.join(
+                                           root, name, "proc"),
+                                       sysfs_root=os.path.join(
+                                           root, name, "sys")),
+                                   pod_provider=informer)
+            agents_of[name] = MetricsAdvisor(ctx, default_collectors(),
+                                             interval_seconds=KOORD_STEP_S)
+    t0 = time.perf_counter()
+    for k in range(KOORD_TICKS):
+        for i, x in enumerate(nodes[:agents]):
+            koord_tree(os.path.join(root, x["name"]), i, draw,
+                       metas_of[x["name"]], k)
+            agents_of[x["name"]].tick(koord_now(k))
+    ticks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    appended = 0
+    for i, x in enumerate(nodes[agents:], start=agents):
+        appended += koord_fill(reporters[x["name"]].metric_cache, samples, i,
+                               uids[x["name"]])
+    fill_s = time.perf_counter() - t0
+    now = koord_now()
+    metrics = {}
+    t0 = time.perf_counter()
+    for x in nodes:
+        name = x["name"]
+        if name in loops:
+            metrics[name] = loops[name].report(now)
+        else:
+            metrics[name] = reporters[name].report(now)
+            bus.apply(Kind.NODE_METRIC, name, metrics[name])
+    report_s = time.perf_counter() - t0
+    shadows = {}
+    for i, x in enumerate(nodes[:agents]):
+        informer = StatesInformer()
+        informer.set_collect_policy(koord_policy())
+        informer.set_node(bus.get(Kind.NODE, x["name"]))
+        informer.set_pods(metas_of[x["name"]])
+        shadow = NodeMetricReporter(
+            MetricCache(capacity_per_series=KOORD_CAPACITY), informer)
+        koord_fill(shadow.metric_cache, samples, i, uids[x["name"]])
+        shadows[x["name"]] = shadow.report(now)
+    return metrics, loops, dict(ticks=ticks_s, fill=fill_s, appended=appended,
+                                reports=report_s), shadows
+
+
+def batch_of(bus) -> dict:
+    """The batch allocatable the manager PATCHed, by node."""
+    return {name: (n.allocatable.get(ResourceName.BATCH_CPU, 0),
+                   n.allocatable.get(ResourceName.BATCH_MEMORY, 0))
+            for name, n in bus.list(Kind.NODE).items()}
+
+
+def koord_pending(spec):
+    """Phase 21's pending wave: the PENDING pods of ``spec``, a seeded
+    half of them BE pods on batch resources (priority 5,500, the batch
+    band)."""
+    be = np.random.default_rng(KOORD_BE_SEED).random(PENDING) < 0.5
+    pods = []
+    for p, is_be in zip((p for p in spec["pods"] if "node" not in p), be):
+        if is_be:
+            pods.append(ttypes.PodSpec(
+                name=p["name"], qos=QoSClass.BE, priority=5500,
+                requests={ResourceName.BATCH_CPU: p["cpu"],
+                          ResourceName.BATCH_MEMORY: p["memory"]},
+                creation_time=KOORD_T0))
+        else:
+            pods.append(ttypes.PodSpec(
+                name=p["name"], requests={ResourceName.CPU: p["cpu"],
+                                          ResourceName.MEMORY: p["memory"]},
+                creation_time=KOORD_T0))
+    return pods
+
+
+def koord_colocation(spec, draw, root, device):
+    """Phase 21 (a)-(b) on ``device``: a bus with the world's nodes and
+    running pods, on the card a wired ``build_scheduler`` in the
+    aggregated mode (none on the CPU), ``wire_manager(bus, device=device)``,
+    the fleet (:func:`koord_fleet`) and the manager's reconcile. Returns
+    ``(bus, scheduler, metrics, batch, record)``."""
+    bus = APIServer()
+    sched = None
+    if device != "cpu":
+        sched = build_scheduler(aggregated_config(AGG_SCORE_PCTS[0]),
+                                device=device)
+        wire_scheduler(bus, sched)
+    manager = wire_manager(bus, device=device)
+    nodes, pods = koord_objects(spec)
+    t0 = time.perf_counter()
+    for node in nodes:
+        bus.apply(Kind.NODE, node.name, node)
+    for node in nodes:
+        for pod in pods[node.name]:
+            bus.apply(Kind.POD, pod.uid, pod)
+    seed_s = time.perf_counter() - t0
+    metrics, loops, tm, shadows = koord_fleet(bus, spec, draw, root)
+    t0 = time.perf_counter()
+    synced = manager.reconcile(now=koord_now())
+    tm["reconcile"] = time.perf_counter() - t0
+    tm["seed"] = seed_s
+    return bus, sched, metrics, batch_of(bus), dict(
+        tm, synced=synced, loops=loops, shadows=shadows)
+
+
+def koord_topology_tree(root, cores) -> SystemConfig:
+    """A fake /proc/cpuinfo and NUMA sysfs of ``cores`` logical CPUs
+    (rounded down to even) under ``root``: 2 threads a core, 2 NUMA
+    nodes of half the cores each (node 0 the first), a socket each."""
+    cfg = SystemConfig(cgroup_root=os.path.join(root, "cg"),
+                       proc_root=os.path.join(root, "proc"),
+                       sysfs_root=os.path.join(root, "sys"))
+    n_cores = cores // 2
+    numa = [0 if c < n_cores // 2 else 1 for c in range(n_cores)]
+    os.makedirs(cfg.proc_root, exist_ok=True)
+    blocks = [f"processor\t: {cpu}\nphysical id\t: {numa[cpu // 2]}\n"
+              f"core id\t: {cpu // 2}\n" for cpu in range(2 * n_cores)]
+    with open(os.path.join(cfg.proc_root, "cpuinfo"), "w") as f:
+        f.write("\n".join(blocks) + "\n")
+    for node in (0, 1):
+        cpus = [cpu for cpu in range(2 * n_cores) if numa[cpu // 2] == node]
+        d = os.path.join(cfg.sysfs_root, "devices", "system", "node",
+                         f"node{node}")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "cpulist"), "w") as f:
+            f.write(f"{cpus[0]}-{cpus[-1]}\n")
+    return cfg
+
+
+class SeededGPUs:
+    """A node's seeded GPU inventory (the ``DeviceSource`` a
+    ``DeviceReporter`` reads): KOORD_GPUS GPUs, memory drawn from
+    KOORD_GPU_MIB, 4 on each NUMA node, 2 a PCIe switch."""
+
+    def __init__(self, rng):
+        self.mib = [int(m) for m in rng.choice(KOORD_GPU_MIB, KOORD_GPUS)]
+
+    def list_devices(self):
+        return [DeviceEntry(
+            minor=k, device_type=DeviceType.GPU, resources={
+                DeviceResourceName.GPU_CORE: 100,
+                DeviceResourceName.GPU_MEMORY: self.mib[k],
+                DeviceResourceName.GPU_MEMORY_RATIO: 100},
+            numa_node=k // 4, socket_id=k // 4, pcie_id=str(k // 2))
+            for k in range(KOORD_GPUS)]
+
+
+def koord_fine_pending():
+    """Round 2's SNN_PENDING pods: a seeded half LSR pods asking 2-8
+    whole CPUs (a cpuset), the rest asking 1-2 ``nvidia.com/gpu``."""
+    rng = np.random.default_rng(KOORD_GPU_SEED + 1)
+    pods = []
+    for j in range(SNN_PENDING):
+        if j % 2 == 0:
+            pods.append(ttypes.PodSpec(
+                name=f"cpuset-{j}", qos=QoSClass.LSR, requests={
+                    ResourceName.CPU: 1000 * int(rng.integers(2, 9)),
+                    ResourceName.MEMORY: int(rng.integers(1024, 8192))},
+                creation_time=KOORD_T0))
+        else:
+            pods.append(ttypes.PodSpec(
+                name=f"gpu-{j}", requests={
+                    ResourceName.CPU: int(rng.integers(1000, 4000)),
+                    ResourceName.MEMORY: int(rng.integers(1024, 8192))},
+                device_requests={"nvidia.com/gpu": int(rng.integers(1, 3))},
+                creation_time=KOORD_T0))
+    return pods
+
+
+def fine_state(sched):
+    """Placements, annotations, NUMA and device holds of ``sched``, plain
+    data."""
+    pods = {**sched.cache.pending, **sched.cache.pods}
+    return (
+        {u: (p.node_name, dict(p.annotations)) for u, p in pods.items()},
+        {n: {u: ([int(c) for c in a.cpuset],
+                 {k: {int(r): v for r, v in res.items()}
+                  for k, res in a.numa_resources.items()})
+             for u, a in na.pods.items()}
+         for n, na in sched.numa_manager.node_allocations.items()},
+        {n: {u: {t.value: [(a.minor, {k.value: v for k, v in
+                                     a.resources.items()})
+                           for a in allocs]
+                 for t, allocs in by_type.items()}
+             for u, by_type in nd.allocations.items()}
+         for n, nd in sched.device_cache.nodes.items()},
+        sorted(sched._fine_waiting))
+
+
+def koord_numa_world(spec, draw, root, device):
+    """Round 2's world on ``device``: SNN_NODES nodes of ``spec`` on a bus
+    with a wired ``build_scheduler``, each node's agent wired with its
+    ``NodeMetricReporter``, a ``NodeTopologyReporter`` over
+    ``read_cpu_infos`` of its fake tree under ``root`` and a
+    ``DeviceReporter`` over :class:`SeededGPUs`, both publishing through
+    ``koordlet_report_sinks``; the NRT and Device CRs checked on the bus
+    and in the scheduler; then the SNN_PENDING cpuset and GPU pods.
+    Returns ``(scheduler, wall of the agents' reports)``."""
+    rng = np.random.default_rng(KOORD_GPU_SEED)
+    trees = [koord_topology_tree(os.path.join(root, x["name"]),
+                                 x["cpu"] // 1000)
+             for x in spec["nodes"][:SNN_NODES]]
+    bus = APIServer()
+    sched = build_scheduler(SchedulerConfig(feature_gates=NO_PREEMPTION,
+                                            host_fallback_cells=0),
+                            device=device)
+    wire_scheduler(bus, sched)
+    nodes, pods = koord_objects(spec, SNN_NODES)
+    for node in nodes:
+        bus.apply(Kind.NODE, node.name, node)
+    for node in nodes:
+        for pod in pods[node.name]:
+            bus.apply(Kind.POD, pod.uid, pod)
+    topo_sink, dev_sink = koordlet_report_sinks(bus)
+
+    def reporters(i):
+        name, mem = nodes[i].name, nodes[i].allocatable[ResourceName.MEMORY]
+        return (NodeTopologyReporter(name, trees[i], topo_sink,
+                                     numa_memory_mib={0: mem // 2,
+                                                      1: mem - mem // 2}),
+                DeviceReporter(name, SeededGPUs(rng), dev_sink))
+
+    t0 = time.perf_counter()
+    koord_fleet(bus, spec, draw, root, agents=0, n_nodes=SNN_NODES,
+                topology=reporters)
+    report_s = time.perf_counter() - t0
+    for x in spec["nodes"][:SNN_NODES]:
+        name = x["name"]
+        nrt = bus.get(Kind.NODE_RESOURCE_TOPOLOGY, name)
+        devices = bus.get(Kind.DEVICE, name)
+        assert nrt is not None and len(devices) == KOORD_GPUS, name
+        assert sched.numa_manager.get_topology(name) is nrt, name
+        assert nrt.cpu_topology.num_cpus == 2 * (x["cpu"] // 2000), name
+        got = sched.device_cache.get(name)
+        assert got is not None and sorted(
+            d.minor for ds in got.device_infos.values() for d in ds) == [
+            d.minor for d in devices], name
+    for pod in koord_fine_pending():
+        bus.apply(Kind.POD, pod.uid, pod)
+    return sched, report_s
+
+
+def koord_cpu(spec_path, root, out_path) -> None:
+    """Phase 21's CPU run, in a process of its own beside the card's:
+    the fleet and the manager (:func:`koord_colocation` on ``cpu``) and
+    round 2 on ``cpu`` (CPU_ROUND_THREADS torch threads). Pickles what
+    the card's run is held against to ``out_path``."""
+    import pickle
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    draw = koord_draw(spec)
+    _, _, metrics, batch, tm = koord_colocation(
+        spec, draw, os.path.join(root, "fleet"), "cpu")
+    sched, _ = koord_numa_world(spec, draw, os.path.join(root, "nrt"), "cpu")
+    torch.set_num_threads(CPU_ROUND_THREADS)
+    t0 = time.perf_counter()
+    result = sched.schedule_pending(now=koord_now() + 1.0)
+    wall = time.perf_counter() - t0
+    with open(out_path, "wb") as f:
+        pickle.dump(dict(metrics=metrics, batch=batch, synced=tm["synced"],
+                         reconcile=tm["reconcile"],
+                         round2=(dict(result), result.waiting,
+                                 fine_state(sched)), round2_wall=wall), f)
+
+
+def koord_cpu_start(spec_path, root):
+    """Start :func:`koord_cpu` in a child process; returns ``(process,
+    output path)``."""
+    out = os.path.join(root, "cpu.pickle")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.koord_cpu(*sys.argv[1:])", spec_path,
+         os.path.join(root, "cpu"), out],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out
+
+
+def koord_cpu_result(proc, out) -> dict:
+    import pickle
+
+    rc = proc.wait(timeout=BINARY_TIMEOUT_S)
+    assert rc == 0, f"phase 21's CPU run exited {rc}"
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def koord_round_one(card, spec, draw, root):
+    """Phase 21 (a)-(c) on the card: the fleet's reports, the manager and
+    round 1. Returns ``(the round's kernels entry, metrics, batch,
+    synced)`` for the CPU run to be held against."""
+    with StepRecorder() as steps:
+        bus, sched, metrics, batch, tm = koord_colocation(spec, draw, root,
+                                                          None)
+    # (a) the reports
+    on_bus = bus.list(Kind.NODE_METRIC)
+    assert len(on_bus) == NODES and all(
+        on_bus[n] is m for n, m in metrics.items()), "reports not on the bus"
+    windows = {float(d) for d in koord_policy().aggregate_durations
+               if d != KOORD_POLICY[0]}
+    for name, m in metrics.items():
+        assert m.aggregated_usage and set(m.aggregated_windows) == windows, (
+            name, m.aggregated_usage, m.aggregated_windows)
+    assert tm["shadows"] == {n: metrics[n] for n in tm["shadows"]}, (
+        "an agent's report != the same samples appended directly")
+    assert all(metrics[n].node_usage for n in tm["shadows"])
+    hot = sum(m.aggregated_windows[max(windows)][AGG_USAGE_PCT][
+        ResourceName.CPU] * 100 > AGG_THRESHOLDS[ResourceName.CPU]
+        * bus.get(Kind.NODE, n).allocatable[ResourceName.CPU]
+        for n, m in metrics.items())
+    # (b) the manager
+    assert tm["synced"] == NODES, tm["synced"]
+    with_batch = sum(b[0] > 0 for b in batch.values())
+    assert with_batch > 0, "no node with batch CPU"
+    step_ms = steps.ms()
+    step_launches_n = step_launches(steps.args[0])
+    # (c) round 1
+    pending = koord_pending(spec)
+    for pod in pending:
+        bus.apply(Kind.POD, pod.uid, pod)
+    snap = ClusterSnapshot(
+        nodes=list(bus.list(Kind.NODE).values()),
+        pods=[p for p in bus.list(Kind.POD).values() if p.node_name],
+        pending_pods=pending)
+    label = f"the koordlet-fed round, {NODES} x {PENDING}"
+    result, launches, wall, captured = drive(
+        lambda: sched.schedule_pending(now=koord_now() + 1.0), clone=True)
+    inp, route = routed(label, launches, captured, "cluster")
+    assert route.shards == 5, route
+    capacity_ok(snap, result)
+    placed = {u: n for u, n in result.items() if n is not None}
+    be = {p.uid for p in pending if p.qos == QoSClass.BE}
+    be_placed = len(be & set(placed))
+    assert be_placed > 0 and len(placed) > be_placed, (be_placed, len(placed))
+    assert all(bus.get(Kind.POD, u).node_name == n for u, n in placed.items())
+    agent_pods = sum(len(loop.pods()) for loop in tm["loops"].values())
+    print(f"koordlet fleet [{card}]: {NODES} nodes, {KOORD_AGENTS} agents "
+          f"wired (wire_koordlet) with default_collectors() over their fake "
+          f"trees, {KOORD_TICKS} ticks {KOORD_STEP_S:.0f} s apart: collectors "
+          f"{tm['ticks']:.3f} s; {NODES - KOORD_AGENTS} caches fed "
+          f"{tm['appended']} samples directly in {tm['fill']:.3f} s; "
+          f"{NODES} reports in {tm['reports']:.3f} s "
+          f"({tm['reports'] / NODES * 1e3:.3f} ms a report); seeding "
+          f"{tm['seed']:.3f} s; every report carries its percentiles and "
+          f"windows, the agents' == their samples appended directly; {hot} "
+          f"nodes past the CPU threshold at p{AGG_USAGE_PCT} of the "
+          f"{max(windows):.0f} s window", flush=True)
+    print(f"koordlet manager [{card}]: reconcile {tm['reconcile']:.4f} s "
+          f"({tm['synced']} synced, {with_batch} nodes with batch CPU; step "
+          f"by CUDA events {step_ms[0]:.4f} ms, launches "
+          f"{'not measured' if step_launches_n is None else step_launches_n}"
+          f")", flush=True)
+    print(f"{label} [{card}]: {len(placed)} committed ({be_placed} BE on "
+          f"batch resources), {len(result.waiting)} waiting; wall "
+          f"{wall:.4f} s; route {route_name(route)}, launches "
+          f"{launches[route.kind]}; the {KOORD_AGENTS} agents hold "
+          f"{agent_pods} pods after the binds", flush=True)
+    stats = cpu_twin_cut(inp, route, label, card)
+    return (entry("binpack_koordlet_round", launches[route.kind], stats, 317),
+            metrics, batch, tm["synced"])
+
+
+def koord_numa_devices(card, spec, draw, root):
+    """Phase 21 (d) on the card: :func:`koord_numa_world` and its round,
+    every solve on the one-block kernel with extras rows, the final
+    solve held against its twin. Returns ``(its kernels entry, the
+    round's placements, waiting pods and fine-grained state)``."""
+    sched, report_s = koord_numa_world(spec, draw, root, None)
+    label = (f"the koordlet-reported NUMA and devices round, {SNN_NODES} x "
+             f"{SNN_PENDING}")
+    result, launches, wall, captured = drive(
+        lambda: sched.schedule_pending(now=koord_now() + 1.0), clone=True)
+    assert captured and all(r.kind == "block" for _, r in captured), [
+        r for _, r in captured]
+    assert sum(launches.values()) == launches["block"] == len(captured), (
+        launches, len(captured))
+    inp, route = captured[-1]
+    assert inp.extras is not None, "the round's solve had no extras rows"
+    state = fine_state(sched)
+    held = sum(len(v) for v in state[1].values())
+    gpus = sum(len(v) for v in state[2].values())
+    assert held > 0 and gpus > 0, (held, gpus)
+    committed = sum(n is not None for n in result.values())
+    print(f"{label} [{card}]: NRT and Device CRs of {SNN_NODES} nodes on the "
+          f"bus (NodeTopologyReporter over read_cpu_infos of a fake sysfs, "
+          f"DeviceReporter over {KOORD_GPUS} seeded GPUs a node), taken in by "
+          f"the NUMA manager and the device cache; {SNN_NODES} agents wired "
+          f"and reported in {report_s:.3f} s; {committed} committed, "
+          f"{len(result.waiting)} waiting, {held} pods hold a cpuset, {gpus} "
+          f"hold GPUs; wall {wall:.4f} s ({len(captured)} solves, every one "
+          f"on the one-block kernel with extras rows)", flush=True)
+    stats = compare(inp, f"{label}, final solve", card, reps=3)
+    return (entry("binpack_koordlet_numa_devices", launches["block"], stats,
+                  259), (dict(result), result.waiting, state))
+
+
+def node_agents(card) -> list:
+    """Phase 21, its CPU run in a child process beside the card's.
+    Returns its ``kernels`` entries."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cluster.json")
+        spec = binaries_world(path)
+        proc, out = koord_cpu_start(path, d)
+        try:
+            draw = koord_draw(spec)
+            round_one, metrics, batch, synced = koord_round_one(
+                card, spec, draw, os.path.join(d, "fleet"))
+            numa_devices, round_two = koord_numa_devices(
+                card, spec, draw, os.path.join(d, "nrt"))
+            t1 = time.perf_counter()
+            cpu = koord_cpu_result(proc, out)
+            waited = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert metrics == cpu["metrics"], "the fleet's reports: cuda != cpu"
+    assert synced == cpu["synced"] and batch == cpu["batch"], (
+        "batch allocatable: cuda != cpu")
+    assert round_two == cpu["round2"], "round 2: cuda != cpu"
+    print(f"node agents [{card}]: the CPU run (its own process, waited for "
+          f"{waited:.3f} s after the card's) reported the same {NODES} "
+          f"NodeMetrics, its manager (reconcile {cpu['reconcile']:.4f} s) "
+          f"PATCHed the same batch allocatable on every node, and its round "
+          f"2 ({cpu['round2_wall']:.4f} s, {CPU_ROUND_THREADS} torch thread) "
+          f"the same placements, annotations, NUMA and device holds",
+          flush=True)
+    print(f"node agents phase wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return [round_one, numa_devices]
+
+
+def cpu_twin_cut(inp, route, label, card, pods=TWIN_CUT_PODS) -> dict:
+    """The kernel held against its plain twin on the CPU (CPU_ROUND_THREADS
+    torch threads) on the solve's first ``pods`` pods, every output; the
+    full solve's first assignments equal to that cut's; the kernel timed
+    at full size."""
+    cut = first_pods(inp, pods)
+    cut_route = bk.route_of(cut)
+    got = bk.binpack(cut)
+    assert torch.equal(bk.binpack(inp).assign[:pods], got.assign), (
+        f"{label}: the full solve's first {pods} assignments != the cut's")
+    cpu_cut = map_args(cut, torch.Tensor.cpu)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_ROUND_THREADS)
+    try:
+        t0 = time.perf_counter()
+        want = twin(cpu_cut, cut_route)
+        plain_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    err = max_abs_err(map_args(got, torch.Tensor.cpu), want)
+    ms = cuda_ms(lambda: bk.binpack(inp), 3)
+    bound_ms, bound_by = bound(inp)
+    p = inp.req.shape[0]
+    print(f"{label}: {route_name(route)} kernel == the CPU's plain twin "
+          f"({CPU_ROUND_THREADS} torch thread) on its first {pods} pods "
+          f"(the CPU round on those pods; max_abs_err {err}), the full "
+          f"solve's first {pods} assignments == the cut's [{card}]: kernel "
+          f"{ms:.3f} ms ({ms / p * 1e3:.3f} us/pod), plain twin on the cut "
+          f"{plain_s * 1e3:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+                bound_ms=bound_ms, bound_by=bound_by, route=route,
+                variant=variant(inp))
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -5380,6 +6093,9 @@ def main() -> int:
 
     # -- 20. the wire under faults, the eviction storm, the manager binary ---
     kernels += faults_and_manager(card)
+
+    # -- 21. the node agents feed the colocation loop ----------------------------
+    kernels += node_agents(card)
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "
           "kernel library's build included)", flush=True)

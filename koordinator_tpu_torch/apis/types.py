@@ -1,9 +1,10 @@
 """The typed objects a placement solve consumes.
 
 Counterpart of ``koordinator_tpu/apis/types.py``, cut to the fields the
-placement path, the scheduling round, the descheduler and the manager's
-overcommit read: pods, nodes, node metrics, gangs, quotas, reservations,
-migration jobs and the cluster snapshot. All quantities are canonical
+placement path, the scheduling round, the descheduler, the manager's
+overcommit and the node agent read: pods, nodes, node metrics (with the
+agent's disk usage), PVCs, gangs, quotas, reservations, migration jobs
+and the cluster snapshot. All quantities are canonical
 integer units (CPU in millicores, memory in MiB).
 """
 
@@ -92,6 +93,9 @@ class PodSpec:
     #: creation time in wall-clock seconds: the eviction order's last
     #: tie-break (newer pods are evicted first)
     creation_time: float = 0.0
+    #: volume name -> PVC claim key "namespace/name" (spec.volumes with a
+    #: persistentVolumeClaim): the node agent's pod-volume resolution
+    volumes: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
         if self.priority_class is None:
@@ -154,8 +158,33 @@ class NodeMetric:
     host_app_usages: Dict[str, Resources] = dataclasses.field(
         default_factory=dict)
     host_app_qos: Dict[str, QoSClass] = dataclasses.field(default_factory=dict)
+    #: block device -> throughput and utilization over the window (the
+    #: node agent's storage accounting)
+    disk_usages: Dict[str, "DiskUsage"] = dataclasses.field(
+        default_factory=dict)
     update_time: float = 0.0
     report_interval: float = 60.0
+
+
+@dataclasses.dataclass
+class DiskUsage:
+    """One block device's throughput and utilization over the report
+    window."""
+
+    read_bps: int = 0
+    write_bps: int = 0
+    io_util_pct: int = 0
+
+
+@dataclasses.dataclass
+class PVCSpec:
+    """A PersistentVolumeClaim as the node agent needs it: the claim ->
+    bound-PV mapping. ``name`` is the namespaced claim key
+    ("namespace/name")."""
+
+    name: str
+    volume_name: str = ""       # bound PV name ("" = unbound)
+    capacity_mib: int = 0
 
 
 class GangMode(enum.Enum):

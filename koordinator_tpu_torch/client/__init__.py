@@ -1,6 +1,5 @@
 """The in-process API-server bus: typed objects, watch/list, component
-wiring (counterpart of ``koordinator_tpu/client``, cut to the scheduler,
-the manager and the descheduler).
+wiring (counterpart of ``koordinator_tpu/client``).
 
 The components never talk to each other directly; they watch and patch
 objects on the bus (:class:`APIServer`), a typed object store with
@@ -12,6 +11,7 @@ produces.
 from koordinator_tpu_torch.client.bus import APIServer, Kind  # noqa: F401
 from koordinator_tpu_torch.client.wiring import (  # noqa: F401
     wire_descheduler,
+    wire_koordlet,
     wire_manager,
     wire_scheduler,
 )

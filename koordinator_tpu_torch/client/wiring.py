@@ -1,6 +1,5 @@
 """Informer adapters: subscribe components to the bus (counterpart of
-``koordinator_tpu/client/wiring.py``, cut to the scheduler, the manager
-and the descheduler).
+``koordinator_tpu/client/wiring.py``).
 
 The scheduler consumes Node/Pod/NodeMetric/Quota/PodGroup/Reservation/
 Device/NRT, with a DeleteFunc for every kind, publishes its binds back
@@ -10,9 +9,10 @@ onto it and, with a NodeSLO renderer, publishes each node's NodeSLO;
 the descheduler classifies the bus's snapshot, reserves each migration's
 destination through the placement solver and evicts through the bus.
 ``wire_pod_webhook`` feeds the pod mutating webhook's quota-tree
-registries from the bus. ``KoordletLoop``, ``koordlet_report_sinks`` and
-``wire_koordlet`` need the koordlet, which is not ported yet (ROADMAP
-Queue 1 item 11(b)).
+registries from the bus. A node agent (``wire_koordlet``) watches its
+Node, its pods, its NodeSLO and the PVCs into its states informer, and
+``KoordletLoop.report`` publishes its NodeMetric, and through
+``koordlet_report_sinks`` its NRT and Device CRs.
 """
 
 from __future__ import annotations
@@ -290,6 +290,111 @@ def wire_manager(bus: APIServer, controller=None, elector=None,
     if controller is None:
         controller = NodeResourceController(device=device)
     return ManagerLoop(bus, controller, elector, nodeslo)
+
+
+class KoordletLoop:
+    """One node agent on the bus: it consumes its Node, its node's pods
+    and its rendered NodeSLO through watches, and reports NodeMetric
+    status back (and, when wired, the NRT and Device CRs)."""
+
+    def __init__(self, bus: APIServer, informer, node_name: str,
+                 reporter=None, pod_meta_fn=None,
+                 topology_reporter=None, device_reporter=None):
+        from koordinator_tpu_torch.koordlet.statesinformer import (
+            pod_meta_from_spec,
+        )
+
+        self.bus = bus
+        self.informer = informer
+        self.node_name = node_name
+        self.reporter = reporter
+        #: optional NRT / Device CR reporters (statesinformer reporters
+        #: built with koordlet_report_sinks(bus) as their sinks)
+        self.topology_reporter = topology_reporter
+        self.device_reporter = device_reporter
+        self._meta_fn = pod_meta_fn or pod_meta_from_spec
+        self._pods = {}
+
+        def on_node(event, name, node):
+            if name == node_name and event is not EventType.DELETED:
+                informer.set_node(node)
+
+        def on_slo(event, name, slo):
+            if name == node_name and event is not EventType.DELETED:
+                informer.set_node_slo(slo)
+
+        def on_pod(event, name, pod):
+            # a gang member waiting at the Permit barrier is assumed
+            # (node_name set in the scheduler cache) but not bound: the
+            # agent must not run it
+            mine = (
+                getattr(pod, "node_name", None) == node_name
+                and not getattr(pod, "waiting_permit", False)
+            )
+            if event is EventType.DELETED or not mine:
+                if self._pods.pop(pod.uid, None) is None:
+                    return  # never ours: don't rebuild the pod list
+            else:
+                self._pods[pod.uid] = pod
+            informer.set_pods(
+                [self._meta_fn(p) for p in self._pods.values()]
+            )
+
+        def on_pvc(event, name, pvc):
+            # claim -> bound-PV map for the blkio pod-volume resolution
+            if event is EventType.DELETED:
+                informer.remove_pvc(name)
+            else:
+                informer.upsert_pvc(pvc)
+
+        bus.watch(Kind.NODE, on_node)
+        bus.watch(Kind.NODE_SLO, on_slo)
+        bus.watch(Kind.POD, on_pod)
+        bus.watch(Kind.PVC, on_pvc)
+
+    def pods(self):
+        return list(self._pods.values())
+
+    def report(self, now: float):
+        """Aggregate the metric cache into a NodeMetric and publish it
+        (needs a NodeMetricReporter); the NRT and Device reporters, when
+        wired, publish through their own bus sinks."""
+        if (self.reporter is None and self.topology_reporter is None
+                and self.device_reporter is None):
+            raise RuntimeError(
+                "wire_koordlet was built without any reporter; pass "
+                "reporter=/topology_reporter=/device_reporter="
+            )
+        metric = None
+        if self.reporter is not None:
+            metric = self.reporter.report(now)
+            if metric is not None:
+                self.bus.apply(Kind.NODE_METRIC, self.node_name, metric)
+        if self.topology_reporter is not None:
+            self.topology_reporter.sync()
+        if self.device_reporter is not None:
+            self.device_reporter.sync()
+        return metric
+
+
+def koordlet_report_sinks(bus: APIServer):
+    """(topology_sink, device_sink) publishing the NodeResourceTopology
+    and Device CRs on the bus: the ``report`` callbacks the statesinformer
+    reporters take (the scheduler's NUMA manager and device cache consume
+    them through wire_scheduler's watches)."""
+    return (
+        lambda name, options: bus.apply(
+            Kind.NODE_RESOURCE_TOPOLOGY, name, options
+        ),
+        lambda name, entries: bus.apply(Kind.DEVICE, name, list(entries)),
+    )
+
+
+def wire_koordlet(bus: APIServer, informer, node_name: str, reporter=None,
+                  pod_meta_fn=None, topology_reporter=None,
+                  device_reporter=None) -> KoordletLoop:
+    return KoordletLoop(bus, informer, node_name, reporter, pod_meta_fn,
+                        topology_reporter, device_reporter)
 
 
 class DeschedulerLoop:

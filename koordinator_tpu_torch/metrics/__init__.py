@@ -1,6 +1,7 @@
 """Prometheus-style metrics (counterpart of ``koordinator_tpu/metrics``,
 cut to the series the ported modules emit): the registry primitives and
-the scheduler's, descheduler's and device observatory's registries."""
+the scheduler's, descheduler's, device observatory's and koordlet's
+registries."""
 
 from koordinator_tpu_torch.metrics.registry import (  # noqa: F401
     Counter,
@@ -12,5 +13,7 @@ from koordinator_tpu_torch.metrics.registry import (  # noqa: F401
 from koordinator_tpu_torch.metrics.components import (  # noqa: F401
     DESCHEDULER_METRICS,
     DEVICE_METRICS,
+    KOORDLET_EXTERNAL_METRICS,
+    KOORDLET_INTERNAL_METRICS,
     SCHEDULER_METRICS,
 )

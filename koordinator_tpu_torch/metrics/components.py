@@ -2,10 +2,11 @@
 ``koordinator_tpu/metrics/components.py``, cut to the series the ported
 scheduler round, its preemption and pod timelines, the eviction control
 plane, the anti-entropy auditor, the pipelined and streaming loops, the
-stuck-cycle monitor, the flight recorder, the device observatory, the serving failure domain
-(failover, supervisor, SLO controller, HBM working set, the solver's
-admission gate) and the descheduler emit, with the reference's names,
-labels and buckets).
+stuck-cycle monitor, the flight recorder, the device observatory, the
+serving failure domain (failover, supervisor, SLO controller, HBM working
+set, the solver's admission gate), the descheduler and the koordlet's
+internal and external sets emit, with the reference's names, labels and
+buckets).
 
 Deliberately absent: the XLA-compile, padding-waste and warm-pool series
 (``SUPERVISOR_RESPAWN_WARM`` among them). The port compiles no XLA
@@ -14,7 +15,7 @@ counted in ``DEVICE_COMPILES``), never pads a batch to a bucket, and has
 no warm pool.
 
 Reference metric names: pkg/scheduler/metrics/metrics.go,
-pkg/descheduler/metrics/metrics.go.
+pkg/descheduler/metrics/metrics.go, pkg/koordlet/metrics/.
 """
 
 from __future__ import annotations
@@ -336,6 +337,45 @@ DEVICE_PROFILE_WINDOWS = DEVICE_METRICS.counter(
     "solver_device_profile_windows_total",
     "On-demand torch.profiler windows, by outcome",
     label_names=("result",),  # written | error | rate-limited | refused
+)
+
+# -- koordlet (pkg/koordlet/metrics: internal + external sets) --------------
+
+KOORDLET_INTERNAL_METRICS = Registry("koordlet-internal")
+CGROUP_WRITES = KOORDLET_INTERNAL_METRICS.counter(
+    "koordlet_resource_executor_writes_total",
+    "Cgroup writes issued by the resource executor",
+    label_names=("resource",),
+)
+COLLECT_DURATION = KOORDLET_INTERNAL_METRICS.histogram(
+    "koordlet_collect_duration_seconds",
+    "Metrics-advisor collection pass latency",
+    label_names=("collector",),
+)
+PREDICT_DURATION = KOORDLET_INTERNAL_METRICS.histogram(
+    "koordlet_predict_duration_seconds",
+    "Peak predictor update latency",
+)
+
+KOORDLET_EXTERNAL_METRICS = Registry("koordlet-external")
+BE_SUPPRESS_CPU_CORES = KOORDLET_EXTERNAL_METRICS.gauge(
+    "koordlet_be_suppress_cpu_cores",
+    "Current BE CPU suppress target in cores",
+)
+POD_EVICTIONS = KOORDLET_EXTERNAL_METRICS.counter(
+    "koordlet_pod_evictions_total",
+    "Pods evicted by QoS strategies",
+    label_names=("reason",),
+)
+NODE_RESOURCE_ALLOCATABLE = KOORDLET_EXTERNAL_METRICS.gauge(
+    "koordlet_node_resource_allocatable",
+    "Reported node allocatable per resource",
+    label_names=("resource",),
+)
+CONTAINER_CPI_METRIC = KOORDLET_EXTERNAL_METRICS.gauge(
+    "koordlet_container_cpi",
+    "Latest cycles-per-instruction per container",
+    label_names=("pod", "container"),
 )
 
 # -- koord-solver sidecar (service/admission.py gate) -----------------------

@@ -73,7 +73,24 @@ def test_every_module_imports_without_jax():
               # the descheduler binary
               "scheduler.auditor", "manager.nodeslo", "cmd.descheduler",
               # the host route: the scalar and vectorized oracles
-              "oracle.placement", "oracle.vectorized"):
+              "oracle.placement", "oracle.vectorized",
+              # the koordlet's reporting half: the system layer, the
+              # audit log, the cgroup executor, the metric cache, the
+              # collectors and the states informer with its reporters
+              "koordlet.system", "koordlet.system.cgroup",
+              "koordlet.system.cpuinfo", "koordlet.system.kidled",
+              "koordlet.audit", "koordlet.audit.auditor",
+              "koordlet.resourceexecutor",
+              "koordlet.resourceexecutor.executor",
+              "koordlet.metriccache", "koordlet.metriccache.metric_cache",
+              "koordlet.metricsadvisor",
+              "koordlet.metricsadvisor.framework",
+              "koordlet.metricsadvisor.collectors",
+              "koordlet.metricsadvisor.devices",
+              "koordlet.statesinformer",
+              "koordlet.statesinformer.states_informer",
+              "koordlet.statesinformer.nodemetric_reporter",
+              "koordlet.statesinformer.reporters"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
