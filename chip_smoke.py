@@ -361,7 +361,10 @@ the microseconds per pod and the bound (see :func:`bound`).
    64 are wired through ``wire_koordlet`` and run ``MetricsAdvisor`` with
    ``default_collectors()`` over a fake procfs and cgroupfs tree of their
    own (seeded cumulative /proc/stat jiffies, meminfo, each running pod's
-   ``cpuacct.usage`` and ``memory.usage_in_bytes``), 11 ticks 30 s apart on
+   ``cpuacct.usage`` and ``memory.usage_in_bytes``; every second agent's
+   tree is cgroup v2: ``cpu.stat``'s ``usage_usec`` and ``memory.current``,
+   and the cache its report is held to is fed the same whole
+   microseconds), 11 ticks 30 s apart on
    a fake clock; the rest get the same kinds of samples appended directly
    at the same times. Every report goes onto the bus (the agents' through
    ``KoordletLoop.report``) with its percentiles and windows; each agent's
@@ -385,6 +388,36 @@ the microseconds per pod and the bound (see :func:`bound`).
    annotations, NUMA and device holds); its final solve held against its
    twin. Every tree lives under a temporary directory; every series keeps
    64 points (30 minutes at 30 s).
+22. The node agents act on pressure and the card re-places their victims,
+   on phase 21's world after its round 1 (the CPU run, in phase 21's child
+   process, takes round 1's binds from the card's run: its wired scheduler
+   observes them as another scheduler's). (a) Each of the 64 agents gets
+   a ``QoSContext`` wired as the koordlet binary wires it (the informer as
+   pod provider, its ``MetricCache``, a ``ResourceUpdateExecutor`` over its
+   tree, the BE allocatable from the informer's node, the NodeSLO callback)
+   and a ``QoSManager`` of the eight strategies; the manager's reconcile,
+   with the ``NodeSLOController`` on, publishes every node's NodeSLO (BE
+   thresholds on: memory evict at 70%, CPU suppress at 65%, the CPU evict
+   satisfaction band 60-80%; the suppress policy cpuset on half the agents,
+   cfsQuota on the other half, an extender) and the agents take it from
+   the bus. (b) Seeded pressure: the kubelet's dirs of every running pod,
+   a topology, a fake resctrl tree and /proc/sys/vm in each agent's tree;
+   an LS pod with a CPU limit on each agent; 16 agents over the memory
+   threshold; 16 agents' BE tier starved (three BE pods requesting plain
+   CPU, the tier's cfs quota at half their request, their usage at that
+   limit); 2 collector ticks; 600 of the other nodes (of those running a
+   BE pod) over the memory threshold in their caches, each with a
+   ``QoSManager`` of the memory evictor alone. (c) One QoS tick on every
+   node; the eviction glue (here, not in the package) deletes each victim
+   from the bus, removes its pod's dirs from its agent's tree (a ``PLEG``
+   over each tree reports exactly the victims as deleted) and re-creates
+   it unbound under a new name. (d) The agents collect again, every node
+   reports, the manager reconciles, and the wired scheduler's round on the
+   card places the re-created pods with round 1's leftovers (the cluster
+   kernel at 5 CTAs), every placement within its node's allocatable as the
+   bus holds it after the PATCH; the kernel held against its plain twin on
+   the round's inputs. The CPU run's victims in order, trees, reports,
+   batch allocatable and placements equal the card's.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -464,6 +497,24 @@ from koordinator_tpu_torch.device.cache import (
     DeviceResourceName,
     DeviceType,
 )
+from koordinator_tpu_torch.koordlet.audit import Auditor
+from koordinator_tpu_torch.koordlet.pleg import PLEG
+from koordinator_tpu_torch.koordlet.qosmanager import (
+    BlkIOReconcile,
+    CgroupResourcesReconcile,
+    CPUBurst,
+    CPUEvictor,
+    CPUInfo,
+    CPUSuppress,
+    MemoryEvictor,
+    QoSContext,
+    QoSManager,
+    ResctrlReconcile,
+    SystemConfigReconcile,
+)
+from koordinator_tpu_torch.koordlet.resourceexecutor import (
+    ResourceUpdateExecutor,
+)
 from koordinator_tpu_torch.koordlet.resourceexecutor.executor import (
     ensure_cgroup_dir,
 )
@@ -474,12 +525,20 @@ from koordinator_tpu_torch.koordlet.statesinformer import (
     StatesInformer,
     pod_meta_from_spec,
 )
+from koordinator_tpu_torch.koordlet.statesinformer.states_informer import (
+    StateKind,
+)
 from koordinator_tpu_torch.koordlet.system.cgroup import (
     CPU_ACCT_USAGE,
+    CPU_CFS_QUOTA,
+    CPU_STAT,
     MEMORY_USAGE,
+    V1_SUBSYSTEMS,
     SystemConfig,
 )
+from koordinator_tpu_torch.koordlet.system.cpuinfo import read_cpu_infos
 from koordinator_tpu_torch.manager.nodemetric import NodeMetricCollectPolicy
+from koordinator_tpu_torch.manager.nodeslo import NodeSLOController
 from koordinator_tpu_torch.metrics.components import (
     PIPELINE_DEFERRED_ERRORS,
     POD_E2E,
@@ -767,6 +826,15 @@ KOORD_CAPACITY = 64
 KOORD_TICKS, KOORD_STEP_S, KOORD_T0 = 11, 30.0, 1_000_000.0
 KOORD_SEED, KOORD_BE_SEED, KOORD_GPU_SEED = 21, 22, 23
 KOORD_GPUS, KOORD_GPU_MIB = 8, (16384, 40960, 81920)
+# phase 22: the agents act. The NodeSLO's BE thresholds (percent: memory
+# evict, CPU suppress, the CPU evict satisfaction band), the collectors'
+# ticks under pressure, the agents over the memory threshold and those
+# whose BE tier is starved, the nodes fed directly that go over the memory
+# threshold, and the seed of the pressure
+QOS_MEMORY_EVICT, QOS_CPU_SUPPRESS, QOS_SATISFACTION = 70, 65, (60, 80)
+QOS_PRESSURE_TICKS = 2
+QOS_MEMORY_AGENTS, QOS_STARVED_AGENTS, QOS_FED_PRESSED = 16, 16, 600
+QOS_SEED = 24
 #: the pods the full-size plain twins of phases 6, 7 and 17 are cut to
 #: (their kernels still timed at full size)
 TWIN_CUT_PODS = 1000
@@ -5334,14 +5402,38 @@ def koord_fill(cache, samples, i, uids) -> int:
     return appended
 
 
+def koord_v2(i) -> bool:
+    """Whether agent ``i``'s tree is cgroup v2 (every second agent)."""
+    return i % 2 == 1
+
+
+def koord_config(root, i) -> SystemConfig:
+    """Agent ``i``'s roots under ``root``: cgroupfs, procfs and sysfs."""
+    return SystemConfig(cgroup_root=os.path.join(root, "cg"),
+                        proc_root=os.path.join(root, "proc"),
+                        sysfs_root=os.path.join(root, "sys"),
+                        use_cgroup_v2=koord_v2(i))
+
+
+def cpu_counter(cfg, ns, throttle=None) -> str:
+    """A cgroup's cpu counter file: v1 ``cpuacct.usage`` in ns; v2
+    ``cpu.stat``'s ``usage_usec`` (whole microseconds), with the
+    throttling counters ``(nr_periods, nr_throttled)`` when given."""
+    if not cfg.use_cgroup_v2:
+        return str(ns)
+    text = f"usage_usec {ns // 1000}\n"
+    if throttle is not None:
+        text += f"nr_periods {throttle[0]}\nnr_throttled {throttle[1]}\n"
+    return text
+
+
 def koord_tree(root, i, draw, metas, k) -> SystemConfig:
     """Agent node ``i``'s fake procfs and cgroupfs under ``root`` at tick
     ``k``: /proc/stat and /proc/meminfo, and each running pod's
-    ``cpuacct.usage`` and ``memory.usage_in_bytes`` at its cgroup
-    (``metas``: the agent's pods, in the node's order)."""
-    cfg = SystemConfig(cgroup_root=os.path.join(root, "cg"),
-                       proc_root=os.path.join(root, "proc"),
-                       sysfs_root=os.path.join(root, "sys"))
+    ``cpuacct.usage`` (v2: ``cpu.stat``) and ``memory.usage_in_bytes``
+    (v2: ``memory.current``) at its cgroup (``metas``: the agent's pods,
+    in the node's order)."""
+    cfg = koord_config(root, i)
     if k == 0:
         os.makedirs(cfg.proc_root, exist_ok=True)
         for meta in metas:
@@ -5355,7 +5447,8 @@ def koord_tree(root, i, draw, metas, k) -> SystemConfig:
         f.write(f"MemTotal: {total} kB\nMemFree: 0 kB\nMemAvailable: "
                 f"{total - draw['used_kb'][i, k]} kB\n")
     for j, meta in enumerate(metas):
-        CPU_ACCT_USAGE.write(meta.cgroup_dir, str(draw["pod_ns"][i, j, k]),
+        CPU_ACCT_USAGE.write(meta.cgroup_dir,
+                             cpu_counter(cfg, int(draw["pod_ns"][i, j, k])),
                              cfg)
         MEMORY_USAGE.write(meta.cgroup_dir,
                            str(draw["pod_bytes"][i, j, k]), cfg)
@@ -5396,18 +5489,23 @@ def koord_fleet(bus, spec, draw, root, agents=KOORD_AGENTS, n_nodes=None,
     device_reporter)``, every node is wired and its NRT and Device CRs are
     reported too. Returns ``(metrics by node, loops, timings, shadows)``:
     ``shadows`` the agents' reports from caches fed directly, which their
-    collectors' reports must equal."""
+    collectors' reports must equal (a v2 agent's fed whole microseconds,
+    as its ``cpu.stat`` counts them). ``timings`` also carries the fleet
+    (``informers``, ``reporters``, ``advisors``: name -> (config,
+    advisor), ``uids``: the running pods' by name)."""
     samples = koord_samples(draw)
+    samples_us = koord_samples(dict(draw, pod_ns=draw["pod_ns"] // 1000
+                                    * 1000))
     nodes = spec["nodes"][:n_nodes]
     uids = {}
     for p in spec["pods"]:
         if "node" in p:
             uids.setdefault(p["node"], []).append(f"default/{p['name']}")
     metas_of = {}
-    loops, agents_of, reporters = {}, {}, {}
+    loops, agents_of, reporters, informers = {}, {}, {}, {}
     for i, x in enumerate(nodes):
         name = x["name"]
-        informer = StatesInformer()
+        informer = informers[name] = StatesInformer()
         informer.set_collect_policy(koord_policy())
         reporter = NodeMetricReporter(
             MetricCache(capacity_per_series=KOORD_CAPACITY), informer)
@@ -5427,13 +5525,8 @@ def koord_fleet(bus, spec, draw, root, agents=KOORD_AGENTS, n_nodes=None,
             assert [m.uid for m in metas] == uids[name], name
             metas_of[name] = metas
             ctx = CollectorContext(metric_cache=reporter.metric_cache,
-                                   system_config=SystemConfig(
-                                       cgroup_root=os.path.join(
-                                           root, name, "cg"),
-                                       proc_root=os.path.join(
-                                           root, name, "proc"),
-                                       sysfs_root=os.path.join(
-                                           root, name, "sys")),
+                                   system_config=koord_config(
+                                       os.path.join(root, name), i),
                                    pod_provider=informer)
             agents_of[name] = MetricsAdvisor(ctx, default_collectors(),
                                              interval_seconds=KOORD_STEP_S)
@@ -5469,10 +5562,14 @@ def koord_fleet(bus, spec, draw, root, agents=KOORD_AGENTS, n_nodes=None,
         informer.set_pods(metas_of[x["name"]])
         shadow = NodeMetricReporter(
             MetricCache(capacity_per_series=KOORD_CAPACITY), informer)
-        koord_fill(shadow.metric_cache, samples, i, uids[x["name"]])
+        koord_fill(shadow.metric_cache, samples_us if koord_v2(i)
+                   else samples, i, uids[x["name"]])
         shadows[x["name"]] = shadow.report(now)
-    return metrics, loops, dict(ticks=ticks_s, fill=fill_s, appended=appended,
-                                reports=report_s), shadows
+    return metrics, loops, dict(
+        ticks=ticks_s, fill=fill_s, appended=appended, reports=report_s,
+        informers=informers, reporters=reporters, uids=uids,
+        advisors={n: (a.ctx.system_config, a) for n, a in agents_of.items()}
+    ), shadows
 
 
 def batch_of(bus) -> dict:
@@ -5505,16 +5602,14 @@ def koord_pending(spec):
 
 def koord_colocation(spec, draw, root, device):
     """Phase 21 (a)-(b) on ``device``: a bus with the world's nodes and
-    running pods, on the card a wired ``build_scheduler`` in the
-    aggregated mode (none on the CPU), ``wire_manager(bus, device=device)``,
-    the fleet (:func:`koord_fleet`) and the manager's reconcile. Returns
-    ``(bus, scheduler, metrics, batch, record)``."""
+    running pods, a wired ``build_scheduler`` in the aggregated mode,
+    ``wire_manager(bus, device=device)``, the fleet (:func:`koord_fleet`)
+    and the manager's reconcile. Returns ``(bus, scheduler, metrics,
+    batch, record)``; the record carries the manager and the fleet."""
     bus = APIServer()
-    sched = None
-    if device != "cpu":
-        sched = build_scheduler(aggregated_config(AGG_SCORE_PCTS[0]),
-                                device=device)
-        wire_scheduler(bus, sched)
+    sched = build_scheduler(aggregated_config(AGG_SCORE_PCTS[0]),
+                            device=device)
+    wire_scheduler(bus, sched)
     manager = wire_manager(bus, device=device)
     nodes, pods = koord_objects(spec)
     t0 = time.perf_counter()
@@ -5530,21 +5625,24 @@ def koord_colocation(spec, draw, root, device):
     tm["reconcile"] = time.perf_counter() - t0
     tm["seed"] = seed_s
     return bus, sched, metrics, batch_of(bus), dict(
-        tm, synced=synced, loops=loops, shadows=shadows)
+        tm, synced=synced, loops=loops, shadows=shadows, manager=manager)
 
 
-def koord_topology_tree(root, cores) -> SystemConfig:
+def koord_topology_tree(root, cores, vendor=None) -> SystemConfig:
     """A fake /proc/cpuinfo and NUMA sysfs of ``cores`` logical CPUs
     (rounded down to even) under ``root``: 2 threads a core, 2 NUMA
-    nodes of half the cores each (node 0 the first), a socket each."""
+    nodes of half the cores each (node 0 the first), a socket each; each
+    processor's ``vendor_id`` when ``vendor`` is given."""
     cfg = SystemConfig(cgroup_root=os.path.join(root, "cg"),
                        proc_root=os.path.join(root, "proc"),
                        sysfs_root=os.path.join(root, "sys"))
     n_cores = cores // 2
     numa = [0 if c < n_cores // 2 else 1 for c in range(n_cores)]
     os.makedirs(cfg.proc_root, exist_ok=True)
-    blocks = [f"processor\t: {cpu}\nphysical id\t: {numa[cpu // 2]}\n"
-              f"core id\t: {cpu // 2}\n" for cpu in range(2 * n_cores)]
+    vendor_line = f"vendor_id\t: {vendor}\n" if vendor else ""
+    blocks = [f"processor\t: {cpu}\n{vendor_line}physical id\t: "
+              f"{numa[cpu // 2]}\ncore id\t: {cpu // 2}\n"
+              for cpu in range(2 * n_cores)]
     with open(os.path.join(cfg.proc_root, "cpuinfo"), "w") as f:
         f.write("\n".join(blocks) + "\n")
     for node in (0, 1):
@@ -5670,55 +5768,90 @@ def koord_numa_world(spec, draw, root, device):
     return sched, report_s
 
 
-def koord_cpu(spec_path, root, out_path) -> None:
-    """Phase 21's CPU run, in a process of its own beside the card's:
-    the fleet and the manager (:func:`koord_colocation` on ``cpu``) and
-    round 2 on ``cpu`` (CPU_ROUND_THREADS torch threads). Pickles what
-    the card's run is held against to ``out_path``."""
+def koord_cpu(spec_path, root, out_path, handoff) -> None:
+    """Phases 21 and 22's CPU run of the fleet's world, in a process of
+    its own beside the card's, at CPU_ROUND_THREADS torch threads: the
+    fleet and the manager (:func:`koord_colocation` on ``cpu``), the
+    pending wave bound as the card's round 1 bound it (``handoff``), and
+    phase 22 (:func:`qos_actuation` and its round) on ``cpu``. Pickles
+    what the card's run is held against to ``out_path``."""
     import pickle
 
     with open(spec_path) as f:
         spec = json.load(f)
     draw = koord_draw(spec)
-    _, _, metrics, batch, tm = koord_colocation(
-        spec, draw, os.path.join(root, "fleet"), "cpu")
-    sched, _ = koord_numa_world(spec, draw, os.path.join(root, "nrt"), "cpu")
     torch.set_num_threads(CPU_ROUND_THREADS)
+    bus, sched, metrics, batch, tm = koord_colocation(
+        spec, draw, os.path.join(root, "fleet"), "cpu")
+    for pod in koord_pending(spec):
+        bus.apply(Kind.POD, pod.uid, pod)
+    t0 = time.perf_counter()
+    bound = koord_bind_handoff(bus, handoff)
+    handoff_wait = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = qos_actuation(bus, sched, tm, spec, draw,
+                        os.path.join(root, "fleet"))
+    qos = qos_result(out, sched.schedule_pending(now=out["t_round"]))
+    qos_wall = time.perf_counter() - t0
+    with open(out_path, "wb") as f:
+        pickle.dump(dict(metrics=metrics, batch=batch, synced=tm["synced"],
+                         reconcile=tm["reconcile"], bound=bound,
+                         handoff_wait=handoff_wait, qos=qos,
+                         qos_wall=qos_wall), f)
+
+
+def koord_cpu_round2(spec_path, root, out_path) -> None:
+    """Phase 21 (d)'s CPU run, in a second process: round 2's world and
+    round on ``cpu`` at CPU_ROUND_THREADS torch threads. Pickles its
+    result to ``out_path``."""
+    import pickle
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    draw = koord_draw(spec)
+    torch.set_num_threads(CPU_ROUND_THREADS)
+    sched, _ = koord_numa_world(spec, draw, os.path.join(root, "nrt"), "cpu")
     t0 = time.perf_counter()
     result = sched.schedule_pending(now=koord_now() + 1.0)
     wall = time.perf_counter() - t0
     with open(out_path, "wb") as f:
-        pickle.dump(dict(metrics=metrics, batch=batch, synced=tm["synced"],
-                         reconcile=tm["reconcile"],
-                         round2=(dict(result), result.waiting,
+        pickle.dump(dict(round2=(dict(result), result.waiting,
                                  fine_state(sched)), round2_wall=wall), f)
 
 
-def koord_cpu_start(spec_path, root):
-    """Start :func:`koord_cpu` in a child process; returns ``(process,
-    output path)``."""
-    out = os.path.join(root, "cpu.pickle")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke.koord_cpu(*sys.argv[1:])", spec_path,
-         os.path.join(root, "cpu"), out],
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    return proc, out
+def koord_cpu_start(spec_path, root, handoff):
+    """Start :func:`koord_cpu` (which waits for round 1's binds at
+    ``handoff``) and :func:`koord_cpu_round2` in two child processes;
+    returns their ``[(process, output path)]``."""
+    children = []
+    for fn, extra in (("koord_cpu", [handoff]), ("koord_cpu_round2", [])):
+        out = os.path.join(root, f"{fn}.pickle")
+        children.append((subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             f"chip_smoke.{fn}(*sys.argv[1:])", spec_path,
+             os.path.join(root, "cpu"), out, *extra],
+            cwd=os.path.dirname(os.path.abspath(__file__))), out))
+    return children
 
 
-def koord_cpu_result(proc, out) -> dict:
+def koord_cpu_result(children) -> dict:
+    """The CPU children's pickled results, merged, once both exit 0."""
     import pickle
 
-    rc = proc.wait(timeout=BINARY_TIMEOUT_S)
-    assert rc == 0, f"phase 21's CPU run exited {rc}"
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    merged = {}
+    for proc, out in children:
+        rc = proc.wait(timeout=BINARY_TIMEOUT_S)
+        assert rc == 0, f"the node agents' CPU run exited {rc}"
+        with open(out, "rb") as f:
+            merged.update(pickle.load(f))
+    return merged
 
 
-def koord_round_one(card, spec, draw, root):
+def koord_round_one(card, spec, draw, root, handoff):
     """Phase 21 (a)-(c) on the card: the fleet's reports, the manager and
-    round 1. Returns ``(the round's kernels entry, metrics, batch,
-    synced)`` for the CPU run to be held against."""
+    round 1, whose bound pods are pickled to ``handoff`` for the CPU run's
+    phase 22. Returns ``(the round's kernels entry, metrics, batch,
+    synced, the world)`` for the CPU run to be held against."""
     with StepRecorder() as steps:
         bus, sched, metrics, batch, tm = koord_colocation(spec, draw, root,
                                                           None)
@@ -5759,6 +5892,8 @@ def koord_round_one(card, spec, draw, root):
     assert route.shards == 5, route
     capacity_ok(snap, result)
     placed = {u: n for u, n in result.items() if n is not None}
+    assert not result.waiting, "round 1 left pods at the Permit barrier"
+    koord_handoff(handoff, {u: bus.get(Kind.POD, u) for u in placed})
     be = {p.uid for p in pending if p.qos == QoSClass.BE}
     be_placed = len(be & set(placed))
     assert be_placed > 0 and len(placed) > be_placed, (be_placed, len(placed))
@@ -5787,7 +5922,36 @@ def koord_round_one(card, spec, draw, root):
           f"{agent_pods} pods after the binds", flush=True)
     stats = cpu_twin_cut(inp, route, label, card)
     return (entry("binpack_koordlet_round", launches[route.kind], stats, 317),
-            metrics, batch, tm["synced"])
+            metrics, batch, tm["synced"], dict(bus=bus, sched=sched, tm=tm))
+
+
+def koord_handoff(path, pods) -> None:
+    """Round 1's bound pods (uid -> PodSpec, in the round's order) for the
+    CPU run, written whole before it appears under ``path``."""
+    import pickle
+
+    with open(path + ".part", "wb") as f:
+        pickle.dump(pods, f)
+    os.replace(path + ".part", path)
+
+
+def koord_bind_handoff(bus, path, timeout_s=BINARY_TIMEOUT_S) -> int:
+    """The CPU run's round 1: wait for the card's bound pods at ``path``
+    and apply each, as another scheduler's bind arrives (the wired
+    scheduler observes the binding, the agents take their pods). Returns
+    the pods bound."""
+    import pickle
+
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        assert time.monotonic() < deadline, "round 1's binds never came"
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        pods = pickle.load(f)
+    for uid, pod in pods.items():
+        bus.apply(Kind.POD, uid, pod)
+    return len(pods)
+
 
 
 def koord_numa_devices(card, spec, draw, root):
@@ -5825,40 +5989,595 @@ def koord_numa_devices(card, spec, draw, root):
 
 
 def node_agents(card) -> list:
-    """Phase 21, its CPU run in a child process beside the card's.
-    Returns its ``kernels`` entries."""
+    """Phases 21 and 22 (phase 22 on phase 21's world after its round 1),
+    their CPU run in a child process beside the card's. Returns their
+    ``kernels`` entries."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "cluster.json")
         spec = binaries_world(path)
-        proc, out = koord_cpu_start(path, d)
+        handoff = os.path.join(d, "round1.pickle")
+        children = koord_cpu_start(path, d, handoff)
         try:
             draw = koord_draw(spec)
-            round_one, metrics, batch, synced = koord_round_one(
-                card, spec, draw, os.path.join(d, "fleet"))
+            round_one, metrics, batch, synced, world = koord_round_one(
+                card, spec, draw, os.path.join(d, "fleet"), handoff)
             numa_devices, round_two = koord_numa_devices(
                 card, spec, draw, os.path.join(d, "nrt"))
+            t22 = time.perf_counter()
+            qos_entry, qos = qos_replacement(card, world, spec, draw,
+                                             os.path.join(d, "fleet"))
             t1 = time.perf_counter()
-            cpu = koord_cpu_result(proc, out)
+            cpu = koord_cpu_result(children)
             waited = time.perf_counter() - t1
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            for proc, _ in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     assert metrics == cpu["metrics"], "the fleet's reports: cuda != cpu"
     assert synced == cpu["synced"] and batch == cpu["batch"], (
         "batch allocatable: cuda != cpu")
     assert round_two == cpu["round2"], "round 2: cuda != cpu"
-    print(f"node agents [{card}]: the CPU run (its own process, waited for "
+    for key in qos:
+        assert qos[key] == cpu["qos"][key], f"phase 22's {key}: cuda != cpu"
+    print(f"node agents [{card}]: the CPU run (two processes, waited for "
           f"{waited:.3f} s after the card's) reported the same {NODES} "
           f"NodeMetrics, its manager (reconcile {cpu['reconcile']:.4f} s) "
-          f"PATCHed the same batch allocatable on every node, and its round "
-          f"2 ({cpu['round2_wall']:.4f} s, {CPU_ROUND_THREADS} torch thread) "
+          f"PATCHed the same batch allocatable on every node (then bound "
+          f"round 1's {cpu['bound']} pods as the card's round bound them, "
+          f"{cpu['handoff_wait']:.3f} s after its fleet), and its round 2 "
+          f"({cpu['round2_wall']:.4f} s, {CPU_ROUND_THREADS} torch thread) "
           f"the same placements, annotations, NUMA and device holds",
           flush=True)
-    print(f"node agents phase wall {time.perf_counter() - t0:.2f} s",
+    print(f"koordlet QoS [{card}]: the CPU run's phase 22 ({cpu['qos_wall']:.3f}"
+          f" s) evicted the same {len(qos['victims'])} victims in the same "
+          f"order, wrote the same trees on the {KOORD_AGENTS} agents, "
+          f"reported the same {NODES} NodeMetrics, PATCHed the same batch "
+          f"allocatable and placed the same pods", flush=True)
+    now = time.perf_counter()
+    print(f"node agents phase wall {now - t0:.2f} s; phase 22 "
+          f"{now - t22:.2f} s of it (the wait for the CPU run included)",
           flush=True)
-    return [round_one, numa_devices]
+    return [round_one, numa_devices, qos_entry]
+
+# -- phase 22: the agents act, the card re-places ------------------------------
+
+
+def qos_slo_controller(policies) -> NodeSLOController:
+    """Phase 22's NodeSLO renderer: the BE thresholds on (memory evict at
+    QOS_MEMORY_EVICT%, CPU suppress at QOS_CPU_SUPPRESS%, the CPU evict
+    satisfaction band QOS_SATISFACTION), memcg QoS and a blkio throttle
+    for BE pods, CPU burst on, the /proc/sys knobs; each node's suppress
+    policy from ``policies`` (an extender; cpuset where absent)."""
+    spec = sloconfig.NodeSLOSpec()
+    t = spec.resource_used_threshold_with_be
+    t.enable = True
+    t.memory_evict_threshold_percent = QOS_MEMORY_EVICT
+    t.cpu_suppress_threshold_percent = QOS_CPU_SUPPRESS
+    (t.cpu_evict_be_satisfaction_lower_percent,
+     t.cpu_evict_be_satisfaction_upper_percent) = QOS_SATISFACTION
+    be = spec.resource_qos_strategy.be
+    be.enable = True
+    be.memory = sloconfig.MemoryQOS(min_limit_percent=20,
+                                    low_limit_percent=40,
+                                    throttling_percent=90)
+    be.blkio = [sloconfig.BlockCfg(device="253:0", read_bps=52428800,
+                                   write_iops=400)]
+    spec.cpu_burst_strategy.policy = "auto"
+    spec.system_strategy = sloconfig.SystemStrategy(
+        min_free_kbytes_factor=100, watermark_scale_factor=150)
+
+    def policy(name, labels, rendered):
+        rendered.resource_used_threshold_with_be.cpu_suppress_policy = (
+            policies.get(name, "cpuset"))
+
+    return NodeSLOController(cluster_spec=spec, extenders=[policy])
+
+
+def qos_pressure(names, be_hosts, fed_hosts):
+    """Phase 22's seeded pressure: the agents' suppress policies (cfsQuota
+    on every second pair), the agents over the memory threshold (of
+    ``be_hosts``, those running a BE pod), the agents whose BE tier is
+    starved (of the other cpuset agents: cfsQuota's suppress would raise
+    the quota), the other nodes over the memory threshold (of
+    ``fed_hosts``) and every node's memory share under pressure."""
+    rng = np.random.default_rng(QOS_SEED)
+    agents = range(KOORD_AGENTS)
+    policies = {names[i]: "cfsQuota" if (i // 2) % 2 else "cpuset"
+                for i in agents}
+    memory = sorted(int(x) for x in rng.choice(
+        be_hosts, min(QOS_MEMORY_AGENTS, len(be_hosts)), replace=False))
+    cpuset = [i for i in agents
+              if policies[names[i]] == "cpuset" and i not in memory]
+    starved = sorted(int(x) for x in rng.choice(cpuset, QOS_STARVED_AGENTS,
+                                                replace=False))
+    pressed = sorted(int(x) for x in rng.choice(
+        fed_hosts, min(QOS_FED_PRESSED, len(fed_hosts)), replace=False))
+    return dict(policies=policies, memory=memory, starved=starved,
+                pressed=pressed, share=rng.uniform(0.75, 0.92, len(names)))
+
+
+def qos_residents(name, i, starved, rng):
+    """Pods already running on agent ``i``: an LS pod with a CPU limit
+    (CPU burst's subject) and, on a starved agent, three BE pods asking
+    plain CPU (the CPU evictor's: a batch pod asks none)."""
+    cpu, mem = ResourceName.CPU, ResourceName.MEMORY
+    pods = [ttypes.PodSpec(name=f"burst-{i}", qos=QoSClass.LS,
+                           node_name=name, priority=9000,
+                           requests={cpu: 1000, mem: 1024},
+                           limits={cpu: 2000}, creation_time=KOORD_T0)]
+    if i in starved:
+        for k in range(3):
+            pods.append(ttypes.PodSpec(
+                name=f"be-{i}-{k}", qos=QoSClass.BE, node_name=name,
+                priority=int(rng.integers(5000, 6000)),
+                requests={cpu: int(rng.integers(1000, 3001)),
+                          mem: int(rng.integers(512, 2049))},
+                creation_time=KOORD_T0))
+    return pods
+
+
+def put_file(res, d, cfg, text) -> None:
+    path = res.path(d, cfg)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def quota_text(cfg, quota_us) -> str:
+    """A cfs quota as the kernel shows it: v1 ``cpu.cfs_quota_us``, v2
+    ``cpu.max`` with its period."""
+    return f"{quota_us} 100000" if cfg.use_cgroup_v2 else str(quota_us)
+
+
+def resctrl_fake(cfg, ways, cache_ids) -> None:
+    """A fake resctrl tree beside the fake cgroup root (where
+    ``resctrl_root`` looks): ``ways`` L3 ways, ``cache_ids`` caches."""
+    root = os.path.join(os.path.dirname(cfg.cgroup_root), "resctrl")
+    os.makedirs(os.path.join(root, "info", "L3"))
+    cbm = format((1 << ways) - 1, "x")
+    with open(os.path.join(root, "info", "L3", "cbm_mask"), "w") as f:
+        f.write(cbm + "\n")
+    with open(os.path.join(root, "schemata"), "w") as f:
+        f.write("L3:" + ";".join(f"{c}={cbm}" for c in range(cache_ids))
+                + "\nMB:" + ";".join(f"{c}=100" for c in range(cache_ids))
+                + "\n")
+
+
+def remove_pod_dirs(cfg, cgroup_dir) -> None:
+    """What the kubelet removes of a deleted pod: its cgroup dirs."""
+    tops = ([cfg.cgroup_root] if cfg.use_cgroup_v2 else
+            [os.path.join(cfg.cgroup_root, fs) for fs in V1_SUBSYSTEMS])
+    for top in tops:
+        shutil.rmtree(os.path.join(top, cgroup_dir), ignore_errors=True)
+
+
+class QosAgent:
+    """One agent's actuation half: its ``QoSContext`` wired as the
+    koordlet binary wires it, a ``QoSManager`` of the eight strategies, a
+    ``PLEG`` over its tree, and the counters its tree exposes from phase
+    21's last tick on."""
+
+    def __init__(self, tm, bus, draw, i, name, pressure, evict, clock):
+        cpu = ResourceName.CPU
+        self.i, self.name = i, name
+        self.informer = informer = tm["informers"][name]
+        self.cfg, self.advisor = tm["advisors"][name]
+        node = bus.get(Kind.NODE, name)
+        ex = ResourceUpdateExecutor(self.cfg, clock=clock)
+        # an empty Auditor is falsy: set after construction
+        ex.auditor = self.auditor = Auditor(clock=clock)
+
+        def be_allocatable():
+            n = informer.get_node()
+            value = n.allocatable.get(ResourceName.BATCH_CPU) if n else None
+            return int(value) if value else None
+
+        self.ctx = QoSContext(
+            metric_cache=tm["reporters"][name].metric_cache, executor=ex,
+            pod_provider=informer, system_config=self.cfg,
+            auditor=self.auditor, node_capacity_mcpu=node.allocatable[cpu],
+            node_capacity_mem_mib=node.allocatable[ResourceName.MEMORY],
+            volume_name_fn=informer.get_volume_name,
+            be_allocatable_fn=be_allocatable,
+            evict=lambda victims, reason: evict(name, victims, reason))
+        informer.register_callback(
+            StateKind.NODE_SLO,
+            lambda kind, slo: setattr(self.ctx, "node_slo", slo))
+        self.manager = QoSManager(self.ctx, [
+            CPUSuppress(), CPUEvictor(), MemoryEvictor(), CPUBurst(),
+            ResctrlReconcile(), CgroupResourcesReconcile(), BlkIOReconcile(),
+            SystemConfigReconcile()])
+        self.pressed = i in pressure["memory"]
+        self.starved = i in pressure["starved"]
+        self.share = float(pressure["share"][i])
+        self.rng = np.random.default_rng([QOS_SEED, i])
+        self.cores = node.allocatable[cpu] // 1000
+        self.total_kb = int(draw["total_kb"][i])
+        self.jiffies = int(draw["jiffies"][i, KOORD_TICKS - 1])
+        self.ns = {u: int(draw["pod_ns"][i, j, KOORD_TICKS - 1])
+                   for j, u in enumerate(tm["uids"][name])}
+
+    def setup(self, root) -> None:
+        """The kubelet's dirs of every running pod (every v1 subsystem) and
+        the tiers, the topology (``read_cpu_infos`` for the cpuset policy),
+        the resctrl tree, /proc/sys/vm, the seeded usage of every pod, the
+        burst pod's quota and the starved tier's; the PLEG's primer."""
+        cfg = self.cfg
+        for d in ("kubepods", "kubepods/besteffort", "kubepods/burstable"):
+            ensure_cgroup_dir(d, cfg)
+        koord_topology_tree(os.path.join(root, self.name), self.cores,
+                            "AuthenticAMD" if self.i % 4 == 3
+                            else "GenuineIntel")
+        self.ctx.cpu_infos = [
+            CPUInfo(cpu_id=x.cpu_id, core_id=x.core_id,
+                    socket_id=x.socket_id, node_id=x.node_id)
+            for x in read_cpu_infos(cfg)]
+        resctrl_fake(cfg, 11 + self.i % 9, 2)
+        os.makedirs(os.path.join(cfg.proc_root, "sys", "vm"), exist_ok=True)
+        self.rate, self.bytes = {}, {}
+        be_request = 0
+        for meta in sorted(self.informer.running_pods(), key=lambda m: m.uid):
+            ensure_cgroup_dir(meta.cgroup_dir, cfg)
+            for c in meta.containers.values():
+                ensure_cgroup_dir(c, cfg)
+            batch = meta.batch_resources.values()
+            cpu = meta.cpu_request_mcpu or sum(b.request_mcpu for b in batch)
+            mem = meta.memory_request_mib or sum(
+                b.memory_limit_bytes or 0 for b in batch) // 2**20
+            share = self.rng.uniform(0.2, 0.9)
+            if self.starved and meta.qos is QoSClass.BE and \
+                    meta.cpu_request_mcpu:
+                # the starved pods run at the tier's limit
+                share = 0.5
+                be_request += meta.cpu_request_mcpu
+            self.rate[meta.uid] = share * cpu / 1000.0
+            self.bytes[meta.uid] = int(self.rng.uniform(0.4, 0.9) * mem
+                                       * 2**20)
+            self.ns.setdefault(meta.uid, int(self.rng.integers(10**9,
+                                                               10**10)))
+            if meta.name.startswith("burst-"):
+                for d in (meta.cgroup_dir, *meta.containers.values()):
+                    put_file(CPU_CFS_QUOTA, d, cfg, quota_text(cfg, 200000))
+        if self.starved:
+            # the tier's quota at half the BE pods' CPU request: a
+            # satisfaction of 50%, under the band's 60%
+            put_file(CPU_CFS_QUOTA, "kubepods/besteffort", cfg,
+                     quota_text(cfg, be_request * 100 // 2))
+        self.sys_cores = self.rng.uniform(0.05, 0.3) * self.cores
+        self.sys_kb = int(self.rng.integers(2**20, 2**22))
+        pods_kb = sum(self.bytes.values()) // 1024
+        self.extra_kb = (max(int(self.share * self.total_kb) - pods_kb
+                             - self.sys_kb, 0) if self.pressed else 0)
+        self.pleg = PLEG(cfg)
+        self.pleg.poll()
+
+    def tick(self, k) -> None:
+        """The tree at tick ``k`` (the live pods' counters, /proc/stat and
+        meminfo, the burst pod throttled 30% of its periods), then the
+        collectors."""
+        cfg = self.cfg
+        live = sorted(self.informer.running_pods(), key=lambda m: m.uid)
+        busy = self.sys_cores + sum(self.rate[m.uid] for m in live)
+        self.jiffies += int(round(busy * 100 * KOORD_STEP_S))
+        with open(os.path.join(cfg.proc_root, "stat"), "w") as f:
+            f.write(f"cpu  {self.jiffies} 0 0 {10**9 + 3000 * k} 0 0 0 0 0 "
+                    "0\n")
+        used = (sum(self.bytes[m.uid] for m in live) // 1024 + self.sys_kb
+                + self.extra_kb)
+        with open(os.path.join(cfg.proc_root, "meminfo"), "w") as f:
+            f.write(f"MemTotal: {self.total_kb} kB\nMemFree: 0 kB\n"
+                    f"MemAvailable: {max(self.total_kb - used, 0)} kB\n")
+        for m in live:
+            self.ns[m.uid] += int(round(self.rate[m.uid] * KOORD_STEP_S
+                                        * 1e6)) * 1000
+            throttle = ((100 * k, 30 * k) if m.name.startswith("burst-")
+                        else None)
+            put_file(CPU_ACCT_USAGE, m.cgroup_dir, cfg,
+                     cpu_counter(cfg, self.ns[m.uid], throttle))
+            if throttle is not None and not cfg.use_cgroup_v2:
+                put_file(CPU_STAT, m.cgroup_dir, cfg,
+                         f"nr_periods {throttle[0]}\nnr_throttled "
+                         f"{throttle[1]}\n")
+            put_file(MEMORY_USAGE, m.cgroup_dir, cfg, str(self.bytes[m.uid]))
+        self.advisor.tick(koord_now(k))
+
+
+def pods_by_node(bus) -> dict:
+    """The bus's bound pods by node, each node's sorted by uid."""
+    out = {}
+    for pod in bus.list(Kind.POD).values():
+        if pod.node_name:
+            out.setdefault(pod.node_name, []).append(pod)
+    for pods in out.values():
+        pods.sort(key=lambda p: p.uid)
+    return out
+
+
+def koord_fill_one(cache, samples, i, uids, now, memory=None) -> None:
+    """Append node ``i``'s samples of phase 21's last tick at ``now``
+    (``memory`` in place of the node's when given)."""
+    kinds, last = MetricKind, -1
+    mem = samples["node_mem"][i][last] if memory is None else memory
+    cache.append(kinds.NODE_MEMORY_USAGE, None, now, mem)
+    cache.append(kinds.SYS_MEMORY_USAGE, None, now,
+                 samples["sys_mem"][i][last])
+    cache.append(kinds.NODE_CPU_USAGE, None, now, samples["node_cpu"][i][last])
+    cache.append(kinds.SYS_CPU_USAGE, None, now, samples["sys_cpu"][i][last])
+    for j, u in enumerate(uids):
+        cache.append(kinds.POD_MEMORY_USAGE, {"pod": u}, now,
+                     samples["pod_mem"][i][j][last])
+        cache.append(kinds.POD_CPU_USAGE, {"pod": u}, now,
+                     samples["pod_cpu"][i][j][last])
+
+
+def qos_actuation(bus, sched, tm, spec, draw, root) -> dict:
+    """Phase 22 (a)-(d) up to the round, on phase 21's world after round 1
+    (on the card's or the CPU's: the same code). Returns what the round
+    and the comparison need: the victims (node, reason, uid, cgroup dir,
+    re-created uid) in order, the PLEG's events, the agents' trees, the
+    reports, the synced count and batch allocatable, the snapshot before
+    the round, the round's time and the timings."""
+    names = [x["name"] for x in spec["nodes"]]
+    agent_names = names[:KOORD_AGENTS]
+    clock_now = [koord_now() + 2.0]
+    clock = lambda: clock_now[0]  # noqa: E731
+    victims, recreated, agents = [], {}, {}
+
+    def evict(node, metas, reason):
+        """The eviction glue: delete from the bus (the agent's
+        ``KoordletLoop`` drops the pod), remove its dirs from the agent's
+        tree, re-create it unbound under a new name."""
+        for meta in metas:
+            pod = bus.get(Kind.POD, meta.uid)
+            bus.delete(Kind.POD, meta.uid)
+            if node in agents:
+                remove_pod_dirs(agents[node].cfg, meta.cgroup_dir)
+            new = ttypes.PodSpec(name=f"{pod.name}-r", qos=pod.qos,
+                                 priority=pod.priority,
+                                 requests=dict(pod.requests),
+                                 limits=dict(pod.limits),
+                                 creation_time=clock_now[0])
+            bus.apply(Kind.POD, new.uid, new)
+            victims.append((node, reason, meta.uid, meta.cgroup_dir, new.uid))
+            recreated[new.uid] = node
+        return [m.uid for m in metas]
+
+    tm_ = {}
+    by_node = pods_by_node(bus)
+    be_host = [bool(any(p.qos == QoSClass.BE for p in by_node.get(n, ())))
+               for n in names]
+    pressure = qos_pressure(
+        names, [i for i in range(KOORD_AGENTS) if be_host[i]],
+        [i for i in range(KOORD_AGENTS, len(names)) if be_host[i]])
+    # (a) the agents' QoS wiring; the NodeSLO through the manager's loop
+    t0 = time.perf_counter()
+    for i, name in enumerate(agent_names):
+        agents[name] = QosAgent(tm, bus, draw, i, name, pressure, evict,
+                                clock)
+    manager = tm["manager"]
+    manager.nodeslo = qos_slo_controller(pressure["policies"])
+    manager.reconcile(now=clock_now[0])
+    tm_["wiring"] = time.perf_counter() - t0
+    for a in agents.values():
+        t = a.ctx.node_slo.resource_used_threshold_with_be
+        assert t.enable and t.memory_evict_threshold_percent == \
+            QOS_MEMORY_EVICT, a.name
+        assert t.cpu_suppress_policy == pressure["policies"][a.name], a.name
+    # (b) the pressure
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(QOS_SEED + 1)
+    for i, name in enumerate(agent_names):
+        for pod in qos_residents(name, i, pressure["starved"], rng):
+            bus.apply(Kind.POD, pod.uid, pod)
+    for a in agents.values():
+        a.setup(root)
+    tm_["setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in range(KOORD_TICKS, KOORD_TICKS + QOS_PRESSURE_TICKS):
+        for a in agents.values():
+            a.tick(k)
+    tm_["pressure_ticks"] = time.perf_counter() - t0
+    t_qos = koord_now(KOORD_TICKS + QOS_PRESSURE_TICKS - 1)
+    clock_now[0] = t_qos
+    t0 = time.perf_counter()
+    by_node = pods_by_node(bus)
+    fed, fed_mem = {}, {}
+    pressed = set(pressure["pressed"])
+    for i in range(KOORD_AGENTS, len(names)):
+        name = names[i]
+        informer = tm["informers"][name]
+        metas = [pod_meta_from_spec(p) for p in by_node.get(name, ())]
+        informer.set_pods(metas)
+        if i not in pressed:
+            continue
+        node = bus.get(Kind.NODE, name)
+        cache = tm["reporters"][name].metric_cache
+        cache.append(MetricKind.NODE_MEMORY_USAGE, None, t_qos,
+                     float(pressure["share"][i]
+                           * node.allocatable[ResourceName.MEMORY]))
+        mem = fed_mem[name] = {}
+        for m in metas:
+            if m.qos is QoSClass.BE:
+                batch = sum(b.memory_limit_bytes or 0
+                            for b in m.batch_resources.values()) // 2**20
+                mem[m.uid] = float(int(rng.uniform(0.4, 0.9)
+                                       * (m.memory_request_mib or batch)))
+                cache.append(MetricKind.POD_MEMORY_USAGE, {"pod": m.uid},
+                             t_qos, mem[m.uid])
+        cfg = SystemConfig(cgroup_root=os.path.join(root, name, "cg"),
+                           proc_root=os.path.join(root, name, "proc"),
+                           sysfs_root=os.path.join(root, name, "sys"))
+        ctx = QoSContext(
+            metric_cache=cache, executor=ResourceUpdateExecutor(cfg),
+            pod_provider=informer, system_config=cfg,
+            node_slo=bus.get(Kind.NODE_SLO, name),
+            node_capacity_mcpu=node.allocatable[ResourceName.CPU],
+            node_capacity_mem_mib=node.allocatable[ResourceName.MEMORY],
+            evict=lambda metas, reason, n=name: evict(n, metas, reason))
+        fed[name] = QoSManager(ctx, [MemoryEvictor()])
+    tm_["fed_setup"] = time.perf_counter() - t0
+    # (c) the QoS ticks
+    t0 = time.perf_counter()
+    for a in agents.values():
+        a.manager.tick(t_qos)
+    tm_["agents_qos"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, mgr in fed.items():
+        mgr.tick(t_qos)
+    tm_["fed_qos"] = time.perf_counter() - t0
+    assert len(recreated) >= len(pressed), (len(recreated), len(pressed))
+    t0 = time.perf_counter()
+    pleg = {name: [(e.event.name, e.cgroup_dir) for e in a.pleg.poll()]
+            for name, a in agents.items()}
+    for name, events in pleg.items():
+        mine = sorted(v[3] for v in victims if v[0] == name)
+        assert sorted(d for ev, d in events if ev == "POD_DELETED") == mine, (
+            name, events, mine)
+        assert all(ev == "POD_DELETED" or (ev == "CONTAINER_DELETED" and
+                                           os.path.dirname(d) in mine)
+                   for ev, d in events), (name, events)
+    tm_["pleg"] = time.perf_counter() - t0
+    # (d) collect, report, reconcile
+    k = KOORD_TICKS + QOS_PRESSURE_TICKS
+    t_report = koord_now(k)
+    clock_now[0] = t_report
+    t0 = time.perf_counter()
+    for a in agents.values():
+        a.tick(k)
+    tm_["post_tick"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples = koord_samples(draw)
+    by_node = pods_by_node(bus)
+    for i in range(KOORD_AGENTS, len(names)):
+        name = names[i]
+        tm["informers"][name].set_pods(
+            [pod_meta_from_spec(p) for p in by_node.get(name, ())])
+        memory = None
+        if i in pressed:
+            gone = sum(v for u, v in fed_mem[name].items()
+                       if bus.get(Kind.POD, u) is None)
+            memory = float(pressure["share"][i] * bus.get(
+                Kind.NODE, name).allocatable[ResourceName.MEMORY]) - gone
+        koord_fill_one(tm["reporters"][name].metric_cache, samples, i,
+                       tm["uids"][name], t_report, memory)
+    reports = {}
+    for name in names:
+        if name in tm["loops"]:
+            reports[name] = tm["loops"][name].report(t_report)
+        else:
+            reports[name] = tm["reporters"][name].report(t_report)
+            bus.apply(Kind.NODE_METRIC, name, reports[name])
+    tm_["reports"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synced = manager.reconcile(now=t_report)
+    tm_["reconcile"] = time.perf_counter() - t0
+    pods = bus.list(Kind.POD).values()
+    pending = sorted((p for p in pods if not p.node_name),
+                     key=lambda p: p.uid)
+    snap = ClusterSnapshot(nodes=list(bus.list(Kind.NODE).values()),
+                           pods=[p for p in pods if p.node_name],
+                           pending_pods=pending)
+    t0 = time.perf_counter()
+    trees = {n: tree_files(os.path.join(root, n)) for n in agent_names}
+    tm_["trees"] = time.perf_counter() - t0
+    return dict(victims=victims, recreated=recreated, pleg=pleg,
+                trees=trees, reports=reports, synced=synced,
+                batch=batch_of(bus), snap=snap, t_round=t_report + 1.0,
+                pressure=pressure, timings=tm_,
+                audits=sum(len(a.auditor.query()) for a in agents.values()))
+
+
+def tree_files(root) -> dict:
+    """Every file under ``root``: relative path -> content."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path) as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def qos_result(out, result) -> dict:
+    """What phase 22's CPU run is held to: the victims in order, the
+    PLEG's events, the agents' trees, the reports, the synced count, the
+    batch allocatable and the round's placements."""
+    return dict(victims=out["victims"], pleg=out["pleg"], trees=out["trees"],
+                reports=out["reports"], synced=out["synced"],
+                batch=out["batch"], placed=dict(result),
+                waiting=dict(result.waiting))
+
+
+def qos_replacement(card, world, spec, draw, root):
+    """Phase 22 on the card, on phase 21's world after round 1. Returns
+    ``(its kernels entry, what the CPU run is held to)``."""
+    out = qos_actuation(world["bus"], world["sched"], world["tm"], spec,
+                        draw, root)
+    tm, pr, snap = out["timings"], out["pressure"], out["snap"]
+    label = (f"the QoS re-placement round, {NODES} x "
+             f"{len(snap.pending_pods)}")
+    result, launches, wall, captured = drive(
+        lambda: world["sched"].schedule_pending(now=out["t_round"]),
+        clone=True)
+    inp, route = routed(label, launches, captured, "cluster")
+    assert route.shards == 5, route
+    capacity_ok(snap, result)
+    placed = {u: n for u, n in result.items() if n is not None}
+    recreated = out["recreated"]
+    replaced = [u for u in recreated if u in placed or u in result.waiting]
+    back = sum(placed.get(u) == n for u, n in recreated.items())
+    assert replaced, "no victim re-placed"
+    by_reason = Counter(v[1] for v in out["victims"])
+    agent_victims = Counter(v[1] for v in out["victims"]
+                            if v[0] in world["tm"]["loops"])
+    pleg_deleted = sum(ev == "POD_DELETED" for evs in out["pleg"].values()
+                       for ev, _ in evs)
+    memory_reason, cpu_reason = ("evict by node memory usage",
+                                 "evict by BE cpu satisfaction")
+    assert agent_victims[memory_reason] > 0 and agent_victims[cpu_reason] > 0
+    print(f"koordlet QoS wiring [{card}]: {KOORD_AGENTS} agents' QoSContext "
+          f"and QoSManager of 8 strategies; NodeSLO (BE thresholds: memory "
+          f"evict {QOS_MEMORY_EVICT}%, CPU suppress {QOS_CPU_SUPPRESS}%, CPU "
+          f"evict satisfaction {QOS_SATISFACTION[0]}-{QOS_SATISFACTION[1]}%; "
+          f"cpuset on {sum(v == 'cpuset' for v in pr['policies'].values())} "
+          f"agents, cfsQuota on "
+          f"{sum(v == 'cfsQuota' for v in pr['policies'].values())}; cgroup "
+          f"v2 on {sum(koord_v2(i) for i in range(KOORD_AGENTS))}) published "
+          f"to {NODES} nodes by the manager's reconcile: {tm['wiring']:.3f} "
+          f"s", flush=True)
+    print(f"koordlet QoS pressure [{card}]: {len(pr['memory'])} agents over "
+          f"the memory threshold, {len(pr['starved'])} with the BE tier "
+          f"starved, {len(pr['pressed'])} nodes fed directly over it; setup "
+          f"{tm['setup']:.3f} s, {QOS_PRESSURE_TICKS} collector ticks "
+          f"{tm['pressure_ticks']:.3f} s, the fed nodes' setup "
+          f"{tm['fed_setup']:.3f} s", flush=True)
+    print(f"koordlet QoS ticks [{card}]: the agents' 8 strategies "
+          f"{tm['agents_qos']:.3f} s ({out['audits']} audit events), "
+          f"{len(out['pressure']['pressed'])} memory evictors "
+          f"{tm['fed_qos']:.3f} s; victims {len(out['victims'])}: "
+          f"memoryevict {by_reason[memory_reason]} "
+          f"({agent_victims[memory_reason]} on agents), cpuevict "
+          f"{by_reason[cpu_reason]} ({agent_victims[cpu_reason]} on "
+          f"agents); the PLEGs reported exactly the victims "
+          f"({pleg_deleted} POD_DELETED) in {tm['pleg']:.3f} s; the "
+          f"agents' trees read back in {tm['trees']:.3f} s "
+          f"({sum(len(x) for x in out['trees'].values())} files)",
+          flush=True)
+    print(f"{label} [{card}]: collectors {tm['post_tick']:.3f} s, {NODES} "
+          f"reports {tm['reports']:.3f} s, reconcile {tm['reconcile']:.3f} s "
+          f"({out['synced']} synced); {len(snap.pending_pods)} pending "
+          f"({len(recreated)} re-created, "
+          f"{len(snap.pending_pods) - len(recreated)} left from round 1): "
+          f"{len(placed)} committed, {len(result.waiting)} waiting, "
+          f"{len(replaced)} victims re-placed, {back} on a node that "
+          f"evicted them; every placement within its node's allocatable "
+          f"after the PATCH; wall {wall:.4f} s; route {route_name(route)}, "
+          f"launches {launches[route.kind]}", flush=True)
+    stats = compare(inp, label, card, reps=3)
+    return (entry("binpack_qos_replacement_round", launches[route.kind],
+                  stats, 317), qos_result(out, result))
 
 
 def cpu_twin_cut(inp, route, label, card, pods=TWIN_CUT_PODS) -> dict:
@@ -6095,6 +6814,7 @@ def main() -> int:
     kernels += faults_and_manager(card)
 
     # -- 21. the node agents feed the colocation loop ----------------------------
+    # -- 22. the agents act on pressure, the card re-places the victims -------
     kernels += node_agents(card)
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "

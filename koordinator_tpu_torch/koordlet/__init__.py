@@ -1,5 +1,5 @@
 """koordlet, the node agent (counterpart of ``koordinator_tpu/koordlet``,
-cut to its reporting half and the prediction subsystem).
+without the runtime hooks and the binary).
 
 Ported: what a node agent measures and what it publishes. ``system``
 (the typed cgroup registry, cpu topology and kidled over configurable
@@ -8,10 +8,15 @@ roots), ``audit``, ``resourceexecutor`` (the single cgroup write path),
 ``metricsadvisor`` (the collectors over procfs, cgroupfs and the sysfs
 accel tree), ``statesinformer`` (the node's state, the NodeMetric
 reporter and the NodeResourceTopology and Device reporters) and
-``prediction`` (the decaying-histogram peak predictor). All of it is
-host work in numpy and files, as in the reference. The actuation half
-(qosmanager, runtimehooks, pleg, core scheduling, resctrl, the perf
-collector and the koordlet binary) is ROADMAP Queue 1 item 11(b).
+``prediction`` (the decaying-histogram peak predictor); and what it
+actuates: ``system.core_sched`` (PR_SCHED_CORE cookies over an injectable
+prctl), ``system.resctrl`` (the L3 CAT and MBA schemata), ``qosmanager``
+(the eight strategies: cpu suppress, memory and cpu eviction, cpu burst,
+resctrl, memcg and blkio reconcile, /proc/sys reconcile) and ``pleg``
+(the pod lifecycle events of the kubepods tree). All of it is host work
+in numpy and files, as in the reference; ``qosmanager`` and ``pleg`` are
+imported by path, as there. The runtime hooks, the perf collector and
+the koordlet binary are ROADMAP Queue 1 item 11(b).
 """
 
 from koordinator_tpu_torch.koordlet.metriccache import (  # noqa: F401

@@ -18,13 +18,33 @@ from koordinator_tpu_torch.koordlet.system.cgroup import (
     get_resource,
     known_resources,
 )
+from koordinator_tpu_torch.koordlet.system.core_sched import (
+    CoreSched,
+    FakeKernel,
+)
+from koordinator_tpu_torch.koordlet.system.resctrl import (
+    ResctrlFS,
+    ResctrlSchemata,
+    calculate_cat_l3_mask,
+    calculate_mba,
+    detect_vendor,
+    resctrl_root,
+)
 
 __all__ = [
     "CgroupResource",
     "CgroupVersion",
+    "CoreSched",
+    "FakeKernel",
+    "ResctrlFS",
+    "ResctrlSchemata",
     "SystemConfig",
+    "calculate_cat_l3_mask",
+    "calculate_mba",
     "convert_cpu_shares_to_weight",
     "convert_cpu_weight_to_shares",
+    "detect_vendor",
     "get_resource",
     "known_resources",
+    "resctrl_root",
 ]

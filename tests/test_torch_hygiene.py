@@ -90,7 +90,19 @@ def test_every_module_imports_without_jax():
               "koordlet.statesinformer",
               "koordlet.statesinformer.states_informer",
               "koordlet.statesinformer.nodemetric_reporter",
-              "koordlet.statesinformer.reporters"):
+              "koordlet.statesinformer.reporters",
+              # the koordlet's actuation half: core scheduling, resctrl,
+              # the qosmanager's strategies and the PLEG
+              "koordlet.system.core_sched", "koordlet.system.resctrl",
+              "koordlet.qosmanager", "koordlet.qosmanager.framework",
+              "koordlet.qosmanager.cpusuppress",
+              "koordlet.qosmanager.evictors",
+              "koordlet.qosmanager.cpuburst",
+              "koordlet.qosmanager.resctrl",
+              "koordlet.qosmanager.cgreconcile",
+              "koordlet.qosmanager.blkio",
+              "koordlet.qosmanager.sysreconcile",
+              "koordlet.pleg", "koordlet.pleg.pleg"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
