@@ -418,6 +418,35 @@ the microseconds per pod and the bound (see :func:`bound`).
    bus holds it after the PATCH; the kernel held against its plain twin on
    the round's inputs. The CPU run's victims in order, trees, reports,
    batch allocatable and placements equal the card's.
+23. The koordlet binary acts on the card's placements, on phase 21 (d)'s
+   world after its round (the CPU run, in phase 21 (d)'s child process,
+   after its own round). (a) Each of the 200 nodes gets a
+   ``build_koordlet`` agent over its tree (cgroup v1 on even nodes, v2 on
+   odd ones; NRI mode on half, crossed with the version; ``AuditEvents``
+   on), the kubelet's dirs of every pod bound to it, ``wire_koordlet``, a
+   NodeSLO with group identity on, its share pools from its NRT, and one
+   tick on the fake clock: every pinned container holds its cpuset with
+   cfs quota -1, every GPU pod's ``create_container`` env names exactly
+   its minors, the bvt files are the rule's, no hook raised (each
+   registry's ``run_hooks`` collects into a list). (b) 100 more cpuset
+   and GPU pods are placed on the card (every solve on the one-block
+   kernel with extras rows; the last held against its twin), their dirs
+   made; the NRI half runs their hooks off the PLEG alone, the
+   reconciler half on its next tick; 50 pinned pods are deleted and
+   their dirs removed, the NRI half's stop stages run, no stale cpuset
+   stays. (c) A cpu-normalization ratio of 1.25 on half the nodes
+   rescales the cpu-share pods' quotas to ``ceil(q / 1.25)``; its removal
+   from a quarter restores their spec quotas. (d) ``python -m
+   koordinator_tpu_torch.cmd.koordlet --once --now`` in NRI mode over a
+   copy of one agent's tree, its wall split into imports, build and the
+   tick: its files equal an in-process ``build_koordlet(...).tick(now)``
+   on a second copy. (e) ``PerfGroup.open_self()`` around the wave's
+   round (or why it is refused), and the CPI collector over
+   ``PerfGroup.fake`` sources in one agent. The CPU run's trees, ordered
+   writes, server responses, audit events, NRI counts, quotas, CPI
+   series and wave placements equal the card's. Phase 23 runs before
+   phase 22 on the card (``node_agents``), so that its CPU half, which
+   starts after phase 21 (d)'s CPU round, is done when the card's is.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -451,7 +480,13 @@ import torch
 
 from koordinator_tpu_torch import resolve_device, testing
 from koordinator_tpu_torch.apis import types as ttypes
-from koordinator_tpu_torch.apis.extension import QoSClass, ResourceName
+from koordinator_tpu_torch.apis.extension import (
+    ANNOTATION_CPU_NORMALIZATION_RATIO,
+    ANNOTATION_DEVICE_ALLOCATED,
+    ANNOTATION_RESOURCE_STATUS,
+    QoSClass,
+    ResourceName,
+)
 from koordinator_tpu_torch.apis.types import (
     ClusterSnapshot,
     ReservationState,
@@ -530,12 +565,28 @@ from koordinator_tpu_torch.koordlet.statesinformer.states_informer import (
 )
 from koordinator_tpu_torch.koordlet.system.cgroup import (
     CPU_ACCT_USAGE,
+    CPU_BVT_WARP_NS,
     CPU_CFS_QUOTA,
+    CPU_SET,
     CPU_STAT,
     MEMORY_USAGE,
     V1_SUBSYSTEMS,
     SystemConfig,
 )
+from koordinator_tpu_torch.koordlet.metricsadvisor.performance import (
+    PerformanceCollector,
+)
+from koordinator_tpu_torch.koordlet.runtimehooks import (
+    FailurePolicy,
+    NodeTopoInfo,
+    Stage,
+    milli_cpu_to_quota,
+)
+from koordinator_tpu_torch.koordlet.runtimehooks.cpuset import (
+    cpuset_from_annotation,
+)
+from koordinator_tpu_torch.native import PerfGroup, PerfUnavailable
+from koordinator_tpu_torch.cmd.koordlet import KoordletConfig, build_koordlet
 from koordinator_tpu_torch.koordlet.system.cpuinfo import read_cpu_infos
 from koordinator_tpu_torch.manager.nodemetric import NodeMetricCollectPolicy
 from koordinator_tpu_torch.manager.nodeslo import NodeSLOController
@@ -811,7 +862,7 @@ EVSTORM_SCHEDULE = {2: "preemption-storm", 5: "rebalance-wave",
                     7: "budget-squeeze-mid-wave"}
 EVSTORM_SIZES = ((10, 14), (256, 24))
 ADMIT_SEED = 20
-#: torch's intra-op threads for phase 20 (c)'s CPU round
+#: torch's intra-op threads for the CPU rounds (phases 14, 20-23)
 CPU_ROUND_THREADS = 1
 # phase 21: the node agents. The fleet's collect policy (primary window
 # and report interval, s), the nodes whose agent runs the collectors over
@@ -835,6 +886,17 @@ QOS_MEMORY_EVICT, QOS_CPU_SUPPRESS, QOS_SATISFACTION = 70, 65, (60, 80)
 QOS_PRESSURE_TICKS = 2
 QOS_MEMORY_AGENTS, QOS_STARVED_AGENTS, QOS_FED_PRESSED = 16, 16, 600
 QOS_SEED = 24
+# phase 23: the koordlet binary acts on the card's placements. The second
+# wave's pods and its seed, the pods deleted after it, the normalization
+# ratio, the agents' reconcile interval (s) and the clock of their first
+# tick (after round 2's), the binary child's gates, the CPI collector's
+# ticks
+HOOKS_WAVE, HOOKS_DELETED, HOOKS_SEED = 100, 50, 25
+HOOKS_RATIO = 1.25
+HOOKS_RECONCILE_S = 10.0
+HOOKS_GATES = "AuditEvents=true"
+HOOKS_CHILD_GATES = "CPICollector=true,AuditEvents=true"
+HOOKS_CPI_TICKS = 3
 #: the pods the full-size plain twins of phases 6, 7 and 17 are cut to
 #: (their kernels still timed at full size)
 TWIN_CUT_PODS = 1000
@@ -2801,7 +2863,15 @@ def colocation(card) -> dict:
         spec, frac=COLOC_CHANGED, now=spec["now"] + 50)
     controller_phase(spec, card)
     got, captures = colocation_loop(spec, changes, card=card)
-    want, _ = colocation_loop(spec, changes, device="cpu", card=card)
+    # the CPU loop's plain twin runs a few torch ops a pod on [5000, 8]
+    # tensors: on one intra-op thread it takes about half the time it
+    # takes on the machine's eight (phase 20 (c))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_ROUND_THREADS)
+    try:
+        want, _ = colocation_loop(spec, changes, device="cpu", card=card)
+    finally:
+        torch.set_num_threads(threads)
     for g, w in zip(got, want):
         assert g == w, f"colocation {g[0]} {g[1]}: cuda != cpu"
     assert len(got) == len(want)
@@ -5723,7 +5793,7 @@ def koord_numa_world(spec, draw, root, device):
     ``DeviceReporter`` over :class:`SeededGPUs`, both publishing through
     ``koordlet_report_sinks``; the NRT and Device CRs checked on the bus
     and in the scheduler; then the SNN_PENDING cpuset and GPU pods.
-    Returns ``(scheduler, wall of the agents' reports)``."""
+    Returns ``(bus, scheduler, wall of the agents' reports)``."""
     rng = np.random.default_rng(KOORD_GPU_SEED)
     trees = [koord_topology_tree(os.path.join(root, x["name"]),
                                  x["cpu"] // 1000)
@@ -5765,7 +5835,7 @@ def koord_numa_world(spec, draw, root, device):
             d.minor for d in devices], name
     for pod in koord_fine_pending():
         bus.apply(Kind.POD, pod.uid, pod)
-    return sched, report_s
+    return bus, sched, report_s
 
 
 def koord_cpu(spec_path, root, out_path, handoff) -> None:
@@ -5802,21 +5872,28 @@ def koord_cpu(spec_path, root, out_path, handoff) -> None:
 
 def koord_cpu_round2(spec_path, root, out_path) -> None:
     """Phase 21 (d)'s CPU run, in a second process: round 2's world and
-    round on ``cpu`` at CPU_ROUND_THREADS torch threads. Pickles its
-    result to ``out_path``."""
+    round on ``cpu`` at CPU_ROUND_THREADS torch threads, then phase 23
+    (a)-(c) and (e)'s collector on that world (:func:`hooks_actuation`).
+    Pickles its results to ``out_path``."""
     import pickle
 
     with open(spec_path) as f:
         spec = json.load(f)
     draw = koord_draw(spec)
     torch.set_num_threads(CPU_ROUND_THREADS)
-    sched, _ = koord_numa_world(spec, draw, os.path.join(root, "nrt"), "cpu")
+    root = os.path.join(root, "nrt")
+    bus, sched, _ = koord_numa_world(spec, draw, root, "cpu")
     t0 = time.perf_counter()
     result = sched.schedule_pending(now=koord_now() + 1.0)
     wall = time.perf_counter() - t0
+    round2 = (dict(result), result.waiting, fine_state(sched))
+    t0 = time.perf_counter()
+    hooks = hooks_actuation(bus, sched, [x["name"] for x in
+                                         spec["nodes"][:SNN_NODES]], root)
     with open(out_path, "wb") as f:
-        pickle.dump(dict(round2=(dict(result), result.waiting,
-                                 fine_state(sched)), round2_wall=wall), f)
+        pickle.dump(dict(round2=round2, round2_wall=wall,
+                         hooks=hooks["out"], hooks_timings=hooks["timings"],
+                         hooks_wall=time.perf_counter() - t0), f)
 
 
 def koord_cpu_start(spec_path, root, handoff):
@@ -5958,8 +6035,9 @@ def koord_numa_devices(card, spec, draw, root):
     """Phase 21 (d) on the card: :func:`koord_numa_world` and its round,
     every solve on the one-block kernel with extras rows, the final
     solve held against its twin. Returns ``(its kernels entry, the
-    round's placements, waiting pods and fine-grained state)``."""
-    sched, report_s = koord_numa_world(spec, draw, root, None)
+    round's placements, waiting pods and fine-grained state, the world for
+    phase 23)``."""
+    bus, sched, report_s = koord_numa_world(spec, draw, root, None)
     label = (f"the koordlet-reported NUMA and devices round, {SNN_NODES} x "
              f"{SNN_PENDING}")
     result, launches, wall, captured = drive(
@@ -5985,13 +6063,15 @@ def koord_numa_devices(card, spec, draw, root):
           f"on the one-block kernel with extras rows)", flush=True)
     stats = compare(inp, f"{label}, final solve", card, reps=3)
     return (entry("binpack_koordlet_numa_devices", launches["block"], stats,
-                  259), (dict(result), result.waiting, state))
+                  259), (dict(result), result.waiting, state), dict(
+        bus=bus, sched=sched, root=root,
+        names=[x["name"] for x in spec["nodes"][:SNN_NODES]]))
 
 
 def node_agents(card) -> list:
-    """Phases 21 and 22 (phase 22 on phase 21's world after its round 1),
-    their CPU run in a child process beside the card's. Returns their
-    ``kernels`` entries."""
+    """Phases 21, 22 (on phase 21's world after its round 1) and 23 (on
+    phase 21 (d)'s world after its round), their CPU run in two child
+    processes beside the card's. Returns their ``kernels`` entries."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "cluster.json")
@@ -6002,13 +6082,23 @@ def node_agents(card) -> list:
             draw = koord_draw(spec)
             round_one, metrics, batch, synced, world = koord_round_one(
                 card, spec, draw, os.path.join(d, "fleet"), handoff)
-            numa_devices, round_two = koord_numa_devices(
+            numa_devices, round_two, world2 = koord_numa_devices(
                 card, spec, draw, os.path.join(d, "nrt"))
+            t23 = time.perf_counter()
+            hooks_entry, hooks = koordlet_hooks(card, world2,
+                                                os.path.join(d, "child"))
+            t1 = time.perf_counter()
+            cpu = koord_cpu_result(children[1:])
+            waited23 = time.perf_counter() - t1
+            assert round_two == cpu["round2"], "round 2: cuda != cpu"
+            for key in hooks:
+                assert hooks[key] == cpu["hooks"][key], (
+                    f"phase 23's {key}: cuda != cpu")
             t22 = time.perf_counter()
             qos_entry, qos = qos_replacement(card, world, spec, draw,
                                              os.path.join(d, "fleet"))
             t1 = time.perf_counter()
-            cpu = koord_cpu_result(children)
+            cpu.update(koord_cpu_result(children[:1]))
             waited = time.perf_counter() - t1
         finally:
             for proc, _ in children:
@@ -6018,11 +6108,11 @@ def node_agents(card) -> list:
     assert metrics == cpu["metrics"], "the fleet's reports: cuda != cpu"
     assert synced == cpu["synced"] and batch == cpu["batch"], (
         "batch allocatable: cuda != cpu")
-    assert round_two == cpu["round2"], "round 2: cuda != cpu"
     for key in qos:
         assert qos[key] == cpu["qos"][key], f"phase 22's {key}: cuda != cpu"
     print(f"node agents [{card}]: the CPU run (two processes, waited for "
-          f"{waited:.3f} s after the card's) reported the same {NODES} "
+          f"{waited23:.3f} s after the card's phase 23 and {waited:.3f} s "
+          f"after its phase 22) reported the same {NODES} "
           f"NodeMetrics, its manager (reconcile {cpu['reconcile']:.4f} s) "
           f"PATCHed the same batch allocatable on every node (then bound "
           f"round 1's {cpu['bound']} pods as the card's round bound them, "
@@ -6035,11 +6125,21 @@ def node_agents(card) -> list:
           f"order, wrote the same trees on the {KOORD_AGENTS} agents, "
           f"reported the same {NODES} NodeMetrics, PATCHed the same batch "
           f"allocatable and placed the same pods", flush=True)
+    htm = ", ".join(f"{k} {v:.3f} s" for k, v in cpu["hooks_timings"].items())
+    print(f"koordlet hooks [{card}]: the CPU run's phase 23 "
+          f"({cpu['hooks_wall']:.3f} s, {CPU_ROUND_THREADS} torch thread: "
+          f"{htm}) "
+          f"wrote the same trees ({sum(len(t) for t in hooks['trees'].values())}"
+          f" files), the same executors' writes in order "
+          f"({sum(len(w) for w in hooks['writes'].values())}), the same "
+          f"server responses, audit events, NRI counts, normalized quotas "
+          f"and CPI series, and placed the wave the same", flush=True)
     now = time.perf_counter()
-    print(f"node agents phase wall {now - t0:.2f} s; phase 22 "
-          f"{now - t22:.2f} s of it (the wait for the CPU run included)",
-          flush=True)
-    return [round_one, numa_devices, qos_entry]
+    print(f"node agents phase wall {now - t0:.2f} s; phase 23 "
+          f"{t22 - t23:.2f} s of it (the wait for its CPU half, "
+          f"{waited23:.3f} s, included), then phase 22 {now - t22:.2f} s "
+          f"(its wait, {waited:.3f} s, included)", flush=True)
+    return [round_one, numa_devices, qos_entry, hooks_entry]
 
 # -- phase 22: the agents act, the card re-places ------------------------------
 
@@ -6580,6 +6680,549 @@ def qos_replacement(card, world, spec, draw, root):
                   stats, 317), qos_result(out, result))
 
 
+# -- phase 23: the koordlet binary acts on the card's placements ---------------
+
+
+def hooks_now(k=0) -> float:
+    """Phase 23's fake clock: the agents' first tick after round 2 (at
+    ``koord_now() + 1``), then one reconcile interval a step."""
+    return koord_now() + 2.0 + HOOKS_RECONCILE_S * k
+
+
+def cpu_list(cpus) -> str:
+    """A CPU set as a cpu-list string ("0-3,8")."""
+    out, start, prev = [], None, None
+    for c in sorted(cpus) + [None]:
+        if c is not None and prev is not None and c == prev + 1:
+            prev = c
+            continue
+        if start is not None:
+            out.append(f"{start}" if start == prev else f"{start}-{prev}")
+        start = prev = c
+    return ",".join(out)
+
+
+def hooks_topo(nrt) -> NodeTopoInfo:
+    """The share pools an agent takes from its NRT: each NUMA node's CPUs
+    less the reserved ones, for LS and BE pods alike."""
+    node_of = [int(n) for n in nrt.cpu_topology.node_id]
+    reserved = set(nrt.reserved_cpus)
+    pools = {numa: cpu_list(c for c, n in enumerate(node_of)
+                            if n == numa and c not in reserved)
+             for numa in sorted(set(node_of))}
+    return NodeTopoInfo(share_pools=pools, be_share_pools=dict(pools))
+
+
+def hooks_wave():
+    """Phase 23's second wave: HOOKS_WAVE seeded pods, a half LSR pods
+    asking 2-8 whole CPUs (a cpuset), the rest LS pods asking 1-2
+    ``nvidia.com/gpu`` with a CPU limit (the cpu-share pods the
+    normalization rescales)."""
+    rng = np.random.default_rng(HOOKS_SEED)
+    pods = []
+    for j in range(HOOKS_WAVE):
+        mem = int(rng.integers(1024, 8192))
+        if j % 2 == 0:
+            cpu = 1000 * int(rng.integers(2, 9))
+            pods.append(ttypes.PodSpec(
+                name=f"wave-cpuset-{j}", qos=QoSClass.LSR, requests={
+                    ResourceName.CPU: cpu, ResourceName.MEMORY: mem},
+                limits={ResourceName.CPU: cpu}, creation_time=KOORD_T0))
+        else:
+            cpu = int(rng.integers(1000, 4000))
+            pods.append(ttypes.PodSpec(
+                name=f"wave-gpu-{j}", qos=QoSClass.LS, requests={
+                    ResourceName.CPU: cpu, ResourceName.MEMORY: mem},
+                limits={ResourceName.CPU: cpu},
+                device_requests={"nvidia.com/gpu": int(rng.integers(1, 3))},
+                creation_time=KOORD_T0))
+    return pods
+
+
+def hooks_nri(i) -> bool:
+    """NRI mode on half the agents, crossed with the cgroup version."""
+    return (i // 2) % 2 == 0
+
+
+def hooks_dirs(cfg, pod) -> None:
+    """What the kubelet makes of a pod bound to the node: its dirs."""
+    meta = pod_meta_from_spec(pod)
+    ensure_cgroup_dir(meta.cgroup_dir, cfg)
+    for cdir in meta.containers.values():
+        ensure_cgroup_dir(cdir, cfg)
+
+
+def hooks_events(auditor, root) -> list:
+    """An audit log oldest first, paths relative to ``root``, without the
+    wall-clock timestamps."""
+    return [(e.group, os.path.relpath(e.subject, root)
+             if e.subject.startswith(root) else e.subject, e.operation,
+             e.detail.replace(root, "<root>"))
+            for e in reversed(auditor.query())]
+
+
+def hooks_read(res, d, cfg):
+    return res.decode(res.read(d, cfg), cfg)
+
+
+def hooks_pins(bus, agents) -> tuple:
+    """Every container of a pod whose resource-status carries a cpuset
+    holds it in its cpuset file, with cfs quota -1 on the pod and the
+    container; every GPU pod's container env from
+    ``RuntimeHookServer.create_container`` names exactly the minors of
+    its device-allocated. Returns ``(responses, pinned pods, GPU pods)``."""
+    responses, pinned, gpus = {}, 0, 0
+    for name, daemon in agents.items():
+        cfg = daemon.executor.config
+        hooks = daemon.runtime_hooks
+        for meta in daemon.states_informer.running_pods():
+            spec = bus.get(Kind.POD, meta.uid)
+            cpuset = cpuset_from_annotation(spec.annotations)
+            if cpuset is not None:
+                pinned += 1
+                assert hooks_read(CPU_CFS_QUOTA, meta.cgroup_dir, cfg) == "-1"
+                for cdir in meta.containers.values():
+                    assert hooks_read(CPU_SET, cdir, cfg) == cpuset, meta.uid
+                    assert hooks_read(CPU_CFS_QUOTA, cdir, cfg) == "-1"
+            for c in meta.containers:
+                res = hooks.server.create_container(meta, c, apply=False)
+                responses[f"{meta.uid}/{c}"] = dataclasses.asdict(res)
+            raw = spec.annotations.get(ANNOTATION_DEVICE_ALLOCATED)
+            if raw:
+                gpus += 1
+                minors = ",".join(str(d["minor"])
+                                  for d in json.loads(raw)["gpu"])
+                env = responses[f"{meta.uid}/main"]["add_envs"]
+                assert env["NVIDIA_VISIBLE_DEVICES"] == minors, meta.uid
+    return responses, pinned, gpus
+
+
+def hooks_error_list(daemon) -> list:
+    """Every hook failure of ``daemon``'s registry from here on. The
+    reconciler and the servers run the hooks under IGNORE with no error
+    list, so a failing hook would pass silently: the registry's
+    ``run_hooks`` gets the returned list wherever its caller gave none."""
+    registry = daemon.runtime_hooks.registry
+    run, collected = registry.run_hooks, []
+
+    def collecting(stage, proto, fail_policy=FailurePolicy.IGNORE,
+                   errors=None):
+        run(stage, proto, fail_policy,
+            collected if errors is None else errors)
+
+    registry.run_hooks = collecting
+    return collected
+
+
+def hooks_fake_cpi(daemon) -> dict:
+    """(e)'s CPI collector in ``daemon``'s advisor context over
+    ``PerfGroup.fake`` sources (seeded steps a container, in the order
+    the collector opens them), HOOKS_CPI_TICKS collects 30 s apart:
+    every CONTAINER_CPI series."""
+    rng = np.random.default_rng(HOOKS_SEED + 1)
+    steps = {}
+
+    def fake(cdir):
+        steps.setdefault(cdir, (int(rng.integers(1000, 9000)),
+                                int(rng.integers(500, 4000))))
+        return PerfGroup.fake(*steps[cdir])
+
+    collector = PerformanceCollector(source_factory=fake)
+    collector.setup(daemon.collector_ctx)
+    for k in range(HOOKS_CPI_TICKS):
+        collector.collect(hooks_now(k))
+    series = {}
+    for meta in daemon.states_informer.running_pods():
+        for c in meta.containers:
+            t, v = daemon.metric_cache.query(
+                MetricKind.CONTAINER_CPI, {"pod": meta.uid, "container": c})
+            series[f"{meta.uid}/{c}"] = (t.tolist(), v.tolist())
+    assert series and all(len(v[0]) == HOOKS_CPI_TICKS - 1
+                          for v in series.values()), series
+    return series
+
+
+def hooks_actuation(bus, sched, names, root, drive_fn=None,
+                    after_a=None) -> dict:
+    """Phase 23 (a)-(c) and (e)'s collector on the world of phase 21 (d)
+    after its round (``sched`` wired to ``bus``; ``names`` its nodes, whose
+    trees are under ``root``), on ``sched``'s device; ``drive_fn(run)``
+    runs the wave's round (the card's captures its solves), and
+    ``after_a(configs by node)`` runs once (a) has checked. Returns what
+    the card's run and the CPU run are held equal on (``out``), the
+    timings and the wave's round."""
+    tm, out = {}, {}
+    pods_on = {}
+    for pod in bus.list(Kind.POD).values():
+        if pod.node_name and not pod.waiting_permit:
+            pods_on.setdefault(pod.node_name, []).append(pod)
+
+    # (a) an agent a node from build_koordlet, over its own tree
+    t0 = time.perf_counter()
+    cfgs = {}
+    for i, name in enumerate(names):
+        cfg = cfgs[name] = SystemConfig(
+            cgroup_root=os.path.join(root, name, "cg"),
+            proc_root=os.path.join(root, name, "proc"),
+            sysfs_root=os.path.join(root, name, "sys"),
+            use_cgroup_v2=koord_v2(i))
+        for d in ("kubepods", "kubepods/burstable", "kubepods/besteffort"):
+            ensure_cgroup_dir(d, cfg)
+        for pod in pods_on.get(name, []):
+            hooks_dirs(cfg, pod)
+    tm["dirs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agents, errors = {}, {}
+    for i, name in enumerate(names):
+        cfg = cfgs[name]
+        agents[name] = build_koordlet(KoordletConfig(
+            cgroup_root=cfg.cgroup_root, proc_root=cfg.proc_root,
+            use_cgroup_v2=cfg.use_cgroup_v2, feature_gates=HOOKS_GATES,
+            runtime_hooks_mode="nri" if hooks_nri(i) else "reconciler",
+            reconcile_interval_seconds=HOOKS_RECONCILE_S))
+        errors[name] = hooks_error_list(agents[name])
+    tm["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in names:
+        wire_koordlet(bus, agents[name].states_informer, name)
+    tm["wire"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slo = sloconfig.NodeSLOSpec()
+    for tier in ("lsr", "ls", "be"):
+        getattr(slo.resource_qos_strategy, tier).enable = True
+    for name in names:
+        bus.apply(Kind.NODE_SLO, name, slo)
+    tm["slo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in names:
+        agents[name].runtime_hooks.set_node_topo(hooks_topo(
+            bus.get(Kind.NODE_RESOURCE_TOPOLOGY, name)))
+    tm["topo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in names:
+        agents[name].tick(hooks_now())
+    tm["tick"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    responses, pinned, gpus = hooks_pins(bus, agents)
+    assert pinned > 0 and gpus > 0, (pinned, gpus)
+    rule = {"kubepods": "0", "kubepods/burstable": "2",
+            "kubepods/besteffort": "-1"}
+    for name, daemon in agents.items():
+        cfg = daemon.executor.config
+        for d, want in rule.items():
+            assert hooks_read(CPU_BVT_WARP_NS, d, cfg) == want, (name, d)
+        for meta in daemon.states_informer.running_pods():
+            assert hooks_read(CPU_BVT_WARP_NS, meta.cgroup_dir, cfg) == (
+                "2" if meta.qos is not QoSClass.BE else "-1"), meta.uid
+    tm["check"] = time.perf_counter() - t0
+    out["a"] = dict(responses=responses, pinned=pinned, gpus=gpus)
+    if after_a is not None:
+        after_a(cfgs)
+
+    # (b) a second wave on the card, then deletions
+    wave = hooks_wave()
+    for pod in wave:
+        bus.apply(Kind.POD, pod.uid, pod)
+    perf = None
+    if drive_fn is not None:
+        try:
+            perf = PerfGroup.open_self()
+            before = perf.read()
+        except PerfUnavailable as e:
+            perf = e
+    t0 = time.perf_counter()
+    run = lambda: sched.schedule_pending(now=hooks_now(1))  # noqa: E731
+    result, record = (run(), None) if drive_fn is None else drive_fn(run)
+    tm["wave_round"] = time.perf_counter() - t0
+    if isinstance(perf, PerfGroup):
+        after = perf.read()
+        perf.close()
+        perf = (after[0] - before[0], after[1] - before[1])
+    bound = [p for p in wave if result[p.uid] is not None
+             and p.uid not in result.waiting]
+    assert len(bound) > HOOKS_WAVE // 2, len(bound)
+    t0 = time.perf_counter()
+    for pod in bound:
+        hooks_dirs(cfgs[result[pod.uid]], bus.get(Kind.POD, pod.uid))
+    for i, name in enumerate(names):
+        if hooks_nri(i):
+            agents[name].pleg.poll()
+        else:
+            agents[name].tick(hooks_now(1))
+    tm["wave_hooks"] = time.perf_counter() - t0
+    wave_responses, w_pinned, w_gpus = hooks_pins(bus, agents)
+    assert w_pinned > pinned and w_gpus > gpus, (w_pinned, w_gpus)
+    nri_added = {n: dict(agents[n].nri_server.handled)
+                 for i, n in enumerate(names) if hooks_nri(i)}
+    assert sum(h.get("RunPodSandbox", 0) for h in nri_added.values()) == sum(
+        hooks_nri(names.index(result[p.uid])) for p in bound)
+    rng = np.random.default_rng(HOOKS_SEED + 2)
+    candidates = sorted(p.uid for p in bus.list(Kind.POD).values()
+                        if p.node_name and not p.waiting_permit
+                        and ANNOTATION_RESOURCE_STATUS in p.annotations)
+    gone = [bus.get(Kind.POD, candidates[int(k)]) for k in sorted(rng.choice(
+        len(candidates), HOOKS_DELETED, replace=False))]
+    t0 = time.perf_counter()
+    for pod in gone:
+        bus.delete(Kind.POD, pod.uid)
+        remove_pod_dirs(cfgs[pod.node_name],
+                        pod_meta_from_spec(pod).cgroup_dir)
+    for i, name in enumerate(names):
+        if hooks_nri(i):
+            agents[name].pleg.poll()
+        else:
+            agents[name].tick(hooks_now(2))
+    tm["deletions"] = time.perf_counter() - t0
+    for pod in gone:
+        meta = pod_meta_from_spec(pod)
+        cfg = cfgs[pod.node_name]
+        for d in [meta.cgroup_dir, *meta.containers.values()]:
+            assert not os.path.exists(CPU_SET.path(d, cfg)), d
+    stops = {n: dict(agents[n].nri_server.handled)
+             for i, n in enumerate(names) if hooks_nri(i)}
+    assert sum(h.get("StopPodSandbox", 0) for h in stops.values()) > 0
+    out["b"] = dict(placed=dict(result), waiting=dict(result.waiting),
+                    responses=wave_responses,
+                    gone=[p.uid for p in gone], nri=[nri_added, stops])
+
+    # (c) the cpu-normalization ratio on half the nodes, then removed from
+    # a quarter: rescaled, then restored once
+    t0 = time.perf_counter()
+    scaled, restored = names[: len(names) // 2], names[: len(names) // 4]
+    quotas, subjects = [], 0
+    for step, (ratio, which) in enumerate(((HOOKS_RATIO, scaled),
+                                           (None, restored))):
+        for name in which:
+            node = bus.get(Kind.NODE, name)
+            ann = dict(node.annotations)
+            ann.pop(ANNOTATION_CPU_NORMALIZATION_RATIO, None)
+            if ratio is not None:
+                ann[ANNOTATION_CPU_NORMALIZATION_RATIO] = str(ratio)
+            bus.apply(Kind.NODE, name, dataclasses.replace(
+                node, annotations=ann))
+        for name in which:
+            agents[name].tick(hooks_now(3 + step))
+        seen = {}
+        for name in names:
+            daemon = agents[name]
+            cfg = daemon.executor.config
+            for meta in daemon.states_informer.running_pods():
+                if meta.qos is not QoSClass.LS or meta.cpu_limit_mcpu <= 0:
+                    continue
+                subjects += step == 0
+                path = CPU_CFS_QUOTA.path(meta.cgroup_dir, cfg)
+                got = seen[meta.uid] = (
+                    hooks_read(CPU_CFS_QUOTA, meta.cgroup_dir, cfg)
+                    if os.path.exists(path) else None)
+                spec = milli_cpu_to_quota(meta.cpu_limit_mcpu)
+                if name in restored and step == 1:
+                    assert got == str(spec), (meta.uid, got, spec)
+                elif name in scaled:
+                    assert got == str(math.ceil(spec / HOOKS_RATIO)), (
+                        meta.uid, got)
+                else:
+                    assert got is None, (meta.uid, got)
+        quotas.append(seen)
+    assert subjects > 0
+    tm["normalization"] = time.perf_counter() - t0
+    out["c"] = quotas
+    out["cpi"] = hooks_fake_cpi(agents[names[0]])
+    assert all(not e for e in errors.values()), {
+        n: e for n, e in errors.items() if e}
+    t0 = time.perf_counter()
+    out["trees"] = {n: tree_files(os.path.join(root, n, "cg"))
+                    for n in names}
+    out["writes"] = {n: hooks_events(agents[n].executor.auditor, root)
+                     for n in names}
+    out["audit"] = {n: hooks_events(agents[n].auditor, root) for n in names}
+    tm["read_back"] = time.perf_counter() - t0
+    return dict(out=out, timings=tm, record=record, perf=perf,
+                subjects=subjects, gone=len(gone), bound=len(bound))
+
+
+def hooks_files(root) -> dict:
+    """Every file under ``root``: bytes, or an ``.npz`` checkpoint's arrays
+    (its zip headers carry the write's wall time)."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for f in names:
+            path = os.path.join(d, f)
+            rel = os.path.relpath(path, root)
+            if f.endswith(".npz"):
+                with np.load(path) as z:
+                    out[rel] = {k: z[k].tolist() for k in sorted(z.files)}
+            else:
+                with open(path, "rb") as fh:
+                    out[rel] = fh.read()
+    return out
+
+
+def hooks_child_start(cfg, scratch) -> dict:
+    """(d): ``python -m koordinator_tpu_torch.cmd.koordlet --once`` in NRI
+    mode over a copy of one agent's tree (``cfg``), started; a second copy
+    kept for :func:`hooks_child_finish`'s in-process run."""
+    roots = {}
+    for copy in ("child", "in_process"):
+        roots[copy] = os.path.join(scratch, copy)
+        for part in ("cg", "proc"):
+            shutil.copytree(os.path.join(os.path.dirname(cfg.cgroup_root),
+                                         part),
+                            os.path.join(roots[copy], part))
+    now = hooks_now(5)
+    child = roots["child"]
+    argv = ["--once", "--now", repr(now), "--runtime-hooks-mode", "nri",
+            "--cgroup-root", os.path.join(child, "cg"),
+            "--proc-root", os.path.join(child, "proc"),
+            "--feature-gates", HOOKS_CHILD_GATES,
+            "--checkpoint-dir", os.path.join(child, "ckpt")]
+    if cfg.use_cgroup_v2:
+        argv.append("--cgroup-v2")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "koordinator_tpu_torch.cmd.koordlet", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    child = dict(proc=proc, stamped=[], t0=t0, now=now, roots=roots,
+                 v2=cfg.use_cgroup_v2)
+
+    def read():
+        for line in proc.stdout:
+            child["stamped"].append((time.perf_counter(), line.rstrip("\n")))
+        child["eof"] = time.perf_counter()
+
+    child["reader"] = threading.Thread(target=read)
+    child["reader"].start()
+    return child
+
+
+def hooks_child_finish(child) -> dict:
+    """(d)'s child waited for (each line stamped as it arrived): exit 0,
+    and its files equal an in-process ``build_koordlet(...).tick(now)``
+    on the second copy, the checkpoints included. Returns its wall split
+    into imports, build, the tick and the rest."""
+    proc, t0 = child["proc"], child["t0"]
+    try:
+        rc = proc.wait(timeout=BINARY_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child["reader"].join()
+    stamped = child["stamped"]
+    wall = child["eof"] - t0
+    lines = [line for _, line in stamped]
+    assert rc == 0, lines[-40:]
+    built_at, built = next((t, x) for t, x in stamped
+                           if x.startswith("koordlet: built"))
+    ticked = next(x for x in lines if x.startswith("koordlet: tick returned"))
+    build_s, tick_s = seconds_after(built, " in "), seconds_after(
+        ticked, " after ")
+    imports_s = built_at - t0 - build_s
+    in_process = child["roots"]["in_process"]
+    build_koordlet(KoordletConfig(
+        feature_gates=HOOKS_CHILD_GATES, runtime_hooks_mode="nri",
+        cgroup_root=os.path.join(in_process, "cg"),
+        proc_root=os.path.join(in_process, "proc"),
+        use_cgroup_v2=child["v2"],
+        checkpoint_dir=os.path.join(in_process, "ckpt"))).tick(child["now"])
+    got = hooks_files(child["roots"]["child"])
+    want = hooks_files(in_process)
+    assert "ckpt/metriccache.npz" in got and got == want, sorted(
+        set(got) ^ set(want))
+    return dict(wall=wall, imports=imports_s, build=build_s, tick=tick_s,
+                rest=wall - imports_s - build_s - tick_s, files=len(got))
+
+
+def koordlet_hooks(card, world, scratch) -> tuple:
+    """Phase 23 on the card, on phase 21 (d)'s world after its round:
+    :func:`hooks_actuation` with the wave's round driven on the card
+    (every solve on the one-block kernel with extras rows, the final one
+    held against its twin), then (d)'s child and (e)'s perf group. Returns
+    ``(its kernels entry, what the CPU run is held to)``."""
+
+    def drive_fn(run):
+        result, launches, wall, captured = drive(run, clone=True)
+        return result, (launches, wall, captured)
+
+    names = world["names"]
+    started = []
+    try:
+        h = hooks_actuation(
+            world["bus"], world["sched"], names, world["root"], drive_fn,
+            after_a=lambda cfgs: started.append(hooks_child_start(
+                cfgs[names[0]], scratch)))
+    except BaseException:
+        for child in started:
+            if child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait()
+        raise
+    tm = h["timings"]
+    launches, wall, captured = h["record"]
+    assert captured and all(r.kind == "block" for _, r in captured), [
+        r for _, r in captured]
+    assert sum(launches.values()) == launches["block"] == len(captured), (
+        launches, len(captured))
+    inp, route = captured[-1]
+    assert inp.extras is not None, "the wave's solve had no extras rows"
+    n_nri = sum(hooks_nri(i) for i in range(len(names)))
+    n_v2 = sum(koord_v2(i) for i in range(len(names)))
+    out = h["out"]
+    print(f"koordlet hooks (a) [{card}]: {len(names)} build_koordlet agents "
+          f"({n_v2} on cgroup v2, {n_nri} in NRI mode, crossed; "
+          f"{HOOKS_GATES}) over their trees: the kubelet's dirs "
+          f"{tm['dirs']:.3f} s, build {tm['build']:.3f} s, wire_koordlet "
+          f"{tm['wire']:.3f} s, the NodeSLO (group identity on) "
+          f"{tm['slo']:.3f} s, the share pools from each NRT "
+          f"{tm['topo']:.3f} s, one tick of the {len(names)} agents "
+          f"{tm['tick']:.3f} s; {out['a']['pinned']} pods' cpusets in "
+          f"their containers' files with cfs quota -1, "
+          f"{out['a']['gpus']} GPU pods' env naming their minors (checked "
+          f"in {tm['check']:.3f} s); no hook error", flush=True)
+    label = (f"the koordlet hooks' second wave, {len(names)} x "
+             f"{HOOKS_WAVE}")
+    print(f"{label} [{card}]: {h['bound']} bound, wall {wall:.4f} s "
+          f"({len(captured)} solves, every one on the one-block kernel with "
+          f"extras rows); their hooks (the NRI half off the PLEG alone, the "
+          f"reconciler half on its tick) {tm['wave_hooks']:.3f} s; "
+          f"{h['gone']} pods deleted, their dirs removed, the NRI half's "
+          f"stop stages and the reconcilers {tm['deletions']:.3f} s, no "
+          f"stale cpuset", flush=True)
+    stats = compare(inp, f"{label}, final solve", card, reps=3)
+    print(f"koordlet hooks (c) [{card}]: ratio {HOOKS_RATIO} on "
+          f"{len(names) // 2} nodes, removed from {len(names) // 4}: "
+          f"{h['subjects']} cpu-share pods rescaled to ceil(q / "
+          f"{HOOKS_RATIO}), the quarter's restored to their spec quotas, in "
+          f"{tm['normalization']:.3f} s; the trees read back in "
+          f"{tm['read_back']:.3f} s "
+          f"({sum(len(t) for t in out['trees'].values())} files)",
+          flush=True)
+    split = hooks_child_finish(started[0])
+    print(f"koordlet binary --once [{card}]: NRI mode over a copy of "
+          f"{names[0]}'s tree ({HOOKS_CHILD_GATES}): exit 0, its "
+          f"{split['files']} files (the checkpoint included) == an "
+          f"in-process build_koordlet(...).tick(now) on a second copy; child "
+          f"(run beside (b)-(c)) wall {split['wall']:.3f} s = interpreter start and imports "
+          f"{split['imports']:.3f} s + build {split['build']:.3f} s + the "
+          f"tick {split['tick']:.3f} s + the rest, process exit included "
+          f"{split['rest']:.3f} s", flush=True)
+    perf = h["perf"]
+    if isinstance(perf, PerfUnavailable):
+        print(f"koordlet CPI (e) [{card}]: PerfGroup.open_self() refused on "
+              f"this machine: {perf}; the CPI collector over PerfGroup.fake "
+              f"sources in {names[0]}'s agent: "
+              f"{len(out['cpi'])} series", flush=True)
+    else:
+        cycles, instructions = perf
+        print(f"koordlet CPI (e) [{card}]: PerfGroup.open_self() over the "
+              f"wave's round (host side): {cycles} cycles, {instructions} "
+              f"instructions (CPI {cycles / max(instructions, 1):.3f}); the "
+              f"CPI collector over PerfGroup.fake sources in {names[0]}'s "
+              f"agent: {len(out['cpi'])} series", flush=True)
+    return (entry("binpack_koordlet_hooks_wave", launches["block"], stats,
+                  259), out)
+
+
 def cpu_twin_cut(inp, route, label, card, pods=TWIN_CUT_PODS) -> dict:
     """The kernel held against its plain twin on the CPU (CPU_ROUND_THREADS
     torch threads) on the solve's first ``pods`` pods, every output; the
@@ -6815,6 +7458,7 @@ def main() -> int:
 
     # -- 21. the node agents feed the colocation loop ----------------------------
     # -- 22. the agents act on pressure, the card re-places the victims -------
+    # -- 23. the koordlet binary acts on the card's placements -----------------
     kernels += node_agents(card)
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "

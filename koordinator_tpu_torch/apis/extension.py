@@ -89,6 +89,9 @@ NUM_RESOURCES = len(ResourceName)
 
 DOMAIN = "koordinator.tpu"
 
+#: a pod's QoS class label (the terway QoS hook reads it)
+LABEL_QOS_CLASS = f"{DOMAIN}/qosClass"
+
 #: a pod's cpuset / NUMA resource spec (JSON)
 ANNOTATION_RESOURCE_SPEC = f"{DOMAIN}/resource-spec"
 #: the cpuset and NUMA-node resources allocated to a pod (JSON, PreBind)

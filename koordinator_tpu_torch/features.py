@@ -1,16 +1,15 @@
 """Feature gates (counterpart of ``koordinator_tpu/features.py``: the
-``FeatureGate`` registry, the scheduler's gates and the manager's).
+``FeatureGate`` registry, the scheduler's gates, the manager's and the
+koordlet's).
 
 Gates parse the k8s-style ``--feature-gates=Name=true,Other=false`` spec
 and components consult them at construction time.
 ``cmd/scheduler.build_scheduler`` reads ``BatchedPlacement`` (False:
 per-pod plugin-chain rounds) and ``ElasticQuotaPreemption``;
 ``cmd/manager.build_manager`` reads the six webhook gates of
-``MANAGER_GATES``. Only the names some code reads are registered: a gate
+``MANAGER_GATES``; ``cmd/koordlet.build_koordlet`` reads the 13 gates of
+``KOORDLET_GATES``. Only the names some code reads are registered: a gate
 is added with the code that reads it, and naming any other raises.
-
-The reference's ``KOORDLET_GATES`` wait with the koordlet, whose binary
-is not ported yet (ROADMAP Queue 1 item 11(b)).
 """
 
 from __future__ import annotations
@@ -82,4 +81,29 @@ MANAGER_GATES = FeatureGate({
     "NodeMutatingWebhook": False,
     "NodeValidatingWebhook": False,
     "ConfigMapValidatingWebhook": False,
+})
+
+#: the koordlet gates ``cmd/koordlet.build_koordlet`` reads, each with the
+#: reference's default (koordlet_features.go:154-173): which collectors and
+#: QoS strategies the agent registers, and whether it keeps an auditor.
+#: Five of the reference's 18 wait: ``AuditEventsHTTPHandler``,
+#: ``BECPUManager``, ``NodeTopologyReport``, ``Libpfm4`` and
+#: ``HugePageReport``. No code of either package reads them (the NRT
+#: reporter always runs, the perf reader is ``native/perf_group.cpp``
+#: rather than libpfm4, and the debug mux always serves the audit log),
+#: so they are not registered and naming one raises.
+KOORDLET_GATES = FeatureGate({
+    "AuditEvents": False,
+    "BECPUSuppress": True,
+    "BECPUEvict": False,
+    "BEMemoryEvict": False,
+    "CPUBurst": True,
+    "SystemConfig": False,
+    "RdtResctrl": True,
+    "CgroupReconcile": False,
+    "Accelerators": False,
+    "CPICollector": False,
+    "PSICollector": False,
+    "BlkIOReconcile": False,
+    "ColdPageCollector": False,
 })

@@ -1,5 +1,4 @@
-"""koordlet, the node agent (counterpart of ``koordinator_tpu/koordlet``,
-without the runtime hooks and the binary).
+"""koordlet, the node agent (counterpart of ``koordinator_tpu/koordlet``).
 
 Ported: what a node agent measures and what it publishes. ``system``
 (the typed cgroup registry, cpu topology and kidled over configurable
@@ -13,10 +12,14 @@ actuates: ``system.core_sched`` (PR_SCHED_CORE cookies over an injectable
 prctl), ``system.resctrl`` (the L3 CAT and MBA schemata), ``qosmanager``
 (the eight strategies: cpu suppress, memory and cpu eviction, cpu burst,
 resctrl, memcg and blkio reconcile, /proc/sys reconcile) and ``pleg``
-(the pod lifecycle events of the kubepods tree). All of it is host work
-in numpy and files, as in the reference; ``qosmanager`` and ``pleg`` are
-imported by path, as there. The runtime hooks, the perf collector and
-the koordlet binary are ROADMAP Queue 1 item 11(b).
+(the pod lifecycle events of the kubepods tree); and ``runtimehooks``
+(the cpuset, device, bvt, batch-resource, cpu-normalization and terway
+hooks that turn the scheduler's placements into cgroup state, through
+the reconciler or the NRI server). ``metricsadvisor.performance`` reads
+CPI through ``native`` (a perf-group reader that ``g++`` builds on first
+use), and ``cmd/koordlet`` assembles the agent. All of it is host work
+in numpy and files, as in the reference; ``qosmanager``, ``pleg`` and
+``runtimehooks`` are imported by path, as there.
 """
 
 from koordinator_tpu_torch.koordlet.metriccache import (  # noqa: F401

@@ -56,17 +56,19 @@ LIMITER_SAVE_BELOW_PCT = 60
 
 #: node share-pool states (cpu_burst.go:83-94)
 OVERLOAD, COOLING, IDLE, UNKNOWN = "overload", "cooling", "idle", "unknown"
-#: floor of a limited cfs quota (util/system cgroup.go:250-258)
-CFS_QUOTA_MIN_US = 1000
 
 
-def milli_cpu_to_quota(milli: int) -> int:
-    """sysutil.MilliCPUToQuota (cgroup.go:250-258), the formula the
-    runtime hooks write: <= 0 is unlimited (-1); floor at 1000us."""
-    quota = milli * CFS_PERIOD_US // 1000
-    if quota <= 0:
-        return -1
-    return max(quota, CFS_QUOTA_MIN_US)
+def __getattr__(name: str):
+    """``milli_cpu_to_quota`` is the runtime hooks' (``runtimehooks/
+    protocol.py``), imported on first use as ``_base_quota_us`` does, so
+    importing this module never imports the hooks."""
+    if name == "milli_cpu_to_quota":
+        from koordinator_tpu_torch.koordlet.runtimehooks.protocol import (
+            milli_cpu_to_quota,
+        )
+
+        return milli_cpu_to_quota
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class BurstLimiter:
@@ -143,6 +145,10 @@ class CPUBurst:
         cpu-normalization hook writes (milli_cpu_to_quota, then
         ceil(quota/ratio) when a ratio is active) so burst scaling floors
         at the normalized value instead of ping-ponging against it."""
+        from koordinator_tpu_torch.koordlet.runtimehooks.protocol import (
+            milli_cpu_to_quota,
+        )
+
         quota = milli_cpu_to_quota(limit_mcpu)
         if quota <= 0:
             return quota

@@ -102,7 +102,21 @@ def test_every_module_imports_without_jax():
               "koordlet.qosmanager.cgreconcile",
               "koordlet.qosmanager.blkio",
               "koordlet.qosmanager.sysreconcile",
-              "koordlet.pleg", "koordlet.pleg.pleg"):
+              "koordlet.pleg", "koordlet.pleg.pleg",
+              # the koordlet binary: the runtime hooks, the perf-group
+              # reader, the CPI collector and cmd/koordlet
+              "koordlet.runtimehooks", "koordlet.runtimehooks.protocol",
+              "koordlet.runtimehooks.hooks",
+              "koordlet.runtimehooks.groupidentity",
+              "koordlet.runtimehooks.cpuset",
+              "koordlet.runtimehooks.devices",
+              "koordlet.runtimehooks.batchresource",
+              "koordlet.runtimehooks.cpunormalization",
+              "koordlet.runtimehooks.terwayqos",
+              "koordlet.runtimehooks.reconciler",
+              "koordlet.runtimehooks.server", "koordlet.runtimehooks.nri",
+              "native", "native.perf",
+              "koordlet.metricsadvisor.performance", "cmd.koordlet"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
