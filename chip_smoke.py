@@ -447,6 +447,38 @@ the microseconds per pod and the bound (see :func:`bound`).
    series and wave placements equal the card's. Phase 23 runs before
    phase 22 on the card (``node_agents``), so that its CPU half, which
    starts after phase 21 (d)'s CPU round, is done when the card's is.
+24. The warm pool and the CRI proxy on the card. (a) Config #11's world
+   (512 nodes; solves of 32 and 16 pods) on a ``cmd.solver`` child under
+   ``SolverSupervisor`` with a store of the phase's own
+   (``KTPU_COMPILATION_CACHE_DIR``; phases 1-23 run with it empty): the
+   first child serves both signatures and persists them and the kernel
+   library; SIGKILLed, it is respawned, restores before it binds (its
+   report printed: restored, failed 0, rows, seconds), the supervisor
+   reads its warm outcome off the debug mux (``respawns_warm_total`` 1,
+   the warm ready grace), and its first remote solve is served from a
+   replayed CUDA graph (``served`` + 1), equal to the plain twin and to
+   a cold child's (``--no-warm-pool``) answer; the first solve's wall of
+   each, in a fresh process. (b) The six ``WARM_POOL_FAULT_KINDS``, two
+   to a copy of that store (one on each signature's entry, by
+   ``testing.chaos.sabotage_store``), a child each: each reason counted,
+   both entries quarantined, both first solves cold on the kernel and
+   equal to the twin; the next respawn of each retries neither. (c) The
+   main path's solve (phase 7's arguments, the cluster route at 5 CTAs)
+   through an adopted binding, persisted, restored into a fresh pool as
+   a graph and served twice with different pods: the first result
+   unchanged by the second, both equal to the ordinary solve and to the
+   plain twin on every pod (the first call's inputs are phase 4's, whose
+   twin is reused; ``binpack_warm_served``: the replay's ms, the launches
+   the replays counted). (d) In phase 23's run,
+   after its wave: a kubelet stand-in's RunPodSandbox, CreateContainer,
+   StartContainer and StopContainer for 50 of the wave's pods through a
+   ``RuntimeManagerCriServer`` a node over each agent's hook server and
+   a recording runtime (hook errors fail the call): every CreateContainer
+   the runtime sees carries its cpuset and GPU env; a restarted proxy's
+   ``fail_over`` rebuilds its store from the runtime's pods; ``python -m
+   koordinator_tpu_torch.cmd.runtimeproxy --once`` on a short UDS path
+   answers the frames as this process's proxy does, byte for byte.
+   (e) (d)'s requests, stores and frames equal phase 23's CPU run.
 Then one JSON line of kernels, and the result line ``{"ok": true,
 "device": {...}}`` last.
 
@@ -457,6 +489,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import io
 import json
 import math
@@ -645,8 +678,17 @@ from koordinator_tpu_torch.service.codec import (
 )
 from koordinator_tpu_torch.service.supervisor import (
     SolverSupervisor,
+    connection_probe,
     debug_port_probe,
+    debug_port_warm_outcome,
 )
+from koordinator_tpu_torch.service import warmpool
+from koordinator_tpu_torch.service.warmpool import WarmPool
+from koordinator_tpu_torch.runtimeproxy import (
+    CRIRequest,
+    RuntimeManagerCriServer,
+)
+from koordinator_tpu_torch.cmd import runtimeproxy as proxy_cmd
 from koordinator_tpu_torch.state.cluster import (
     ClusterDeltaTracker,
     evict_resident_rows,
@@ -672,6 +714,10 @@ from koordinator_tpu_torch.testing.failure_domain import (
     outage_churn,
     slo_arm,
 )
+
+# phases 1-23 run with the warm pool inert (so every solve is issued as
+# it was before the pool existed); phase 24 gives its children a store
+os.environ["KTPU_COMPILATION_CACHE_DIR"] = ""
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -900,6 +946,23 @@ HOOKS_CPI_TICKS = 3
 #: the pods the full-size plain twins of phases 6, 7 and 17 are cut to
 #: (their kernels still timed at full size)
 TWIN_CUT_PODS = 1000
+# phase 24: the warm respawn's two signatures (config #11's 512 nodes at
+# two pod counts), the respawned child's warm ready grace, the store
+# faults applied two to a store (each pair of distinct reasons), and the
+# CRI proxy's pods of phase 23's second wave
+WARM_PODS = (32, 16)
+WARM_GRACE_S = 30.0
+WARM_FAULT_PAIRS = (("truncated-entry", "bitflipped-entry"),
+                    ("stale-host-fingerprint", "wrong-magic"),
+                    ("torn-concurrent-write", "oversize-entry"))
+WARM_REASONS = {"truncated-entry": "truncated",
+                "bitflipped-entry": "fingerprint",
+                "stale-host-fingerprint": "stale-host",
+                "torn-concurrent-write": "fingerprint",
+                "wrong-magic": "corrupt", "oversize-entry": "oversized"}
+PROXY_PODS = 50
+#: phase 24 (d)'s walls on the card: the proxies, the binary child
+PHASE24_TIMES = {}
 SOURCE = "koordinator_tpu_torch/csrc/binpack.cu"
 CLUSTER_SOURCE = "koordinator_tpu_torch/csrc/binpack_cluster.cu"
 REPLACES = "koordinator_tpu/ops/pallas_binpack.py"
@@ -1056,7 +1119,7 @@ def compare(inp, label, card, reps=3, shards=None) -> dict:
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, route=route,
-                variant=variant(inp))
+                variant=variant(inp), twin_out=want[0])
 
 
 def first_pods(inp, pods):
@@ -1269,20 +1332,25 @@ def loop_check(most, card) -> None:
 
 
 def main_path_solve_args(snapshot):
-    """The arguments ``PlacementModel().schedule(snapshot())`` hands
-    ``kernel_solve_batch``: ``(args, kwargs)``."""
+    """The solve ``PlacementModel().schedule(snapshot())`` hands its kernel
+    binding, as ``kernel_solve_batch``'s arguments: ``(args, kwargs)``."""
     calls = []
-    solve = placement.kernel_solve_batch
+    binding = placement._jit_solve
 
-    def record(*args, **kwargs):
-        calls.append((args, kwargs))
-        return solve(*args, **kwargs)
+    def record(state, pods, params, config, quota, gang, numa, resv,
+               extras):
+        calls.append(((state, pods, params, quota, gang, config.wsum), dict(
+            numa_aux=numa, resv=resv, most_allocated=config.most_allocated,
+            resv_score_checked=True, extras=extras,
+            extras_score_checked=True)))
+        return binding(state, pods, params, config, quota, gang, numa, resv,
+                       extras)
 
-    placement.kernel_solve_batch = record
+    placement._jit_solve = record
     try:
         PlacementModel().schedule(snapshot())
     finally:
-        placement.kernel_solve_batch = solve
+        placement._jit_solve = binding
     assert len(calls) == 1, len(calls)
     return calls[0]
 
@@ -6956,6 +7024,11 @@ def hooks_actuation(bus, sched, names, root, drive_fn=None,
                  for i, n in enumerate(names) if hooks_nri(i)}
     assert sum(h.get("RunPodSandbox", 0) for h in nri_added.values()) == sum(
         hooks_nri(names.index(result[p.uid])) for p in bound)
+    # phase 24 (d): the CRI proxy on the wave's placements
+    t0 = time.perf_counter()
+    out["proxy"] = cri_proxy(bus, agents, bound, wave_responses)
+    out["proxy"]["replies"] = proxy_in_process(out["proxy"]["frames"])
+    tm["proxy"] = time.perf_counter() - t0
     rng = np.random.default_rng(HOOKS_SEED + 2)
     candidates = sorted(p.uid for p in bus.list(Kind.POD).values()
                         if p.node_name and not p.waiting_permit
@@ -7146,13 +7219,14 @@ def koordlet_hooks(card, world, scratch) -> tuple:
 
     names = world["names"]
     started = []
+    proxy_child = proxy_binary_start()  # phase 24 (d)'s binary
     try:
         h = hooks_actuation(
             world["bus"], world["sched"], names, world["root"], drive_fn,
             after_a=lambda cfgs: started.append(hooks_child_start(
                 cfgs[names[0]], scratch)))
     except BaseException:
-        for child in started:
+        for child in started + [proxy_child]:
             if child["proc"].poll() is None:
                 child["proc"].kill()
                 child["proc"].wait()
@@ -7197,6 +7271,27 @@ def koordlet_hooks(card, world, scratch) -> tuple:
           f"{tm['read_back']:.3f} s "
           f"({sum(len(t) for t in out['trees'].values())} files)",
           flush=True)
+    proxy = out["proxy"]
+    child = proxy_binary_finish(proxy_child, proxy["frames"],
+                                proxy["replies"])
+    PHASE24_TIMES.update(proxy=tm["proxy"], binary=child["tail"])
+    print(f"CRI proxy (d) [{card}]: a kubelet stand-in's RunPodSandbox, "
+          f"CreateContainer, StartContainer and StopContainer for "
+          f"{PROXY_PODS} of the wave's pods through a "
+          f"RuntimeManagerCriServer a node ({len(proxy['stores'])} nodes, "
+          f"each agent's hook server, Fail policy, no hook error): every "
+          f"one of the {proxy['created']} CreateContainer requests the "
+          f"runtime saw carries its hooks' response ({proxy['pinned']} "
+          f"cpusets == their files, {proxy['gpus']} GPU envs == their "
+          f"minors); restarted, each proxy's fail_over rebuilt its store "
+          f"from the runtime's pods; {tm['proxy']:.3f} s, this process's "
+          f"binary proxy on {len(proxy['frames'])} frames included; "
+          f"python -m "
+          f"koordinator_tpu_torch.cmd.runtimeproxy --once on a short UDS "
+          f"path (started beside phase 23): its reply frames == the "
+          f"in-process proxy's; interpreter start and imports to "
+          f"listening {child['start']:.3f} s, the exchange and exit "
+          f"{child['tail']:.3f} s, wall {child['wall']:.3f} s", flush=True)
     split = hooks_child_finish(started[0])
     print(f"koordlet binary --once [{card}]: NRI mode over a copy of "
           f"{names[0]}'s tree ({HOOKS_CHILD_GATES}): exit 0, its "
@@ -7221,6 +7316,608 @@ def koordlet_hooks(card, world, scratch) -> tuple:
               f"agent: {len(out['cpi'])} series", flush=True)
     return (entry("binpack_koordlet_hooks_wave", launches["block"], stats,
                   259), out)
+
+
+# -- phase 24: the warm pool on the card and the CRI proxy -------------------
+
+
+def warm_child(addr, port, store, log, *extra):
+    """A ``cmd.solver`` child on ``addr`` with its debug mux on ``port`` and
+    ``store`` as its warm store (empty: none); its output appended to
+    ``log``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "ab") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "koordinator_tpu_torch.cmd.solver",
+             "--listen", addr, "--debug-port", str(port), *CHILD_ARGV,
+             *extra], cwd=root, stdout=out, stderr=subprocess.STDOUT,
+            env=dict(os.environ, KTPU_COMPILATION_CACHE_DIR=store))
+
+
+def warm_status(port) -> dict:
+    return mux_get(port, "/apis/v1/plugins/warm-pool")
+
+
+def wait_for(what, check, timeout_s=BINARY_TIMEOUT_S, step=0.05):
+    """Poll ``check()`` (exceptions count as not yet) until it is truthy;
+    returns it."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            got = check()
+        except (OSError, ValueError):
+            got = None
+        if got:
+            return got
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(step)
+
+
+def warm_ready(addr, port, proc):
+    """Wait until a child accepts solves and its debug mux answers (with
+    its warm-pool section, or its solver section without a pool)."""
+    def ready():
+        assert proc.poll() is None, f"the child at {addr} exited"
+        return connection_probe(addr) and (
+            warm_status(port) if port is not None
+            else True)
+
+    return wait_for(f"the child at {addr}", ready)
+
+
+def warm_problems():
+    """Phase 24's config #11 solves on the host: one a signature."""
+    return {p: testing.example_problem(OUTAGE.n_nodes, p, seed=24 + p,
+                                       device="cpu") for p in WARM_PODS}
+
+
+def remote_solve(addr, problem):
+    """One solve through a fresh ``RemoteSolver``: ``(result, wall_s)``."""
+    remote = RemoteSolver(addr, timeout=SOCKET_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        out = remote.solve_result(*problem, SolverConfig())
+        return out, time.perf_counter() - t0
+    finally:
+        remote.close()
+
+
+def same_answer(got, want, label) -> None:
+    for f in ("assign", "commit", "waiting", "rejected"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), (
+            f"{label}: {f} differs")
+    assert torch.equal(got.node_state.used_req.cpu(),
+                       want.node_state.used_req.cpu()), f"{label}: used_req"
+
+
+def entry_paths(store, pods_of=WARM_PODS) -> dict:
+    """The signature entries of ``store`` by pod count: what the children
+    persisted (their manifest read by a pool over the store)."""
+    pool = WarmPool().configure(store)
+    out = {}
+    for row in pool._read_manifest():
+        sig = row["arrays"]
+        n_pods = sig[1].req.shape[0]
+        if n_pods in pods_of and sig[0].alloc.shape[0] == OUTAGE.n_nodes:
+            key = warmpool._disk_key(row["program"], row["config"],
+                                     warmpool._signature(sig))
+            out[n_pods] = pool._cache._path(key)
+    return out
+
+
+def sabotage_entry(store, path, kind, seed) -> None:
+    """``chaos.sabotage_store`` on the one entry ``path``: the store's other
+    entries are set aside while it runs (it corrupts the newest in sorted
+    order)."""
+    others = [os.path.join(d, f) for d, _, files in os.walk(store)
+              for f in files if f.endswith(".exec")
+              and os.path.join(d, f) != path]
+    for o in others:
+        os.replace(o, o + ".hold")
+    try:
+        assert chaos.sabotage_store(store, kind, seed=seed) == path
+    finally:
+        for o in others:
+            os.replace(o + ".hold", o)
+
+
+def fault_children(store, work, sockets, log):
+    """(b)'s stores: a copy of ``store`` per pair of WARM_FAULT_PAIRS, its
+    two signatures' entries sabotaged one kind each; a child started on
+    each. Returns ``[(kinds, store, addr, port, process)]``."""
+    out = []
+    for i, kinds in enumerate(WARM_FAULT_PAIRS):
+        dst = os.path.join(work, f"fault{i}")
+        shutil.copytree(store, dst)
+        paths = entry_paths(dst)
+        assert sorted(paths) == sorted(WARM_PODS), paths
+        for (n_pods, path), kind in zip(sorted(paths.items()), kinds):
+            sabotage_entry(dst, path, kind, seed=i)
+        addr, port = sockets.path(f"fault{i}"), free_port()
+        out.append((kinds, dst, addr, port,
+                    warm_child(addr, port, dst, log)))
+    return out
+
+
+def fault_checks(children, problems, want, card) -> list:
+    """(b): each child counted its two typed reasons and quarantined the
+    two entries; its first solve at each signature ran cold on the kernel
+    and equals the plain twin. Returns the children's lines."""
+    lines = []
+    for kinds, dst, addr, port, proc in children:
+        st = warm_ready(addr, port, proc)
+        reasons = {WARM_REASONS[k]: 1 for k in kinds}
+        assert st["rejects"] == reasons, (kinds, st)
+        assert st["quarantined"] == 2 and st["last_restore"]["failed"] == 2, st
+        moved = sorted(f for _, _, fs in os.walk(dst) for f in fs
+                       if f.endswith(".quarantined"))
+        assert len(moved) == 2, moved
+        served = st["served"]
+        for n_pods, problem in problems.items():
+            got, _ = remote_solve(addr, problem)
+            same_answer(got, want[n_pods], f"{kinds}, {n_pods} pods")
+        st = warm_status(port)
+        assert st["served"] == served, ("a sabotaged signature served warm",
+                                        st)
+        lines.append(f"{' + '.join(kinds)} -> "
+                     f"{' + '.join(sorted(reasons))}: quarantined 2, cold "
+                     f"and equal")
+    return lines
+
+
+def fault_respawns(children, work, sockets, log) -> list:
+    """(b)'s next respawn: each fault child killed and started again on its
+    store, which no longer retries the quarantined entries."""
+    again = []
+    for i, (kinds, dst, addr, port, proc) in enumerate(children):
+        proc.kill()
+        proc.wait()
+        addr2, port2 = sockets.path(f"again{i}"), free_port()
+        again.append((kinds, dst, addr2, port2,
+                      warm_child(addr2, port2, dst, log)))
+    for kinds, dst, addr, port, proc in again:
+        st = warm_ready(addr, port, proc)
+        assert st["rejects"] == {} and st["quarantined"] == 0, (kinds, st)
+        moved = [f for _, _, fs in os.walk(dst) for f in fs
+                 if f.endswith(".quarantined")]
+        assert len(moved) == 2, moved
+    return again
+
+
+def same_tree(a, b) -> bool:
+    """Whether two solve-argument trees hold equal tensors (shape, dtype
+    and values) and equal scalars."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b))
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def warm_main_route(card, main_args, work, main_twin) -> dict:
+    """(c): the main path's solve (5,000 x 10,000, the cluster route)
+    through a binding adopted into a pool, persisted, restored into a
+    fresh pool as a CUDA graph and served twice with different pods:
+    the second call leaves the first's result unchanged, both equal
+    the ordinary solve and the plain twin on every pod. ``main_twin`` is
+    phase 4's ``(kernel inputs, twin output)``: a call whose kernel
+    inputs equal those reuses that twin, the other runs its own. Returns
+    the ``binpack_warm_served`` entry."""
+    args, kwargs = main_args
+    state, pods, params, quota, gang, wsum = args
+    # the observatory's warm manifest keeps the first 64 signatures it
+    # sees, and phases 1-23 filled it: (c) records as a fresh process does
+    DEVICE_OBS.reset()
+    solve_args = (state, pods, params, quota, gang, kwargs.get("numa_aux"),
+                  kwargs.get("resv"), kwargs.get("extras"),
+                  kwargs.get("most_allocated", False), wsum)
+    gen = torch.Generator().manual_seed(24)
+    order = torch.randperm(pods.req.shape[0], generator=gen).to(
+        pods.req.device)
+    other = (solve_args[:1] + (map_args(pods, lambda t: t[order]),)
+             + solve_args[2:])
+    store = os.path.join(work, "main-store")
+    seed = WarmPool().configure(store)
+    ordinary = DEVICE_OBS.bind("warm_main_path", bk.solve_program)
+    seed.adopt(ordinary, config_argpos=3)
+    pool = WarmPool().configure(store)
+    served = DEVICE_OBS.bind("warm_main_path", bk.solve_program)
+    pool.adopt(served, config_argpos=3)
+    try:
+        want = [bk.run_solve(ordinary, *a) for a in (solve_args, other)]
+        persisted = seed.persist()
+        assert persisted["persisted"] == 1, persisted
+        report = pool.restore()
+        assert report["restored"] == 1 and report["failed"] == 0, (
+            report, pool.status()["last_error"])
+        (entry_,) = pool._execs.values()
+        on_card = state.alloc.device.type == "cuda"
+        assert entry_.graph is not None or not on_card, "no graph captured"
+        assert entry_.kind == "cluster", entry_.config
+        zero_launches()
+        first = bk.run_solve(served, *solve_args)
+        kept = map_args(first, torch.Tensor.clone)
+        second = bk.run_solve(served, *other)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = dict(bk.LAUNCHES)
+        st = pool.status()
+        assert st["served"] == 2, st
+        assert launches == {k: 2 * (k == "cluster") * on_card
+                            for k in bk.LAUNCHES}, launches
+        same_answer(first, kept, "the first served result after the second")
+        assert torch.equal(first.node_state.est_extra,
+                           kept.node_state.est_extra)
+        same_answer(first, want[0], "served == ordinary")
+        same_answer(second, want[1], "served == ordinary, other pods")
+        inp = [bk.kernel_inputs(s_, p_, pr, bk.quota_inputs(q), wsum,
+                                kwargs.get("numa_aux"), kwargs.get("resv"),
+                                kwargs.get("most_allocated", False),
+                                kwargs.get("extras"))
+               for (s_, p_, pr, q) in (solve_args[:4], other[:4])]
+        err, plain_s, reused = 0, [], []
+        for call, (x, got) in enumerate(zip(inp, (first, second)), 1):
+            if same_tree(x, main_twin[0]):
+                twin_out = main_twin[1]
+                reused.append(call)
+            else:
+                t0 = time.perf_counter()
+                twin_out = twin(x, bk.route_of(x))
+                if on_card:
+                    torch.cuda.synchronize()
+                plain_s.append(time.perf_counter() - t0)
+            diff = got.raw_assign.long() - twin_out.assign.long()
+            err = max(err, int(diff.abs().max()))
+        assert err == 0, "a served solve != the plain twin"
+        assert plain_s, "no twin was run on the served inputs"
+        plain_ms = sum(plain_s) / len(plain_s) * 1e3
+        route = bk.route_of(inp[0])
+        if on_card:
+            replay_ms = cuda_ms(entry_.graph.replay, 5)
+            served_ms = cuda_ms(lambda: bk.run_solve(served, *solve_args), 5)
+            launch_ms = cuda_ms(lambda: bk.binpack(inp[0]), 5)
+            ordinary_ms = cuda_ms(lambda: bk.run_solve(ordinary,
+                                                       *solve_args), 5)
+        else:
+            replay_ms = served_ms = launch_ms = ordinary_ms = float("nan")
+        bound_ms, bound_by = bound(inp[0])
+        p = inp[0].req.shape[0]
+        print(f"warm pool (c) [{card}]: the main path's solve "
+              f"({route_name(route)}, {inp[0].alloc.shape[0]} x {p}) "
+              f"persisted (library "
+              f"{persisted['library']}), restored into a fresh pool in "
+              f"{report['wall_s']:.3f} s as a CUDA graph "
+              f"({st['graphs']} captured), served twice with different "
+              f"pods: the first result unchanged by the second, both == "
+              f"the ordinary solve and the plain twin on all {p} pods "
+              f"(max_abs_err {err}; phase 4's twin reused for call(s) "
+              f"{reused}); replays {launches}; "
+              f"graph replay {replay_ms:.3f} ms, a served call (signature, "
+              f"copy-in, replay, copy-out) {served_ms:.3f} ms, the ordinary "
+              f"launch {launch_ms:.3f} ms, the ordinary solve "
+              f"{ordinary_ms:.3f} ms; the plain twin {plain_ms:.3f} ms "
+              f"(mean of {len(plain_s)} run); bound {bound_ms:.5f} ms "
+              f"({bound_by})", flush=True)
+        return dict(name="binpack_warm_served", replaces=f"{REPLACES}:317",
+                    source=CLUSTER_SOURCE, launches=launches["cluster"],
+                    max_abs_err=err, ms=replay_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+    finally:
+        pool.reset()
+        seed.reset()
+
+
+def warm_respawn(card, main_args, main_twin) -> list:
+    """Phase 24 (a)-(c) (``main_twin``: see :func:`warm_main_route`).
+    Returns the ``binpack_warm_served`` entry."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="koord-phase24-")
+    store = os.path.join(work, "store")
+    log = os.path.join(work, "children.log")
+    sockets = Sockets()
+    extra, sup = [], None
+    try:
+        problems = warm_problems()
+        want = {n: bk.kernel_solve_batch(*pr) for n, pr in problems.items()}
+        # (a) a cold child (no pool) and the first supervised child (an
+        # empty store), started together
+        cold_addr, cold_port = sockets.path("cold"), free_port()
+        extra.append(warm_child(cold_addr, cold_port, "", log,
+                                "--no-warm-pool"))
+        addr, port = sockets.path("warm"), free_port()
+
+        def probe():
+            # ready once it accepts solves AND the supervisor has its
+            # restore outcome from the mux
+            return (sup.status()["respawn_warm"] is not None
+                    and connection_probe(addr))
+
+        sup = SolverSupervisor(
+            addr, spawn_fn=lambda: warm_child(addr, port, store, log),
+            probe_fn=probe, warm_outcome_fn=debug_port_warm_outcome(port),
+            warm_ready_timeout_s=WARM_GRACE_S, ready_timeout_s=300.0,
+            probe_interval_s=0.05, backoff_base_s=0.0, backoff_cap_s=0.0)
+        t0 = time.perf_counter()
+        sup.start(wait_ready=True, monitor=False)
+        boot_s = time.perf_counter() - t0
+        st = sup.status()
+        assert st["respawn_warm"] is False, st   # an empty store: cold
+        for n, problem in problems.items():
+            got, _ = remote_solve(addr, problem)
+            same_answer(got, want[n], f"the first child, {n} pods")
+        on_card = CHILD_DEVICE == "cuda"
+        persisted = wait_for("the first child's persist", lambda: (
+            lambda s: s if len(entry_paths(store)) == len(WARM_PODS)
+            and (s["library_stored"] or not on_card) else None)(
+                warm_status(port)))
+        warm_ready(cold_addr, None, extra[0])
+        cold, cold_s = remote_solve(cold_addr, problems[WARM_PODS[0]])
+        same_answer(cold, want[WARM_PODS[0]], "the cold child")
+        # kill the first child; (b)'s stores are copied from its store
+        # and their children start beside the respawn
+        pid = sup.status()["child_pid"]
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        faults = fault_children(store, work, sockets, log)
+        extra += [f[-1] for f in faults]
+        wait_for("the restart", lambda: sup.check_once() == "restarted")
+        main_entry = warm_main_route(card, main_args, work, main_twin)
+        wait_for("the respawn", lambda: sup.check_once() == "running")
+        respawn_s = time.perf_counter() - t_kill
+        st = sup.status()
+        assert st["respawn_warm"] is True and \
+            st["respawns_warm_total"] == 1, st
+        assert st["ready_grace_s"] == WARM_GRACE_S, st
+        ws = warm_status(port)
+        report = ws["last_restore"]
+        assert report["failed"] == 0 and report["restored"] >= len(WARM_PODS)
+        assert not on_card or ws["graphs"] >= len(WARM_PODS), ws
+        served = ws["served"]
+        warm, warm_s = remote_solve(addr, problems[WARM_PODS[0]])
+        ws = warm_status(port)
+        assert ws["served"] == served + 1, ("the first solve was not served "
+                                            "from a replayed graph", ws)
+        same_answer(warm, want[WARM_PODS[0]], "the warm child != the twin")
+        same_answer(warm, cold, "the warm child != the cold child")
+        print(f"warm pool (a) [{card}]: config #11 ({OUTAGE.n_nodes} nodes, "
+              f"{' and '.join(map(str, WARM_PODS))} pods) on a supervised "
+              f"cmd.solver child over a store: the first child (cold, an "
+              f"empty store; boot {boot_s:.3f} s) solved both signatures "
+              f"and persisted {persisted['manifest_rows']} rows (its "
+              f"boot warm-up's included; library stored "
+              f"{persisted['library_stored']}); "
+              f"SIGKILLed, the supervisor respawned it in {respawn_s:.3f} s "
+              f"(warm outcome True, respawns_warm_total "
+              f"{st['respawns_warm_total']}, ready grace "
+              f"{st['ready_grace_s']:.1f} s, not "
+              f"{sup.ready_timeout_s:.1f}); its restore before the bind: "
+              f"restored {report['restored']}, failed {report['failed']}, "
+              f"rows {report['rows']}, compiled {report['compiled']}, "
+              f"library {report['library']}, {report['wall_s']:.3f} s, "
+              f"{ws['graphs']} graphs; its first remote solve served from a "
+              f"replayed graph (served {served} -> {ws['served']}) == the "
+              f"plain twin == a cold child's; the first solve's wall in a "
+              f"fresh process: cold {cold_s * 1e3:.3f} ms, warm "
+              f"{warm_s * 1e3:.3f} ms", flush=True)
+        lines = fault_checks(faults, problems, want, card)
+        extra += [f[-1] for f in fault_respawns(faults, work, sockets, log)]
+        print(f"warm pool (b) [{card}]: the six store faults, two to a "
+              f"store on the two signatures' entries, each in a fresh "
+              f"child: {'; '.join(lines)}; the next respawn of each "
+              f"retried no quarantined entry (rejects {{}})", flush=True)
+    except BaseException:
+        if os.path.exists(log):
+            with open(log, "rb") as f:
+                sys.stderr.write(f.read()[-4000:].decode(errors="replace"))
+        raise
+    finally:
+        if sup is not None:
+            sup.stop()
+        for proc in extra:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        sockets.close()
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"warm pool (a)-(c) wall {wall:.2f} s", flush=True)
+    return [main_entry], wall
+
+
+def cri_proxy(bus, agents, bound, responses) -> dict:
+    """Phase 24 (d) on phase 23's world after its wave: a kubelet stand-in
+    sends RunPodSandbox, CreateContainer, StartContainer and StopContainer
+    for PROXY_PODS of the wave's bound pods through a
+    ``RuntimeManagerCriServer`` a node (the agent's hook server, a
+    recording runtime, hook errors failing the call): every
+    CreateContainer the runtime sees carries the cpuset and the GPU env
+    the hooks gave that container (``responses``, and the cpuset in its
+    file); a restarted proxy's ``fail_over`` rebuilds its store from the
+    runtime's pods. Returns the runtime's requests and the stores."""
+
+    class Runtime:
+        def __init__(self):
+            self.requests, self.pods = [], {}
+
+        def handle(self, request):
+            self.requests.append(request)
+            if request.method == "RunPodSandbox":
+                self.pods[request.pod.uid] = request.pod
+            return {"ok": True, "method": request.method}
+
+        def list_pods(self):
+            return list(self.pods.values())
+
+    rng = np.random.default_rng(HOOKS_SEED + 3)
+    picks = sorted(rng.choice(sorted(p.uid for p in bound), PROXY_PODS,
+                              replace=False).tolist())
+    metas = {m.uid: (name, m) for name, d in agents.items()
+             for m in d.states_informer.running_pods()}
+    proxies = {}
+    for uid in picks:
+        name, meta = metas[uid]
+        if name not in proxies:
+            runtime = Runtime()
+            proxies[name] = (RuntimeManagerCriServer(
+                agents[name].runtime_hooks.server, runtime,
+                failure_policy=FailurePolicy.FAIL), runtime)
+        proxy = proxies[name][0]
+        proxy.intercept(CRIRequest(method="RunPodSandbox", pod=meta))
+        for c in meta.containers:
+            for method in ("CreateContainer", "StartContainer",
+                           "StopContainer"):
+                proxy.intercept(CRIRequest(method=method, pod=meta,
+                                           container=c))
+    created = pinned = gpus = 0
+    for name, (proxy, runtime) in proxies.items():
+        cfg = agents[name].executor.config
+        for req in runtime.requests:
+            if req.method != "CreateContainer":
+                continue
+            created += 1
+            got = dataclasses.asdict(req.resources)
+            assert got == responses[f"{req.pod.uid}/{req.container}"], (
+                req.pod.uid, got)
+            spec = bus.get(Kind.POD, req.pod.uid)
+            cpuset = cpuset_from_annotation(spec.annotations)
+            if cpuset is not None:
+                pinned += 1
+                assert got["cpuset"] == cpuset == hooks_read(
+                    CPU_SET, req.pod.containers[req.container], cfg)
+            raw = spec.annotations.get(ANNOTATION_DEVICE_ALLOCATED)
+            if raw:
+                gpus += 1
+                minors = ",".join(str(d["minor"])
+                                  for d in json.loads(raw)["gpu"])
+                assert got["add_envs"]["NVIDIA_VISIBLE_DEVICES"] == minors
+        again = RuntimeManagerCriServer(agents[name].runtime_hooks.server,
+                                        runtime)
+        assert again.fail_over() == len(runtime.pods) > 0
+        assert sorted(again.store.pods) == sorted(runtime.pods) == sorted(
+            proxy.store.pods)
+    assert created >= PROXY_PODS and pinned > 0 and gpus > 0, (
+        created, pinned, gpus)
+
+    def plain(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return {f.name: plain(getattr(x, f.name))
+                    for f in dataclasses.fields(x)}
+        if isinstance(x, (list, tuple)):
+            return [plain(v) for v in x]
+        if isinstance(x, dict):
+            return {k: plain(v) for k, v in x.items()}
+        return x.name if isinstance(x, enum.Enum) else x
+
+    return dict(requests={n: plain(r.requests)
+                          for n, (_, r) in sorted(proxies.items())},
+                stores={n: sorted(p.store.pods)
+                        for n, (p, _) in sorted(proxies.items())},
+                created=created, pinned=pinned, gpus=gpus,
+                frames=proxy_frames(picks, metas))
+
+
+def proxy_frames(picks, metas) -> list:
+    """(d)'s frames for the binary: the four calls of each picked pod in
+    the documented framing, then a malformed line."""
+    frames = []
+    for uid in picks:
+        meta = metas[uid][1]
+        frames.append({"method": "RunPodSandbox", "pod_uid": uid})
+        for c in meta.containers:
+            for method in ("CreateContainer", "StartContainer",
+                           "StopContainer"):
+                frames.append({"method": method, "pod_uid": uid,
+                               "container": c})
+    return [json.dumps(f).encode() + b"\n" for f in frames] + [b"not json\n"]
+
+
+def proxy_exchange(path, frames, deadline_s=SOCKET_TIMEOUT_S) -> list:
+    """One kubelet stand-in on ``path``: each frame, its reply line."""
+    t0 = time.perf_counter()
+    while True:
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            conn.connect(path)
+            break
+        except OSError:
+            conn.close()
+            if time.perf_counter() - t0 > deadline_s:
+                raise
+            time.sleep(0.01)
+    replies = []
+    with conn, conn.makefile("rb") as rf:
+        for frame in frames:
+            conn.sendall(frame)
+            replies.append(rf.readline())
+    return replies
+
+
+def proxy_in_process(frames) -> list:
+    """(d)'s frames through this process's ``cmd.runtimeproxy`` proxy
+    (``build_proxy`` of the default config, ``serve(once=True)``)."""
+    sockets = Sockets()
+    path = sockets.path("p")
+    server = threading.Thread(target=proxy_cmd.serve, args=(
+        proxy_cmd.build_proxy(proxy_cmd.RuntimeProxyConfig()), path),
+        kwargs={"once": True, "log": lambda *_a: None})
+    server.start()
+    try:
+        return proxy_exchange(path, frames)
+    finally:
+        server.join(timeout=60)
+        sockets.close()
+
+
+def proxy_binary_start() -> dict:
+    """(d): ``python -m koordinator_tpu_torch.cmd.runtimeproxy --once`` on
+    a short UDS path, started (beside phase 23's run, which makes its
+    frames); each output line stamped as it arrives."""
+    sockets = Sockets()
+    path = sockets.path("p")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "koordinator_tpu_torch.cmd.runtimeproxy",
+         "--once", "--listen", path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    child = dict(proc=proc, sockets=sockets, path=path, t0=t0, stamped=[])
+
+    def read():
+        for line in proc.stdout:
+            child["stamped"].append((time.perf_counter(), line.rstrip("\n")))
+
+    child["reader"] = threading.Thread(target=read)
+    child["reader"].start()
+    return child
+
+
+def proxy_binary_finish(child, frames, want) -> dict:
+    """(d)'s binary answers ``frames`` on its socket: its reply frames ==
+    ``want`` (this process's proxy's), exit 0. Returns its start-up (to
+    its "listening" line), the exchange and exit after the frames were
+    ready, and its whole wall."""
+    proc = child["proc"]
+    try:
+        t_ready = time.perf_counter()
+        got = proxy_exchange(child["path"], frames)
+        rc = proc.wait(timeout=BINARY_TIMEOUT_S)
+        child["reader"].join()
+        t_end = time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        child["sockets"].close()
+    lines = [line for _, line in child["stamped"]]
+    assert rc == 0, lines[-20:]
+    listening = [t for t, line in child["stamped"] if "listening on" in line]
+    assert listening, lines
+    assert got == want, "the binary's reply frames != the in-process proxy's"
+    return dict(start=listening[0] - child["t0"], tail=t_end - t_ready,
+                wall=t_end - child["t0"])
 
 
 def cpu_twin_cut(inp, route, label, card, pods=TWIN_CUT_PODS) -> dict:
@@ -7308,6 +8005,9 @@ def main() -> int:
 
     # -- 4. the kernel at the main path's inputs --------------------------------
     main = compare(captured[0][0], "the main path's inputs", card, reps=5)
+    # phase 24 (c) serves this solve warm and holds it against this twin
+    main_twin = (map_args(captured[0][0], torch.Tensor.clone),
+                 main["twin_out"])
     main["max_abs_err"] = max(main["max_abs_err"], plain["max_abs_err"])
     kernels.append(entry("binpack", launches, main, 317))
 
@@ -7371,6 +8071,7 @@ def main() -> int:
 
     # -- 7. the cluster kernel at every CTA count ---------------------------------
     args, kwargs = main_path_solve_args(snapshot)
+    main_args = (args, kwargs)  # phase 24 (c) serves this solve warm
     main_sharded = cluster_path(
         "main path's solve", "binpack_sharded",
         lambda: bk.kernel_solve_batch(*args, **kwargs),
@@ -7460,6 +8161,15 @@ def main() -> int:
     # -- 22. the agents act on pressure, the card re-places the victims -------
     # -- 23. the koordlet binary acts on the card's placements -----------------
     kernels += node_agents(card)
+
+    # -- 24. the warm pool on the card, the CRI proxy ----------------------------
+    warm_entries, warm_wall = warm_respawn(card, main_args, main_twin)
+    kernels += warm_entries
+    print(f"phase 24 wall {warm_wall + sum(PHASE24_TIMES.values()):.2f} s: "
+          f"(a)-(c) {warm_wall:.2f} s, (d) the proxies "
+          f"{PHASE24_TIMES['proxy']:.2f} s and the binary's exchange and "
+          f"exit {PHASE24_TIMES['binary']:.2f} s (in phase 23's run; the "
+          f"binary started beside it)", flush=True)
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s (the "
           "kernel library's build included)", flush=True)

@@ -48,11 +48,16 @@ device (``models/placement.measure_host_fallback_cells``, once per device
 and solver configuration in a process, so it is part of :func:`main`'s
 start), a positive value is
 taken as given, and 0, a sidecar backend or ``BatchedPlacement`` off
-leave it off. Not ported, and queued in ROADMAP.md: the scan unroll (its
-field is absent), the AOT warm pool (``warm_pool`` is accepted and has no
-effect; ``--no-warm-pool`` is refused) and node-sharded staging
-(``build_scheduler`` raises ``NotImplementedError`` for it, naming its
-ROADMAP item; ``--node-shards`` above 1 is refused).
+leave it off. ``warm_pool`` (on unless ``--no-warm-pool``) configures
+the warm pool from ``KTPU_COMPILATION_CACHE_DIR`` and restores it before
+the model and the failover backend are built (``service/warmpool.py``):
+a promoted leader's first solve and the failover twin's replay captured
+graphs; :func:`main` restores it earlier still, keeps it persisting in
+the background, and hands it to the auditor's promotion sweep. Not
+ported, and queued in ROADMAP.md: the scan unroll (its field is absent)
+and node-sharded staging (``build_scheduler`` raises
+``NotImplementedError`` for it, naming its ROADMAP item;
+``--node-shards`` above 1 is refused).
 """
 
 from __future__ import annotations
@@ -167,8 +172,8 @@ class SchedulerConfig:
     #: and the per-decision cooldown
     slo_window_s: float = 5.0
     slo_cooldown_s: float = 1.0
-    #: the AOT warm pool: accepted, no effect until it is ported
-    #: (ROADMAP Queue 1 item 10)
+    #: the warm pool (service/warmpool.py): configured from the
+    #: environment and restored by build_scheduler; False leaves it inert
     warm_pool: bool = True
     #: HBM working-set budget (state/workingset.py) over every staged
     #: world; 0 = unlimited
@@ -211,6 +216,17 @@ def build_scheduler(config: SchedulerConfig, device: DeviceLike = None):
         raise NotImplementedError(
             "node_shards > 1: sharded staging is not ported yet (ROADMAP "
             "Queue 1 item 10)")
+    if config.warm_pool:
+        # configured and restored before the model and the failover
+        # backend are built (the twin prewarms from it iff it is
+        # active); main() restores earlier, and restore() is idempotent,
+        # so this is the embedder's path and a manifest re-scan after
+        # main's. A bad store leaves that shape cold, never a crash
+        from koordinator_tpu_torch.service.warmpool import WARM_POOL
+
+        WARM_POOL.configure()
+        if WARM_POOL.active:
+            WARM_POOL.restore(compile_missing=False)
     backend = None
     if config.placement_backend == "sidecar":
         from koordinator_tpu_torch.cmd.solver import parse_address
@@ -746,9 +762,6 @@ def seed_bus_from_json(bus, path: str) -> None:
 #: the reference's flags whose subsystems this package does not have yet:
 #: flag -> (refused when, what it needs)
 NOT_PORTED = {
-    "no_warm_pool": (lambda v: bool(v),
-                     "--no-warm-pool (the AOT warm pool, ROADMAP Queue 1 "
-                     "item 10)"),
     "node_shards": (lambda v: v > 1,
                     "--node-shards above 1 (sharded staging, ROADMAP "
                     "Queue 1 item 10)"),
@@ -877,7 +890,8 @@ def _parser() -> argparse.ArgumentParser:
     add("--node-shards", type=int, default=1,
         help="not ported above 1: refused")
     add("--no-warm-pool", action="store_true",
-        help="not ported yet: refused")
+        help="disable the warm pool (service/warmpool.py): a promoted "
+             "leader's and the failover twin's first solves run cold")
     add("--monitor-timeout", type=float, default=10.0,
         help="stuck-cycle watchdog threshold in seconds")
     add("--leader-elect", action="store_true",
@@ -900,11 +914,23 @@ def main(argv=None) -> int:
     from koordinator_tpu_torch import resolve_device
 
     device = resolve_device(args.device)
+    warm_pool = None
+    if not args.no_warm_pool:
+        # the boot restore first, before the kernel library and the
+        # scheduler's imports: a library the store holds spares the
+        # nvcc build, and build_scheduler's own restore then re-scans
+        # the installed rows only
+        from koordinator_tpu_torch.service.warmpool import WARM_POOL
+
+        WARM_POOL.configure()
+        if WARM_POOL.active:
+            warm_pool = WARM_POOL
+            WARM_POOL.restore(compile_missing=False)
     t0 = time.perf_counter()
     if device.type == "cuda":
         # the kernel library (built by nvcc only when this tree's build
-        # is missing) before the wiring: the reference restores its warm
-        # pool here, so the first round pays no compile
+        # is missing) before the wiring, so the first round pays no
+        # build
         from koordinator_tpu_torch.ops import binpack_kernel
 
         binpack_kernel._library()
@@ -983,6 +1009,10 @@ def main(argv=None) -> int:
                 listen_spec=args.solver_address, extra_argv=extra)
             supervisor.start()
         scheduler = build_scheduler(config, device=device)
+        if warm_pool is not None:
+            # keep the store covering the hot signatures: new solve
+            # shapes are persisted off the tick path
+            warm_pool.start_background()
         bus = bus_mod.APIServer()
         elector = None
         if args.leader_elect:
@@ -1004,7 +1034,10 @@ def main(argv=None) -> int:
             auditor = StateAuditor(
                 scheduler, bus,
                 interval_rounds=config.audit_interval_rounds,
-                probe_rows=config.audit_probe_rows)
+                probe_rows=config.audit_probe_rows,
+                # a promotion sweep restores the warm pool and the
+                # staged world before the new leader's first solve
+                warm_pool=warm_pool)
             scheduler.services.register("state-auditor", auditor.status)
             if elector is not None:
                 # the promotion sweep: audit the deposed leader's
@@ -1060,6 +1093,10 @@ def main(argv=None) -> int:
             scheduler.services.register("trace", TRACER.status)
             scheduler.services.register("device-observatory",
                                         DEVICE_OBS.status)
+            if warm_pool is not None:
+                # did this leader's first solve replay, and is the
+                # store healthy: one GET
+                scheduler.services.register("warm-pool", warm_pool.status)
 
             def profile(rounds: int) -> dict:
                 # a window on the model's device; a PyTorch without CUDA
@@ -1100,6 +1137,8 @@ def main(argv=None) -> int:
             http_server.stop()
         if supervisor is not None:
             supervisor.stop()
+        if warm_pool is not None:
+            warm_pool.stop_background()
 
 
 if __name__ == "__main__":

@@ -16,16 +16,20 @@ device-observatory,workingset}``, ``/debug/trace``, ``/debug/device``
 and ``/debug/profile?rounds=K`` (a ``torch.profiler`` window over the
 next K solves, written under ``--profile-dir``). ``--hbm-budget-bytes``
 sets the working set's budget for the staged tenant bases
-(``state/workingset.py``). ``--no-warm-pool`` is refused: the port has
-no AOT warm pool yet (ROADMAP Queue 1 item 10).
+(``state/workingset.py``).
 
-On a CUDA device the solver loads the kernel library (building it with
-``nvcc`` only when ``koordinator_tpu_torch/_build/`` holds no build of
-these sources) and runs ``service/server.warm_up`` (one small solve on
-each kernel route: the lazily loaded kernel and torch-op modules) before
-its socket opens, as the reference restores its warm pool before
-serving: a respawned sidecar's first solve, usually a reconnecting
-scheduler's full restage under a deadline, then pays none of it.
+Before its socket opens, the solver restores the warm pool
+(``service/warmpool.py``; the store is ``KTPU_COMPILATION_CACHE_DIR``,
+empty disables it, and so does ``--no-warm-pool``): the kernel library
+from the store when ``_build/`` lacks it, then a CUDA graph captured for
+each signature a predecessor persisted, so a respawned sidecar's first
+solve, usually a reconnecting scheduler's full restage under a deadline,
+replays one. It keeps persisting new signatures in the background, and
+its debug mux serves the pool's status at ``/apis/v1/plugins/warm-pool``.
+On a CUDA device it then loads the kernel library (building it with
+``nvcc`` only when no build of these sources is there) and runs
+``service/server.warm_up`` (one small solve on each kernel route: the
+lazily loaded kernel and torch-op modules).
 """
 
 from __future__ import annotations
@@ -36,12 +40,6 @@ import tempfile
 import time
 from typing import Optional, Tuple, Union
 
-#: the reference's flags whose subsystems this package does not have yet
-NOT_PORTED = {
-    "no_warm_pool": "--no-warm-pool (the AOT warm pool)",
-}
-
-
 def parse_address(spec: str) -> Union[str, Tuple[str, int]]:
     """``host:port`` -> TCP tuple; anything else is a UDS path."""
     if ":" in spec and not spec.startswith("/"):
@@ -50,9 +48,10 @@ def parse_address(spec: str) -> Union[str, Tuple[str, int]]:
     return spec
 
 
-def start_debug_server(service, port: int):
+def start_debug_server(service, port: int, warm_pool=None):
     """The solver's debug mux on ``port`` (0 picks a free one) over
-    ``service`` (a started ``PlacementService``); returns the started
+    ``service`` (a started ``PlacementService``), with the ``warm-pool``
+    section when ``warm_pool`` is given; returns the started
     ``DebugHTTPServer``."""
     from koordinator_tpu_torch.metrics.components import (
         DEVICE_METRICS,
@@ -81,6 +80,10 @@ def start_debug_server(service, port: int):
     services.register("trace", TRACER.status)
     services.register("device-observatory", DEVICE_OBS.status)
     services.register("workingset", WORKING_SET.status)
+    if warm_pool is not None:
+        # did this child restore warm, and is its store healthy (the
+        # supervisor's debug_port_warm_outcome reads it)
+        services.register("warm-pool", warm_pool.status)
     return DebugHTTPServer(
         services=services,
         metrics=MergedGatherer(
@@ -118,18 +121,32 @@ def main(argv=None) -> int:
         "--profile-dir", default=None,
         help="directory of the on-demand torch.profiler windows (default: "
              "$KTPU_PROFILE_DIR or <tmp>/koord-profile)")
-    parser.add_argument("--no-warm-pool", action="store_true",
-                        help="not ported yet: refused")
+    parser.add_argument(
+        "--no-warm-pool", action="store_true",
+        help="disable the warm pool: a respawned sidecar then issues its "
+             "first solve cold again")
     parser.add_argument(
         "--hbm-budget-bytes", type=int, default=0,
         help="device-memory line for the staged tenant bases: staying "
              "under it demotes the least valuable bases to the host or "
              "cold rung instead of allocating past it; 0 = unlimited")
     args = parser.parse_args(argv)
-    given = [flag for dest, flag in NOT_PORTED.items()
-             if getattr(args, dest) not in (None, False, 0)]
-    if given:
-        parser.error("not ported yet: " + ", ".join(given))
+
+    from koordinator_tpu_torch.service.warmpool import WARM_POOL
+
+    warm_pool = None
+    if args.no_warm_pool:
+        WARM_POOL.configure("")  # inert: the service must not configure it
+    else:
+        # the warm pool restores SEQUENTIALLY, right after interpreter
+        # start and before the socket opens: a restore racing the first
+        # reconnecting client's solve would leave the very request the
+        # warm respawn exists for cold. Inert when the store is disabled
+        WARM_POOL.configure()
+        if WARM_POOL.active:
+            warm_pool = WARM_POOL
+            WARM_POOL.restore(compile_missing=False)
+            WARM_POOL.start_background()
 
     from koordinator_tpu_torch import resolve_device
     from koordinator_tpu_torch.obs.device import DEVICE_OBS
@@ -161,7 +178,8 @@ def main(argv=None) -> int:
     debug_server = None
     try:
         if args.debug_port is not None:
-            debug_server = start_debug_server(service, args.debug_port)
+            debug_server = start_debug_server(service, args.debug_port,
+                                              warm_pool)
         if args.ready_file:
             with open(args.ready_file, "w") as f:
                 f.write(str(os.getpid()))
@@ -179,6 +197,8 @@ def main(argv=None) -> int:
         service.stop()
         if debug_server is not None:
             debug_server.stop()
+        if warm_pool is not None:
+            warm_pool.stop_background()
 
 
 if __name__ == "__main__":

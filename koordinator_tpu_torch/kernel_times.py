@@ -116,20 +116,20 @@ def main(argv=None) -> int:
                     placed=int((out.assign >= 0).sum()))
 
     calls = []
-    solve = placement.kernel_solve_batch
+    binding = placement._jit_solve
 
-    def record(*a, **kw):
-        calls.append(a)
-        return solve(*a, **kw)
+    def record(*a):
+        calls.append(a[:3] + a[4:6])  # state, pods, params, quota, gang
+        return binding(*a)
 
     snap = testing.add_pending_wave(
         testing.churn_world(5000, assigned_per_node=2, seed=42)[0], 10000,
         n_quota=50, n_gangs=200, gang_size=32, seed=7)
-    placement.kernel_solve_batch = record
+    placement._jit_solve = record
     try:
         placement.PlacementModel().schedule(snap)
     finally:
-        placement.kernel_solve_batch = solve
+        placement._jit_solve = binding
     main_args = calls[0][:5]
     fused = testing.full_features_problem(5000, 10000, seed=8)
     state, pods, params, quota, gang = testing.quota_gang_problem(

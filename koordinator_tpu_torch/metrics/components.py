@@ -5,14 +5,14 @@ plane, the anti-entropy auditor, the pipelined and streaming loops, the
 stuck-cycle monitor, the flight recorder, the device observatory, the
 serving failure domain (failover, supervisor, SLO controller, HBM working
 set, the solver's admission gate), the descheduler and the koordlet's
-internal and external sets emit, with the reference's names, labels and
+internal and external sets, and the warm pool emit, with the reference's names, labels and
 buckets).
 
-Deliberately absent: the XLA-compile, padding-waste and warm-pool series
-(``SUPERVISOR_RESPAWN_WARM`` among them). The port compiles no XLA
-program (its one build is the ``nvcc`` build of the kernel library,
-counted in ``DEVICE_COMPILES``), never pads a batch to a bucket, and has
-no warm pool.
+Deliberately absent: the XLA-compile and padding-waste series. The port
+compiles no XLA program (its one build is the ``nvcc`` build of the
+kernel library, counted in ``DEVICE_COMPILES``) and never pads a batch to
+a bucket. The warm-pool series keep the reference's names: the pool's
+entries are a kernel library and CUDA graphs (``service/warmpool.py``).
 
 Reference metric names: pkg/scheduler/metrics/metrics.go,
 pkg/descheduler/metrics/metrics.go, pkg/koordlet/metrics/.
@@ -105,6 +105,12 @@ SUPERVISOR_RESTARTS = SCHEDULER_METRICS.counter(
     "solver_supervisor_restarts_total",
     "Sidecar restarts performed by the supervisor",
     label_names=("reason",),  # crashed | hung | down
+)
+SUPERVISOR_RESPAWN_WARM = SCHEDULER_METRICS.counter(
+    "solver_supervisor_respawn_warm_total",
+    "Supervised child (re)spawns that warm-restored from the warm pool "
+    "— probed on the tight warm ready grace instead of the "
+    "cold allowance",
 )
 SUPERVISOR_UP = SCHEDULER_METRICS.gauge(
     "solver_supervisor_child_up",
@@ -337,6 +343,40 @@ DEVICE_PROFILE_WINDOWS = DEVICE_METRICS.counter(
     "solver_device_profile_windows_total",
     "On-demand torch.profiler windows, by outcome",
     label_names=("result",),  # written | error | rate-limited | refused
+)
+
+# -- warm pool (service/warmpool.py) -----------------------------------------
+# The restart/promotion/failover warm path's health, in the DEVICE
+# registry: both long-lived processes restore from the pool (the scheduler
+# on promotion and for its failover twin, the solver child on respawn).
+
+WARM_POOL_HITS = DEVICE_METRICS.counter(
+    "scheduler_warm_pool_hits_total",
+    "Store entries loaded clean (a kernel library or a signature whose "
+    "solve a restore captures as a CUDA graph)",
+)
+WARM_POOL_MISSES = DEVICE_METRICS.counter(
+    "scheduler_warm_pool_misses_total",
+    "Clean store misses (no entry for the key): that shape stays cold",
+)
+WARM_POOL_REJECTS = DEVICE_METRICS.counter(
+    "scheduler_warm_pool_rejects_total",
+    "Store entries refused by the rejection ladder, by typed reason: "
+    "each degrades that shape to a cold solve, never a crash",
+    # truncated | corrupt | fingerprint | oversized | stale-host |
+    # version-skew
+    label_names=("reason",),
+)
+WARM_RESTORE_SECONDS = DEVICE_METRICS.histogram(
+    "scheduler_warm_restore_seconds",
+    "Wall-clock per warm-pool restore pass (boot, leader promotion, "
+    "failover prewarm): manifest read, entry loads and graph captures",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0),
+)
+WARM_POOL_QUARANTINED = DEVICE_METRICS.counter(
+    "scheduler_warm_pool_quarantined_total",
+    "Store entries (or manifests) moved aside after a typed load "
+    "failure: never retried in a loop, never a crash",
 )
 
 # -- koordlet (pkg/koordlet/metrics: internal + external sets) --------------

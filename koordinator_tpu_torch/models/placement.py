@@ -99,9 +99,10 @@ from koordinator_tpu_torch.ops.binpack_kernel import (
     SCORE_BUDGET,
     kernel_extras_score_safe,
     kernel_routing_ok,
-    kernel_solve_batch,
     kernel_supported,
     resv_score_worst,
+    run_solve,
+    solve_program,
     weight_sum,
 )
 from koordinator_tpu_torch.ops.gang import GangState
@@ -120,6 +121,7 @@ from koordinator_tpu_torch.scheduler.plugins.reservation import (
     is_reserve_pod,
     reservation_free,
 )
+from koordinator_tpu_torch.service.warmpool import WARM_POOL
 from koordinator_tpu_torch.state.cluster import (
     DEFAULT_ESTIMATED_SCALING_FACTORS,
     AggregatedArgs,
@@ -196,6 +198,13 @@ def measure_host_fallback_cells(config: SolverConfig = SolverConfig(),
             "wall_s": time.perf_counter() - t_start,
         }
         return cells
+
+
+#: the model's kernel solve, adopted into the warm pool: a promoted
+#: leader's first round replays what the sidecar, the failover twin or a
+#: predecessor persisted (one program, ``solve_program``)
+_jit_solve = DEVICE_OBS.bind("solve_batch", solve_program)
+WARM_POOL.adopt(_jit_solve, config_argpos=3)
 
 
 def _probe_key(device: DeviceLike, config: SolverConfig, rounds: int,
@@ -1329,12 +1338,10 @@ class PlacementModel:
                 state, batch, extras, resv, resv_kernel_safe, numa_aux,
                 extras_safe):
             self.last_solver = "kernel"
-            return kernel_solve_batch(
-                state, batch, self.params, quota_state, gang_state,
-                self._wsum, numa_aux=numa_aux, resv=resv,
-                most_allocated=self.config.numa_most_allocated,
-                resv_score_checked=True, extras=extras,
-                extras_score_checked=True)
+            return run_solve(
+                _jit_solve, state, batch, self.params, quota_state,
+                gang_state, numa_aux, resv, extras,
+                self.config.numa_most_allocated, self._wsum)
         self.last_solver = "loop"
         return solve_batch(state, batch, self.params, self.config,
                            quota_state, gang_state, extras, resv, numa_aux)

@@ -40,15 +40,28 @@ critical path:
 The tick contract mirrors the tracer's: the observatory on or off is
 observation only — same placements, bit for bit.
 
+- **Warm manifest.** A device program's call site is a binding
+  (:meth:`DeviceObservatory.bind`, :class:`ObservedCall`): the
+  counterpart of the reference's ``ObservedJit`` without a jit. It asks
+  the warm pool first (``service/warmpool.py``: a restored CUDA graph
+  answers a call whose signature it captured), then runs the program
+  and records the call's signature: the tree of its arguments with each
+  tensor as a :class:`TensorSpec` (shape, dtype, device) and every
+  other leaf by value. The first :data:`_MAX_WARM` signatures are the
+  manifest (:meth:`warm_manifest`) that the pool persists; while the
+  pool records, each keeps a host copy of its first call's tensors
+  (:class:`Sample`: issued without a sync, read once the copy is done),
+  the sample from which a restore captures its graph. A copy, never a
+  reference: a staged base the working set demotes must free its bytes.
+
 Deliberate differences from the reference: there is no counterpart of
-``jit``, ``ObservedJit``, ``warm_manifest``, ``analyze``,
-``note_padding``, ``padding_waste``, ``compile_ring``, the
-``jax.monitoring`` listener, ``mark`` or ``fingerprint``. They need XLA
-programs, bucket padding or the bench, none of which the port has; the
-kernels' bounds are computed by ``chip_smoke.py`` and kept in PERF.md.
-The SLO controller's device observation reads :attr:`compiles_total`
-(the kernel-library builds) and a padding waste of 0.0: the port never
-pads.
+``jit``, ``analyze``, ``note_padding``, ``padding_waste``,
+``compile_ring``, the ``jax.monitoring`` listener, ``mark`` or
+``fingerprint``. They need XLA programs, bucket padding or the bench,
+none of which the port has; the kernels' bounds are computed by
+``chip_smoke.py`` and kept in PERF.md. The SLO controller's device
+observation reads :attr:`compiles_total` (the kernel-library builds)
+and a padding waste of 0.0: the port never pads.
 """
 
 from __future__ import annotations
@@ -61,7 +74,7 @@ import time
 import weakref
 from collections import deque
 from contextlib import nullcontext
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,6 +92,108 @@ from koordinator_tpu_torch.obs.trace import TRACER
 _RING_CAPACITY = 256
 
 _NULL_CTX = nullcontext()
+
+#: (fn, signature) pairs retained for the warm-pool manifest: the hot
+#: set, not an archive
+_MAX_WARM = 64
+
+#: sentinel the warm pool's serve() returns on a miss (any real result,
+#: None included, is an answer)
+WARM_MISS = object()
+
+
+class TensorSpec(NamedTuple):
+    """A tensor argument in a call's signature: what a restore needs to
+    allocate its static buffer."""
+
+    shape: tuple
+    dtype: torch.dtype
+    device: str
+
+
+def _signature(tree):
+    """The call's signature: ``tree`` with every tensor as its
+    :class:`TensorSpec`; tuples and named tuples keep their type, None,
+    numbers and strings stay as they are. Hashable, picklable, and
+    idempotent (a signature is its own signature). Anything else raises
+    ``TypeError``: such a call has no signature and is never warm."""
+    if isinstance(tree, torch.Tensor):
+        return TensorSpec(tuple(tree.shape), tree.dtype, str(tree.device))
+    if isinstance(tree, TensorSpec) or tree is None or isinstance(
+            tree, (bool, int, float, str, torch.dtype)):
+        return tree
+    if isinstance(tree, tuple):
+        items = tuple(_signature(x) for x in tree)
+        return type(tree)(*items) if hasattr(tree, "_fields") else items
+    raise TypeError(f"no signature for a {type(tree).__name__}")
+
+
+def _map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to every tensor (tuple types kept)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = tuple(_map_tensors(x, fn) for x in tree)
+        return type(tree)(*items) if hasattr(tree, "_fields") else items
+    return tree
+
+
+class Sample:
+    """A host copy of one call's arguments: CUDA tensors copied to pinned
+    host memory without a sync (an event marks the copies' end), CPU
+    tensors cloned. :meth:`tree` waits for the copies."""
+
+    __slots__ = ("_tree", "_event")
+
+    def __init__(self, args: tuple):
+        cuda = []
+
+        def copy(t):
+            if t.device.type == "cuda":
+                cuda.append(t.device)
+                return t.detach().to("cpu", non_blocking=True)
+            return t.detach().clone()
+
+        self._tree = _map_tensors(args, copy)
+        self._event = None
+        if cuda:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(cuda[0]))
+
+    def tree(self) -> tuple:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._tree
+
+
+class ObservedCall:
+    """A device program's binding: the warm pool first, then the program,
+    whose call's signature is recorded for the warm manifest. The
+    binding holds no state of its own; ``_warm`` is set once, when the
+    pool adopts it (``WarmPool.adopt``, which captures ``fn``), and read
+    per call without a lock, as ``enabled`` is."""
+
+    __slots__ = ("fn_name", "fn", "_obs", "_warm")
+
+    def __init__(self, fn_name: str, fn, obs: "DeviceObservatory"):
+        self.fn_name = fn_name
+        self.fn = fn
+        self._obs = obs
+        self._warm = None
+
+    def __call__(self, *args):
+        warm = self._warm
+        if warm is not None and warm.serving:
+            # a restored graph answers the call; a miss (an unknown
+            # signature, an ejected entry) falls through to the program
+            out = warm.serve(self.fn_name, args, {})
+            if out is not WARM_MISS:
+                return out
+        out = self.fn(*args)
+        if self._obs.enabled and self._obs._record_call(
+                self.fn_name, args, warm is not None and warm.recording):
+            warm.note_signature()
+        return out
 
 
 def _default_profile_dir() -> str:
@@ -140,6 +255,10 @@ class DeviceObservatory:
         self._pressure_source = None
         self._seq = 0
         self._compiles_total = 0
+        #: (fn_name, signature) -> [signature, sample]: the warm-pool
+        #: manifest source (bounded by _MAX_WARM); the sample is the
+        #: first call's arguments, kept only while a pool records
+        self._warm_avals: Dict = {}
         #: profiler window state machine
         self._profile_dir: Optional[str] = None
         self._profile_min_interval_s = 30.0
@@ -216,6 +335,50 @@ class DeviceObservatory:
         DEVICE_COMPILE_SECONDS.observe(wall, {"fn": fn_name})
         TRACER.instant("device-compile", cat="device",
                        args={"fn": fn_name, "compile_s": round(wall, 4)})
+
+    # -- the warm manifest ---------------------------------------------------
+
+    def bind(self, fn_name: str, fn) -> ObservedCall:
+        """The binding of a device program ``fn`` under ``fn_name``."""
+        return ObservedCall(fn_name, fn, self)
+
+    def _record_call(self, fn_name: str, args: tuple,
+                     keep_sample: bool) -> bool:
+        """Record a call's signature (and, with ``keep_sample``, a host
+        copy of its arguments) if it is new; True when a sample was kept."""
+        try:
+            sig = _signature(args)
+        except TypeError:
+            return False
+        key = (fn_name, sig)
+        with self._lock:
+            row = self._warm_avals.get(key)
+            wanted = (row is None and len(self._warm_avals) < _MAX_WARM
+                      ) or (row is not None and row[1] is None
+                            and keep_sample)
+        if not wanted:
+            return False
+        sample = Sample(args) if keep_sample else None
+        with self._lock:
+            row = self._warm_avals.get(key)
+            if row is None:
+                if len(self._warm_avals) >= _MAX_WARM:
+                    return False
+                self._warm_avals[key] = [sig, sample]
+            elif row[1] is None:
+                row[1] = sample
+            else:
+                return False
+        return sample is not None
+
+    def warm_manifest(self) -> List[Tuple[str, tuple, Optional[Sample]]]:
+        """The hot set for the warm pool: every recorded (binding x
+        signature) as ``(fn_name, signature, sample)``, the
+        :class:`Sample` None where none was kept. Snapshotting is safe at
+        any time."""
+        with self._lock:
+            return [(fn_name, row[0], row[1])
+                    for (fn_name, _sig), row in self._warm_avals.items()]
 
     # -- live buffers --------------------------------------------------------
 
@@ -440,6 +603,7 @@ class DeviceObservatory:
                 prof, self._profiler = self._profiler, None
                 self._ring.clear()
                 self._owners.clear()
+                self._warm_avals.clear()
                 self._seq = 0
                 self._compiles_total = 0
                 self._profile_armed = 0

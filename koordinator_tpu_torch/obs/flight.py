@@ -24,8 +24,9 @@ trace ring's tail — to a JSON file the moment a trigger fires:
 
 A dump's ``device`` section comes from the port's
 ``DEVICE_OBS.flight_payload()``, and hooks add the ``workingset``,
-``migration`` and ``slo`` sections; the reference's ``warm`` section (its
-warm pool) has no counterpart.
+``migration`` and ``slo`` sections; its ``warm`` section is the warm
+pool's counters (``WARM_POOL.flight_payload()``: was the round served
+warm or cold, and is the store healthy).
 
 Dumps are rate-limited per trigger (a flapping failover must not write
 a dump storm), counted in ``scheduler_flight_dumps_total{trigger}``,
@@ -162,6 +163,15 @@ class FlightRecorder:
             device = DEVICE_OBS.flight_payload()
         except Exception as e:  # a dump must land even if CUDA is upset
             device = {"error": f"{type(e).__name__}: {e}"}
+        # the warm pool's counters: was the anomalous round served warm
+        # or cold, and is the store healthy (a dump never captures or
+        # touches the store)
+        try:
+            from koordinator_tpu_torch.service.warmpool import WARM_POOL
+
+            warm = WARM_POOL.flight_payload()
+        except Exception as e:
+            warm = {"error": f"{type(e).__name__}: {e}"}
         payload = {
             "trigger": reason,
             "at": at,
@@ -169,6 +179,7 @@ class FlightRecorder:
             "extra": extra,
             "rounds": rounds,
             "device": device,
+            "warm": warm,
             "open_spans": TRACER.status()["open_marks"],
             "trace_tail": TRACER.events(tail=_TRACE_TAIL),
         }

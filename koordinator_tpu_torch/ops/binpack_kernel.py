@@ -136,6 +136,16 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _count(kind: str) -> None:
+    # a launch recorded into a CUDA graph is not a launch: each replay
+    # of the graph counts instead (service/warmpool.py)
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[kind] += 1
+
+
+def count_replay(kind: str) -> None:
+    """One replay of a captured graph whose launch is a ``kind`` kernel."""
     with _COUNT_LOCK:
         LAUNCHES[kind] += 1
 
@@ -421,8 +431,11 @@ def resv_csr(node: torch.Tensor, n_nodes: int) -> tuple:
     ``(node, id)``; node j's reservations are ``ids[offsets[j]:
     offsets[j+1]]``, in ascending id."""
     order = torch.sort(node.long(), stable=True).indices
-    counts = torch.bincount(node.long(), minlength=n_nodes)
-    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.long,
+    # an index_add, not a bincount: a CUDA bincount reads its maximum
+    # back to the host, which no CUDA graph may hold
+    counts = torch.zeros(n_nodes, dtype=torch.long, device=node.device)
+    counts.index_add_(0, node.long(), torch.ones_like(node, dtype=torch.long))
+    offsets = torch.zeros(n_nodes + 1, dtype=torch.long,
                           device=node.device)
     offsets[1:] = torch.cumsum(counts, 0)
     return offsets.to(I32), order.to(I32)
@@ -693,6 +706,12 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where the kernel library of the current sources is (or would be)
+    built: named by the hash of the sources and header."""
+    return BUILD_DIR / f"libbinpack-{_digest()}.so"
+
+
 def build_library() -> Path:
     """Compile ``csrc/`` into a shared library named by the hash of its
     sources and header (an unchanged tree is not rebuilt): one ``nvcc``
@@ -700,7 +719,7 @@ def build_library() -> Path:
     ``ptxas``'s register and spill report for each kernel variant is
     kept beside it (:func:`build_log`). A build (not a load of a built
     library) is recorded in the device observatory."""
-    out = BUILD_DIR / f"libbinpack-{_digest()}.so"
+    out = library_path()
     if out.exists():
         return out
     t0 = time.perf_counter()
@@ -1257,7 +1276,99 @@ def kernel_solve_batch(state: NodeState, pods: PodBatch, params: ScoreParams,
             raise ValueError("an extras score outside [0, 100] or past the "
                              "packed key's score budget: use the loop "
                              "solver")
+    config = program_config(state, params, quota_state, numa_aux, resv,
+                            most_allocated, wsum)
+    return solve_program(state, pods, params, config, quota_state,
+                         gang_state, numa_aux, resv, extras)
+
+
+# -- the device programs (service/warmpool.py captures them) --------------
+
+class ProgramConfig(NamedTuple):
+    """The static half of a solve program's call: what the host decides
+    before the device work (the route and its CTA count, the weight sum
+    read back from the params, the NUMA scorer). A warm-pool entry is
+    keyed by it and captured with it."""
+
+    route: Route
+    wsum: int
+    most_allocated: bool
+
+
+def program_config(state: NodeState, params: ScoreParams, quota_state=None,
+                   numa_aux: Optional[NumaAux] = None,
+                   resv: Optional[ResvArrays] = None,
+                   most_allocated: bool = False,
+                   wsum: Optional[int] = None) -> ProgramConfig:
+    """:class:`ProgramConfig` of a kernel solve (:func:`kernel_route` of
+    its sizes, :func:`weight_sum` of ``params`` unless given)."""
+    route = kernel_route(
+        int(state.alloc.shape[0]), numa_aux is not None,
+        0 if resv is None else int(resv.free.shape[0]),
+        0 if quota_state is None else int(quota_state.min.shape[0]))
+    return ProgramConfig(route, weight_sum(params) if wsum is None else wsum,
+                         bool(most_allocated))
+
+
+def with_runtime(quota_state):
+    """``quota_state`` with its runtime water-filled now (a loop that
+    reads back, so never inside a device program), or None."""
+    if quota_state is None or quota_state.runtime is not None:
+        return quota_state
+    return quota_state._replace(runtime=quota_runtime(quota_state))
+
+
+def solve_program(state: NodeState, pods: PodBatch, params: ScoreParams,
+                  config: ProgramConfig, quota_state=None, gang_state=None,
+                  numa_aux: Optional[NumaAux] = None,
+                  resv: Optional[ResvArrays] = None,
+                  extras: Optional[ExtrasRows] = None) -> SolveResult:
+    """The kernel path of a solve as device work alone: the inputs' layout,
+    the kernel ``config.route`` names (its plain twin on CPU tensors),
+    the epilogue. With the quota runtime given (:func:`with_runtime`) it
+    reads nothing back, so a CUDA graph can hold it."""
+    # binpack() routes by the same sizes as config.route
     out = binpack(kernel_inputs(state, pods, params, quota_inputs(quota_state),
-                                wsum, numa_aux, resv, most_allocated, extras))
+                                config.wsum, numa_aux, resv,
+                                config.most_allocated, extras))
     return kernel_result(state, out, pods, quota_state, gang_state,
                          numa_aux is not None, resv is not None)
+
+
+def lanes_program(inp: LaneInputs, route: Route) -> LaneOutputs:
+    """A lane batch (:func:`binpack_lanes`, which routes by the same
+    sizes as ``route``, :func:`lane_route`)."""
+    return binpack_lanes(inp)
+
+
+def lanes_assign_program(inp: LaneInputs, route: Route) -> torch.Tensor:
+    """:func:`lanes_program`'s ``assign`` alone."""
+    return lanes_program(inp, route).assign
+
+
+def program_kind(config) -> str:
+    """The :data:`LAUNCHES` key of a program's kernel: a lane program's
+    config is its :class:`Route`, a solve program's a
+    :class:`ProgramConfig`."""
+    return "lanes" if isinstance(config, Route) else config.route.kind
+
+
+def run_solve(binding, state: NodeState, pods: PodBatch, params: ScoreParams,
+              quota_state=None, gang_state=None,
+              numa_aux: Optional[NumaAux] = None,
+              resv: Optional[ResvArrays] = None,
+              extras: Optional[ExtrasRows] = None,
+              most_allocated: bool = False,
+              wsum: Optional[int] = None) -> SolveResult:
+    """A routed kernel solve through ``binding`` (an ``obs/device``
+    binding whose program is :func:`solve_program`): the host half first
+    (the route, the weight sum, the quota runtime), then the binding.
+    The result's quota state keeps the caller's runtime field."""
+    config = program_config(state, params, quota_state, numa_aux, resv,
+                            most_allocated, wsum)
+    result = binding(state, pods, params, config, with_runtime(quota_state),
+                     gang_state, numa_aux, resv, extras)
+    if quota_state is not None and quota_state.runtime is None:
+        result = result._replace(
+            quota_state=result.quota_state._replace(runtime=None))
+    return result

@@ -40,9 +40,11 @@ solve lowers and stages from typed truth).
 ``cmd/scheduler.run_loop`` sweeps every ``interval_rounds`` rounds (the
 pipelined loop drains first), and a promoted leader sweeps before its
 first round (``on_started_leading`` -> :meth:`note_promotion`), then
-prestages the repaired world. The reference's promotion also restores
-its XLA warm pool; the port has no warm pool (ROADMAP Queue 1 item 10),
-so the report's ``warm`` entry holds the prestage alone.
+prestages the repaired world after restoring the warm pool's entries
+(``warm_pool``, ``service/warmpool.py``): the new leader's first solve
+then replays a captured graph instead of issuing its launches cold. The
+report's ``warm`` entry holds the pool's restore report and the
+prestage; a failed restore costs latency, never the round.
 """
 
 from __future__ import annotations
@@ -112,13 +114,17 @@ class StateAuditor:
 
     def __init__(self, scheduler, bus=None, *, interval_rounds: int = 16,
                  probe_rows: int = 64, rebuild_threshold: int = 8,
-                 assume_ttl_s: float = 900.0):
+                 assume_ttl_s: float = 900.0, warm_pool=None):
         self.scheduler = scheduler
         self.bus = bus
         self.interval_rounds = int(interval_rounds)
         self.probe_rows = int(probe_rows)
         self.rebuild_threshold = int(rebuild_threshold)
         self.assume_ttl_s = float(assume_ttl_s)
+        #: the warm pool (``service/warmpool.WarmPool``) the promotion
+        #: sweep restores before the new leader's first solve; set-once
+        #: wiring (``cmd/scheduler.main``), read without the lock
+        self.warm_pool = warm_pool
         self._lock = threading.RLock()
         self._promotion_pending = False
         self._rounds_since = 0
@@ -193,11 +199,17 @@ class StateAuditor:
         return report
 
     def _warm_restore(self, now: Optional[float] = None) -> Optional[dict]:
-        """The promotion path's eager prestage of the staged world (the
-        prestage half of the reference's warm restore). Never raises: a
-        failed prestage costs latency, never the round; its error is in
-        the report."""
+        """The promotion path's warm restore: the pool's entries (typed
+        failures quarantined and counted, that shape left cold), then an
+        eager prestage of the staged world. Never raises: a failed
+        restore or prestage costs latency, never the round; its error is
+        in the report."""
         out: dict = {}
+        if self.warm_pool is not None:
+            try:
+                out["pool"] = self.warm_pool.restore(compile_missing=False)
+            except Exception as e:
+                out["pool"] = {"error": f"{type(e).__name__}: {e}"}
         model = getattr(self.scheduler, "model", None)
         cache = getattr(self.scheduler, "cache", None)
         if model is not None and cache is not None and \

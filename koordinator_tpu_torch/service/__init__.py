@@ -1,9 +1,9 @@
 """The control-plane <-> solver boundary (counterpart of
 ``koordinator_tpu/service``): a length-prefixed npz protocol over a unix
 or TCP socket, the admission gate, the multi-tenant lanes, the sidecar
-server and its client, the sidecar's supervisor (``supervisor.py``) and
-the in-process failover (``failover.py``). Not ported yet (ROADMAP):
-``warmpool.py``."""
+server and its client, the sidecar's supervisor (``supervisor.py``), the
+in-process failover (``failover.py``) and the warm pool
+(``warmpool.py``)."""
 
 from koordinator_tpu_torch.service.codec import (  # noqa: F401
     CodecError,

@@ -58,10 +58,15 @@ from koordinator_tpu_torch.metrics.components import (
     SOLVER_QUEUE_DEPTH,
     SOLVER_SOLVE_DURATION,
 )
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.ops.binpack import (
     STAGED_NODE_FIELDS,
     SolverConfig,
+)
+from koordinator_tpu_torch.ops.binpack_kernel import (
+    lanes_assign_program,
+    lanes_program,
 )
 from koordinator_tpu_torch.service.codec import SolveRequest, SolveResponse
 from koordinator_tpu_torch.service.tenancy import (
@@ -80,6 +85,7 @@ from koordinator_tpu_torch.service.tenancy import (
     solve_lanes,
     wire_state,
 )
+from koordinator_tpu_torch.service.warmpool import WARM_POOL
 
 # -- lanes ------------------------------------------------------------------
 
@@ -177,6 +183,15 @@ def coalesce_pod_bucket(p: int) -> int:
     return max(8, 1 << max(0, p - 1).bit_length())
 
 
+#: the gate's coalesced lane solves (one base every lane reads), adopted
+#: into the warm pool
+_jit_coalesced = DEVICE_OBS.bind("coalesced_solve", lanes_program)
+_jit_coalesced_assign = DEVICE_OBS.bind("coalesced_solve_assign",
+                                        lanes_assign_program)
+WARM_POOL.adopt(_jit_coalesced, config_argpos=1)
+WARM_POOL.adopt(_jit_coalesced_assign, config_argpos=1)
+
+
 def solve_coalesced(
     requests: Sequence[SolveRequest],
     config: Optional[SolverConfig] = SolverConfig(),
@@ -197,7 +212,7 @@ def solve_coalesced(
     return solve_lanes([wire_state(head.node, device)],
                        [r.pods for r in requests],
                        [head.params] * len(requests), config, want_state,
-                       device)
+                       device, (_jit_coalesced_assign, _jit_coalesced))
 
 
 # -- the gate ---------------------------------------------------------------

@@ -31,19 +31,18 @@ machine:
   ``PlacementModel.reset_staging``: the first request after recovery
   re-establishes the wire base from a full restage.
 
-**Prewarm.** The reference hides its local path's cold XLA compile with
-its warm pool (``prewarm`` restores or compiles the local solve in the
-background). The port compiles no program per solve; what the first
-local solve would pay in a scheduler process is loading the kernel
-library (``ops/binpack_kernel._library``, which builds it with ``nvcc``
-only when no built copy of these sources is in
+**Prewarm.** What the first local solve would pay in a scheduler process
+is loading the kernel library (``ops/binpack_kernel._library``, which
+builds it with ``nvcc`` only when no built copy of these sources is in
 ``koordinator_tpu_torch/_build/``), making the CUDA context current, and
 the first launch of each kernel and each torch op on the solve path
 (their modules load lazily). :meth:`FailoverSolver.prewarm` does all of
 it in a background thread when the solver is constructed for a CUDA
 device (``service/server.warm_up``: one small solve on each kernel
-route), so the first degraded round does not pay it on its critical
-path.
+route), and, when the warm pool is active, restores the local twin's
+entries (``failover_local_solve``, whose program is the sidecar's: the
+signatures a sidecar persisted capture here), so the first degraded
+round pays none of it on its critical path.
 
 The flip counters and gauge are in ``metrics/components.py``;
 ``last_mode`` ("remote" | "local-fallback" | "local-degraded") is what
@@ -65,6 +64,7 @@ from koordinator_tpu_torch.metrics.components import (
     SOLVER_FAILOVERS,
     SOLVER_LOCAL_SOLVES,
 )
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
 from koordinator_tpu_torch.obs.flight import FLIGHT
 from koordinator_tpu_torch.obs.trace import TRACER
 from koordinator_tpu_torch.ops import binpack_kernel as bk
@@ -80,10 +80,17 @@ from koordinator_tpu_torch.service.server import (
     warm_up,
 )
 from koordinator_tpu_torch.service.supervisor import connection_probe
+from koordinator_tpu_torch.service.warmpool import WARM_POOL
 
 
 def _host(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+#: the local twin's kernel solve, adopted into the warm pool with the
+#: sidecar's program: a sidecar's persisted signatures warm it
+_local_solve = DEVICE_OBS.bind("failover_local_solve", bk.solve_program)
+WARM_POOL.adopt(_local_solve, config_argpos=3)
 
 
 def local_solve(state, batch, params, config, quota_state=None,
@@ -114,7 +121,7 @@ def local_solve(state, batch, params, config, quota_state=None,
     result, _ = _dispatch_solve(
         state, batch, params, config, quota_state, gang_state, extras,
         resv, numa, resv_safe, extras_safe,
-        bk.kernel_supported(params, config))
+        bk.kernel_supported(params, config), binding=_local_solve)
     return result
 
 
@@ -175,25 +182,41 @@ class FailoverSolver:
         #: for status)
         self.prewarm_report: Optional[dict] = None
         self._prewarm_done = threading.Event()
-        if prewarm and self.device.type == "cuda":
+        if prewarm and (self.device.type == "cuda"
+                        or self._warm_pool().active):
             self.prewarm()
         else:
             self._prewarm_done.set()
 
+    @staticmethod
+    def _warm_pool():
+        """The pool the local twin is adopted into (tests adopt the
+        binding into their own pools; the process uses the singleton)."""
+        return getattr(_local_solve, "_warm", None) or WARM_POOL
+
     def prewarm(self, background: bool = True) -> Optional[dict]:
-        """Load the kernel library, make the CUDA context current and run
-        one small solve on each kernel route on the solver's device
-        (``service/server.warm_up``), so the first local solve pays none
-        of it. Synchronous when ``background=False``; returns the report
-        then."""
+        """On a CUDA device: load the kernel library, make the CUDA
+        context current and run one small solve on each kernel route
+        (``service/server.warm_up``); with an active warm pool, restore
+        the local twin's entries (the report's ``restored`` and the rest
+        of ``WarmPool.restore``'s keys). The first local solve then pays
+        none of it. Synchronous when ``background=False``; returns the
+        report then."""
         def _go():
             t0 = time.perf_counter()
             try:
-                bk._library()
-                warm_up(self.device)
-                torch.cuda.synchronize(self.device)
-                report = {"loaded": True,
-                          "wall_s": time.perf_counter() - t0}
+                report = {}
+                if self.device.type == "cuda":
+                    bk._library()
+                pool = self._warm_pool()
+                if pool.active:
+                    report.update(pool.restore(
+                        fns=("failover_local_solve",)))
+                if self.device.type == "cuda":
+                    warm_up(self.device)
+                    torch.cuda.synchronize(self.device)
+                report.update(loaded=True,
+                              wall_s=time.perf_counter() - t0)
             except Exception as e:  # the first local solve raises it
                 report = {"loaded": False,
                           "error": f"{type(e).__name__}: {e}"}

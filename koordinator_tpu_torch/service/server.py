@@ -34,7 +34,12 @@ demote-and-retry ladder. A solve calls ``DEVICE_OBS.on_round()`` (an
 armed profiler window counts sidecar solves) and records a
 ``sidecar_solve`` span tagged with the wire ``trace`` group, and
 :meth:`PlacementService.status` carries the ``device`` and
-``workingset`` sections. Not ported yet (ROADMAP): the AOT warm pool.
+``workingset`` sections. The kernel solve is the binding
+``sidecar_solve_batch`` adopted into the warm pool
+(``service/warmpool.py``): a service restores the pool's entries when it
+starts (when the pool is configured, as ``cmd/solver`` does before it
+binds) and keeps persisting new signatures; its status has a
+``warm_pool`` section.
 """
 
 from __future__ import annotations
@@ -69,8 +74,9 @@ from koordinator_tpu_torch.ops.binpack_kernel import (
     kernel_extras_score_safe,
     kernel_resv_score_safe,
     kernel_routing_ok,
-    kernel_solve_batch,
     resv_score_worst,
+    run_solve,
+    solve_program,
 )
 from koordinator_tpu_torch.ops.gang import GangState
 from koordinator_tpu_torch.ops.quota import QuotaState
@@ -95,6 +101,7 @@ from koordinator_tpu_torch.service.tenancy import (
     request_tenant,
     wire_kernel_supported,
 )
+from koordinator_tpu_torch.service.warmpool import WARM_POOL
 from koordinator_tpu_torch.state.workingset import WORKING_SET
 
 #: the wire NodeState columns: exactly the staged columns the delta
@@ -332,21 +339,27 @@ def compact_extras(mask: np.ndarray, score: np.ndarray
     return row_of_pod, mask[keep[first]], score[keep[first]]
 
 
+#: the sidecar's kernel solve, adopted into the warm pool: its program is
+#: ``solve_program``, shared with the model's and the failover twin's
+_jit_solve = DEVICE_OBS.bind("sidecar_solve_batch", solve_program)
+WARM_POOL.adopt(_jit_solve, config_argpos=3)
+
+
 def _dispatch_solve(state, pods, params, config, quota, gang, extras, resv,
                     numa, resv_score_safe: bool, extras_score_safe: bool,
-                    params_ok: bool):
+                    params_ok: bool, binding=None):
     """Eligible solves go to the kernel ``kernel_route`` names (the same
-    routing as the in-process model); the rest take the loop
-    ``solve_batch``. A kernel failure raises to the caller, which answers
-    with a typed error. Returns ``(result, "kernel" | "loop")``."""
+    routing as the in-process model) through ``binding`` (the sidecar's
+    unless given); the rest take the loop ``solve_batch``. A kernel
+    failure raises to the caller, which answers with a typed error.
+    Returns ``(result, "kernel" | "loop")``."""
     if params_ok and kernel_routing_ok(state, pods, extras, resv,
                                        resv_score_safe, numa,
                                        extras_score_safe):
-        return kernel_solve_batch(
-            state, pods, params, quota, gang, numa_aux=numa, resv=resv,
-            most_allocated=config.numa_most_allocated,
-            resv_score_checked=True, extras=extras,
-            extras_score_checked=True), "kernel"
+        return run_solve(
+            _jit_solve if binding is None else binding, state, pods,
+            params, quota, gang, numa, resv, extras,
+            config.numa_most_allocated), "kernel"
     return solve_batch(state, pods, params, config, quota, gang, extras,
                        resv, numa), "loop"
 
@@ -599,6 +612,18 @@ class PlacementService:
             self.gate = None
         self._server.admission_gate = self.gate
         self._thread: Optional[threading.Thread] = None
+        # the warm pool: a service built without a cmd entry point
+        # configures it from the environment (empty: inert); an active
+        # pool installs its entries before the first solve (unless an
+        # entry point restored it already: its report stays the last)
+        # and keeps persisting new signatures (a persister it started,
+        # it stops)
+        WARM_POOL.ensure_configured()
+        self._persister = False
+        if WARM_POOL.active:
+            if WARM_POOL.last_restore is None:
+                WARM_POOL.restore(compile_missing=False)
+            self._persister = WARM_POOL.start_background()
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._server.serve_forever,
@@ -608,8 +633,8 @@ class PlacementService:
     def status(self) -> dict:
         """The address served, live connections, the solve device and the
         kernel launches so far, the admission gate's stats, the device
-        observatory's status, the HBM working-set ledger, and what of the
-        reference's status is not ported."""
+        observatory's status, the HBM working-set ledger, the warm pool,
+        and what of the reference's status is not ported."""
         return {
             "address": self.address,
             "active_connections": len(self._server.active_connections),
@@ -618,8 +643,9 @@ class PlacementService:
             "admission": None if self.gate is None else self.gate.stats(),
             "device": DEVICE_OBS.status(),
             "workingset": WORKING_SET.status(),
+            "warm_pool": WARM_POOL.status(),
             "not_ported": ["kernel_breaker (a kernel failure is a typed "
-                           "error response)", "warm_pool", "preemption"],
+                           "error response)", "preemption"],
         }
 
     def stop(self) -> None:
@@ -639,3 +665,6 @@ class PlacementService:
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self._persister:
+            WARM_POOL.stop_background()
+            self._persister = False

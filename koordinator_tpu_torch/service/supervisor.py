@@ -22,14 +22,17 @@ This module owns the solver child's whole lifecycle:
   open the control plane rides the failover backend
   (``service/failover.py``).
 
-Every child gets ``ready_timeout_s`` of grace after a spawn before failed
-probes count toward "hung" (a fresh child imports PyTorch and loads the
-kernel library, which it builds with ``nvcc`` when no built copy is in
-``koordinator_tpu_torch/_build/``). The reference's probe-budget split
-for a child that warm-restored from its AOT pool (``warm_outcome_fn``,
-``debug_port_warm_outcome``, ``warm_ready_timeout_s``,
-``respawns_warm_total`` and ``SUPERVISOR_RESPAWN_WARM``) waits with the
-warm pool (ROADMAP Queue 1 item 10).
+A cold child gets ``ready_timeout_s`` of grace after a spawn before
+failed probes count toward "hung" (a fresh child imports PyTorch and
+loads the kernel library, which it builds with ``nvcc`` when no built
+copy is in ``koordinator_tpu_torch/_build/``). A child known to have
+restored from the warm pool (``service/warmpool.py``: its solves replay
+CUDA graphs it captured before it bound) gets the tight
+``warm_ready_timeout_s`` instead: the probe-budget split.
+``warm_outcome_fn`` reports the child's outcome
+(:func:`debug_port_warm_outcome` reads a real child's debug mux);
+``respawns_warm_total`` and ``SUPERVISOR_RESPAWN_WARM`` count the warm
+spawns.
 
 Every state transition is visible: :meth:`SolverSupervisor.status` is the
 machine-readable snapshot, and the gauges and counters are in
@@ -48,6 +51,7 @@ from typing import Callable, Dict, Optional
 
 from koordinator_tpu_torch.metrics.components import (
     SUPERVISOR_BREAKER_OPEN,
+    SUPERVISOR_RESPAWN_WARM,
     SUPERVISOR_RESTARTS,
     SUPERVISOR_UP,
 )
@@ -101,6 +105,40 @@ def debug_port_probe(port: int, timeout_s: float = 1.0
             return False
 
     return probe
+
+
+def debug_port_warm_outcome(port: int, timeout_s: float = 1.0
+                            ) -> Callable[[], Optional[bool]]:
+    """A ``warm_outcome_fn`` reading the sidecar's warm-pool status off
+    its debug mux (``/apis/v1/plugins/warm-pool``): True once the child
+    reports restored/serving executables (probe it on the tight warm
+    ready grace), False once it reports an active pool that restored
+    nothing (cold — keep the cold-compile allowance), None while the
+    child can't answer yet (undecided: stay generous)."""
+    import json
+    import urllib.request
+
+    def outcome() -> Optional[bool]:
+        try:
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/apis/v1/plugins/warm-pool",
+                timeout=timeout_s,
+            ) as resp:
+                if resp.status != 200:
+                    return None
+                status = json.load(resp)
+        except (OSError, ValueError):
+            return None
+        if not isinstance(status, dict) or not status.get("active"):
+            return False  # no pool: every respawn is a cold respawn
+        if status.get("executables"):
+            return True
+        report = status.get("last_restore")
+        if isinstance(report, dict) and "restored" in report:
+            return report["restored"] > 0
+        return None  # boot restore still in flight
+
+    return outcome
 
 
 class RestartBreaker:
@@ -197,6 +235,9 @@ class SolverSupervisor:
                  probe_timeout_s: float = 1.0,
                  probe_failure_threshold: int = 3,
                  ready_timeout_s: float = 120.0,
+                 warm_ready_timeout_s: float = 15.0,
+                 warm_outcome_fn: Optional[
+                     Callable[[], Optional[bool]]] = None,
                  backoff_base_s: float = 0.25,
                  backoff_cap_s: float = 8.0,
                  breaker: Optional[RestartBreaker] = None,
@@ -221,6 +262,18 @@ class SolverSupervisor:
         self.probe_interval_s = probe_interval_s
         self.probe_failure_threshold = probe_failure_threshold
         self.ready_timeout_s = ready_timeout_s
+        #: the probe-budget split: a child that restored from the warm
+        #: pool has no kernel-library build to hide behind, so its ready
+        #: grace is this tight budget and a hung warm child is killed in
+        #: seconds. ``warm_outcome_fn`` reports the current child's
+        #: restore outcome (True warm / False cold / None undecided:
+        #: undecided keeps the generous grace); the default reads the
+        #: spawn handle's ``warm_restored`` attribute
+        #: (``testing.chaos.InProcessSidecar`` carries it), and
+        #: :func:`debug_port_warm_outcome` wires a real child's debug
+        #: mux. May do I/O: never called under the lock.
+        self.warm_ready_timeout_s = warm_ready_timeout_s
+        self._warm_outcome_fn = warm_outcome_fn
         self.backoff_base_s = backoff_base_s
         self.backoff_cap_s = backoff_cap_s
         self.breaker = breaker or RestartBreaker(clock=clock)
@@ -245,6 +298,65 @@ class SolverSupervisor:
         self._spawned_at = self._clock()
         self._ready_since_spawn = False
 
+        #: the current child's warm/cold restore outcome (None until
+        #: resolved; reset on every spawn) and how many spawns resolved
+        #: warm over this supervisor's lifetime
+        self._respawn_warm: Optional[bool] = None
+        self.respawns_warm_total = 0
+        #: last time the EXTERNAL warm_outcome_fn was invoked while
+        #: undecided — paces its I/O (an HTTP round trip against a
+        #: booting child) at probe_interval_s even from _wait_ready's
+        #: tight 50 ms poll loop
+        self._warm_probe_at: Optional[float] = None
+
+    def _resolve_warm_outcome(self) -> Optional[bool]:
+        """The current child's warm/cold restore outcome, resolved at
+        most once per spawn (lazily — a booting child may only know
+        after its background restore lands). May do I/O
+        (``warm_outcome_fn`` hits the child's debug mux), so this runs
+        OUTSIDE the lock; the recorded outcome is guarded against a
+        concurrent respawn swapping the handle."""
+        with self._lock:
+            known = self._respawn_warm
+            proc = self._proc
+        if known is not None or proc is None:
+            return known
+        if self._warm_outcome_fn is not None:
+            now = self._clock()
+            with self._lock:
+                last = self._warm_probe_at
+                if last is not None and \
+                        now - last < self.probe_interval_s:
+                    return None  # still undecided; don't hammer the mux
+                self._warm_probe_at = now
+            try:
+                outcome = self._warm_outcome_fn()
+            except Exception:
+                outcome = None
+        else:
+            outcome = getattr(proc, "warm_restored", None)
+        if outcome is None:
+            return None
+        recorded_warm = False
+        with self._lock:
+            if self._respawn_warm is None and self._proc is proc:
+                self._respawn_warm = bool(outcome)
+                if outcome:
+                    self.respawns_warm_total += 1
+                    recorded_warm = True
+        if recorded_warm:
+            SUPERVISOR_RESPAWN_WARM.inc()
+            TRACER.instant("supervisor-respawn-warm", cat="supervisor")
+        return bool(outcome)
+
+    def _ready_grace_s(self, warm: Optional[bool]) -> float:
+        """The ready grace the current child is entitled to: the tight
+        warm budget once it is KNOWN to have warm-restored, the
+        generous cold-compile allowance otherwise (cold or undecided —
+        an undecided child must never be infanticided on the tight
+        clock)."""
+        return self.warm_ready_timeout_s if warm else self.ready_timeout_s
+
     # -- lifecycle -----------------------------------------------------------
 
     def start(self, wait_ready: bool = True,
@@ -259,6 +371,8 @@ class SolverSupervisor:
             self.state = "starting"
             self._spawned_at = self._clock()
             self._ready_since_spawn = False
+            self._respawn_warm = None
+            self._warm_probe_at = None
         if wait_ready and not self._wait_ready():
             raise TimeoutError(
                 f"solver at {self.address!r} not ready within "
@@ -305,7 +419,10 @@ class SolverSupervisor:
                 self.breaker.record_healthy()
                 SUPERVISOR_UP.set(1)
                 return True
-            if self._clock() - t0 >= self.ready_timeout_s:
+            # the grace is re-evaluated per probe: a child that reports
+            # a warm restore mid-wait drops to the tight budget
+            warm = self._resolve_warm_outcome()
+            if self._clock() - t0 >= self._ready_grace_s(warm):
                 return False
             self._sleep(min(0.05, self.probe_interval_s))
 
@@ -342,15 +459,20 @@ class SolverSupervisor:
                 SUPERVISOR_UP.set(1)
                 SUPERVISOR_BREAKER_OPEN.set(0)
                 return "running"
+            # probe-budget split: resolved OUTSIDE the lock (the
+            # outcome fn may hit the child's debug mux)
+            warm = self._resolve_warm_outcome()
             with self._lock:
                 # a fresh child that has never probed healthy is still
                 # STARTING (PyTorch import, kernel-library load), not
                 # hung: failed probes only count once it served, or its
-                # ready grace expired
+                # ready grace expired. A WARM-restored child gets only
+                # the tight warm budget: it has no build to hide behind,
+                # so a hung warm respawn dies in seconds
                 if (
                     not self._ready_since_spawn
                     and self._clock() - self._spawned_at
-                    < self.ready_timeout_s
+                    < self._ready_grace_s(warm)
                 ):
                     self.state = "starting"
                     return "starting"
@@ -409,6 +531,8 @@ class SolverSupervisor:
             self.state = "starting"
             self._spawned_at = self._clock()
             self._ready_since_spawn = False
+            self._respawn_warm = None  # fresh child: outcome unknown
+            self._warm_probe_at = None
         SUPERVISOR_RESTARTS.inc({"reason": reason})
         TRACER.instant("supervisor-restart", cat="supervisor",
                        args={"reason": reason})
@@ -431,7 +555,11 @@ class SolverSupervisor:
                     self.consecutive_probe_failures,
                 "last_exit_code": self.last_exit_code,
                 "backoff_attempt": self._backoff_attempt,
-                "ready_grace_s": self.ready_timeout_s,
+                # the probe-budget split: which grace the current child
+                # is on, and how many spawns warm-restored
+                "respawn_warm": self._respawn_warm,
+                "respawns_warm_total": self.respawns_warm_total,
+                "ready_grace_s": self._ready_grace_s(self._respawn_warm),
             }
         out["child_pid"] = getattr(proc, "pid", None)
         out["breaker"] = self.breaker.status()

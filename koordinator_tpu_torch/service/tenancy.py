@@ -48,14 +48,18 @@ from koordinator_tpu_torch.ops.binpack import (
     SolverConfig,
     solve_batch,
 )
+from koordinator_tpu_torch.obs.device import DEVICE_OBS
 from koordinator_tpu_torch.ops.binpack_kernel import (
     LaneInputs,
-    binpack_lanes,
     kernel_route,
     lane_inputs,
+    lane_route,
+    lanes_assign_program,
+    lanes_program,
 )
 from koordinator_tpu_torch.parallel.mesh import pow2_quarter_bucket
 from koordinator_tpu_torch.service.codec import SolveRequest, SolveResponse
+from koordinator_tpu_torch.service.warmpool import WARM_POOL
 from koordinator_tpu_torch.state.workingset import WorkingSetExhausted
 
 #: requests without a wire tenant belong to the default tenant
@@ -407,27 +411,43 @@ def stage_lanes(bases: Sequence[NodeState],
     return lane_inputs(state, _lane_pods(pods, p, device), score)
 
 
+#: the tenant pool's lane solves (a base per lane), adopted into the warm
+#: pool: a new tenant whose batch lands in a restored shape replays
+_jit_tenant = DEVICE_OBS.bind("tenant_lane_solve", lanes_assign_program)
+_jit_tenant_full = DEVICE_OBS.bind("tenant_lane_solve_full", lanes_program)
+WARM_POOL.adopt(_jit_tenant, config_argpos=1)
+WARM_POOL.adopt(_jit_tenant_full, config_argpos=1)
+
+
 def solve_lanes(bases: Sequence[NodeState],
                 pods: Sequence[Mapping[str, np.ndarray]],
                 params: Sequence[Mapping[str, np.ndarray]],
                 config: SolverConfig, want_state: bool,
-                device: torch.device) -> List[SolveResponse]:
+                device: torch.device,
+                bindings=None) -> List[SolveResponse]:
     """K independent plain solves, lane ``i`` of ``pods[i]`` against
     ``bases[i]`` (or ``bases[0]`` for every lane when there is one base)
     with ``params[i]``, as one lane-batched launch of the placement
     kernel (``binpack_lanes`` over :func:`stage_lanes`), or, when the
     batch is not one the kernel takes (:func:`lanes_kernel_ok`), the loop
     ``solve_batch`` lane by lane. Every response equals the lane solved
-    alone."""
+    alone. The launch goes through ``bindings`` (assign-only, full),
+    the tenant pool's unless given (the gate passes its own)."""
     k = len(pods)
     counts = [int(np.asarray(g["req"]).shape[0]) for g in pods]
     node_counts = [int(s.alloc.shape[0]) for s in bases]
     if len(bases) == 1:
         node_counts *= k
     if lanes_kernel_ok(params, config, max(node_counts)):
-        out = binpack_lanes(stage_lanes(bases, pods, params, device))
-        assign_all = out.assign.cpu().numpy()
-        used_all = out.used.cpu().numpy() if want_state else None
+        assign_only, full = bindings or (_jit_tenant, _jit_tenant_full)
+        inp = stage_lanes(bases, pods, params, device)
+        if want_state:
+            out = full(inp, lane_route(inp))
+            assign_all = out.assign.cpu().numpy()
+            used_all = out.used.cpu().numpy()
+        else:
+            assign_all = assign_only(inp, lane_route(inp)).cpu().numpy()
+            used_all = None
     else:
         assign_all = np.full((k, max(counts)), -1, np.int32)
         used_all = []

@@ -38,8 +38,9 @@ injected fault leads to a typed, recoverable outcome, so the chaos tests
 assert path-independent facts (every tick completed; final placements
 and node accounting equal to a fault-free run).
 
-The reference's warm-pool store faults (``WARM_POOL_FAULT_KINDS``,
-``sabotage_store``) wait with the warm pool (ROADMAP Queue 1 item 10).
+- :func:`sabotage_store` corrupts one warm-pool store file
+  (``service/warmpool.py``) in one of :data:`WARM_POOL_FAULT_KINDS`, byte
+  for byte as the reference does.
 """
 from __future__ import annotations
 
@@ -95,6 +96,100 @@ EVICTION_STORM_FAULT_KINDS = (
     "budget-squeeze-mid-wave",  # arbiter budget transiently tightened
                                 # against already-admitted evictions
 )
+
+
+WARM_POOL_FAULT_KINDS = (
+    "truncated-entry",          # torn write: the file ends mid-payload
+    "bitflipped-entry",         # bit rot: bytes flipped under the header
+    "stale-host-fingerprint",   # store copied from another machine: the
+                                # embedded host fingerprint is foreign
+    "torn-concurrent-write",    # two unsynchronized writers interleaved:
+                                # head from one write, tail from another
+    "wrong-magic",              # foreign/stale file where an entry should be
+    "oversize-entry",           # corrupt/hostile length: GB-claiming header
+)
+
+def sabotage_store(store_dir: str, kind: str, seed: int = 0,
+                   manifest: bool = False):
+    """Deterministically corrupt one warm-pool store file under
+    ``store_dir`` (the newest ``.exec`` entry in sorted order, or the
+    manifest with ``manifest=True``). Returns the path corrupted, or
+    None when the store holds no target. Same seed, same bytes flipped:
+    the warm-pool tests and phase 24 of ``chip_smoke.py`` share this one
+    implementation, and equal files come out equal to the reference's."""
+    import os
+
+    if kind not in WARM_POOL_FAULT_KINDS:
+        raise ValueError(f"unknown store fault kind: {kind!r}")
+    targets = []
+    for root, _dirs, files in os.walk(store_dir):
+        for name in files:
+            if manifest and name == "warm_manifest.bin":
+                targets.append(os.path.join(root, name))
+            elif not manifest and name.endswith(".exec"):
+                targets.append(os.path.join(root, name))
+    if not targets:
+        return None
+    path = sorted(targets)[-1]
+    with open(path, "rb") as f:
+        raw = bytearray(f.read())
+    rng = random.Random(seed)
+    if kind == "truncated-entry":
+        raw = raw[: max(8, len(raw) // 2)]
+    elif kind == "bitflipped-entry":
+        # flip bytes PAST the framed header so the fingerprint check —
+        # not the magic check — is what must catch it
+        start = min(len(raw) - 1, 64)
+        for _ in range(max(1, len(raw) // 4096)):
+            i = rng.randrange(start, len(raw))
+            raw[i] ^= 0xFF
+    elif kind == "stale-host-fingerprint":
+        # a VALIDLY framed entry whose embedded provenance names a
+        # different machine — the copied-store/baked-container-image
+        # shape that dodges the host-scoped directory layout. Only the
+        # load-time provenance check can catch this one: the frame
+        # digest is recomputed, so it verifies clean.
+        import pickle
+
+        from koordinator_tpu_torch.utils.compilation_cache import (
+            frame_payload,
+            unframe_payload,
+        )
+
+        try:
+            record = pickle.loads(unframe_payload(bytes(raw)))
+            host, version, payload, trees = record
+        except Exception:
+            return None  # not a v2 entry (e.g. the manifest): no target
+        body = pickle.dumps(
+            ("x86_64-deadbeef0000", version, payload, trees)
+        )
+        raw = bytearray(frame_payload(body))
+    elif kind == "torn-concurrent-write":
+        # two writers' interleaved output: the header + head of one
+        # write, the tail of another (simulated by splicing the file's
+        # own head over its tail) — framing intact, fingerprint wrong
+        half = max(64, len(raw) // 2)
+        torn = raw[:half] + raw[len(raw) - half: len(raw) - half // 2] \
+            + raw[half + half // 2:]
+        if torn == raw:
+            # on a length that is a multiple of four the reference's
+            # splice copies a chunk onto itself and tears nothing:
+            # splice the head's own tail there instead (the reference's
+            # bytes on every other length)
+            torn = raw[:half] + raw[half - half // 2: half] \
+                + raw[half + half // 2:]
+        raw = torn
+        if len(raw) < 64:
+            raw = raw + b"\x00" * 64
+    elif kind == "wrong-magic":
+        raw[:8] = b"NOTKOORD"
+    elif kind == "oversize-entry":
+        # keep the real magic, claim an absurd payload length
+        raw[8:16] = struct.pack(">Q", 1 << 62)
+    with open(path, "wb") as f:
+        f.write(bytes(raw))
+    return path
 
 
 class FaultSchedule:
@@ -729,7 +824,8 @@ class InProcessSidecar:
 
     _next_pid = [1000]
 
-    def __init__(self, address, **service_kwargs):
+    def __init__(self, address, warm_restored: Optional[bool] = None,
+                 **service_kwargs):
         from koordinator_tpu_torch.service.server import PlacementService
 
         self._service = PlacementService(address, **service_kwargs)
@@ -738,6 +834,11 @@ class InProcessSidecar:
         self._lock = threading.Lock()
         InProcessSidecar._next_pid[0] += 1
         self.pid = InProcessSidecar._next_pid[0]
+        #: the handle-borne warm/cold restore outcome that
+        #: SolverSupervisor's default ``warm_outcome_fn`` reads (None =
+        #: undecided): tests set it to drive the probe-budget split
+        #: without a debug mux round trip
+        self.warm_restored = warm_restored
 
     def poll(self) -> Optional[int]:
         with self._lock:

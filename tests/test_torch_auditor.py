@@ -90,8 +90,8 @@ def test_promotion_sweep_once_per_acquisition():
         assert ea.tick(11.0)
         warm = aud.on_round(now=11.0)["warm"]
         assert aud.status()["sweeps"] == {"promotion": 2}
-        # the promotion prestages the repaired world (the port has no
-        # warm pool: its warm entry is the prestage alone)
+        # the promotion prestages the repaired world (no warm pool is
+        # handed to this auditor: its warm entry is the prestage alone)
         assert "error" not in warm["prestage"]
         return first, aud.status()["sweeps"], report(aud.last_report)
 

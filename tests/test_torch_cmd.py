@@ -219,7 +219,6 @@ sched_cmd = importlib.import_module("koordinator_tpu_torch.cmd.scheduler")
 
 
 @pytest.mark.parametrize("flag, text", [
-    (["--no-warm-pool"], "--no-warm-pool"),
     (["--node-shards", "2"], "--node-shards above 1")])
 def test_scheduler_main_refuses_flags_not_ported(tmp_path, capsys, flag,
                                                  text):

@@ -5,6 +5,8 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_colocation_cuda.py``."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,12 @@ from koordinator_tpu_torch.ops.overcommit import (
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 
 pytestmark = pytest.mark.cuda
+
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
 
 
 def _needs_gpu():

@@ -33,13 +33,14 @@ from koordinator_tpu_torch.cmd.scheduler import (
 )
 from koordinator_tpu_torch.models.placement import PlacementModel
 from koordinator_tpu_torch.obs.flight import FLIGHT
+from koordinator_tpu_torch.ops import binpack_kernel as bk
 from koordinator_tpu_torch.ops.binpack import (
     NodeState,
     PodBatch,
     ScoreParams,
     SolverConfig,
 )
-from koordinator_tpu_torch.service import client, failover, server, supervisor
+from koordinator_tpu_torch.service import client, failover, supervisor
 from koordinator_tpu_torch.state.cluster import ClusterDeltaTracker
 from koordinator_tpu_torch.state.workingset import WORKING_SET
 from koordinator_tpu_torch.testing import chaos
@@ -279,13 +280,13 @@ def test_local_solve_is_the_sidecars_kernel_dispatch(monkeypatch):
     """The local path is the sidecar's dispatch to the routed kernel
     (its CPU twin here); a failed kernel raises, with no fallback."""
     calls = []
-    real = server.kernel_solve_batch
+    real = bk.binpack
 
     def spy(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
 
-    monkeypatch.setattr(server, "kernel_solve_batch", spy)
+    monkeypatch.setattr(bk, "binpack", spy)
     backend = failover.FailoverSolver(
         fast_remote(PORT, "/nowhere.sock"), failure_threshold=1,
         probe_fn=lambda: False, device="cpu")
@@ -297,7 +298,7 @@ def test_local_solve_is_the_sidecars_kernel_dispatch(monkeypatch):
     def broken(*a, **kw):
         raise RuntimeError("kernel launch failed: scripted")
 
-    monkeypatch.setattr(server, "kernel_solve_batch", broken)
+    monkeypatch.setattr(bk, "binpack", broken)
     with pytest.raises(RuntimeError, match="scripted"):
         backend.solve_result(*port_args(problem))
     assert backend.status()["local_solves"] == 1

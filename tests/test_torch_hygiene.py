@@ -116,7 +116,10 @@ def test_every_module_imports_without_jax():
               "koordlet.runtimehooks.reconciler",
               "koordlet.runtimehooks.server", "koordlet.runtimehooks.nri",
               "native", "native.perf",
-              "koordlet.metricsadvisor.performance", "cmd.koordlet"):
+              "koordlet.metricsadvisor.performance", "cmd.koordlet",
+              # the CRI proxy and the warm pool
+              "runtimeproxy", "runtimeproxy.criserver", "cmd.runtimeproxy",
+              "utils.compilation_cache", "service.warmpool"):
         assert f"koordinator_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

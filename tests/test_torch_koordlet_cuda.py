@@ -69,6 +69,12 @@ from koordinator_tpu_torch.ops import binpack_kernel as bk
 
 pytestmark = pytest.mark.cuda
 
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
+
 CPU, MEM = ResourceName.CPU, ResourceName.MEMORY
 NODES, AGENTS, PENDING, TICKS, STEP, T0 = 24, 4, 64, 11, 30.0, 1_000_000.0
 

@@ -27,6 +27,12 @@ from koordinator_tpu_torch.ops import binpack_kernel as bk  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
+
 
 def map_args(x, fn):
     """``fn`` applied to every tensor of a solve's inputs (NamedTuples and

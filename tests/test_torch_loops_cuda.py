@@ -6,6 +6,7 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 tests/test_torch_loops_cuda.py``."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +20,12 @@ from koordinator_tpu_torch.scheduler.pipeline import TickPipeline
 from koordinator_tpu_torch.scheduler.scheduler import Scheduler
 
 pytestmark = pytest.mark.cuda
+
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
 
 NODES = 200
 

@@ -18,6 +18,7 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 tests/test_torch_manager_cuda.py``."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -53,6 +54,12 @@ from koordinator_tpu_torch.testing.failure_domain import outage_churn
 from koordinator_tpu_torch.webhook import ClusterColocationProfile
 
 pytestmark = pytest.mark.cuda
+
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
 
 
 def _needs_gpu():

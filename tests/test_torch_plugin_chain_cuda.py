@@ -5,6 +5,8 @@ This file imports no JAX, so it runs on a machine with a GPU and no JAX:
 ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_plugin_chain_cuda.py``."""
 
+import os
+
 import pytest
 import torch
 
@@ -24,6 +26,12 @@ from koordinator_tpu_torch.state.cluster import (
 from koordinator_tpu_torch.testing import plugin_chain
 
 pytestmark = pytest.mark.cuda
+
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
 
 CPU, MEM = ResourceName.CPU, ResourceName.MEMORY
 #: filter at p99, score at p50: the negative-est_extra arm

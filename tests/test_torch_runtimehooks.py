@@ -2,8 +2,8 @@
 registry, the bvt, cpuset, device, batch-resource, cpu-normalization and
 terway plugins, the reconciler, the server and ``RuntimeHooks``) against
 the JAX package's. The cases are those of ``tests/test_runtimehooks.py``
-and ``tests/test_hooks_actuation.py`` (less the CRI proxy, which waits
-with ``runtimeproxy``), plus the malformed annotations of the cpuset and
+and ``tests/test_hooks_actuation.py`` (less the CRI proxy's case, in
+``tests/test_torch_runtimeproxy.py``), plus the malformed annotations of the cpuset and
 device hooks and the float64 edges of the cfs quota scaling. Each case
 runs through both packages, each on its own fake cgroup tree under
 ``tmp_path`` (v1 and v2 where a tree is written); it asserts the

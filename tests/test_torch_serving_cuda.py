@@ -35,6 +35,12 @@ from koordinator_tpu_torch.testing.failure_domain import (
 
 pytestmark = pytest.mark.cuda
 
+# the warm pool stays inert unless a test configures its store, as
+# tests/conftest.py keeps it for the CPU suite (these files also run
+# under --noconftest, where a default store in the home directory
+# would restore earlier runs' entries and count their launches)
+os.environ.setdefault("KTPU_COMPILATION_CACHE_DIR", "")
+
 
 def _needs_gpu():
     if not torch.cuda.is_available():

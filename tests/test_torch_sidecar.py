@@ -187,18 +187,6 @@ def test_restart_resends_the_full_state(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    pytest.param(["--no-warm-pool"], id="flag2")])
-def test_solver_binary_refuses_flags_not_ported(tmp_path, capsys, flag):
-    ready = tmp_path / "ready"
-    with pytest.raises(SystemExit) as exc:
-        solver.main(["--listen", str(tmp_path / "solver.sock"), "--device",
-                     "cpu", "--once", "--ready-file", str(ready), *flag])
-    assert exc.value.code == 2
-    assert "not ported yet: " + flag[0] in capsys.readouterr().err
-    assert not ready.exists()     # refused before anything started
-
-
-@pytest.mark.parametrize("flag", [
     ["--debug-port", "0"], ["--profile-dir", "prof"],
     ["--hbm-budget-bytes", "4096"]])
 def test_solver_binary_takes_lifted_flags(tmp_path, capsys, monkeypatch,

@@ -1,8 +1,8 @@
 """The port's ``SolverSupervisor`` and ``RestartBreaker`` against the JAX
 package's: scripted child handles and probes on a fake clock drive both
 supervisors' ``check_once`` through the same script, and every outcome
-and every ``status()`` (less the keys that wait with the warm pool) must
-be equal. Cases: a crash, a child hung past the probe threshold, a fresh
+and every ``status()`` must be equal (the probe-budget split's keys
+included; ``tests/test_torch_warm_pool.py`` drives the split itself). Cases: a crash, a child hung past the probe threshold, a fresh
 child inside its ready grace, and a restart storm that opens the breaker
 and then allows one half-open respawn per cooldown. Also
 ``connection_probe`` against the port's real ``PlacementService``."""
@@ -12,8 +12,6 @@ import pytest
 from koordinator_tpu.service import supervisor as jsupervisor
 from koordinator_tpu_torch.service import server, supervisor
 
-#: the reference's status keys that wait with the warm pool
-WARM_KEYS = ("respawn_warm", "respawns_warm_total")
 
 
 class FakeProc:
@@ -52,10 +50,7 @@ class Harness:
             clock=clock, backoff_base_s=0.0, backoff_cap_s=0.0, **kw)
 
     def status(self):
-        st = dict(self.sup.status())
-        for k in WARM_KEYS:
-            st.pop(k, None)
-        return st
+        return dict(self.sup.status())
 
     def step(self, op):
         """Apply one script step; returns what it observed."""
